@@ -1,0 +1,49 @@
+// Threefry-2x32 (20 rounds), the cipher behind jax.random's threefry keys.
+// Word for word the same as reservoir_tpu_torch/ops/threefry.py.
+#pragma once
+
+#include <cstdint>
+
+namespace algl {
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, int d) {
+  return (x << d) | (x >> (32 - d));
+}
+
+// Hash the block (x0, x1) under the key (k1, k2).
+__device__ __forceinline__ void threefry2x32(uint32_t k1, uint32_t k2,
+                                             uint32_t x0, uint32_t x1,
+                                             uint32_t& out0, uint32_t& out1) {
+  const uint32_t ks[3] = {k1, k2, k1 ^ k2 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int group = 0; group < 5; ++group) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x0 += x1;
+      x1 = rotl32(x1, rot[group % 2][i]) ^ x0;
+    }
+    x0 += ks[(group + 1) % 3];
+    x1 += ks[(group + 2) % 3] + static_cast<uint32_t>(group + 1);
+  }
+  out0 = x0;
+  out1 = x1;
+}
+
+// The three words drawn for the acceptance at absolute index idx (< 2^32):
+// key' = threefry(key, (0, idx)), then word j = xor of threefry(key', (0, j)).
+__device__ __forceinline__ void accept_words(uint32_t k1, uint32_t k2,
+                                             uint32_t idx, uint32_t w[3]) {
+  uint32_t f1, f2;
+  threefry2x32(k1, k2, 0u, idx, f1, f2);
+#pragma unroll
+  for (uint32_t j = 0; j < 3; ++j) {
+    uint32_t b0, b1;
+    threefry2x32(f1, f2, 0u, j, b0, b1);
+    w[j] = b0 ^ b1;
+  }
+}
+
+}  // namespace algl

@@ -1,0 +1,304 @@
+"""ReservoirEngine — R lockstep reservoirs on the card, uniform mode.
+
+The port of the JAX package's ``engine.py`` for duplicates (uniform) mode:
+the same construction-time validation, single-use/reusable lifecycle and
+result truncation, over ``[R, B]`` tiles where reservoir ``r`` consumes
+``tile[r, :valid[r]]`` of its own stream.
+
+Every tile goes through the CUDA kernel of
+:mod:`~reservoir_tpu_torch.ops.algorithm_l_cuda`; with ``device="cpu"`` the
+same wrapper runs the plain torch version.  There is no other path and no
+fallback: a build or launch failure raises.  A host-side lower bound on
+every reservoir's count (no device read) decides between the fill-capable
+and the steady update, as in the JAX engine.
+
+Host tiles (numpy arrays, lists, CPU tensors) are snapshotted into a pinned
+host buffer and copied to the card without blocking; the buffer is held
+until the copy's event has completed, so a caller may reuse its own buffer
+as soon as :meth:`ReservoirEngine.sample` returns.  A CUDA tile on the
+engine's device is used as it is.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Any, List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from .config import SamplerConfig, validate_max_sample_size
+from .convert import resolve_device
+from .errors import SamplerClosedError
+from .ops import algorithm_l as _algl
+from .ops import algorithm_l_cuda as _kernel
+from .ops.rng import key_from_seed
+
+__all__ = ["ReservoirEngine"]
+
+_TORCH_DTYPES = {
+    "int32": torch.int32,
+    "float32": torch.float32,
+    "uint32": torch.uint32,
+}
+
+
+def _not_in_slice(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, 'Left out of the first slice', "
+        f"{item}); the torch port runs uniform mode with int32 counters on one device"
+    )
+
+
+class ReservoirEngine:
+    """R independent k-reservoirs updated in lockstep on one device.
+
+    Args:
+      config: engine configuration (k, R, dtypes, tile size).
+      key: an int seed (``None`` means 0; the key words of ``jr.key(seed)``)
+        or ``[2]`` uint32 key words.
+      reusable: single-use engines close on ``result()``; reusable ones
+        stay open.
+      device: ``None`` means ``"cuda"`` and raises without a card;
+        ``"cpu"`` runs the plain torch version.
+    """
+
+    def __init__(
+        self,
+        config: SamplerConfig,
+        key: Union[int, Any, None] = None,
+        reusable: bool = False,
+        *,
+        device: Optional[Any] = None,
+        map_fn: Any = None,
+        hash_fn: Any = None,
+        _initial_state: Optional[_algl.ReservoirState] = None,
+    ) -> None:
+        validate_max_sample_size(config.max_sample_size)
+        if config.weighted:
+            raise _not_in_slice("weighted mode", "L1")
+        if config.distinct:
+            raise _not_in_slice("distinct mode", "L2")
+        if config.count_dtype == "wide" or np.dtype(config.count_dtype) != np.int32:
+            raise _not_in_slice(f"count_dtype={config.count_dtype!r}", "L3")
+        if config.mesh_axis is not None:
+            raise _not_in_slice("mesh_axis", "L4")
+        if map_fn is not None or hash_fn is not None:
+            raise _not_in_slice("map_fn / hash_fn", "L5")
+        if config.impl == "xla":
+            raise ValueError(
+                "impl='xla' is not a production path of the torch port; "
+                "'auto' and 'pallas' both run the CUDA kernel"
+            )
+        dtype_name = np.dtype(config.resolved_sample_dtype()).name
+        if dtype_name != np.dtype(config.element_dtype).name or dtype_name not in _TORCH_DTYPES:
+            raise ValueError(
+                "the torch port stores 4-byte words: element and sample dtype "
+                f"must both be one of {sorted(_TORCH_DTYPES)}, got "
+                f"{config.element_dtype!r} / {config.resolved_sample_dtype()!r}"
+            )
+        self._config = config
+        self._dtype = _TORCH_DTYPES[dtype_name]
+        self._np_dtype = np.dtype(dtype_name)
+        self._reusable = reusable
+        self._open = True
+        self._device = resolve_device(device)
+        if _initial_state is not None:
+            self._state = _algl.ReservoirState(*(t.to(self._device) for t in _initial_state))
+        else:
+            if key is None or isinstance(key, int):
+                words = key_from_seed(0 if key is None else key)
+            else:
+                words = torch.as_tensor(np.asarray(key, np.uint32).astype(np.int64))
+            self._state = _algl.init(
+                words, config.num_reservoirs, config.max_sample_size,
+                sample_dtype=self._dtype, device=self._device,
+            )
+        # host-side lower bound on every reservoir's count: exact under
+        # full tiles, conservative under ragged ones
+        self._min_count = 0
+        # (pinned buffer, copy event) pairs not yet known to be complete
+        self._staging: deque = deque()
+
+    # ------------------------------------------------------------ properties
+
+    @property
+    def config(self) -> SamplerConfig:
+        return self._config
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
+    def is_open(self) -> bool:
+        """Reusable engines are always open; single-use ones close on
+        ``result()``."""
+        return True if self._reusable else self._open
+
+    @property
+    def state(self) -> _algl.ReservoirState:
+        """A copy of the state (the CUDA update mutates the live one)."""
+        self._check_open()
+        return _algl.ReservoirState(*(t.clone() for t in self._state))
+
+    def _check_open(self) -> None:
+        if not self._reusable and not self._open:
+            raise SamplerClosedError("this engine is single-use, and no longer open")
+
+    # -------------------------------------------------------------- sampling
+
+    def _release_staging(self) -> None:
+        while self._staging and self._staging[0][1].query():
+            self._staging.popleft()
+
+    def _to_device(self, tile: Any) -> torch.Tensor:
+        """The tile as a contiguous tensor on the engine's device."""
+        if isinstance(tile, torch.Tensor) and tile.device.type == "cuda":
+            if tile.device != self._device:
+                raise ValueError(
+                    f"tile is on {tile.device}, the engine on {self._device}"
+                )
+            if tile.dtype != self._dtype:
+                raise ValueError(f"tile dtype {tile.dtype} != samples dtype {self._dtype}")
+            return tile.contiguous()
+        if isinstance(tile, torch.Tensor):
+            host = tile.numpy()
+        else:
+            host = np.asarray(tile)
+        if host.dtype != self._np_dtype:
+            host = host.astype(self._np_dtype)
+        if self._device.type == "cpu":
+            return torch.from_numpy(np.array(host, copy=True))
+        self._release_staging()
+        pinned = torch.empty(host.shape, dtype=self._dtype, pin_memory=True)
+        pinned.numpy()[...] = host  # the snapshot
+        out = pinned.to(self._device, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self._device))
+        self._staging.append((pinned, event))
+        return out
+
+    def sample(self, tile: Any, valid: Optional[Any] = None) -> None:
+        """Consume one ``[R, B]`` tile; ``valid`` (``[R]``, host) lets row
+        ``r`` take only ``tile[r, :valid[r]]``."""
+        self._check_open()
+        R = self._config.num_reservoirs
+        shape = tuple(tile.shape) if hasattr(tile, "shape") else np.shape(tile)
+        if len(shape) != 2 or shape[0] != R:
+            raise ValueError(f"tile must be [num_reservoirs={R}, B], got {shape}")
+        width = shape[1]
+        valid_dev = None
+        if valid is not None:
+            if isinstance(valid, torch.Tensor):
+                valid = valid.cpu().numpy()
+            valid_np = np.array(valid, np.int32, copy=True)
+            if valid_np.shape != (R,):
+                raise ValueError(f"valid must be [{R}], got {valid_np.shape}")
+            if np.any(valid_np < 0) or np.any(valid_np > width):
+                raise ValueError(
+                    f"valid entries must be in [0, {width}], got "
+                    f"[{valid_np.min()}, {valid_np.max()}]"
+                )
+            valid_dev = torch.from_numpy(valid_np).to(self._device)
+        batch = self._to_device(tile)
+        steady = self._min_count >= self._config.max_sample_size
+        fn = _kernel.update_steady_cuda if steady else _kernel.update_cuda
+        self._state = fn(self._state, batch, valid_dev)
+        self._min_count += width if valid is None else int(valid_np.min())
+
+    def sample_all(self, tiles: Any) -> None:
+        """Consume an iterable of ``tile`` or ``(tile, valid)`` items; an
+        error names the offending item."""
+        self._check_open()
+        for i, item in enumerate(tiles):
+            try:
+                if isinstance(item, tuple):
+                    self.sample(item[0], valid=item[1] if len(item) > 1 else None)
+                else:
+                    self.sample(item)
+            except (TypeError, ValueError) as e:
+                raise type(e)(f"tiles[{i}]: {e}") from None
+
+    def sample_stream(
+        self, stream: Any, tile_width: Optional[int] = None, fused: bool = False
+    ) -> None:
+        """Feed one ``[R, N]`` array (numpy or a tensor) in tiles of
+        ``tile_width`` (default ``config.tile_size``) columns; the ragged
+        tail is padded and masked through ``valid``."""
+        self._check_open()
+        if fused:
+            raise _not_in_slice("sample_stream(fused=True)", "L7")
+        if not isinstance(stream, torch.Tensor):
+            stream = np.asarray(stream)
+        R, N = stream.shape
+        B = tile_width or self._config.tile_size
+        for start in range(0, N, B):
+            chunk = stream[:, start : start + B]
+            w = chunk.shape[1]
+            if w < B:
+                if isinstance(chunk, torch.Tensor):
+                    pad = torch.zeros((R, B - w), dtype=chunk.dtype, device=chunk.device)
+                    chunk = torch.cat([chunk, pad], dim=1)
+                else:
+                    pad = np.zeros((R, B - w), chunk.dtype)
+                    chunk = np.concatenate([chunk, pad], axis=1)
+                self.sample(chunk, np.full((R,), w, np.int32))
+            else:
+                self.sample(chunk)
+
+    def sample_gated(self, tile: Any, nvalid: Any, advance: Any) -> None:
+        raise _not_in_slice("sample_gated", "L6")
+
+    def reset_rows(self, rows: Any, key: Any) -> None:
+        raise _not_in_slice("reset_rows", "L8")
+
+    def export_rows(self, rows: Any):
+        raise _not_in_slice("export_rows", "L8")
+
+    def adopt_rows(self, rows: Any, sub_state: Any) -> None:
+        raise _not_in_slice("adopt_rows", "L8")
+
+    # ----------------------------------------------------------- checkpoints
+
+    def save(self, path: str, metadata: Optional[dict] = None) -> None:
+        """Checkpoint state and config to ``path`` (atomic ``.npz``, the JAX
+        package's format)."""
+        from .utils.checkpoint import save_engine
+
+        save_engine(path, self, metadata=metadata)
+
+    @classmethod
+    def restore(cls, path: str, *, device: Optional[Any] = None) -> "ReservoirEngine":
+        """Rebuild a checkpointed engine (from either package) on ``device``."""
+        from .utils.checkpoint import load_engine
+
+        return load_engine(path, engine_cls=cls, device=device)
+
+    # --------------------------------------------------------------- results
+
+    def _host_result(self) -> Tuple[np.ndarray, np.ndarray]:
+        samples, sizes = _algl.result(self._state)
+        return samples.cpu().numpy(), sizes.cpu().numpy()
+
+    def result_arrays(self) -> Tuple[np.ndarray, np.ndarray]:
+        """``(samples [R, k], sizes [R])`` on the host; entries at or past a
+        row's size are zeros.  A single-use engine closes and frees its
+        device state."""
+        self._check_open()
+        out = self._host_result()
+        if not self._reusable:
+            self._open = False
+            self._state = None
+            self._staging.clear()
+        return out
+
+    def peek_arrays(self) -> Tuple[np.ndarray, np.ndarray]:
+        """:meth:`result_arrays` that leaves the engine open."""
+        self._check_open()
+        return self._host_result()
+
+    def result(self) -> List[np.ndarray]:
+        """Per-reservoir samples, truncated to their fill level."""
+        samples, sizes = self.result_arrays()
+        return [samples[r, : sizes[r]] for r in range(samples.shape[0])]

@@ -1,0 +1,331 @@
+"""The port's ``ReservoirEngine`` (uniform mode, ``device="cpu"``) against
+the JAX package's engine on the same tiles, bit for bit; its lifecycle;
+checkpoints across the two packages in both directions; and the port's
+rules: no CPU fallback, no import of jax or ``reservoir_tpu``, and a named
+``NotImplementedError`` for what the port does not run yet."""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import jax.random as jr
+import numpy as np
+import pytest
+import torch
+
+from reservoir_tpu.config import SamplerConfig as JConfig
+from reservoir_tpu.engine import ReservoirEngine as JEngine
+from reservoir_tpu_torch import (
+    CheckpointCorrupt,
+    CheckpointMismatch,
+    ReservoirEngine,
+    SamplerClosedError,
+    SamplerConfig,
+)
+from reservoir_tpu_torch.ops import algorithm_l_cuda as TK
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_NP = {"int32": np.int32, "float32": np.float32, "uint32": np.uint32}
+
+
+def _pair(R, k, B, dtype="int32", seed=0, reusable=False):
+    kw = dict(max_sample_size=k, num_reservoirs=R, tile_size=B, element_dtype=dtype)
+    return (
+        JEngine(JConfig(**kw), key=seed, reusable=reusable),
+        ReservoirEngine(SamplerConfig(**kw), key=seed, reusable=reusable, device="cpu"),
+    )
+
+
+def _tile(rng, R, B, dtype="int32"):
+    t = rng.integers(0, 2**32, (R, B), dtype=np.uint64).astype(np.uint32)
+    if dtype == "float32":
+        t[::3, 0] = 0x80000000  # -0.0
+        t[1::3, -1] = 0x7FC00001  # NaN with a payload
+    return t.view(_NP[dtype])
+
+
+def _same_arrays(a, b):
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        np.testing.assert_array_equal(x.view(np.int32), y.view(np.int32))
+
+
+def _same_state(jeng, teng):
+    js, ts = jeng.state, teng.state
+    for f in ("samples", "count", "nxt", "log_w"):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(js, f)).view(np.int32),
+            getattr(ts, f).numpy().view(np.int32), err_msg=f,
+        )
+    np.testing.assert_array_equal(
+        np.asarray(jr.key_data(js.key)).astype(np.int64), ts.key.numpy()
+    )
+    assert jeng._min_count == teng._min_count
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32", "uint32"])
+def test_engine_equals_jax_engine_across_fill_steady_and_ragged_tiles(dtype):
+    R, k, B = 24, 8, 32
+    rng = np.random.default_rng(1)
+    jeng, teng = _pair(R, k, B, dtype, seed=3, reusable=True)
+    feeds = [
+        (_tile(rng, R, 3, dtype), None),  # partial fill
+        (_tile(rng, R, B, dtype), rng.integers(0, B + 1, R).astype(np.int32)),  # ragged fill
+        (_tile(rng, R, B, dtype), None),  # crosses the fill boundary
+        (_tile(rng, R, B, dtype), None),  # steady
+        (_tile(rng, R, B, dtype), rng.integers(0, B + 1, R).astype(np.int32)),  # ragged steady
+    ]
+    for i, (tile, valid) in enumerate(feeds):
+        jeng.sample(tile, valid)
+        # the port also takes CPU tensors and lists
+        t_in = torch.from_numpy(tile) if i % 2 else tile
+        teng.sample(t_in, None if valid is None else torch.from_numpy(valid))
+        _same_state(jeng, teng)
+    _same_arrays(jeng.peek_arrays(), teng.peek_arrays())
+    _same_arrays(jeng.result_arrays(), teng.result_arrays())
+
+
+def test_int_key_and_key_words_give_the_same_engine():
+    R, k, B = 8, 4, 16
+    tile = _tile(np.random.default_rng(2), R, B)
+    words = np.asarray(jr.key_data(jr.key(5)))
+    a = ReservoirEngine(SamplerConfig(k, R, B), key=5, device="cpu")
+    b = ReservoirEngine(SamplerConfig(k, R, B), key=words, device="cpu")
+    a.sample(tile)
+    b.sample(tile.tolist())
+    _same_arrays(a.result_arrays(), b.result_arrays())
+
+
+@pytest.mark.parametrize("width", [None, 24])
+def test_sample_stream_with_a_ragged_tail_equals_jax(width):
+    R, k, B = 16, 6, 32
+    stream = _tile(np.random.default_rng(3), R, 3 * B + 37)
+    jeng, teng = _pair(R, k, B, seed=4, reusable=True)
+    jeng.sample_stream(stream, tile_width=width)
+    teng.sample_stream(stream, tile_width=width)
+    _same_state(jeng, teng)
+    # a tensor stream takes the same path
+    _, t2 = _pair(R, k, B, seed=4)
+    t2.sample_stream(torch.from_numpy(stream), tile_width=width)
+    _same_arrays(teng.peek_arrays(), t2.result_arrays())
+    # and the engine keeps streaming after the masked tail
+    more = _tile(np.random.default_rng(4), R, B)
+    jeng.sample(more)
+    teng.sample(more)
+    _same_state(jeng, teng)
+
+
+def test_sample_all_equals_jax_and_names_the_bad_item():
+    R, k, B = 8, 4, 16
+    rng = np.random.default_rng(5)
+    items = [_tile(rng, R, B), (_tile(rng, R, B), np.full(R, 9, np.int32)), (_tile(rng, R, B),)]
+    jeng, teng = _pair(R, k, B, seed=6)
+    jeng.sample_all(items)
+    teng.sample_all(items)
+    _same_arrays(jeng.result_arrays(), teng.result_arrays())
+    _, teng = _pair(R, k, B)
+    with pytest.raises(ValueError, match=r"tiles\[1\]"):
+        teng.sample_all([_tile(rng, R, B), _tile(rng, R + 1, B)])
+
+
+def test_result_truncates_like_the_jax_engine():
+    R, k, B = 6, 5, 8
+    valid = np.array([0, 1, 4, 5, 6, 8], np.int32)
+    tile = np.arange(R * B, dtype=np.int32).reshape(R, B)
+    jeng, teng = _pair(R, k, B, seed=1)
+    jeng.sample(tile, valid)
+    teng.sample(tile, valid)
+    for a, b in zip(jeng.result(), teng.result()):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_single_use_engine_closes_on_result():
+    R, k, B = 4, 3, 8
+    _, eng = _pair(R, k, B)
+    eng.sample(np.zeros((R, B), np.int32))
+    assert eng.is_open
+    peeked = eng.peek_arrays()
+    assert eng.is_open
+    got = eng.result_arrays()
+    _same_arrays(peeked, got)
+    assert not eng.is_open
+    for call in (lambda: eng.sample(np.zeros((R, B), np.int32)), eng.result_arrays,
+                 eng.peek_arrays, eng.result, lambda: eng.state):
+        with pytest.raises(SamplerClosedError):
+            call()
+
+
+def test_reusable_engine_stays_open_and_results_are_snapshots():
+    R, k, B = 4, 3, 8
+    _, eng = _pair(R, k, B, reusable=True)
+    eng.sample(np.arange(R * B, dtype=np.int32).reshape(R, B))
+    first = eng.result_arrays()
+    kept = (first[0].copy(), first[1].copy())
+    assert eng.is_open
+    eng.sample(np.full((R, B), -5, np.int32))
+    second = eng.result_arrays()
+    _same_arrays(first, kept)
+    assert (second[1] == k).all() and eng.is_open
+
+
+def test_engine_rejects_bad_tiles():
+    R, k, B = 4, 3, 8
+    _, eng = _pair(R, k, B, reusable=True)
+    with pytest.raises(ValueError, match="tile must be"):
+        eng.sample(np.zeros((R + 1, B), np.int32))
+    with pytest.raises(ValueError, match="valid entries"):
+        eng.sample(np.zeros((R, B), np.int32), np.full(R, B + 1, np.int32))
+    with pytest.raises(ValueError, match="valid must be"):
+        eng.sample(np.zeros((R, B), np.int32), np.zeros(R + 1, np.int32))
+
+
+# ------------------------------------------------------------- checkpoints
+
+
+def test_jax_checkpoint_restores_into_the_port_and_continues(tmp_path):
+    R, k, B = 12, 5, 16
+    rng = np.random.default_rng(7)
+    jeng, _ = _pair(R, k, B, seed=8, reusable=True)
+    jeng.sample(_tile(rng, R, 3))
+    jeng.sample(_tile(rng, R, B), rng.integers(0, B + 1, R).astype(np.int32))
+    path = str(tmp_path / "jax.npz")
+    jeng.save(path, metadata={"who": "jax"})
+    teng = ReservoirEngine.restore(path, device="cpu")
+    _same_state(jeng, teng)
+    for _ in range(3):
+        tile = _tile(rng, R, B)
+        jeng.sample(tile)
+        teng.sample(tile)
+    _same_state(jeng, teng)
+    _same_arrays(jeng.result_arrays(), teng.result_arrays())
+
+
+def test_port_checkpoint_restores_into_jax_and_continues(tmp_path):
+    R, k, B = 12, 5, 16
+    rng = np.random.default_rng(9)
+    _, teng = _pair(R, k, B, dtype="float32", seed=10)
+    for _ in range(2):
+        teng.sample(_tile(rng, R, B, "float32"))
+    path = str(tmp_path / "port.npz")
+    teng.save(path)
+    jeng = JEngine.restore(path)
+    again = ReservoirEngine.restore(path, device="cpu")
+    assert not jeng._reusable and not again._reusable
+    _same_state(jeng, teng)
+    for _ in range(2):
+        tile = _tile(rng, R, B, "float32")
+        for eng in (jeng, teng, again):
+            eng.sample(tile)
+    _same_state(jeng, teng)
+    _same_state(jeng, again)
+    _same_arrays(jeng.result_arrays(), teng.result_arrays())
+
+
+def test_both_packages_write_the_same_manifest(tmp_path):
+    R, k, B = 4, 3, 8
+    jeng, teng = _pair(R, k, B, seed=2)
+    tile = np.arange(R * B, dtype=np.int32).reshape(R, B)
+    jeng.sample(tile)
+    teng.sample(tile)
+    manifests = []
+    for eng, name in ((jeng, "j.npz"), (teng, "t.npz")):
+        eng.save(str(tmp_path / name), metadata={"m": 1})
+        with np.load(str(tmp_path / name)) as data:
+            manifests.append(json.loads(bytes(data["__manifest__"]).decode()))
+            assert sorted(data.files) == ["__manifest__", "count", "key", "log_w", "nxt", "samples"]
+    for m in manifests:
+        del m["engine"]["backend"]
+    assert manifests[0] == manifests[1]
+
+
+def test_checkpoint_errors_are_typed(tmp_path):
+    bad = tmp_path / "bad.npz"
+    bad.write_bytes(b"not a zip file")
+    with pytest.raises(CheckpointCorrupt):
+        ReservoirEngine.restore(str(bad), device="cpu")
+    distinct = JEngine(JConfig(max_sample_size=3, num_reservoirs=2, tile_size=4, distinct=True), key=0)
+    path = str(tmp_path / "distinct.npz")
+    distinct.save(path)
+    with pytest.raises(CheckpointMismatch):
+        ReservoirEngine.restore(path, device="cpu")
+
+
+# ----------------------------------------------------------- port rules
+
+
+def test_no_cpu_fallback_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ReservoirEngine(SamplerConfig(4, 2, 8), key=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ReservoirEngine(SamplerConfig(4, 2, 8), key=0, device="cuda")
+
+
+def test_package_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import reservoir_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'reservoir_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = [n for n in sys.modules if n in ('jax', 'reservoir_tpu')\n"
+        "       or n.startswith(('jax.', 'reservoir_tpu.'))]\n"
+        "print(len([n for n in sys.modules if n.startswith('reservoir_tpu_torch')]), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert int(proc.stdout.split()[0]) >= 10
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda: ReservoirEngine(SamplerConfig(4, 2, weighted=True), device="cpu"),
+        lambda: ReservoirEngine(SamplerConfig(4, 2, distinct=True), device="cpu"),
+        lambda: ReservoirEngine(SamplerConfig(4, 2, count_dtype="wide"), device="cpu"),
+        lambda: ReservoirEngine(SamplerConfig(4, 2, count_dtype="int64"), device="cpu"),
+        lambda: ReservoirEngine(SamplerConfig(4, 2, mesh_axis="res"), device="cpu"),
+        lambda: ReservoirEngine(SamplerConfig(4, 2), map_fn=abs, device="cpu"),
+        lambda: ReservoirEngine(SamplerConfig(4, 2), hash_fn=hash, device="cpu"),
+        lambda: ReservoirEngine(SamplerConfig(4, 2), device="cpu").sample_gated(None, None, None),
+        lambda: ReservoirEngine(SamplerConfig(4, 2), device="cpu").sample_stream(
+            np.zeros((2, 8), np.int32), fused=True),
+        lambda: ReservoirEngine(SamplerConfig(4, 2), device="cpu").reset_rows([0], 0),
+        lambda: ReservoirEngine(SamplerConfig(4, 2), device="cpu").export_rows([0]),
+        lambda: ReservoirEngine(SamplerConfig(4, 2), device="cpu").adopt_rows([0], None),
+    ],
+    ids=["weighted", "distinct", "wide", "int64_counts", "mesh_axis", "map_fn", "hash_fn", "sample_gated",
+         "fused", "reset_rows", "export_rows", "adopt_rows"],
+)
+def test_what_the_slice_leaves_out_raises_naming_the_roadmap(make):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make()
+
+
+@pytest.mark.parametrize("impl, ok", [("xla", False), ("auto", True), ("pallas", True)])
+def test_impl_xla_is_rejected(impl, ok):
+    cfg = SamplerConfig(4, 2, impl=impl)
+    if ok:
+        ReservoirEngine(cfg, device="cpu")
+    else:
+        with pytest.raises(ValueError, match="impl='xla'"):
+            ReservoirEngine(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("dtypes", [("int64", None), ("int32", "float32"), ("float16", None)])
+def test_engine_takes_only_four_byte_words(dtypes):
+    element, sample = dtypes
+    with pytest.raises(ValueError, match="4-byte words"):
+        ReservoirEngine(SamplerConfig(4, 2, element_dtype=element, sample_dtype=sample), device="cpu")
+
+
+def test_cpu_engine_launches_no_kernel():
+    before = TK.launches
+    _, eng = _pair(4, 3, 8)
+    eng.sample(np.zeros((4, 8), np.int32))
+    eng.result_arrays()
+    assert TK.launches == before
