@@ -47,10 +47,8 @@ __device__ __forceinline__ int32_t advance(float& log_w, int32_t& nxt,
                                            uint32_t k1, uint32_t k2, int k) {
   uint32_t w[3];
   accept_words(k1, k2, static_cast<uint32_t>(nxt), w);
-  const float u1 = __fmul_rn(__fadd_rn(static_cast<float>(static_cast<int32_t>(w[0] >> 8)), 1.0f),
-                             5.9604644775390625e-08f);  // 2^-24
-  const float u2 = __fmul_rn(__fadd_rn(static_cast<float>(static_cast<int32_t>(w[1] >> 8)), 1.0f),
-                             5.9604644775390625e-08f);
+  const float u1 = uniform_from_word(w[0]);
+  const float u2 = uniform_from_word(w[1]);
   const int32_t slot = static_cast<int32_t>(w[2] % static_cast<uint32_t>(k));
   // XLA folds log(u1) / k into fma(log(u1), 1/k, log_w), 1/k in float32
   log_w = __fmaf_rn(xla_log(u1), __fdiv_rn(1.0f, __int2float_rn(k)), log_w);

@@ -32,6 +32,13 @@ __device__ __forceinline__ void threefry2x32(uint32_t k1, uint32_t k2,
   out1 = x1;
 }
 
+// Word j of the bits of the folded key (f1, f2): xor of threefry(f, (0, j)).
+__device__ __forceinline__ uint32_t bits_word(uint32_t f1, uint32_t f2, uint32_t j) {
+  uint32_t b0, b1;
+  threefry2x32(f1, f2, 0u, j, b0, b1);
+  return b0 ^ b1;
+}
+
 // The three words drawn for the acceptance at absolute index idx (< 2^32):
 // key' = threefry(key, (0, idx)), then word j = xor of threefry(key', (0, j)).
 __device__ __forceinline__ void accept_words(uint32_t k1, uint32_t k2,
@@ -39,11 +46,13 @@ __device__ __forceinline__ void accept_words(uint32_t k1, uint32_t k2,
   uint32_t f1, f2;
   threefry2x32(k1, k2, 0u, idx, f1, f2);
 #pragma unroll
-  for (uint32_t j = 0; j < 3; ++j) {
-    uint32_t b0, b1;
-    threefry2x32(f1, f2, 0u, j, b0, b1);
-    w[j] = b0 ^ b1;
-  }
+  for (uint32_t j = 0; j < 3; ++j) w[j] = bits_word(f1, f2, j);
+}
+
+// (0, 1] uniform of a word, exactly as rng.uniform_from_bits: (w >> 8 + 1) * 2^-24.
+__device__ __forceinline__ float uniform_from_word(uint32_t w) {
+  return __fmul_rn(__fadd_rn(static_cast<float>(static_cast<int32_t>(w >> 8)), 1.0f),
+                   5.9604644775390625e-08f);
 }
 
 }  // namespace algl

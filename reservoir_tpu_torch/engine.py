@@ -1,22 +1,28 @@
-"""ReservoirEngine — R lockstep reservoirs on the card, uniform mode.
+"""ReservoirEngine — R lockstep reservoirs on the card, uniform or weighted.
 
-The port of the JAX package's ``engine.py`` for duplicates (uniform) mode:
-the same construction-time validation, single-use/reusable lifecycle and
-result truncation, over ``[R, B]`` tiles where reservoir ``r`` consumes
-``tile[r, :valid[r]]`` of its own stream.
+The port of the JAX package's ``engine.py`` for duplicates (uniform) mode
+and weighted (A-ExpJ) mode: the same construction-time validation,
+single-use/reusable lifecycle and result truncation, over ``[R, B]`` tiles
+where reservoir ``r`` consumes ``tile[r, :valid[r]]`` of its own stream
+(and, weighted, the same slice of a parallel ``[R, B]`` weights tile).
 
-Every tile goes through the CUDA kernel of
-:mod:`~reservoir_tpu_torch.ops.algorithm_l_cuda`; with ``device="cpu"`` the
-same wrapper runs the plain torch version.  There is no other path and no
-fallback: a build or launch failure raises.  A host-side lower bound on
-every reservoir's count (no device read) decides between the fill-capable
-and the steady update, as in the JAX engine.
+Every uniform tile goes through the CUDA kernel of
+:mod:`~reservoir_tpu_torch.ops.algorithm_l_cuda`, every weighted tile
+through that of :mod:`~reservoir_tpu_torch.ops.weighted_cuda`; with
+``device="cpu"`` the same wrappers run the plain torch versions.  There is
+no other path and no fallback: a build or launch failure raises.  In
+uniform mode a host-side lower bound on every reservoir's count (no device
+read) decides between the fill-capable and the steady update, as in the JAX
+engine; a weighted tile always takes the fill-capable kernel, because a
+zero-weight item is counted without taking a slot.
 
-Host tiles (numpy arrays, lists, CPU tensors) are snapshotted into a pinned
-host buffer and copied to the card without blocking; the buffer is held
-until the copy's event has completed, so a caller may reuse its own buffer
-as soon as :meth:`ReservoirEngine.sample` returns.  A CUDA tile on the
-engine's device is used as it is.
+Host tiles and weights (numpy arrays, lists, CPU tensors) are snapshotted
+into a pinned host buffer and copied to the card without blocking; the
+buffer is held until the copy's event has completed, so a caller may reuse
+its own buffers as soon as :meth:`ReservoirEngine.sample` returns.  CUDA
+tensors on the engine's device are used as they are: host weights are
+checked to be nonnegative, device weights are not (that would cost a
+device-to-host sync per tile).
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ from .convert import resolve_device
 from .errors import SamplerClosedError
 from .ops import algorithm_l as _algl
 from .ops import algorithm_l_cuda as _kernel
+from .ops import weighted as _wtd
+from .ops import weighted_cuda as _wkernel
 from .ops.rng import key_from_seed
 
 __all__ = ["ReservoirEngine"]
@@ -46,7 +54,8 @@ _TORCH_DTYPES = {
 def _not_in_slice(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md, 'Left out of the first slice', "
-        f"{item}); the torch port runs uniform mode with int32 counters on one device"
+        f"{item}); the torch port runs uniform and weighted modes with int32 "
+        "counters on one device"
     )
 
 
@@ -54,7 +63,8 @@ class ReservoirEngine:
     """R independent k-reservoirs updated in lockstep on one device.
 
     Args:
-      config: engine configuration (k, R, dtypes, tile size).
+      config: engine configuration (k, R, dtypes, tile size); with
+        ``weighted=True`` every ``sample`` call takes a ``weights`` tile.
       key: an int seed (``None`` means 0; the key words of ``jr.key(seed)``)
         or ``[2]`` uint32 key words.
       reusable: single-use engines close on ``result()``; reusable ones
@@ -72,11 +82,11 @@ class ReservoirEngine:
         device: Optional[Any] = None,
         map_fn: Any = None,
         hash_fn: Any = None,
-        _initial_state: Optional[_algl.ReservoirState] = None,
+        _initial_state: Optional[Union[_algl.ReservoirState, _wtd.WeightedState]] = None,
     ) -> None:
         validate_max_sample_size(config.max_sample_size)
-        if config.weighted:
-            raise _not_in_slice("weighted mode", "L1")
+        if config.weighted and config.distinct:
+            raise ValueError("weighted and distinct modes are mutually exclusive")
         if config.distinct:
             raise _not_in_slice("distinct mode", "L2")
         if config.count_dtype == "wide" or np.dtype(config.count_dtype) != np.int32:
@@ -103,14 +113,16 @@ class ReservoirEngine:
         self._reusable = reusable
         self._open = True
         self._device = resolve_device(device)
+        self._ops = _wtd if config.weighted else _algl
+        state_cls = _wtd.WeightedState if config.weighted else _algl.ReservoirState
         if _initial_state is not None:
-            self._state = _algl.ReservoirState(*(t.to(self._device) for t in _initial_state))
+            self._state = state_cls(*(t.to(self._device) for t in _initial_state))
         else:
             if key is None or isinstance(key, int):
                 words = key_from_seed(0 if key is None else key)
             else:
                 words = torch.as_tensor(np.asarray(key, np.uint32).astype(np.int64))
-            self._state = _algl.init(
+            self._state = self._ops.init(
                 words, config.num_reservoirs, config.max_sample_size,
                 sample_dtype=self._dtype, device=self._device,
             )
@@ -137,10 +149,11 @@ class ReservoirEngine:
         return True if self._reusable else self._open
 
     @property
-    def state(self) -> _algl.ReservoirState:
-        """A copy of the state (the CUDA update mutates the live one)."""
+    def state(self) -> Union[_algl.ReservoirState, _wtd.WeightedState]:
+        """A copy of the state (the CUDA update mutates the live one): a
+        ``WeightedState`` in weighted mode, else a ``ReservoirState``."""
         self._check_open()
-        return _algl.ReservoirState(*(t.clone() for t in self._state))
+        return type(self._state)(*(t.clone() for t in self._state))
 
     def _check_open(self) -> None:
         if not self._reusable and not self._open:
@@ -152,26 +165,13 @@ class ReservoirEngine:
         while self._staging and self._staging[0][1].query():
             self._staging.popleft()
 
-    def _to_device(self, tile: Any) -> torch.Tensor:
-        """The tile as a contiguous tensor on the engine's device."""
-        if isinstance(tile, torch.Tensor) and tile.device.type == "cuda":
-            if tile.device != self._device:
-                raise ValueError(
-                    f"tile is on {tile.device}, the engine on {self._device}"
-                )
-            if tile.dtype != self._dtype:
-                raise ValueError(f"tile dtype {tile.dtype} != samples dtype {self._dtype}")
-            return tile.contiguous()
-        if isinstance(tile, torch.Tensor):
-            host = tile.numpy()
-        else:
-            host = np.asarray(tile)
-        if host.dtype != self._np_dtype:
-            host = host.astype(self._np_dtype)
+    def _to_device(self, host: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+        """A host array (already of ``dtype``) as a tensor on the engine's
+        device: a snapshot, through a pinned buffer on the card."""
         if self._device.type == "cpu":
             return torch.from_numpy(np.array(host, copy=True))
         self._release_staging()
-        pinned = torch.empty(host.shape, dtype=self._dtype, pin_memory=True)
+        pinned = torch.empty(host.shape, dtype=dtype, pin_memory=True)
         pinned.numpy()[...] = host  # the snapshot
         out = pinned.to(self._device, non_blocking=True)
         event = torch.cuda.Event()
@@ -179,14 +179,62 @@ class ReservoirEngine:
         self._staging.append((pinned, event))
         return out
 
-    def sample(self, tile: Any, valid: Optional[Any] = None) -> None:
+    def _on_card(self, x: Any, what: str) -> bool:
+        """True for a CUDA tensor on the engine's device (used as it is)."""
+        if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+            if x.device != self._device:
+                raise ValueError(f"{what} is on {x.device}, the engine on {self._device}")
+            return True
+        return False
+
+    def _tile_to_device(self, tile: Any) -> torch.Tensor:
+        """The tile as a contiguous tensor on the engine's device."""
+        if self._on_card(tile, "tile"):
+            if tile.dtype != self._dtype:
+                raise ValueError(f"tile dtype {tile.dtype} != samples dtype {self._dtype}")
+            return tile.contiguous()
+        host = tile.numpy() if isinstance(tile, torch.Tensor) else np.asarray(tile)
+        if host.dtype != self._np_dtype:
+            host = host.astype(self._np_dtype)
+        return self._to_device(host, self._dtype)
+
+    def _weights_to_device(
+        self, weights: Any, shape: Tuple[int, int], check: bool
+    ) -> torch.Tensor:
+        """The weights tile as contiguous float32 on the engine's device.
+        With ``check``, host weights must be nonnegative (NaN fails the
+        check); CUDA weights are taken as they are, with no device-to-host
+        sync."""
+        if self._on_card(weights, "weights"):
+            w = weights.to(torch.float32).contiguous()
+        else:
+            host = weights.numpy() if isinstance(weights, torch.Tensor) else weights
+            host = np.asarray(host, np.float32)
+            if check and not np.all(host >= 0):
+                raise ValueError("weights must be nonnegative")
+            w = host
+        if tuple(w.shape) != shape:
+            raise ValueError(f"weights must match tile shape {shape}, got {tuple(w.shape)}")
+        return w if isinstance(w, torch.Tensor) else self._to_device(w, torch.float32)
+
+    def sample(self, tile: Any, valid: Optional[Any] = None, weights: Optional[Any] = None) -> None:
         """Consume one ``[R, B]`` tile; ``valid`` (``[R]``, host) lets row
-        ``r`` take only ``tile[r, :valid[r]]``."""
+        ``r`` take only ``tile[r, :valid[r]]``.  A weighted engine requires
+        ``weights``, a nonnegative ``[R, B]`` tile (a zero weight is counted
+        and never sampled); an unweighted one rejects them."""
+        self._sample(tile, valid, weights, check_weights=True)
+
+    def _sample(self, tile: Any, valid: Optional[Any], weights: Optional[Any],
+                check_weights: bool) -> None:
         self._check_open()
         R = self._config.num_reservoirs
         shape = tuple(tile.shape) if hasattr(tile, "shape") else np.shape(tile)
         if len(shape) != 2 or shape[0] != R:
             raise ValueError(f"tile must be [num_reservoirs={R}, B], got {shape}")
+        if self._config.weighted and weights is None:
+            raise ValueError("weighted engine requires a weights tile")
+        if not self._config.weighted and weights is not None:
+            raise ValueError("weights are only meaningful with weighted=True")
         width = shape[1]
         valid_dev = None
         if valid is not None:
@@ -201,51 +249,81 @@ class ReservoirEngine:
                     f"[{valid_np.min()}, {valid_np.max()}]"
                 )
             valid_dev = torch.from_numpy(valid_np).to(self._device)
-        batch = self._to_device(tile)
-        steady = self._min_count >= self._config.max_sample_size
-        fn = _kernel.update_steady_cuda if steady else _kernel.update_cuda
-        self._state = fn(self._state, batch, valid_dev)
+        w_dev = None
+        if self._config.weighted:
+            w_dev = self._weights_to_device(weights, (R, width), check_weights)
+        batch = self._tile_to_device(tile)
+        if self._config.weighted:
+            self._state = _wkernel.update_cuda(self._state, batch, w_dev, valid_dev)
+        else:
+            steady = self._min_count >= self._config.max_sample_size
+            fn = _kernel.update_steady_cuda if steady else _kernel.update_cuda
+            self._state = fn(self._state, batch, valid_dev)
         self._min_count += width if valid is None else int(valid_np.min())
 
     def sample_all(self, tiles: Any) -> None:
-        """Consume an iterable of ``tile`` or ``(tile, valid)`` items; an
-        error names the offending item."""
+        """Consume an iterable of items: ``tile`` or ``(tile, valid)`` when
+        unweighted, ``(tile, weights)`` or ``(tile, weights, valid)`` when
+        weighted.  An error names the offending item."""
         self._check_open()
         for i, item in enumerate(tiles):
             try:
-                if isinstance(item, tuple):
-                    self.sample(item[0], valid=item[1] if len(item) > 1 else None)
-                else:
+                if not isinstance(item, tuple):
                     self.sample(item)
+                elif self._config.weighted:
+                    self.sample(item[0], valid=item[2] if len(item) > 2 else None,
+                                weights=item[1] if len(item) > 1 else None)
+                else:
+                    self.sample(item[0], valid=item[1] if len(item) > 1 else None)
             except (TypeError, ValueError) as e:
                 raise type(e)(f"tiles[{i}]: {e}") from None
 
     def sample_stream(
-        self, stream: Any, tile_width: Optional[int] = None, fused: bool = False
+        self,
+        stream: Any,
+        tile_width: Optional[int] = None,
+        weights: Optional[Any] = None,
+        fused: bool = False,
     ) -> None:
         """Feed one ``[R, N]`` array (numpy or a tensor) in tiles of
         ``tile_width`` (default ``config.tile_size``) columns; the ragged
-        tail is padded and masked through ``valid``."""
+        tail is padded and masked through ``valid``.  A weighted engine
+        takes a parallel ``[R, N]`` ``weights`` array, checked whole before
+        any tile is consumed; its padding has weight 1.0."""
         self._check_open()
         if fused:
             raise _not_in_slice("sample_stream(fused=True)", "L7")
         if not isinstance(stream, torch.Tensor):
             stream = np.asarray(stream)
         R, N = stream.shape
+        if self._config.weighted:
+            if weights is None:
+                raise ValueError("weighted engine requires a weights array")
+            if not isinstance(weights, torch.Tensor):
+                weights = np.asarray(weights, np.float32)
+            if tuple(weights.shape) != (R, N):
+                raise ValueError(
+                    f"weights must match stream shape {(R, N)}, got {tuple(weights.shape)}"
+                )
+            # the whole array, before any tile: a bad weight in tile i must
+            # not leave tiles 0..i-1 already in the state
+            if not bool((weights >= 0).all()):
+                raise ValueError("weights must be nonnegative")
+        elif weights is not None:
+            raise ValueError("weights are only meaningful with weighted=True")
         B = tile_width or self._config.tile_size
         for start in range(0, N, B):
             chunk = stream[:, start : start + B]
+            wchunk = weights[:, start : start + B] if weights is not None else None
             w = chunk.shape[1]
+            valid = None
             if w < B:
-                if isinstance(chunk, torch.Tensor):
-                    pad = torch.zeros((R, B - w), dtype=chunk.dtype, device=chunk.device)
-                    chunk = torch.cat([chunk, pad], dim=1)
-                else:
-                    pad = np.zeros((R, B - w), chunk.dtype)
-                    chunk = np.concatenate([chunk, pad], axis=1)
-                self.sample(chunk, np.full((R,), w, np.int32))
-            else:
-                self.sample(chunk)
+                chunk = _pad(chunk, B, 0)
+                if wchunk is not None:
+                    # weight 1.0 keeps the contract; valid masks it out
+                    wchunk = _pad(wchunk, B, 1)
+                valid = np.full((R,), w, np.int32)
+            self._sample(chunk, valid, wchunk, check_weights=False)
 
     def sample_gated(self, tile: Any, nvalid: Any, advance: Any) -> None:
         raise _not_in_slice("sample_gated", "L6")
@@ -278,13 +356,13 @@ class ReservoirEngine:
     # --------------------------------------------------------------- results
 
     def _host_result(self) -> Tuple[np.ndarray, np.ndarray]:
-        samples, sizes = _algl.result(self._state)
+        samples, sizes = self._ops.result(self._state)
         return samples.cpu().numpy(), sizes.cpu().numpy()
 
     def result_arrays(self) -> Tuple[np.ndarray, np.ndarray]:
         """``(samples [R, k], sizes [R])`` on the host; entries at or past a
-        row's size are zeros.  A single-use engine closes and frees its
-        device state."""
+        row's size are zeros.  A weighted row's size is its number of filled
+        slots.  A single-use engine closes and frees its device state."""
         self._check_open()
         out = self._host_result()
         if not self._reusable:
@@ -302,3 +380,15 @@ class ReservoirEngine:
         """Per-reservoir samples, truncated to their fill level."""
         samples, sizes = self.result_arrays()
         return [samples[r, : sizes[r]] for r in range(samples.shape[0])]
+
+
+def _pad(chunk: Any, width: int, value: int) -> Any:
+    """``chunk`` (numpy or a tensor) padded on the right to ``width``
+    columns of zeros (``value=0``) or ones (``value=1``)."""
+    R, w = chunk.shape
+    if isinstance(chunk, torch.Tensor):
+        make = torch.ones if value else torch.zeros
+        pad = make((R, width - w), dtype=chunk.dtype, device=chunk.device)
+        return torch.cat([chunk, pad], dim=1)
+    make = np.ones if value else np.zeros
+    return np.concatenate([chunk, make((R, width - w), chunk.dtype)], axis=1)

@@ -71,38 +71,47 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _validate(state: ReservoirState, batch: torch.Tensor, valid) -> None:
-    R = state.samples.shape[0]
-    dev = state.samples.device
-    tensors = {
-        "samples": state.samples, "count": state.count, "nxt": state.nxt,
-        "log_w": state.log_w, "key": state.key, "batch": batch,
-    }
-    if valid is not None:
-        tensors["valid"] = valid
+def check_tensors(batch_name: str, tensors: dict, expect: dict) -> None:
+    """What a kernel's wrapper checks before any pointer crosses to CUDA:
+    every tensor in ``tensors`` on the device of ``tensors["samples"]`` and
+    contiguous; the samples of a 4-byte dtype; ``tensors[batch_name]`` an
+    ``[R, B]`` tile of the samples' dtype; each name in ``expect`` of its
+    ``(shape, dtype)``."""
+    samples, batch = tensors["samples"], tensors[batch_name]
+    R = samples.shape[0]
     for name, t in tensors.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, samples on {dev}")
+        if t.device != samples.device:
+            raise ValueError(f"{name} is on {t.device}, samples on {samples.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if state.samples.dtype not in SAMPLE_DTYPES:
-        raise ValueError(f"samples dtype must be one of {SAMPLE_DTYPES}, got {state.samples.dtype}")
-    if batch.dtype != state.samples.dtype:
-        raise ValueError(f"batch dtype {batch.dtype} != samples dtype {state.samples.dtype}")
+    if samples.dtype not in SAMPLE_DTYPES:
+        raise ValueError(f"samples dtype must be one of {SAMPLE_DTYPES}, got {samples.dtype}")
+    if batch.dtype != samples.dtype:
+        raise ValueError(f"{batch_name} dtype {batch.dtype} != samples dtype {samples.dtype}")
     if batch.ndim != 2 or batch.shape[0] != R:
-        raise ValueError(f"batch must be [R={R}, B], got {tuple(batch.shape)}")
-    expect = {
-        "count": ((R,), torch.int32), "nxt": ((R,), torch.int32),
-        "log_w": ((R,), torch.float32), "key": ((R, 2), torch.int64),
-    }
-    if valid is not None:
-        expect["valid"] = ((R,), torch.int32)
+        raise ValueError(f"{batch_name} must be [R={R}, B], got {tuple(batch.shape)}")
     for name, (shape, dtype) in expect.items():
         t = tensors[name]
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(
                 f"{name} must be {dtype} {shape}, got {t.dtype} {tuple(t.shape)}"
             )
+
+
+def _validate(state: ReservoirState, batch: torch.Tensor, valid) -> None:
+    R = state.samples.shape[0]
+    tensors = {
+        "samples": state.samples, "count": state.count, "nxt": state.nxt,
+        "log_w": state.log_w, "key": state.key, "batch": batch,
+    }
+    expect = {
+        "count": ((R,), torch.int32), "nxt": ((R,), torch.int32),
+        "log_w": ((R,), torch.float32), "key": ((R, 2), torch.int64),
+    }
+    if valid is not None:
+        tensors["valid"] = valid
+        expect["valid"] = ((R,), torch.int32)
+    check_tensors("batch", tensors, expect)
 
 
 def _launch(state: ReservoirState, batch: torch.Tensor, valid, fill: bool) -> ReservoirState:

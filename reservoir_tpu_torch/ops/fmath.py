@@ -24,7 +24,7 @@ import struct
 
 import torch
 
-__all__ = ["fma", "log", "exp", "log1p", "f32_from_bits"]
+__all__ = ["fma", "flush", "log", "exp", "log1p", "f32_from_bits"]
 
 
 def f32_from_bits(word: int) -> float:
@@ -78,15 +78,16 @@ def fma(a, b, c) -> torch.Tensor:
     return s.float()
 
 
-def _flush(x: torch.Tensor) -> torch.Tensor:
-    """Denormals to signed zero, as XLA CPU's flush-to-zero mode does."""
+def flush(x: torch.Tensor) -> torch.Tensor:
+    """Denormals to signed zero, as XLA CPU does with every float input and
+    result (it runs with denormals-are-zero and flush-to-zero set)."""
     return torch.where(torch.abs(x) < _FLT_MIN, x * 0.0, x)
 
 
 def log(x: torch.Tensor) -> torch.Tensor:
     """XLA CPU's float32 ``log``; denormal inputs flush to signed zero (so
     give ``-inf``) and every NaN result is XLA's all-ones NaN."""
-    x = _flush(x)
+    x = flush(x)
     xc = torch.maximum(x, _c(_FLT_MIN, x))
     b = xc.view(torch.int32)
     e = ((b >> 23) - 127).float() + 1.0
@@ -128,12 +129,12 @@ def exp(x: torch.Tensor) -> torch.Tensor:
     y = fma(y, r * r, r)
     y = y + 1.0
     scale = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
-    return _flush(y * scale)
+    return flush(y * scale)
 
 
 def log1p(x: torch.Tensor) -> torch.Tensor:
     """XLA CPU's float32 ``log1p``; denormal inputs flush to signed zero."""
-    x = _flush(x)
+    x = flush(x)
     z = x * 0.0
     q = z + 1.0
     for c in _L1P_Q:

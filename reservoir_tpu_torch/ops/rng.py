@@ -18,6 +18,7 @@ from .threefry import MASK32, counter_bits, threefry2x32
 __all__ = [
     "uniform_from_bits",
     "accept_draws_words",
+    "uniforms",
     "key_from_seed",
     "split_keys",
 ]
@@ -39,6 +40,15 @@ def accept_draws_words(k1, k2, idx, k: int):
     u2 = uniform_from_bits(w1)
     slot = (w2 % k).to(torch.int32)
     return slot, u1, u2
+
+
+def uniforms(k1, k2, idx, n: int):
+    """The first ``n`` channels of ``(0, 1]`` uniforms for the counter key
+    ``fold_in(key, idx)``, as a tuple of float32 tensors: channel ``j`` is
+    word ``j`` of ``jr.bits(fold_in(key, idx), (n,))`` on the uniform grid.
+    The weighted update draws three per absolute index: the fill key, the
+    conditional key and the jump."""
+    return tuple(uniform_from_bits(w) for w in counter_bits(k1, k2, idx, n))
 
 
 def key_from_seed(seed: int, device=None) -> torch.Tensor:

@@ -1,8 +1,11 @@
-"""Engine checkpoints in the JAX package's ``.npz`` format (uniform mode).
+"""Engine checkpoints in the JAX package's ``.npz`` format (uniform and
+weighted modes).
 
 A checkpoint holds the state arrays and a JSON manifest, byte-compatible
 with ``reservoir_tpu/utils/checkpoint.py`` format version 1: the same
-``state_class``/``fields`` manifest, the key stored as its uint32 words in
+``state_class``/``fields`` manifest (``ReservoirState`` with ``samples,
+count, nxt, log_w, key``; ``WeightedState`` with ``samples, lkeys, count,
+xw, key``), the key stored as its uint32 words in
 a ``prng_key`` field with its impl name, and the same ``engine`` block
 (config, lifecycle, fill lower bound).  A checkpoint written by either
 package restores in the other and continues bit-identically, because every
@@ -27,14 +30,18 @@ import numpy as np
 import torch
 
 from ..config import SamplerConfig
-from ..convert import state_from_numpy, state_to_numpy
+from ..convert import state_from_numpy, state_to_numpy, weighted_state_from_numpy
 from ..errors import CheckpointCorrupt, CheckpointMismatch
 
 __all__ = ["save_engine", "load_engine"]
 
 _FORMAT_VERSION = 1
 _KEY_IMPL = "threefry2x32"
-_FIELDS = ("samples", "count", "nxt", "log_w", "key")
+#: state class -> (its fields in order, the converter from numpy)
+_STATES = {
+    "ReservoirState": (("samples", "count", "nxt", "log_w", "key"), state_from_numpy),
+    "WeightedState": (("samples", "lkeys", "count", "xw", "key"), weighted_state_from_numpy),
+}
 
 
 def _atomic_write_npz(path: str, arrays: dict, manifest: dict) -> None:
@@ -100,13 +107,15 @@ def _config_to_jsonable(config: SamplerConfig) -> dict:
 def save_engine(path: str, engine, metadata: Optional[dict] = None) -> None:
     """Checkpoint a live engine: state, config and lifecycle."""
     engine._check_open()
+    state_class = type(engine._state).__name__
+    names = _STATES[state_class][0]
     host = state_to_numpy(engine._state)
-    arrays = {name: host[name] for name in _FIELDS}
-    fields = [{"name": name, "kind": "array"} for name in _FIELDS[:-1]]
+    arrays = {name: host[name] for name in names}
+    fields = [{"name": name, "kind": "array"} for name in names[:-1]]
     fields.append({"name": "key", "kind": "prng_key", "impl": _KEY_IMPL})
     dev = engine.device
     manifest = {
-        "state_class": "ReservoirState",
+        "state_class": state_class,
         "fields": fields,
         "format_version": _FORMAT_VERSION,
         "metadata": metadata or {},
@@ -126,25 +135,27 @@ def save_engine(path: str, engine, metadata: Optional[dict] = None) -> None:
 
 
 def load_engine(path: str, engine_cls: Optional[type] = None, *, device: Any = None):
-    """Rebuild a checkpointed uniform-mode engine on ``device``."""
+    """Rebuild a checkpointed uniform or weighted engine on ``device``."""
     from ..engine import ReservoirEngine
 
     arrays, manifest = _read_npz(path)
     info = manifest.get("engine")
     if info is None:
         raise ValueError(f"{path!r} is a bare state checkpoint, not an engine checkpoint")
-    if manifest.get("state_class") != "ReservoirState":
+    state_class = manifest.get("state_class")
+    if state_class not in _STATES:
         raise CheckpointMismatch(
-            f"checkpoint {path!r} holds a {manifest.get('state_class')}; the "
-            "torch port restores uniform-mode (ReservoirState) engines only"
+            f"checkpoint {path!r} holds a {state_class}; the torch port restores "
+            f"uniform and weighted engines ({' and '.join(_STATES)}) only"
         )
+    names, from_numpy = _STATES[state_class]
     if info.get("has_map_fn") or info.get("has_hash_fn"):
         raise CheckpointMismatch(
             f"checkpoint {path!r} was saved with a map_fn/hash_fn, which the "
             "torch port does not run"
         )
     kinds = {f["name"]: f for f in manifest.get("fields", ())}
-    for name in _FIELDS:
+    for name in names:
         if name not in kinds or name not in arrays:
             raise CheckpointCorrupt(f"checkpoint {path!r}: state field {name!r} is missing")
     if kinds["key"].get("kind") != "prng_key" or kinds["key"].get("impl") != _KEY_IMPL:
@@ -152,16 +163,17 @@ def load_engine(path: str, engine_cls: Optional[type] = None, *, device: Any = N
             f"checkpoint {path!r}: key field {kinds['key']} is not {_KEY_IMPL} key data"
         )
     config = SamplerConfig(**info["config"])
+    if config.weighted != (state_class == "WeightedState"):
+        raise CheckpointMismatch(
+            f"checkpoint {path!r}: a {state_class} with a config of weighted={config.weighted}"
+        )
     R, k = config.num_reservoirs, config.max_sample_size
     if arrays["samples"].shape != (R, k):
         raise CheckpointMismatch(
             f"checkpoint {path!r}: samples have shape {arrays['samples'].shape}, "
             f"but the recorded config has R={R}, k={k}"
         )
-    state = state_from_numpy(
-        arrays["samples"], arrays["count"], arrays["nxt"], arrays["log_w"],
-        arrays["key"], device="cpu",
-    )
+    state = from_numpy(*(arrays[name] for name in names), device="cpu")
     engine = (engine_cls or ReservoirEngine)(
         config, reusable=info["reusable"], device=device, _initial_state=state
     )

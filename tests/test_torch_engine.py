@@ -1,8 +1,9 @@
-"""The port's ``ReservoirEngine`` (uniform mode, ``device="cpu"``) against
-the JAX package's engine on the same tiles, bit for bit; its lifecycle;
-checkpoints across the two packages in both directions; and the port's
-rules: no CPU fallback, no import of jax or ``reservoir_tpu``, and a named
-``NotImplementedError`` for what the port does not run yet."""
+"""The port's ``ReservoirEngine`` (uniform and weighted modes,
+``device="cpu"``) against the JAX package's engine on the same tiles, bit
+for bit; its lifecycle; checkpoints across the two packages in both
+directions; and the port's rules: no CPU fallback, no import of jax or
+``reservoir_tpu``, and a named ``NotImplementedError`` for what the port
+does not run yet."""
 
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from reservoir_tpu_torch import (
     SamplerConfig,
 )
 from reservoir_tpu_torch.ops import algorithm_l_cuda as TK
+from reservoir_tpu_torch.ops import weighted_cuda as TWK
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _NP = {"int32": np.int32, "float32": np.float32, "uint32": np.uint32}
@@ -284,7 +286,8 @@ def test_package_imports_neither_jax_nor_the_jax_package():
 @pytest.mark.parametrize(
     "make",
     [
-        lambda: ReservoirEngine(SamplerConfig(4, 2, weighted=True), device="cpu"),
+        lambda: ReservoirEngine(SamplerConfig(4, 2, tile_size=8, weighted=True), device="cpu")
+        .sample_stream(np.zeros((2, 8), np.int32), weights=np.ones((2, 8)), fused=True),
         lambda: ReservoirEngine(SamplerConfig(4, 2, distinct=True), device="cpu"),
         lambda: ReservoirEngine(SamplerConfig(4, 2, count_dtype="wide"), device="cpu"),
         lambda: ReservoirEngine(SamplerConfig(4, 2, count_dtype="int64"), device="cpu"),
@@ -329,3 +332,208 @@ def test_cpu_engine_launches_no_kernel():
     eng.sample(np.zeros((4, 8), np.int32))
     eng.result_arrays()
     assert TK.launches == before
+
+
+# ------------------------------------------------------------ weighted mode
+
+
+def _wpair(R, k, B, dtype="int32", seed=0, reusable=False):
+    kw = dict(max_sample_size=k, num_reservoirs=R, tile_size=B, element_dtype=dtype, weighted=True)
+    return (
+        JEngine(JConfig(**kw), key=seed, reusable=reusable),
+        ReservoirEngine(SamplerConfig(**kw), key=seed, reusable=reusable, device="cpu"),
+    )
+
+
+def _wts(rng, R, B):
+    w = rng.lognormal(0.0, 1.0, (R, B)).astype(np.float32)
+    w[rng.random((R, B)) < 0.3] = 0.0
+    return w
+
+
+def _same_wstate(jeng, teng):
+    js, ts = jeng.state, teng.state
+    assert type(ts).__name__ == "WeightedState"
+    for f in ("samples", "lkeys", "count", "xw"):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(js, f)).view(np.int32),
+            getattr(ts, f).numpy().view(np.int32), err_msg=f,
+        )
+    np.testing.assert_array_equal(
+        np.asarray(jr.key_data(js.key)).astype(np.int64), ts.key.numpy()
+    )
+    assert jeng._min_count == teng._min_count
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_weighted_engine_equals_jax_engine(dtype):
+    R, k, B = 16, 6, 32
+    rng = np.random.default_rng(21)
+    jeng, teng = _wpair(R, k, B, dtype, seed=3, reusable=True)
+    feeds = [
+        (_tile(rng, R, 3, dtype), _wts(rng, R, 3), None),  # partial fill
+        (_tile(rng, R, B, dtype), _wts(rng, R, B), rng.integers(0, B + 1, R).astype(np.int32)),
+        (_tile(rng, R, B, dtype), _wts(rng, R, B), None),
+        (_tile(rng, R, B, dtype), _wts(rng, R, B), None),
+        (_tile(rng, R, B, dtype), _wts(rng, R, B), rng.integers(0, B + 1, R).astype(np.int32)),
+    ]
+    for i, (tile, weights, valid) in enumerate(feeds):
+        jeng.sample(tile, valid, weights=weights)
+        # the port also takes CPU tensors and lists, for tiles and weights
+        w_in = torch.from_numpy(weights) if i % 2 else weights.tolist()
+        teng.sample(torch.from_numpy(tile) if i % 2 else tile, valid, weights=w_in)
+        _same_wstate(jeng, teng)
+    _same_arrays(jeng.peek_arrays(), teng.peek_arrays())
+    for a, b in zip(jeng.result(), teng.result()):
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32))
+    _same_arrays(jeng.result_arrays(), teng.result_arrays())
+
+
+@pytest.mark.parametrize("width", [None, 24])
+def test_weighted_sample_all_and_sample_stream_equal_jax(width):
+    R, k, B = 12, 5, 32
+    rng = np.random.default_rng(22)
+    items = [(_tile(rng, R, B), _wts(rng, R, B)),
+             (_tile(rng, R, B), _wts(rng, R, B), np.full(R, 9, np.int32))]
+    stream = _tile(rng, R, 3 * B + 37)
+    sw = _wts(rng, R, stream.shape[1])
+    jeng, teng = _wpair(R, k, B, seed=4, reusable=True)
+    jeng.sample_all(items)
+    teng.sample_all(items)
+    _same_wstate(jeng, teng)
+    jeng.sample_stream(stream, tile_width=width, weights=sw)
+    teng.sample_stream(stream, tile_width=width, weights=sw)
+    _same_wstate(jeng, teng)
+    # tensor streams and weights take the same path
+    _, t2 = _wpair(R, k, B, seed=4)
+    t2.sample_all(items)
+    t2.sample_stream(torch.from_numpy(stream), tile_width=width, weights=torch.from_numpy(sw))
+    _same_arrays(teng.peek_arrays(), t2.result_arrays())
+    # and the engine keeps streaming after the masked tail
+    more, mw = _tile(rng, R, B), _wts(rng, R, B)
+    jeng.sample(more, weights=mw)
+    teng.sample(more, weights=mw)
+    _same_wstate(jeng, teng)
+    with pytest.raises(ValueError, match=r"tiles\[1\]"):
+        teng.sample_all([(more, mw), (more,)])
+
+
+def test_weighted_jax_checkpoint_restores_into_the_port_and_continues(tmp_path):
+    R, k, B = 12, 5, 16
+    rng = np.random.default_rng(23)
+    jeng, _ = _wpair(R, k, B, seed=8, reusable=True)
+    jeng.sample(_tile(rng, R, 3), weights=_wts(rng, R, 3))
+    jeng.sample(_tile(rng, R, B), rng.integers(0, B + 1, R).astype(np.int32), weights=_wts(rng, R, B))
+    path = str(tmp_path / "jax.npz")
+    jeng.save(path)
+    teng = ReservoirEngine.restore(path, device="cpu")
+    _same_wstate(jeng, teng)
+    for _ in range(3):
+        tile, w = _tile(rng, R, B), _wts(rng, R, B)
+        jeng.sample(tile, weights=w)
+        teng.sample(tile, weights=w)
+    _same_wstate(jeng, teng)
+    _same_arrays(jeng.result_arrays(), teng.result_arrays())
+
+
+def test_weighted_port_checkpoint_restores_into_jax_and_continues(tmp_path):
+    R, k, B = 12, 5, 16
+    rng = np.random.default_rng(24)
+    _, teng = _wpair(R, k, B, dtype="float32", seed=10)
+    for _ in range(2):
+        teng.sample(_tile(rng, R, B, "float32"), weights=_wts(rng, R, B))
+    path = str(tmp_path / "port.npz")
+    teng.save(path, metadata={"who": "port"})
+    with np.load(path) as data:
+        manifest = json.loads(bytes(data["__manifest__"]).decode())
+    assert manifest["state_class"] == "WeightedState"
+    assert [f["name"] for f in manifest["fields"]] == ["samples", "lkeys", "count", "xw", "key"]
+    jeng = JEngine.restore(path)
+    again = ReservoirEngine.restore(path, device="cpu")
+    _same_wstate(jeng, teng)
+    for _ in range(2):
+        tile, w = _tile(rng, R, B, "float32"), _wts(rng, R, B)
+        for eng in (jeng, teng, again):
+            eng.sample(tile, weights=w)
+    _same_wstate(jeng, teng)
+    _same_wstate(jeng, again)
+    _same_arrays(jeng.result_arrays(), teng.result_arrays())
+
+
+def test_weighted_engine_validates_its_weights():
+    R, k, B = 4, 3, 8
+    tile = np.zeros((R, B), np.int32)
+    ones = np.ones((R, B), np.float32)
+    _, eng = _wpair(R, k, B, reusable=True)
+    with pytest.raises(ValueError, match="requires a weights tile"):
+        eng.sample(tile)
+    bad = ones.copy()
+    bad[1, 2] = -0.5
+    with pytest.raises(ValueError, match="nonnegative"):
+        eng.sample(tile, weights=bad)
+    bad[1, 2] = np.nan
+    with pytest.raises(ValueError, match="nonnegative"):
+        eng.sample(tile, weights=bad)
+    with pytest.raises(ValueError, match="match tile shape"):
+        eng.sample(tile, weights=np.ones((R, B + 1), np.float32))
+    with pytest.raises(ValueError, match="requires a weights array"):
+        eng.sample_stream(np.zeros((R, 3 * B), np.int32))
+    # the whole stream is checked before any tile is consumed
+    sw = np.ones((R, 3 * B), np.float32)
+    sw[0, -1] = -1.0
+    with pytest.raises(ValueError, match="nonnegative"):
+        eng.sample_stream(np.zeros((R, 3 * B), np.int32), weights=sw)
+    assert (eng.state.count == 0).all()
+    with pytest.raises(ValueError, match="match stream shape"):
+        eng.sample_stream(np.zeros((R, 3 * B), np.int32), weights=np.ones((R, B)))
+    # zero weights are legal: counted, never sampled
+    eng.sample(tile, weights=np.zeros((R, B), np.float32))
+    assert (eng.state.count == B).all() and (eng.peek_arrays()[1] == 0).all()
+    _, plain = _pair(R, k, B)
+    with pytest.raises(ValueError, match="only meaningful with weighted=True"):
+        plain.sample(tile, weights=ones)
+    with pytest.raises(ValueError, match="only meaningful with weighted=True"):
+        plain.sample_stream(tile, weights=ones)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        ReservoirEngine(SamplerConfig(4, 2, weighted=True, distinct=True), device="cpu")
+
+
+def test_weighted_engine_snapshots_host_weights():
+    # the caller may reuse its buffers as soon as sample() returns
+    R, k, B = 6, 3, 16
+    rng = np.random.default_rng(25)
+    tile, w = _tile(rng, R, B), _wts(rng, R, B)
+    nxt_tile, nxt_w = _tile(rng, R, B), _wts(rng, R, B)
+    _, a = _wpair(R, k, B, seed=1)
+    _, b = _wpair(R, k, B, seed=1)
+    a.sample(tile, weights=w)
+    b.sample(tile.copy(), weights=w.copy())
+    tile[:] = 0
+    w[:] = 0.0
+    for eng in (a, b):
+        eng.sample(nxt_tile, weights=nxt_w)
+    for f in ("samples", "lkeys", "count", "xw"):
+        assert torch.equal(getattr(a.state, f).view(torch.int32), getattr(b.state, f).view(torch.int32))
+
+
+def test_weighted_checkpoint_with_a_mismatched_config_is_refused(tmp_path):
+    _, teng = _wpair(4, 3, 8, seed=2)
+    teng.sample(np.zeros((4, 8), np.int32), weights=np.ones((4, 8), np.float32))
+    path = str(tmp_path / "w.npz")
+    teng.save(path)
+    with np.load(path) as data:
+        arrays = {n: data[n] for n in data.files}
+    manifest = json.loads(bytes(arrays.pop("__manifest__")).decode())
+    manifest["engine"]["config"]["weighted"] = False
+    bad = str(tmp_path / "bad.npz")
+    np.savez(bad, __manifest__=np.frombuffer(json.dumps(manifest).encode(), np.uint8), **arrays)
+    with pytest.raises(CheckpointMismatch):
+        ReservoirEngine.restore(bad, device="cpu")
+
+
+def test_cpu_weighted_engine_launches_no_kernel():
+    before = TWK.launches
+    _, eng = _wpair(4, 3, 8)
+    eng.sample(np.zeros((4, 8), np.int32), weights=np.ones((4, 8), np.float32))
+    eng.result_arrays()
+    assert TWK.launches == before
