@@ -1,11 +1,13 @@
 """Smoke test of the torch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Drives the port's two paths on ``"cuda"`` — the uniform engine,
+Drives the port's three paths on ``"cuda"`` — the uniform engine,
 ``ReservoirEngine(SamplerConfig(k=128, R=65536, tile_size=2048), key=0)``,
-and the weighted engine, ``ReservoirEngine(SamplerConfig(k=64, R=16384,
-tile_size=1024, weighted=True), key=0)`` — and holds each CUDA kernel
-against its plain torch version.  Phases, each of which fails the run with
-a non-zero exit:
+the weighted engine, ``ReservoirEngine(SamplerConfig(k=64, R=16384,
+tile_size=1024, weighted=True), key=0)``, and the distinct engine,
+``ReservoirEngine(SamplerConfig(k=256, R=4096, tile_size=1024,
+distinct=True, element_dtype=...), key=0)`` with int32 and int64 keys — and
+holds each CUDA kernel against its plain torch version.  Phases, each of
+which fails the run with a non-zero exit:
 
 1. device: require a CUDA card; print its name and power limit;
 2. build: compile ``reservoir_tpu_torch/csrc`` with nvcc, print the seconds;
@@ -46,7 +48,30 @@ a non-zero exit:
    within the weight-1 class pass the KS gate;
 11. weighted timings as in 7: the kernel per fill tile (from empty) and per
    steady tile (from count 7 B) beside the plain version and the bound, and
-   the steady tile again with every weight 0 (the scan without acceptances).
+   the steady tile again with every weight 0 (the scan without acceptances);
+12. distinct kernel vs plain version on the card at R=4096, k=256, B=1024,
+   for int32, uint32 and int64 keys, from a state whose salts send a
+   planted key to the hash (MAX, MAX) in every 97th row: a partial tile of
+   width 64 from empty (the planted key in every row), a tile across the
+   fill's end, three Zipf tiles (bench.py's recipe), a tile of one value,
+   a tile of values already held, a tile of negative keys and a ragged tile
+   — values, value_hi, hash_hi, hash_lo, size and count must be
+   bit-identical, and no planted row may hold the planted key;
+13. the plain distinct version on the CPU for rows 0..1023 must equal the
+   kernel's rows bit for bit;
+14. distinct engine path, int32 and int64 keys: 8 device-resident Zipf
+   tiles then 2 numpy tiles, then ``result_arrays()``: the kernel was
+   launched once per tile, every row equals an exact host oracle (the k
+   smallest scrambled hashes among the row's distinct keys, in numpy with
+   the port's own hashing), every size is min(k, #distinct), and the share
+   of sampled keys seen at least 10 times in their row is within 0.01 of
+   that share among all the row's distinct keys (uniform over distinct
+   values, not weighted by frequency);
+15. distinct timings as in 7: the kernel on a Zipf tile from empty, on a
+   steady Zipf tile (after 8) and on a steady tile of fresh random keys
+   (int32), and on a steady Zipf tile with int64 keys, each beside the
+   plain version and the bound; ``torch.sort`` of the ``[R, k + B]`` packed
+   hashes as context (not the same function).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or run outside a
@@ -102,6 +127,19 @@ W_FLOPS_PER_FILL = 28
 # accepted slot, but each slot reaches memory once (rewrites stay in L2)
 W_STATE_BYTES_PER_ROW = 24
 SECTOR_BYTES = 32
+# the distinct path: bench.py's distinct configuration (BASELINE.md config 3)
+DR, DK, DB = 4096, 256, 1024
+# the distinct kernel, counted from csrc/distinct.cu and csrc/hashing.cuh:
+# per lane the scramble (4 salt xors, 6 rounds of an add, fmix32's 3 shifts,
+# 3 xors and 2 multiplies, and the Feistel xor) and the compare and ballot;
+# per insertion a binary search (8 integer ops a step) and the shift of
+# half the block on average (one move per word)
+D_OPS_PER_LANE = 68
+D_OPS_PER_SEARCH_STEP = 8
+# bytes per row: the threshold entry read (8), size and count read and
+# written (16), the salts read (16); a row that inserts reads and writes its
+# block (12 bytes an entry narrow, 16 wide)
+D_STATE_BYTES_PER_ROW = 40
 
 
 def fail(msg: str) -> None:
@@ -129,12 +167,17 @@ def bits(t: torch.Tensor) -> torch.Tensor:
 FIELDS = {
     "ReservoirState": (("samples", "count", "nxt"), ("log_w",)),
     "WeightedState": (("samples", "count"), ("lkeys", "xw")),
+    "DistinctState": (("values", "value_hi", "hash_hi", "hash_lo", "size", "count"), ()),
 }
 
 
 def same(a, b) -> bool:
     words, floats = FIELDS[type(a).__name__]
-    return all(bool(torch.equal(bits(getattr(a, f)), bits(getattr(b, f)))) for f in words + floats)
+    for f in words + floats:
+        x, y = getattr(a, f), getattr(b, f)
+        if (x is None) != (y is None) or (x is not None and not torch.equal(bits(x), bits(y))):
+            return False
+    return True
 
 
 def max_abs_err(a, b) -> float:
@@ -144,6 +187,8 @@ def max_abs_err(a, b) -> float:
     words, floats = FIELDS[type(a).__name__]
     err = 0.0
     for f in words:
+        if getattr(a, f) is None:
+            continue
         x, y = bits(getattr(a, f)).long(), bits(getattr(b, f)).long()
         err = max(err, float((x - y).abs().max().item()))
     for f in floats:
@@ -158,7 +203,7 @@ def max_abs_err(a, b) -> float:
 
 def clone(state, rows=None, device=None):
     sl = slice(None) if rows is None else slice(0, rows)
-    return type(state)(*(t[sl].clone().to(device or t.device) for t in state))
+    return type(state)(*(None if t is None else t[sl].clone().to(device or t.device) for t in state))
 
 
 def event_ms(fn, reps: int = REPS, setup=None, batch: int = 1) -> float:
@@ -269,6 +314,7 @@ def main() -> None:
     from reservoir_tpu_torch import _build
     from reservoir_tpu_torch.ops import algorithm_l as plain
     from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.ops import distinct_cuda as dkern
     from reservoir_tpu_torch.ops import fmath
     from reservoir_tpu_torch.ops import weighted_cuda as wkern
     from reservoir_tpu_torch.ops.rng import key_from_seed
@@ -284,6 +330,7 @@ def main() -> None:
     _build.build_all()
     kern._library()
     wkern._library()
+    dkern._library()
     log(f"[2 build] csrc built and loaded in {time.perf_counter() - t0:.2f} s")
 
     # 3. kernel vs plain version, full width
@@ -458,6 +505,7 @@ def main() -> None:
         f"{warm_host_eps:.6e} elem/s")
 
     weighted = weighted_phases(gen, dev)
+    distinct = distinct_phases(gen, dev)
 
     card = card_line()
     log(card)
@@ -479,7 +527,7 @@ def main() -> None:
         "engine_elem_per_s": {"device_fed": dev_eps, "host_fed": host_eps},
         "host_tile_ms": {"snapshot": snapshot_ms, "h2d": h2d_ms},
         "warm_host_fed_elem_per_s": warm_host_eps,
-    }, weighted]}))
+    }, weighted, distinct]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
 
@@ -655,6 +703,300 @@ def weighted_phases(gen, dev) -> dict:
         "steady_accepts": steady_accepts,
         "steady_tile_zero_weights_ms": scan_ms,
         "engine_elem_per_s": {"device_fed": dev_eps, "host_fed": host_eps},
+    }
+
+
+def distinct_bound_ms(lanes: int, wide: bool, inserts: int, rows_inserting: int) -> tuple:
+    """The distinct kernel's bound for a tile of ``lanes`` keys over DR rows,
+    with ``inserts`` entries new to the state over ``rows_inserting`` rows
+    (the least inserts any order of candidates needs)."""
+    planes = 4 if wide else 3
+    nbytes = (8 if wide else 4) * lanes + DR * D_STATE_BYTES_PER_ROW + rows_inserting * 2 * DK * 4 * planes
+    t_bytes = nbytes / PEAK_BYTES
+    per_insert = D_OPS_PER_SEARCH_STEP * (DK.bit_length() - 1) + planes * DK // 2
+    t_ops = (D_OPS_PER_LANE * lanes + per_insert * inserts) / PEAK_INT32
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _hash_key(state) -> torch.Tensor:
+    """A state's hashes as int64 in unsigned order (padding is the largest)."""
+    hi = state.hash_hi.long() & 0xFFFFFFFF
+    lo = state.hash_lo.long() & 0xFFFFFFFF
+    return (hi - 2**31) * 2**32 + lo
+
+
+def net_inserts(before, after) -> tuple:
+    """``(entries of after not in before, rows with any)``: hashes identify
+    keys, since the scramble is a permutation."""
+    both = torch.sort(torch.cat([_hash_key(before), _hash_key(after)], 1), dim=1).values
+    common = ((both[:, 1:] == both[:, :-1]) & (both[:, 1:] != 2**63 - 1)).sum(1)
+    new = after.size.long() - common
+    return int(new.sum().item()), int((new > 0).sum().item())
+
+
+def zipf_keys(gen, rows: int, width: int, dtype, dev) -> torch.Tensor:
+    """bench.py's distinct keys (``min(u ** -10, 1e7)``, u uniform on
+    [1e-6, 1)); 8-byte keys are those times an odd 64-bit constant, which
+    keeps which keys are equal and spreads them over both words."""
+    u = torch.rand((rows, width), generator=gen, device=dev) * (1.0 - 1e-6) + 1e-6
+    t = torch.clamp(u ** -10.0, max=1e7).to(torch.int64)
+    return wide_or_narrow(t, dtype)
+
+
+def wide_or_narrow(t: torch.Tensor, dtype) -> torch.Tensor:
+    if dtype == torch.int64:
+        return (t * (0x9E3779B97F4A7C15 - 2**64)).contiguous()
+    return t.to(torch.int32).view(dtype).contiguous()
+
+
+def held_keys(state) -> torch.Tensor:
+    """The state's keys as int64 (wide) or int32 words (narrow)."""
+    lo = state.values.view(torch.int32)
+    if state.value_hi is None:
+        return lo
+    return (state.value_hi.long() << 32) | (lo.long() & 0xFFFFFFFF)
+
+
+def distinct_oracle(tiles, salts, samples, sizes) -> tuple:
+    """Phase 14's exact host oracle, in numpy with the port's hashing: each
+    row's k smallest scrambled hashes among its distinct keys (a hash of
+    (MAX, MAX) is never taken).  Returns ``(ok, message, share of sampled
+    keys seen >= 10 times, that share among all distinct keys)``."""
+    from reservoir_tpu_torch.ops import distinct as dplain
+    from reservoir_tpu_torch.ops import hashing
+
+    def scrambled(keys):
+        if keys.dtype.itemsize == 8:
+            hi, lo = dplain.split_values_host(keys)
+        else:
+            hi, lo = hashing.default_hash64(keys)
+        sh, sl = hashing.scramble64(hi, lo, salts[:, 0:1], salts[:, 1:2], salts[:, 2:3], salts[:, 3:4])
+        return (sh.astype(np.uint64) << np.uint64(32)) | sl.astype(np.uint64)
+
+    top = np.uint64(2**64 - 1)
+    h = scrambled(np.concatenate(tiles, axis=1))
+    h.sort(axis=1)
+    rows, n = h.shape
+    first = np.ones(h.shape, bool)
+    first[:, 1:] = h[:, 1:] != h[:, :-1]
+    first &= h != top
+    rank = np.cumsum(first, axis=1)
+    want_size = np.minimum(DK, rank[:, -1])
+    if not (sizes == want_size).all():
+        bad = int(np.flatnonzero(sizes != want_size)[0])
+        return False, f"row {bad} holds {sizes[bad]} keys, min(k, #distinct) is {want_size[bad]}", 0, 0
+    sel = first & (rank <= DK)
+    want = np.full((rows, DK), top, np.uint64)
+    r_idx, c_idx = np.nonzero(sel)
+    want[r_idx, rank[r_idx, c_idx] - 1] = h[r_idx, c_idx]
+    got = scrambled(samples)
+    got[np.arange(DK)[None, :] >= sizes[:, None]] = top
+    if not (got == want).all():
+        bad = int(np.flatnonzero((got != want).any(1))[0])
+        return False, f"row {bad} differs from the k smallest hashes of its distinct keys", 0, 0
+    starts = np.flatnonzero(first.ravel())
+    ends = np.append(starts[1:], rows * n)
+    # a run ends where the next distinct key starts, or at its row's end
+    ends = np.minimum(ends, (starts // n + 1) * n)
+    heavy = (ends - starts) >= 10
+    sampled = sel.ravel()[starts]
+    return True, "", float(heavy[sampled].mean()), float(heavy.mean())
+
+
+def distinct_phases(gen, dev) -> dict:
+    """Phases 12-15, the distinct path; returns its ``kernels`` entry."""
+    import reservoir_tpu_torch as rtt
+    from reservoir_tpu_torch.convert import distinct_state_from_numpy, distinct_state_to_numpy
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.ops import distinct as dplain
+    from reservoir_tpu_torch.ops import distinct_cuda as dkern
+    from reservoir_tpu_torch.ops import weighted_cuda as wkern
+    from reservoir_tpu_torch.ops.hashing import salt_for_target
+    from reservoir_tpu_torch.ops.rng import key_from_seed
+
+    # 12. distinct kernel vs plain version, full width
+    plant_rows = torch.arange(0, DR, 97)
+    worst_err = 0.0
+    cpu_checks = []
+    plan = [("partial", 64, False), ("fill end", DB, False), ("zipf", DB, False), ("zipf", DB, False),
+            ("zipf", DB, False), ("one value", DB, False), ("held", DB, False), ("negative", DB, False),
+            ("ragged", DB, True)]
+    for dtype in (torch.int32, torch.uint32, torch.int64):
+        gen.manual_seed(41)
+        wide = dtype == torch.int64
+        plant = (0x01234567, 0x89ABCDEF) if wide else (0, 123456789)
+        plant_key = (plant[0] << 32) | plant[1]
+        host = distinct_state_to_numpy(dplain.init(key_from_seed(4), DR, DK, sample_dtype=dtype))
+        salts = host["salts"].copy()
+        for r in plant_rows.tolist():
+            salts[r, 2:] = salt_for_target(plant, (0xFFFFFFFF, 0xFFFFFFFF), tuple(int(x) for x in salts[r, :2]))
+        host["salts"] = salts
+        state = distinct_state_from_numpy(**host, device=dev)
+        start_cpu = clone(state, ROWS_CPU, "cpu")
+        fed = []
+        for t, (kind, width, ragged) in enumerate(plan):
+            if kind in ("partial", "fill end"):
+                tile = wide_or_narrow(torch.randint(-(2**62), 2**62, (DR, width), generator=gen, device=dev),
+                                      dtype)
+            elif kind == "one value":
+                tile = wide_or_narrow(torch.full((DR, width), -77777, dtype=torch.int64, device=dev), dtype)
+            elif kind == "held":
+                tile = held_keys(state).repeat(1, DB // DK).contiguous()
+                tile = tile.view(dtype) if not wide else tile
+            elif kind == "negative":
+                tile = -torch.randint(1, 2**62 if wide else 2**31, (DR, width), generator=gen, device=dev)
+                tile = tile if wide else tile.to(torch.int32).view(dtype).contiguous()
+            else:
+                tile = zipf_keys(gen, DR, width, dtype, dev)
+            if kind in ("partial", "ragged"):
+                key = plant_key if wide else plant[1]
+                tile.view(torch.int64 if wide else torch.int32)[:, 5] = key
+            valid = None
+            if ragged:
+                valid = torch.randint(0, width + 1, (DR,), dtype=torch.int32, device=dev, generator=gen)
+                valid[:2] = torch.tensor([0, width], dtype=torch.int32, device=dev)
+            batch = tile
+            if wide and kind == "fill end":  # an 8-byte tile as its (hi, lo) planes
+                w = tile.view(torch.int32).view(DR, width, 2)
+                batch = (w[..., 1].contiguous(), w[..., 0].contiguous())
+            ref = dplain.update(clone(state), tile, valid)
+            state = dkern.update_cuda(state, batch, valid)
+            torch.cuda.synchronize()
+            worst_err = max(worst_err, max_abs_err(state, ref))
+            if not same(state, ref):
+                fail(f"distinct kernel != plain version ({dtype}, tile {t}: {kind}, width {width})")
+            fed.append((tile[:ROWS_CPU].cpu(), None if valid is None else valid[:ROWS_CPU].cpu()))
+            del ref
+        held = held_keys(state)
+        planted = (held[plant_rows] == (plant_key if wide else plant[1])).any().item()
+        if planted:
+            fail(f"a row whose salts send the planted key to (MAX, MAX) holds it ({dtype})")
+        elsewhere = int((held == (plant_key if wide else plant[1])).any(1).sum().item())
+        if int(state.size.min().item()) != DK:
+            fail(f"a distinct reservoir holds fewer than k keys after {len(plan)} tiles ({dtype})")
+        log(f"[12 distinct kernel vs plain] {dtype}: {len(plan)} tiles (partial, fill end, 3 Zipf, one "
+            f"value, held, negative, ragged) bit-identical; the planted key is held by no planted row "
+            f"and by {elsewhere} of the others")
+        cpu_checks.append((f"{dtype}", start_cpu, fed, clone(state, ROWS_CPU, "cpu")))
+        del state
+
+    # 13. card vs CPU
+    for case, state_c, fed, want in cpu_checks:
+        for tile, valid in fed:
+            state_c = dplain.update(state_c, tile, valid)
+        if not same(state_c, want):
+            fail(f"CPU plain distinct version != kernel on rows 0..{ROWS_CPU - 1} ({case})")
+        log(f"[13 distinct card vs CPU] {case}: rows 0..{ROWS_CPU - 1} bit-identical")
+    del cpu_checks
+
+    # 14. the distinct engine path, 4-byte and 8-byte keys
+    rates = {}
+    main_launches = 0
+    for name, dtype in (("int32", torch.int32), ("int64", torch.int64)):
+        gen.manual_seed(43)
+        dev_tiles = [zipf_keys(gen, DR, DB, dtype, dev) for _ in range(8)]
+        host_tiles = [zipf_keys(gen, DR, DB, dtype, dev).cpu().numpy() for _ in range(2)]
+        torch.cuda.synchronize()
+        kern.launches = 0
+        wkern.launches = 0
+        dkern.launches = 0
+        engine = rtt.ReservoirEngine(rtt.SamplerConfig(max_sample_size=DK, num_reservoirs=DR, tile_size=DB,
+                                                       distinct=True, element_dtype=name), key=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for tile in dev_tiles:
+            engine.sample(tile)
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for tile in host_tiles:
+            engine.sample(tile)
+        torch.cuda.synchronize()
+        t_host = time.perf_counter() - t0
+        salts = distinct_state_to_numpy(engine.state)["salts"]
+        samples, sizes = engine.result_arrays()
+        launches = dkern.launches
+        if launches != 10 or kern.launches or wkern.launches:
+            fail(f"the distinct engine ({name}) launched distinct_update {launches} times, algl_update "
+                 f"{kern.launches} and weighted_update {wkern.launches} times for 10 tiles")
+        main_launches += launches
+        tiles = [t.cpu().numpy() for t in dev_tiles] + host_tiles
+        ok, msg, share_sampled, share_all = distinct_oracle(tiles, salts, samples, sizes)
+        if not ok:
+            fail(f"distinct engine ({name}): {msg}")
+        if abs(share_sampled - share_all) > 0.01:
+            fail(f"distinct engine ({name}): the share of sampled keys seen >= 10 times, "
+                 f"{share_sampled:.6f}, is not within 0.01 of their share of distinct keys, {share_all:.6f}")
+        rates[name] = {"device_fed": 8 * DR * DB / t_dev, "host_fed": 2 * DR * DB / t_host}
+        log(f"[14 distinct engine] {name}: 10 tiles, launches {launches}, every row equals the exact "
+            f"oracle, sizes {int(sizes.min())}..{int(sizes.max())}; keys seen >= 10 times: "
+            f"{share_sampled:.6f} of the sample, {share_all:.6f} of the distinct keys; "
+            f"{rates[name]['device_fed']:.6e} elem/s fed from the device, "
+            f"{rates[name]['host_fed']:.6e} elem/s fed from the host")
+        del dev_tiles, host_tiles, tiles, engine
+
+    # 15. timings at the distinct path's shapes
+    def timed(state, tile, wide=False) -> dict:
+        ms = event_ms(lambda s: dkern.update_cuda(s, tile), setup=lambda: clone(state), batch=10)
+        plain_times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ref = dplain.update(state, tile)
+            torch.cuda.synchronize()
+            plain_times.append(1e3 * (time.perf_counter() - t0))
+        inserts, rows_in = net_inserts(state, ref)
+        bound, by = distinct_bound_ms(tile.shape[0] * tile.shape[1], wide, inserts, rows_in)
+        return {"ms": ms, "plain_ms": statistics.median(plain_times), "bound_ms": bound, "bound_by": by,
+                "net_inserts": inserts, "rows_inserting": rows_in}
+
+    gen.manual_seed(47)
+    s0 = dplain.init(key_from_seed(0), DR, DK, device=dev)
+    fill = timed(s0, zipf_keys(gen, DR, DB, torch.int32, dev))
+    state = clone(s0)
+    for _ in range(8):
+        state = dkern.update_cuda(state, zipf_keys(gen, DR, DB, torch.int32, dev))
+    steady = timed(state, zipf_keys(gen, DR, DB, torch.int32, dev))
+    fresh = timed(state, torch.randint(-(2**31), 2**31 - 1, (DR, DB), dtype=torch.int32, device=dev,
+                                       generator=gen))
+    ws = dplain.init(key_from_seed(0), DR, DK, sample_dtype=torch.int64, device=dev)
+    for _ in range(8):
+        ws = dkern.update_cuda(ws, zipf_keys(gen, DR, DB, torch.int64, dev))
+    steady_wide = timed(ws, zipf_keys(gen, DR, DB, torch.int64, dev), wide=True)
+    # context only: a sort of the [R, k + B] packed hashes, not the same function
+    packed = torch.randint(-(2**62), 2**62, (DR, DK + DB), device=dev, generator=gen)
+    sort_ms = event_ms(lambda _: torch.sort(packed, dim=1), batch=10)
+    del state, ws, packed
+    card = card_line()
+    for label, t in (("Zipf tile from empty (int32)", fill), ("steady Zipf tile after 8 (int32)", steady),
+                     ("steady tile of fresh random keys after 8 Zipf (int32)", fresh),
+                     ("steady Zipf tile after 8 (int64)", steady_wide)):
+        log(f"[15 distinct timings] {card} | {label}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.1f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), net inserts {t['net_inserts']} over "
+            f"{t['rows_inserting']} rows")
+    log(f"[15 distinct timings] {card} | context, not the same function: torch.sort of [{DR}, {DK + DB}] "
+        f"int64 {sort_ms:.4f} ms")
+    log(f"[15 distinct timings] {card} | engine: int32 {rates['int32']['device_fed']:.6e} / "
+        f"{rates['int32']['host_fed']:.6e} elem/s, int64 {rates['int64']['device_fed']:.6e} / "
+        f"{rates['int64']['host_fed']:.6e} elem/s (fed from the device / the host)")
+    return {
+        "name": "distinct_update",
+        "route": "cuda",
+        "source": "reservoir_tpu_torch/csrc/distinct.cu",
+        "replaces": "reservoir_tpu/ops/distinct_pallas.py:129",
+        "launches": main_launches,
+        "max_abs_err": worst_err,
+        "ms": steady["ms"],
+        "plain_ms": steady["plain_ms"],
+        "bound_ms": steady["bound_ms"],
+        "bound_by": steady["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a deduplicating bottom-k merge",
+        "sort_context_ms": sort_ms,
+        "steady_zipf_tile": steady,
+        "fill_tile": fill,
+        "steady_fresh_tile": fresh,
+        "steady_zipf_tile_int64": steady_wide,
+        "engine_elem_per_s": rates,
     }
 
 

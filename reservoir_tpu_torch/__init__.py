@@ -1,19 +1,22 @@
 """reservoir-tpu on PyTorch and CUDA: the port of ``reservoir_tpu`` to an
 NVIDIA H100.
 
-It runs the uniform (duplicates-mode) Algorithm-L engine and the weighted
-A-ExpJ engine:
+It runs the uniform (duplicates-mode) Algorithm-L engine, the weighted
+A-ExpJ engine and the distinct (bottom-k) engine:
 
 - :mod:`reservoir_tpu_torch.ops.threefry`, :mod:`.ops.rng` — counter-keyed
   Threefry draws equal to ``jax.random``'s;
 - :mod:`reservoir_tpu_torch.ops.fmath` — float32 ``log``/``exp``/``log1p``
   bit-identical to XLA CPU's;
-- :mod:`reservoir_tpu_torch.ops.algorithm_l` and :mod:`.ops.weighted` (with
-  the blocked prefix sum of :mod:`.ops.prefix`) — the plain torch versions;
-- :mod:`reservoir_tpu_torch.ops.algorithm_l_cuda` and
-  :mod:`.ops.weighted_cuda` — the hand-written CUDA kernels
-  (``csrc/algorithm_l.cu``, ``csrc/weighted.cu``), built with ``nvcc`` at
-  first use;
+- :mod:`reservoir_tpu_torch.ops.hashing` — the salted 64-bit scramble of
+  distinct mode;
+- :mod:`reservoir_tpu_torch.ops.algorithm_l`, :mod:`.ops.weighted` (with
+  the blocked prefix sum of :mod:`.ops.prefix`) and :mod:`.ops.distinct` —
+  the plain torch versions;
+- :mod:`reservoir_tpu_torch.ops.algorithm_l_cuda`, :mod:`.ops.weighted_cuda`
+  and :mod:`.ops.distinct_cuda` — the hand-written CUDA kernels
+  (``csrc/algorithm_l.cu``, ``csrc/weighted.cu``, ``csrc/distinct.cu``),
+  built with ``nvcc`` at first use;
 - :class:`ReservoirEngine` with checkpoints in the JAX package's format.
 
 The package imports torch and numpy, never jax and nothing of

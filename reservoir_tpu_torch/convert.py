@@ -5,7 +5,11 @@ The layout is that of the JAX package's states and of its checkpoints:
 ``log_w [R]`` float32; ``WeightedState`` has ``samples [R, k]``,
 ``lkeys [R, k]`` float32, ``count [R]`` int32 and ``xw [R]`` float32; both
 hold the keys as ``[R, 2]`` uint32 words (what ``jax.random.key_data``
-returns).  Two packages given the same arrays start from the same state.
+returns).  ``DistinctState`` has ``values [R, k]`` (the sample dtype, or
+uint32 low words for 8-byte keys), ``hash_hi``/``hash_lo [R, k]`` uint32,
+``size``/``count [R]`` int32, ``salts [R, 4]`` uint32 and, for 8-byte keys,
+``value_hi [R, k]`` uint32.  Two packages given the same arrays start from
+the same state.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import numpy as np
 import torch
 
 from .ops.algorithm_l import SAMPLE_DTYPES, ReservoirState
+from .ops.distinct import DistinctState
 from .ops.weighted import WeightedState
 
 __all__ = [
@@ -24,6 +29,8 @@ __all__ = [
     "state_to_numpy",
     "weighted_state_from_numpy",
     "weighted_state_to_numpy",
+    "distinct_state_from_numpy",
+    "distinct_state_to_numpy",
 ]
 
 
@@ -100,9 +107,66 @@ def weighted_state_from_numpy(
     return WeightedState(*(t.to(dev) for t in out))
 
 
-def state_to_numpy(state) -> Dict[str, np.ndarray]:
-    """A state's fields (either class) as host numpy arrays; ``key`` as
-    uint32 words."""
+def _words(a, name: str, shape: tuple) -> torch.Tensor:
+    """A numpy array of uint32 words (or their int32 bit patterns) as an
+    int32 tensor of ``shape``."""
+    a = np.ascontiguousarray(a)
+    if a.dtype not in (np.uint32, np.int32) or a.shape != shape:
+        raise ValueError(f"{name} must be uint32 {list(shape)}, got {a.dtype} {a.shape}")
+    return torch.from_numpy(a.view(np.int32).copy())
+
+
+def distinct_state_from_numpy(
+    values, hash_hi, hash_lo, size, count, salts, value_hi=None,
+    device: Optional[object] = None,
+) -> DistinctState:
+    """A :class:`DistinctState` on ``device`` from numpy arrays: narrow keys
+    with ``values`` of int32 or uint32 and no ``value_hi``, 8-byte keys with
+    uint32 ``values`` and ``value_hi`` planes."""
+    dev = resolve_device(device)
+    values = np.ascontiguousarray(values)
+    if values.ndim != 2:
+        raise ValueError(f"values must be [R, k], got shape {values.shape}")
+    R, k = values.shape
+    if value_hi is None:
+        if values.dtype not in (np.int32, np.uint32):
+            raise ValueError(f"narrow values must be int32 or uint32, got {values.dtype}")
+        values_t = torch.from_numpy(values.copy())
+        hi_t = None
+    else:
+        values_t = _words(values, "values", (R, k))
+        hi_t = _words(value_hi, "value_hi", (R, k))
+    out = DistinctState(
+        values=values_t,
+        hash_hi=_words(hash_hi, "hash_hi", (R, k)),
+        hash_lo=_words(hash_lo, "hash_lo", (R, k)),
+        size=torch.from_numpy(np.array(size, np.int32)),
+        count=torch.from_numpy(np.array(count, np.int32)),
+        salts=_words(salts, "salts", (R, 4)),
+        value_hi=hi_t,
+    )
+    _check_shapes(out, {"size": (R,), "count": (R,)})
+    return DistinctState(*(None if t is None else t.to(dev) for t in out))
+
+
+def distinct_state_to_numpy(state: DistinctState) -> Dict[str, Optional[np.ndarray]]:
+    """A :class:`DistinctState`'s fields as host numpy arrays in the JAX
+    package's dtypes (``value_hi`` None for narrow keys)."""
+    if not isinstance(state, DistinctState):
+        raise TypeError(f"expected a DistinctState, got {type(state).__name__}")
+    host = {name: None if t is None else t.detach().cpu().numpy()
+            for name, t in zip(state._fields, state)}
+    for name in ("hash_hi", "hash_lo", "salts", "value_hi") + (("values",) if state.wide else ()):
+        if host[name] is not None:
+            host[name] = host[name].view(np.uint32)
+    return host
+
+
+def state_to_numpy(state) -> Dict[str, Optional[np.ndarray]]:
+    """A state's fields (any class) as host numpy arrays in the JAX
+    package's dtypes; ``key`` as uint32 words."""
+    if isinstance(state, DistinctState):
+        return distinct_state_to_numpy(state)
     host = {name: t.detach().cpu().numpy() for name, t in zip(state._fields, state)}
     host["key"] = host["key"].astype(np.uint32)
     return host

@@ -1,20 +1,30 @@
-"""ReservoirEngine — R lockstep reservoirs on the card, uniform or weighted.
+"""ReservoirEngine — R lockstep reservoirs on the card: uniform, weighted or
+distinct.
 
-The port of the JAX package's ``engine.py`` for duplicates (uniform) mode
-and weighted (A-ExpJ) mode: the same construction-time validation,
-single-use/reusable lifecycle and result truncation, over ``[R, B]`` tiles
-where reservoir ``r`` consumes ``tile[r, :valid[r]]`` of its own stream
-(and, weighted, the same slice of a parallel ``[R, B]`` weights tile).
+The port of the JAX package's ``engine.py`` for duplicates (uniform) mode,
+weighted (A-ExpJ) mode and distinct (bottom-k) mode: the same
+construction-time validation, single-use/reusable lifecycle and result
+truncation, over ``[R, B]`` tiles where reservoir ``r`` consumes
+``tile[r, :valid[r]]`` of its own stream (and, weighted, the same slice of a
+parallel ``[R, B]`` weights tile).
 
 Every uniform tile goes through the CUDA kernel of
 :mod:`~reservoir_tpu_torch.ops.algorithm_l_cuda`, every weighted tile
-through that of :mod:`~reservoir_tpu_torch.ops.weighted_cuda`; with
-``device="cpu"`` the same wrappers run the plain torch versions.  There is
-no other path and no fallback: a build or launch failure raises.  In
+through that of :mod:`~reservoir_tpu_torch.ops.weighted_cuda`, every
+distinct tile through that of :mod:`~reservoir_tpu_torch.ops.distinct_cuda`;
+with ``device="cpu"`` the same wrappers run the plain torch versions.  There
+is no other path and no fallback: a build or launch failure raises.  In
 uniform mode a host-side lower bound on every reservoir's count (no device
 read) decides between the fill-capable and the steady update, as in the JAX
 engine; a weighted tile always takes the fill-capable kernel, because a
 zero-weight item is counted without taking a slot.
+
+Distinct mode takes 4-byte integer keys (int32, uint32) or 8-byte ones
+(int64, uint64).  An 8-byte host tile is split into its ``(hi, lo)`` word
+planes on the host (:func:`~.ops.distinct.split_values_host`) before its
+pinned snapshot; an 8-byte tile on the card goes to the kernel as it is,
+which reads both words of each key in place.  Results reassemble 8-byte
+keys on the host (:func:`~.ops.distinct.assemble_values`).
 
 Host tiles and weights (numpy arrays, lists, CPU tensors) are snapshotted
 into a pinned host buffer and copied to the card without blocking; the
@@ -38,6 +48,8 @@ from .convert import resolve_device
 from .errors import SamplerClosedError
 from .ops import algorithm_l as _algl
 from .ops import algorithm_l_cuda as _kernel
+from .ops import distinct as _dist
+from .ops import distinct_cuda as _dkernel
 from .ops import weighted as _wtd
 from .ops import weighted_cuda as _wkernel
 from .ops.rng import key_from_seed
@@ -49,13 +61,22 @@ _TORCH_DTYPES = {
     "float32": torch.float32,
     "uint32": torch.uint32,
 }
+#: distinct mode's key dtypes: 4-byte (narrow) and 8-byte (wide) integers
+_DISTINCT_DTYPES = {
+    "int32": torch.int32,
+    "uint32": torch.uint32,
+    "int64": torch.int64,
+    "uint64": torch.uint64,
+}
+
+State = Union[_algl.ReservoirState, _wtd.WeightedState, _dist.DistinctState]
 
 
 def _not_in_slice(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md, 'Left out of the first slice', "
-        f"{item}); the torch port runs uniform and weighted modes with int32 "
-        "counters on one device"
+        f"{item}); the torch port runs uniform, weighted and distinct modes with "
+        "int32 counters on one device"
     )
 
 
@@ -64,7 +85,8 @@ class ReservoirEngine:
 
     Args:
       config: engine configuration (k, R, dtypes, tile size); with
-        ``weighted=True`` every ``sample`` call takes a ``weights`` tile.
+        ``weighted=True`` every ``sample`` call takes a ``weights`` tile;
+        with ``distinct=True`` the keys are 4- or 8-byte integers.
       key: an int seed (``None`` means 0; the key words of ``jr.key(seed)``)
         or ``[2]`` uint32 key words.
       reusable: single-use engines close on ``result()``; reusable ones
@@ -82,13 +104,11 @@ class ReservoirEngine:
         device: Optional[Any] = None,
         map_fn: Any = None,
         hash_fn: Any = None,
-        _initial_state: Optional[Union[_algl.ReservoirState, _wtd.WeightedState]] = None,
+        _initial_state: Optional[State] = None,
     ) -> None:
         validate_max_sample_size(config.max_sample_size)
         if config.weighted and config.distinct:
             raise ValueError("weighted and distinct modes are mutually exclusive")
-        if config.distinct:
-            raise _not_in_slice("distinct mode", "L2")
         if config.count_dtype == "wide" or np.dtype(config.count_dtype) != np.int32:
             raise _not_in_slice(f"count_dtype={config.count_dtype!r}", "L3")
         if config.mesh_axis is not None:
@@ -101,22 +121,29 @@ class ReservoirEngine:
                 "'auto' and 'pallas' both run the CUDA kernel"
             )
         dtype_name = np.dtype(config.resolved_sample_dtype()).name
-        if dtype_name != np.dtype(config.element_dtype).name or dtype_name not in _TORCH_DTYPES:
+        dtypes = _DISTINCT_DTYPES if config.distinct else _TORCH_DTYPES
+        if dtype_name != np.dtype(config.element_dtype).name or dtype_name not in dtypes:
+            if config.distinct:
+                raise ValueError(
+                    "distinct mode requires a 32- or 64-bit integer sample dtype, the "
+                    f"same for elements and samples: one of {sorted(dtypes)}, got "
+                    f"{config.element_dtype!r} / {config.resolved_sample_dtype()!r}"
+                )
             raise ValueError(
                 "the torch port stores 4-byte words: element and sample dtype "
-                f"must both be one of {sorted(_TORCH_DTYPES)}, got "
+                f"must both be one of {sorted(dtypes)}, got "
                 f"{config.element_dtype!r} / {config.resolved_sample_dtype()!r}"
             )
         self._config = config
-        self._dtype = _TORCH_DTYPES[dtype_name]
+        self._dtype = dtypes[dtype_name]
         self._np_dtype = np.dtype(dtype_name)
+        self._wide = self._np_dtype.itemsize == 8
         self._reusable = reusable
         self._open = True
         self._device = resolve_device(device)
-        self._ops = _wtd if config.weighted else _algl
-        state_cls = _wtd.WeightedState if config.weighted else _algl.ReservoirState
+        self._ops = _dist if config.distinct else (_wtd if config.weighted else _algl)
         if _initial_state is not None:
-            self._state = state_cls(*(t.to(self._device) for t in _initial_state))
+            self._state = type(_initial_state)(*_on(_initial_state, lambda t: t.to(self._device)))
         else:
             if key is None or isinstance(key, int):
                 words = key_from_seed(0 if key is None else key)
@@ -149,11 +176,12 @@ class ReservoirEngine:
         return True if self._reusable else self._open
 
     @property
-    def state(self) -> Union[_algl.ReservoirState, _wtd.WeightedState]:
+    def state(self) -> State:
         """A copy of the state (the CUDA update mutates the live one): a
-        ``WeightedState`` in weighted mode, else a ``ReservoirState``."""
+        ``WeightedState`` in weighted mode, a ``DistinctState`` in distinct
+        mode, else a ``ReservoirState``."""
         self._check_open()
-        return type(self._state)(*(t.clone() for t in self._state))
+        return type(self._state)(*_on(self._state, torch.clone))
 
     def _check_open(self) -> None:
         if not self._reusable and not self._open:
@@ -187,12 +215,18 @@ class ReservoirEngine:
             return True
         return False
 
-    def _tile_to_device(self, tile: Any) -> torch.Tensor:
-        """The tile as a contiguous tensor on the engine's device."""
+    def _tile_to_device(self, tile: Any) -> _dist.Batch:
+        """The tile as a contiguous tensor on the engine's device; an 8-byte
+        host tile (or its ``(hi, lo)`` planes) as a pair of word planes."""
         if self._on_card(tile, "tile"):
-            if tile.dtype != self._dtype:
+            ok = tile.dtype in _dist.WIDE_DTYPES if self._wide else tile.dtype == self._dtype
+            if not ok:
                 raise ValueError(f"tile dtype {tile.dtype} != samples dtype {self._dtype}")
             return tile.contiguous()
+        if self._wide:
+            if not isinstance(tile, tuple):
+                tile = _dist.split_values_host(tile.numpy() if isinstance(tile, torch.Tensor) else tile)
+            return tuple(self._to_device(plane.view(np.int32), torch.int32) for plane in tile)
         host = tile.numpy() if isinstance(tile, torch.Tensor) else np.asarray(tile)
         if host.dtype != self._np_dtype:
             host = host.astype(self._np_dtype)
@@ -222,13 +256,17 @@ class ReservoirEngine:
         ``r`` take only ``tile[r, :valid[r]]``.  A weighted engine requires
         ``weights``, a nonnegative ``[R, B]`` tile (a zero weight is counted
         and never sampled); an unweighted one rejects them."""
+        if isinstance(tile, tuple):
+            raise ValueError("tile must be one [num_reservoirs, B] array, not a tuple")
         self._sample(tile, valid, weights, check_weights=True)
 
     def _sample(self, tile: Any, valid: Optional[Any], weights: Optional[Any],
                 check_weights: bool) -> None:
         self._check_open()
         R = self._config.num_reservoirs
-        shape = tuple(tile.shape) if hasattr(tile, "shape") else np.shape(tile)
+        # a tuple is the (hi, lo) word planes of an 8-byte stream's tile
+        first = tile[0] if isinstance(tile, tuple) else tile
+        shape = tuple(first.shape) if hasattr(first, "shape") else np.shape(first)
         if len(shape) != 2 or shape[0] != R:
             raise ValueError(f"tile must be [num_reservoirs={R}, B], got {shape}")
         if self._config.weighted and weights is None:
@@ -255,6 +293,8 @@ class ReservoirEngine:
         batch = self._tile_to_device(tile)
         if self._config.weighted:
             self._state = _wkernel.update_cuda(self._state, batch, w_dev, valid_dev)
+        elif self._config.distinct:
+            self._state = _dkernel.update_cuda(self._state, batch, valid_dev)
         else:
             steady = self._min_count >= self._config.max_sample_size
             fn = _kernel.update_steady_cuda if steady else _kernel.update_cuda
@@ -289,13 +329,17 @@ class ReservoirEngine:
         ``tile_width`` (default ``config.tile_size``) columns; the ragged
         tail is padded and masked through ``valid``.  A weighted engine
         takes a parallel ``[R, N]`` ``weights`` array, checked whole before
-        any tile is consumed; its padding has weight 1.0."""
+        any tile is consumed; its padding has weight 1.0.  A host stream of
+        8-byte distinct keys is split into word planes once, not per tile."""
         self._check_open()
         if fused:
             raise _not_in_slice("sample_stream(fused=True)", "L7")
         if not isinstance(stream, torch.Tensor):
             stream = np.asarray(stream)
         R, N = stream.shape
+        planes = None
+        if self._wide and not isinstance(stream, torch.Tensor):
+            planes = _dist.split_values_host(stream)
         if self._config.weighted:
             if weights is None:
                 raise ValueError("weighted engine requires a weights array")
@@ -313,12 +357,13 @@ class ReservoirEngine:
             raise ValueError("weights are only meaningful with weighted=True")
         B = tile_width or self._config.tile_size
         for start in range(0, N, B):
-            chunk = stream[:, start : start + B]
-            wchunk = weights[:, start : start + B] if weights is not None else None
-            w = chunk.shape[1]
+            cols = slice(start, start + B)
+            chunk = stream[:, cols] if planes is None else tuple(p[:, cols] for p in planes)
+            wchunk = weights[:, cols] if weights is not None else None
+            w = min(B, N - start)
             valid = None
             if w < B:
-                chunk = _pad(chunk, B, 0)
+                chunk = _pad(chunk, B, 0) if planes is None else tuple(_pad(p, B, 0) for p in chunk)
                 if wchunk is not None:
                     # weight 1.0 keeps the contract; valid masks it out
                     wchunk = _pad(wchunk, B, 1)
@@ -357,12 +402,17 @@ class ReservoirEngine:
 
     def _host_result(self) -> Tuple[np.ndarray, np.ndarray]:
         samples, sizes = self._ops.result(self._state)
+        if self._config.distinct:
+            samples = _dist.assemble_values(samples, self._state.value_hi, self._np_dtype)
+            return samples, sizes.cpu().numpy()
         return samples.cpu().numpy(), sizes.cpu().numpy()
 
     def result_arrays(self) -> Tuple[np.ndarray, np.ndarray]:
         """``(samples [R, k], sizes [R])`` on the host; entries at or past a
         row's size are zeros.  A weighted row's size is its number of filled
-        slots.  A single-use engine closes and frees its device state."""
+        slots; a distinct row holds its values in hash order, 8-byte keys
+        reassembled.  A single-use engine closes and frees its device
+        state."""
         self._check_open()
         out = self._host_result()
         if not self._reusable:
@@ -380,6 +430,12 @@ class ReservoirEngine:
         """Per-reservoir samples, truncated to their fill level."""
         samples, sizes = self.result_arrays()
         return [samples[r, : sizes[r]] for r in range(samples.shape[0])]
+
+
+def _on(state: State, fn) -> list:
+    """``fn`` applied to each field of ``state``; an absent (None) field
+    stays None."""
+    return [None if t is None else fn(t) for t in state]
 
 
 def _pad(chunk: Any, width: int, value: int) -> Any:

@@ -1,15 +1,17 @@
-"""Engine checkpoints in the JAX package's ``.npz`` format (uniform and
-weighted modes).
+"""Engine checkpoints in the JAX package's ``.npz`` format (uniform,
+weighted and distinct modes).
 
 A checkpoint holds the state arrays and a JSON manifest, byte-compatible
 with ``reservoir_tpu/utils/checkpoint.py`` format version 1: the same
 ``state_class``/``fields`` manifest (``ReservoirState`` with ``samples,
 count, nxt, log_w, key``; ``WeightedState`` with ``samples, lkeys, count,
-xw, key``), the key stored as its uint32 words in
-a ``prng_key`` field with its impl name, and the same ``engine`` block
-(config, lifecycle, fill lower bound).  A checkpoint written by either
-package restores in the other and continues bit-identically, because every
-draw is keyed on the absolute stream index.
+xw, key``; ``DistinctState`` with ``values, hash_hi, hash_lo, size, count,
+salts, value_hi``), a key stored as its uint32 words in a ``prng_key``
+field with its impl name, an absent ``value_hi`` (4-byte keys) as a field
+of kind ``none``, and the same ``engine`` block (config, lifecycle, fill
+lower bound).  A checkpoint written by either package restores in the
+other and continues bit-identically: every draw is keyed on the absolute
+stream index, and a distinct state is a function of the values seen.
 
 Writes are atomic (temp file, fsync, rename).  A truncated or corrupt file
 raises :class:`~reservoir_tpu_torch.errors.CheckpointCorrupt`; a checkpoint
@@ -30,18 +32,43 @@ import numpy as np
 import torch
 
 from ..config import SamplerConfig
-from ..convert import state_from_numpy, state_to_numpy, weighted_state_from_numpy
+from ..convert import (
+    distinct_state_from_numpy,
+    state_from_numpy,
+    state_to_numpy,
+    weighted_state_from_numpy,
+)
 from ..errors import CheckpointCorrupt, CheckpointMismatch
 
 __all__ = ["save_engine", "load_engine"]
 
 _FORMAT_VERSION = 1
 _KEY_IMPL = "threefry2x32"
-#: state class -> (its fields in order, the converter from numpy)
+#: state class -> (its fields in order, each with its manifest kind, and the
+#: converter from numpy); an "optional" field is an array or absent
 _STATES = {
-    "ReservoirState": (("samples", "count", "nxt", "log_w", "key"), state_from_numpy),
-    "WeightedState": (("samples", "lkeys", "count", "xw", "key"), weighted_state_from_numpy),
+    "ReservoirState": (
+        (("samples", "array"), ("count", "array"), ("nxt", "array"), ("log_w", "array"),
+         ("key", "prng_key")),
+        state_from_numpy,
+    ),
+    "WeightedState": (
+        (("samples", "array"), ("lkeys", "array"), ("count", "array"), ("xw", "array"),
+         ("key", "prng_key")),
+        weighted_state_from_numpy,
+    ),
+    "DistinctState": (
+        (("values", "array"), ("hash_hi", "array"), ("hash_lo", "array"), ("size", "array"),
+         ("count", "array"), ("salts", "array"), ("value_hi", "optional")),
+        distinct_state_from_numpy,
+    ),
 }
+
+
+def _state_class(config: SamplerConfig) -> str:
+    if config.distinct:
+        return "DistinctState"
+    return "WeightedState" if config.weighted else "ReservoirState"
 
 
 def _atomic_write_npz(path: str, arrays: dict, manifest: dict) -> None:
@@ -108,11 +135,17 @@ def save_engine(path: str, engine, metadata: Optional[dict] = None) -> None:
     """Checkpoint a live engine: state, config and lifecycle."""
     engine._check_open()
     state_class = type(engine._state).__name__
-    names = _STATES[state_class][0]
     host = state_to_numpy(engine._state)
-    arrays = {name: host[name] for name in names}
-    fields = [{"name": name, "kind": "array"} for name in names[:-1]]
-    fields.append({"name": "key", "kind": "prng_key", "impl": _KEY_IMPL})
+    arrays, fields = {}, []
+    for name, kind in _STATES[state_class][0]:
+        if host[name] is None:
+            fields.append({"name": name, "kind": "none"})
+            continue
+        arrays[name] = host[name]
+        if kind == "prng_key":
+            fields.append({"name": name, "kind": "prng_key", "impl": _KEY_IMPL})
+        else:
+            fields.append({"name": name, "kind": "array"})
     dev = engine.device
     manifest = {
         "state_class": state_class,
@@ -135,7 +168,8 @@ def save_engine(path: str, engine, metadata: Optional[dict] = None) -> None:
 
 
 def load_engine(path: str, engine_cls: Optional[type] = None, *, device: Any = None):
-    """Rebuild a checkpointed uniform or weighted engine on ``device``."""
+    """Rebuild a checkpointed uniform, weighted or distinct engine on
+    ``device``."""
     from ..engine import ReservoirEngine
 
     arrays, manifest = _read_npz(path)
@@ -146,34 +180,42 @@ def load_engine(path: str, engine_cls: Optional[type] = None, *, device: Any = N
     if state_class not in _STATES:
         raise CheckpointMismatch(
             f"checkpoint {path!r} holds a {state_class}; the torch port restores "
-            f"uniform and weighted engines ({' and '.join(_STATES)}) only"
+            f"{', '.join(_STATES)} engines only"
         )
-    names, from_numpy = _STATES[state_class]
+    specs, from_numpy = _STATES[state_class]
     if info.get("has_map_fn") or info.get("has_hash_fn"):
         raise CheckpointMismatch(
             f"checkpoint {path!r} was saved with a map_fn/hash_fn, which the "
             "torch port does not run"
         )
     kinds = {f["name"]: f for f in manifest.get("fields", ())}
-    for name in names:
-        if name not in kinds or name not in arrays:
+    values = []
+    for name, kind in specs:
+        field = kinds.get(name)
+        if field is not None and field.get("kind") == "none" and kind == "optional":
+            values.append(None)
+            continue
+        if field is None or name not in arrays:
             raise CheckpointCorrupt(f"checkpoint {path!r}: state field {name!r} is missing")
-    if kinds["key"].get("kind") != "prng_key" or kinds["key"].get("impl") != _KEY_IMPL:
-        raise CheckpointMismatch(
-            f"checkpoint {path!r}: key field {kinds['key']} is not {_KEY_IMPL} key data"
-        )
+        if kind == "prng_key" and (field.get("kind") != "prng_key" or field.get("impl") != _KEY_IMPL):
+            raise CheckpointMismatch(
+                f"checkpoint {path!r}: key field {field} is not {_KEY_IMPL} key data"
+            )
+        values.append(arrays[name])
     config = SamplerConfig(**info["config"])
-    if config.weighted != (state_class == "WeightedState"):
+    if _state_class(config) != state_class:
         raise CheckpointMismatch(
-            f"checkpoint {path!r}: a {state_class} with a config of weighted={config.weighted}"
+            f"checkpoint {path!r}: a {state_class} with a config of weighted="
+            f"{config.weighted}, distinct={config.distinct}"
         )
     R, k = config.num_reservoirs, config.max_sample_size
-    if arrays["samples"].shape != (R, k):
+    first = specs[0][0]
+    if arrays[first].shape != (R, k):
         raise CheckpointMismatch(
-            f"checkpoint {path!r}: samples have shape {arrays['samples'].shape}, "
+            f"checkpoint {path!r}: {first} have shape {arrays[first].shape}, "
             f"but the recorded config has R={R}, k={k}"
         )
-    state = from_numpy(*(arrays[name] for name in names), device="cpu")
+    state = from_numpy(*values, device="cpu")
     engine = (engine_cls or ReservoirEngine)(
         config, reusable=info["reusable"], device=device, _initial_state=state
     )

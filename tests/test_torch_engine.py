@@ -1,4 +1,4 @@
-"""The port's ``ReservoirEngine`` (uniform and weighted modes,
+"""The port's ``ReservoirEngine`` (uniform, weighted and distinct modes,
 ``device="cpu"``) against the JAX package's engine on the same tiles, bit
 for bit; its lifecycle; checkpoints across the two packages in both
 directions; and the port's rules: no CPU fallback, no import of jax or
@@ -19,6 +19,7 @@ import torch
 
 from reservoir_tpu.config import SamplerConfig as JConfig
 from reservoir_tpu.engine import ReservoirEngine as JEngine
+from reservoir_tpu_torch import convert
 from reservoir_tpu_torch import (
     CheckpointCorrupt,
     CheckpointMismatch,
@@ -27,6 +28,7 @@ from reservoir_tpu_torch import (
     SamplerConfig,
 )
 from reservoir_tpu_torch.ops import algorithm_l_cuda as TK
+from reservoir_tpu_torch.ops import distinct_cuda as TDK
 from reservoir_tpu_torch.ops import weighted_cuda as TWK
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -248,7 +250,9 @@ def test_checkpoint_errors_are_typed(tmp_path):
     bad.write_bytes(b"not a zip file")
     with pytest.raises(CheckpointCorrupt):
         ReservoirEngine.restore(str(bad), device="cpu")
-    distinct = JEngine(JConfig(max_sample_size=3, num_reservoirs=2, tile_size=4, distinct=True), key=0)
+    # a distinct engine saved with a hash_fn, which the port does not run
+    distinct = JEngine(JConfig(max_sample_size=3, num_reservoirs=2, tile_size=4, distinct=True),
+                       key=0, hash_fn=lambda v: (v >> 16, v))
     path = str(tmp_path / "distinct.npz")
     distinct.save(path)
     with pytest.raises(CheckpointMismatch):
@@ -288,7 +292,8 @@ def test_package_imports_neither_jax_nor_the_jax_package():
     [
         lambda: ReservoirEngine(SamplerConfig(4, 2, tile_size=8, weighted=True), device="cpu")
         .sample_stream(np.zeros((2, 8), np.int32), weights=np.ones((2, 8)), fused=True),
-        lambda: ReservoirEngine(SamplerConfig(4, 2, distinct=True), device="cpu"),
+        lambda: ReservoirEngine(SamplerConfig(4, 2, tile_size=8, distinct=True), device="cpu")
+        .sample_stream(np.zeros((2, 8), np.int32), fused=True),
         lambda: ReservoirEngine(SamplerConfig(4, 2, count_dtype="wide"), device="cpu"),
         lambda: ReservoirEngine(SamplerConfig(4, 2, count_dtype="int64"), device="cpu"),
         lambda: ReservoirEngine(SamplerConfig(4, 2, mesh_axis="res"), device="cpu"),
@@ -537,3 +542,185 @@ def test_cpu_weighted_engine_launches_no_kernel():
     eng.sample(np.zeros((4, 8), np.int32), weights=np.ones((4, 8), np.float32))
     eng.result_arrays()
     assert TWK.launches == before
+
+
+# ------------------------------------------------------------ distinct mode
+
+_DNP = {"int32": np.int32, "uint32": np.uint32, "int64": np.int64, "uint64": np.uint64}
+
+
+def _dpair(R, k, B, dtype="int32", seed=0, reusable=False):
+    kw = dict(max_sample_size=k, num_reservoirs=R, tile_size=B, element_dtype=dtype, distinct=True)
+    return (
+        JEngine(JConfig(**kw), key=seed, reusable=reusable),
+        ReservoirEngine(SamplerConfig(**kw), key=seed, reusable=reusable, device="cpu"),
+    )
+
+
+def _keys(rng, R, B, dtype="int32"):
+    """Zipf-like keys (heavy duplication, both signs) of ``dtype``; 8-byte
+    keys spread over both words."""
+    u = rng.uniform(1e-6, 1.0, (R, B))
+    t = np.minimum(u ** -4.0, 1e6).astype(np.int64) * rng.choice([-1, 1], (R, B))
+    if _DNP[dtype]().itemsize == 8:
+        return (t * np.int64(0x9E3779B97F4A7C15 - 2**64)).view(_DNP[dtype])
+    return t.astype(np.int32).view(_DNP[dtype])
+
+
+def _same_dstate(jeng, teng):
+    js, ts = jeng.state, teng.state
+    assert type(ts).__name__ == "DistinctState"
+    host = convert.distinct_state_to_numpy(ts)
+    for f in ("values", "hash_hi", "hash_lo", "size", "count", "salts", "value_hi"):
+        a = getattr(js, f)
+        if a is None:
+            assert host[f] is None, f
+        else:
+            assert np.asarray(a).dtype == host[f].dtype, f
+            np.testing.assert_array_equal(np.asarray(a), host[f], err_msg=f)
+    assert jeng._min_count == teng._min_count
+
+
+@pytest.mark.parametrize("dtype", ["int32", "uint32", "int64", "uint64"])
+def test_distinct_engine_equals_jax_engine(dtype):
+    R, k, B = 12, 8, 32
+    rng = np.random.default_rng(31)
+    jeng, teng = _dpair(R, k, B, dtype, seed=3, reusable=True)
+    feeds = [
+        (_keys(rng, R, 3, dtype), None),  # underfilled rows
+        (_keys(rng, R, B, dtype), rng.integers(0, B + 1, R).astype(np.int32)),  # ragged
+        (_keys(rng, R, B, dtype), None),
+        (_keys(rng, R, B, dtype), np.r_[0, B, rng.integers(0, B + 1, R - 2)].astype(np.int32)),
+    ]
+    for i, (tile, valid) in enumerate(feeds):
+        jeng.sample(tile, valid)
+        # the port also takes CPU tensors and lists (numpy reads a list of
+        # uint64 keys as floats, so those stay arrays)
+        if i % 2:
+            t_in = torch.from_numpy(tile.view(np.int64) if dtype == "uint64" else tile)
+        else:
+            t_in = tile if dtype == "uint64" else tile.tolist()
+        teng.sample(t_in, None if valid is None else torch.from_numpy(valid))
+        _same_dstate(jeng, teng)
+    _same_arrays(jeng.peek_arrays(), teng.peek_arrays())
+    samples, sizes = teng.peek_arrays()
+    assert samples.dtype == _DNP[dtype] and (sizes <= k).all()
+    for a, b in zip(jeng.result(), teng.result()):
+        np.testing.assert_array_equal(a, b)
+    _same_arrays(jeng.result_arrays(), teng.result_arrays())
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_distinct_sample_all_and_sample_stream_equal_jax(dtype):
+    R, k, B = 10, 6, 32
+    rng = np.random.default_rng(32)
+    items = [_keys(rng, R, B, dtype), (_keys(rng, R, B, dtype), np.full(R, 9, np.int32))]
+    stream = _keys(rng, R, 3 * B + 17, dtype)
+    jeng, teng = _dpair(R, k, B, dtype, seed=5, reusable=True)
+    jeng.sample_all(items)
+    teng.sample_all(items)
+    _same_dstate(jeng, teng)
+    jeng.sample_stream(stream)
+    teng.sample_stream(stream)
+    _same_dstate(jeng, teng)
+    # a tensor stream takes the same path, and the engine keeps streaming
+    _, t2 = _dpair(R, k, B, dtype, seed=5)
+    t2.sample_all(items)
+    t2.sample_stream(torch.from_numpy(stream), tile_width=24)
+    _same_arrays(teng.peek_arrays(), t2.result_arrays())
+    more = _keys(rng, R, B, dtype)
+    jeng.sample(more)
+    teng.sample(more)
+    _same_dstate(jeng, teng)
+    with pytest.raises(ValueError, match=r"tiles\[1\]"):
+        teng.sample_all([more, more[:-1]])
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_distinct_jax_checkpoint_restores_into_the_port_and_continues(tmp_path, dtype):
+    R, k, B = 9, 5, 16
+    rng = np.random.default_rng(33)
+    jeng, _ = _dpair(R, k, B, dtype, seed=8, reusable=True)
+    jeng.sample(_keys(rng, R, 3, dtype))
+    jeng.sample(_keys(rng, R, B, dtype), rng.integers(0, B + 1, R).astype(np.int32))
+    path = str(tmp_path / "jax.npz")
+    jeng.save(path)
+    teng = ReservoirEngine.restore(path, device="cpu")
+    _same_dstate(jeng, teng)
+    for _ in range(2):
+        tile = _keys(rng, R, B, dtype)
+        jeng.sample(tile)
+        teng.sample(tile)
+    _same_dstate(jeng, teng)
+    _same_arrays(jeng.result_arrays(), teng.result_arrays())
+
+
+@pytest.mark.parametrize("dtype", ["uint32", "uint64"])
+def test_distinct_port_checkpoint_restores_into_jax_and_continues(tmp_path, dtype):
+    R, k, B = 9, 5, 16
+    rng = np.random.default_rng(34)
+    jeng0, teng = _dpair(R, k, B, dtype, seed=10)
+    for _ in range(2):
+        tile = _keys(rng, R, B, dtype)
+        jeng0.sample(tile)
+        teng.sample(tile)
+    path, jpath = str(tmp_path / "port.npz"), str(tmp_path / "jax.npz")
+    teng.save(path, metadata={"who": "port"})
+    jeng0.save(jpath, metadata={"who": "port"})
+    manifests = []
+    for p in (path, jpath):
+        with np.load(p) as data:
+            manifests.append(json.loads(bytes(data["__manifest__"]).decode()))
+            wide = dtype == "uint64"
+            assert sorted(data.files) == sorted(
+                ["__manifest__", "values", "hash_hi", "hash_lo", "size", "count", "salts"]
+                + (["value_hi"] if wide else []))
+    for m in manifests:
+        del m["engine"]["backend"]
+    assert manifests[0] == manifests[1]
+    assert manifests[0]["state_class"] == "DistinctState"
+    assert manifests[0]["fields"][-1] == {"name": "value_hi", "kind": "array" if wide else "none"}
+    jeng = JEngine.restore(path)
+    again = ReservoirEngine.restore(path, device="cpu")
+    _same_dstate(jeng, teng)
+    for _ in range(2):
+        tile = _keys(rng, R, B, dtype)
+        for eng in (jeng, teng, again):
+            eng.sample(tile)
+    _same_dstate(jeng, teng)
+    _same_dstate(jeng, again)
+    _same_arrays(jeng.result_arrays(), teng.result_arrays())
+
+
+def test_distinct_engine_validates_like_the_jax_engine():
+    R, k, B = 4, 3, 8
+    for dtype in ("float32", "int16", "float64"):
+        with pytest.raises(ValueError, match="32- or 64-bit integer"):
+            ReservoirEngine(SamplerConfig(k, R, B, element_dtype=dtype, distinct=True), device="cpu")
+        with pytest.raises(ValueError, match="32- or 64-bit integer"):
+            JEngine(JConfig(k, R, B, element_dtype=dtype, distinct=True), key=0)
+    _, eng = _dpair(R, k, B, reusable=True)
+    with pytest.raises(ValueError, match="only meaningful with weighted=True"):
+        eng.sample(np.zeros((R, B), np.int32), weights=np.ones((R, B), np.float32))
+    with pytest.raises(ValueError, match="tile must be"):
+        eng.sample(np.zeros((R + 1, B), np.int32))
+    with pytest.raises(ValueError, match="not a tuple"):
+        eng.sample((np.zeros((R, B), np.int32),) * 2)
+    with pytest.raises(NotImplementedError, match="L5"):
+        ReservoirEngine(SamplerConfig(k, R, B, distinct=True), hash_fn=lambda v: (v, v), device="cpu")
+    with pytest.raises(ValueError, match="wide"):
+        SamplerConfig(k, R, B, distinct=True, count_dtype="wide")
+    _, wide = _dpair(R, k, B, "int64")
+    with pytest.raises(ValueError, match="64-bit integer keys"):
+        wide.sample(np.zeros((R, B), np.int32))
+    # nothing was consumed by the refused calls
+    assert (eng.state.count == 0).all() and (wide.state.count == 0).all()
+
+
+def test_cpu_distinct_engine_launches_no_kernel():
+    before = TDK.launches
+    _, eng = _dpair(4, 3, 8, "int64")
+    eng.sample(np.arange(32, dtype=np.int64).reshape(4, 8))
+    samples, sizes = eng.result_arrays()
+    assert TDK.launches == before
+    assert (sizes == 3).all() and samples.dtype == np.int64
