@@ -1,11 +1,13 @@
 """Smoke test of the torch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Drives the port's three paths on ``"cuda"`` — the uniform engine,
+Drives the port's four paths on ``"cuda"`` — the uniform engine,
 ``ReservoirEngine(SamplerConfig(k=128, R=65536, tile_size=2048), key=0)``,
 the weighted engine, ``ReservoirEngine(SamplerConfig(k=64, R=16384,
 tile_size=1024, weighted=True), key=0)``, and the distinct engine,
 ``ReservoirEngine(SamplerConfig(k=256, R=4096, tile_size=1024,
-distinct=True, element_dtype=...), key=0)`` with int32 and int64 keys — and
+distinct=True, element_dtype=...), key=0)`` with int32 and int64 keys, and
+the merge path, four shard engines of each of those configurations combined
+by ``parallel.merge``'s stream mergers through the all-gather kernel — and
 holds each CUDA kernel against its plain torch version.  Phases, each of
 which fails the run with a non-zero exit:
 
@@ -71,7 +73,43 @@ which fails the run with a non-zero exit:
    steady Zipf tile (after 8) and on a steady tile of fresh random keys
    (int32), and on a steady Zipf tile with int64 keys, each beside the
    plain version and the bound; ``torch.sort`` of the ``[R, k + B]`` packed
-   hashes as context (not the same function).
+   hashes as context (not the same function);
+16. the all-gather kernel vs its plain version, bit for bit on every rank's
+   copy: ``ring_all_gather`` for d in {2, 3, 4, 8} ranks on the card, b in
+   {1, 5, 64, 4096}, W in {1, 8, 129} and int32, uint32 and float32 words
+   (NaN payloads and -0.0 planted), each twice back to back on one
+   communicator (the flags count epochs); ``gather_parts`` on mixed leaves
+   and at the main path's shape (4 ranks of ``[65536, 128]`` samples and
+   ``[65536]`` counts); with two or more cards, the same with the ranks on
+   distinct cards, else a line that says the cross-card path was not run;
+17. the merge tree on the card equals the same on the CPU: uniform,
+   weighted and distinct ``merge_samples_device`` over P in {2, 3, 5, 8}
+   parts with partial fills (4 ranks on the card against the host tree),
+   and the three stream mergers over 5 shards of 256 rows;
+18. the merge path at full width, the launch counts set to 0 before it:
+   four uniform shard engines (R=65536, k=128, B=2048, their own seeds) fed
+   streams of 1000, 4096, 6144 and 8192 elements a row, merged by
+   ``uniform_stream_merger``: every merged size is k, every count the
+   total, no position twice in a row, the KS gate over the union stream,
+   and each shard's share of the samples within 5 sigma of its share of the
+   stream; four distinct shard engines (R=4096, k=256, one seed, so shared
+   salts) fed 1, 2, 3 and 4 Zipf tiles, merged by
+   ``distinct_stream_merger``: equal, entry for entry, to one engine run
+   over all 10 tiles, and on rows 0..1023 to the exact oracle; four
+   weighted shard engines (R=16384, k=64, their own seeds) fed 1, 2, 3 and
+   4 tiles with weight ``pos % 3``, merged by ``weighted_stream_merger``:
+   no zero-weight sample, the weight-2 share within 0.005 of 2/3; one
+   gather launch a merger; and beside each merger, ``gather_parts`` on its four shards' own
+   leaves (its launch shape) against the plain version, every rank's copy
+   bit for bit, in a launch that the path's count leaves out;
+19. merge timings as in 7: the all-gather at phase 18's uniform shape
+   beside its bytes bound, its plain version and ``torch.stack`` of the
+   packed blocks once a rank (the library yardstick; over NCCL only where
+   there is more than one card), and one batched pairwise merge of each
+   mode at its configuration's shape (host clock, synchronised; the
+   uniform one, a second of host-launched tensor code, once).
+
+A phase's line ends with the seconds since the script started.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or run outside a
@@ -147,7 +185,15 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's line (it opens with ``[``) ends with the
+    seconds since the script started, so the log shows where the run's
+    time goes."""
+    if msg.startswith("["):
+        msg = f"{msg} | t+{time.perf_counter() - T_START:.1f} s"
     print(msg, flush=True)
 
 
@@ -316,6 +362,7 @@ def main() -> None:
     from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
     from reservoir_tpu_torch.ops import distinct_cuda as dkern
     from reservoir_tpu_torch.ops import fmath
+    from reservoir_tpu_torch.ops import merge_cuda as mkern
     from reservoir_tpu_torch.ops import weighted_cuda as wkern
     from reservoir_tpu_torch.ops.rng import key_from_seed
     from reservoir_tpu_torch.utils.stats import KS_GATE, ks_one_sample_uniform
@@ -331,6 +378,7 @@ def main() -> None:
     kern._library()
     wkern._library()
     dkern._library()
+    mkern._library()
     log(f"[2 build] csrc built and loaded in {time.perf_counter() - t0:.2f} s")
 
     # 3. kernel vs plain version, full width
@@ -506,6 +554,7 @@ def main() -> None:
 
     weighted = weighted_phases(gen, dev)
     distinct = distinct_phases(gen, dev)
+    merge = merge_phases(gen, dev)
 
     card = card_line()
     log(card)
@@ -527,7 +576,7 @@ def main() -> None:
         "engine_elem_per_s": {"device_fed": dev_eps, "host_fed": host_eps},
         "host_tile_ms": {"snapshot": snapshot_ms, "h2d": h2d_ms},
         "warm_host_fed_elem_per_s": warm_host_eps,
-    }, weighted, distinct]}))
+    }, weighted, distinct, merge]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
 
@@ -997,6 +1046,414 @@ def distinct_phases(gen, dev) -> dict:
         "steady_fresh_tile": fresh,
         "steady_zipf_tile_int64": steady_wide,
         "engine_elem_per_s": rates,
+    }
+
+
+def word_blocks(gen, d: int, b: int, w: int, dtype, dev) -> list:
+    """d ``[b, w]`` blocks of random 32-bit words of ``dtype``, with -0.0 and
+    NaN payloads planted."""
+    blocks = []
+    for _ in range(d):
+        t = torch.randint(-(2**31), 2**31 - 1, (b, w), dtype=torch.int32, device=dev, generator=gen)
+        t[0, 0] = -(2**31)              # -0.0
+        t[b // 2, w // 2] = 0x7FC00001  # quiet NaN with a payload
+        t[-1, -1] = 0x7F800001          # signalling NaN
+        blocks.append(t.view(dtype))
+    return blocks
+
+
+def words_err(got, want) -> float:
+    """Largest difference between two nests of tensors, word for word as
+    integers; 0 when bit-identical."""
+    err = 0.0
+    for g_rank, w_rank in zip(got, want):
+        for g, w in zip(g_rank, w_rank):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                return float("inf")
+            err = max(err, float((bits(g).long() - bits(w).long()).abs().max().item()))
+    return err
+
+
+def merge_phases(gen, dev) -> dict:
+    """Phases 16-19, the merge path; returns its ``kernels`` entry."""
+    import reservoir_tpu_torch as rtt
+    from reservoir_tpu_torch.convert import distinct_state_to_numpy, state_parts
+    from reservoir_tpu_torch.ops import algorithm_l as plain
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.ops import distinct as dplain
+    from reservoir_tpu_torch.ops import distinct_cuda as dkern
+    from reservoir_tpu_torch.ops import merge_cuda as mkern
+    from reservoir_tpu_torch.ops import weighted as wplain
+    from reservoir_tpu_torch.ops import weighted_cuda as wkern
+    from reservoir_tpu_torch.ops.rng import key_from_seed
+    from reservoir_tpu_torch.parallel import merge as pmerge
+    from reservoir_tpu_torch.utils.stats import KS_GATE, ks_one_sample_uniform
+
+    # 16. the all-gather kernel vs its plain version
+    worst_err = 0.0
+
+    def held(got, want, what: str) -> None:
+        nonlocal worst_err
+        err = words_err(got, want)
+        worst_err = max(worst_err, err)
+        if err != 0.0:
+            fail(f"all-gather kernel != plain version ({what})")
+
+    def gather_cases(ranks_of, where: str) -> None:
+        gen.manual_seed(61)
+        cases = 0
+        for d in (2, 3, 4, 8):
+            comm = mkern.RingCommunicator(ranks_of(d))
+            before = mkern.launches
+            calls = 0
+            for b in (1, 5, 64, 4096):
+                for w in (1, 8, 129):
+                    for dtype in (torch.int32, torch.uint32, torch.float32):
+                        for _ in range(2):  # back to back on one communicator
+                            blocks = [blk.to(rank) for blk, rank in
+                                      zip(word_blocks(gen, d, b, w, dtype, dev), comm.ranks)]
+                            got = mkern.ring_all_gather(blocks, comm)
+                            want = mkern.ring_all_gather_plain(blocks, comm)
+                            if any(g.shape != (d, b, w) for g in got):
+                                fail(f"ring_all_gather gave a wrong shape (d {d}, b {b}, W {w})")
+                            held([got], [want], f"{where}, d {d}, b {b}, W {w}, {dtype}")
+                            calls += 1
+            # mixed leaves of one part state: float rows, int counts, uint salts
+            rank_leaves = [
+                (word_blocks(gen, 1, 7, 5, torch.float32, dev)[0].to(rank),
+                 torch.randint(0, 99, (7,), dtype=torch.int32, device=dev, generator=gen).to(rank),
+                 word_blocks(gen, 1, 7, 4, torch.uint32, dev)[0].to(rank))
+                for rank in comm.ranks
+            ]
+            held(mkern.gather_parts(rank_leaves, comm), mkern.gather_parts_plain(rank_leaves, comm),
+                 f"{where}, gather_parts, d {d}")
+            calls += 1
+            torch.cuda.synchronize()
+            comm.check()
+            per_call = len({r.index for r in comm.ranks})
+            if mkern.launches - before != calls * per_call:
+                fail(f"{calls} all-gathers over {per_call} cards counted {mkern.launches - before} launches")
+            cases += calls
+        log(f"[16 all-gather vs plain] {where}: d 2/3/4/8 x b 1/5/64/4096 x W 1/8/129 x int32/uint32/"
+            f"float32, twice each on one communicator, and gather_parts on mixed leaves: {cases} calls, "
+            "every rank's copy bit-identical")
+
+    gather_cases(lambda d: [dev] * d, "ranks on one card")
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        gather_cases(lambda d: [torch.device("cuda", i % n_cards) for i in range(d)],
+                     f"ranks over {n_cards} cards")
+    else:
+        log("[16 all-gather vs plain] this machine has one card: every rank above is on it; the "
+            "path with ranks on distinct cards (peer access over NVLink) was not run")
+    # the main path's shape: 4 ranks of uniform state
+    D = 4
+    gen.manual_seed(67)
+    full_leaves = [(random_tile(gen, K, torch.int32, dev),
+                    torch.randint(0, 2**31 - 1, (R,), dtype=torch.int32, device=dev, generator=gen))
+                   for _ in range(D)]
+    full_comm = mkern.RingCommunicator([dev] * D)
+    held(mkern.gather_parts(full_leaves, full_comm), mkern.gather_parts_plain(full_leaves, full_comm),
+         "the main path's shape")
+    full_comm.check()
+    log(f"[16 all-gather vs plain] gather_parts at the main path's shape ({D} ranks of [{R}, {K}] "
+        f"samples and [{R}] counts): every rank's copy bit-identical")
+
+    # 17. the merge tree on the card == the same on the CPU
+    k17 = 16
+    rng = np.random.default_rng(71)
+    for n_parts in (2, 3, 5, 8):
+        uniform_parts = []
+        for p in range(n_parts):
+            n = int(rng.integers(1, k17)) if p % 2 else int(rng.integers(k17, 4 * k17))
+            uniform_parts.append((rng.integers(0, 1 << 30, min(n, k17)).astype(np.int32), n))
+        by_mode = {"uniform": uniform_parts}
+        for mode in ("weighted", "distinct"):
+            cfg = rtt.SamplerConfig(max_sample_size=k17, num_reservoirs=n_parts, tile_size=64,
+                                    weighted=mode == "weighted", distinct=mode == "distinct")
+            eng = rtt.ReservoirEngine(cfg, key=2, device="cpu")
+            tile = rng.integers(0, 60, (n_parts, 64)).astype(np.int32)
+            valid = rng.integers(1, 65, n_parts).astype(np.int32)  # some rows stay short of k
+            if mode == "weighted":
+                eng.sample(tile, valid, weights=rng.uniform(0.0, 2.0, (n_parts, 64)).astype(np.float32))
+            else:
+                eng.sample(tile, valid)
+            parts = state_parts(eng.state)
+            if mode == "distinct":  # shards of one logical stream share salts
+                parts = [part[:5] + (parts[0][5],) for part in parts]
+            by_mode[mode] = parts
+        for mode, parts in by_mode.items():
+            want = pmerge.merge_samples_device(parts, 9, max_sample_size=k17, mode=mode, impl="host")
+            got = pmerge.merge_samples_device(parts, 9, max_sample_size=k17, mode=mode, impl="cuda",
+                                              devices=[dev] * 4)
+            for g, w in zip(got, want):
+                # arrays word for word (NaN-safe), totals and sizes as ints
+                g, w = np.atleast_1d(g), np.atleast_1d(w)
+                if g.dtype != w.dtype or g.shape != w.shape or g.tobytes() != w.tobytes():
+                    fail(f"merge tree on the card != on the CPU ({mode}, {n_parts} parts)")
+    log("[17 merge tree card vs CPU] merge_samples_device, uniform/weighted/distinct x 2/3/5/8 parts "
+        "with partial fills: 4 ranks on the card equal the host tree")
+    shards, rows17 = 5, 256
+    gen.manual_seed(73)
+    u_s = [torch.randint(0, 2**31 - 1, (rows17, k17), dtype=torch.int32, device=dev, generator=gen)
+           for _ in range(shards)]
+    u_c = [torch.randint(0, 3 * k17, (rows17,), dtype=torch.int32, device=dev, generator=gen)
+           for _ in range(shards)]
+    w_states, d_states = [], []
+    for s in range(shards):
+        elems = torch.randint(0, 200, (rows17, 64), dtype=torch.int32, device=dev, generator=gen)
+        weights = torch.rand((rows17, 64), device=dev, generator=gen)
+        valid = torch.randint(1, 65, (rows17,), dtype=torch.int32, device=dev, generator=gen)
+        w_states.append(wkern.update_cuda(wplain.init(key_from_seed(s), rows17, k17, device=dev),
+                                          elems, weights, valid))
+        d_states.append(dkern.update_cuda(dplain.init(key_from_seed(0), rows17, k17, device=dev),
+                                          elems, valid))
+
+    def on_cpu(leaves):
+        return [[t.cpu() for t in leaf] for leaf in leaves]
+
+    w_leaves = [[st.samples for st in w_states], [st.lkeys for st in w_states],
+                [st.count for st in w_states]]
+    d_leaves = [[getattr(st, f) for st in d_states]
+                for f in ("values", "hash_hi", "hash_lo", "size", "count", "salts")]
+    for mode, fn, leaves in (
+        ("uniform", lambda lv: pmerge.uniform_stream_merger(lv[0], lv[1], 11), [u_s, u_c]),
+        ("weighted", lambda lv: pmerge.weighted_stream_merger(*lv), w_leaves),
+        ("distinct", lambda lv: pmerge.distinct_stream_merger(*lv), d_leaves),
+    ):
+        got = fn(leaves)
+        want = fn(on_cpu(leaves))
+        if words_err([[g.cpu() for g in got]], [want]) != 0.0:
+            fail(f"{mode}_stream_merger on the card != on the CPU ({shards} shards of {rows17} rows)")
+    log(f"[17 merge tree card vs CPU] the three stream mergers over {shards} shards of {rows17} rows: "
+        "the card's rows equal the CPU's")
+    del u_s, u_c, w_states, d_states, w_leaves, d_leaves
+
+    # 18. the merge path at full width
+    def hold_path_gather(stacked, what: str) -> None:
+        """The all-gather as a merger launches it, on the shards' own leaves
+        (``stacked[i][r]`` is leaf i of rank r): every rank's copy of the
+        kernel's result against the plain version's, bit for bit.  This
+        comparison's launch is not the path's: the count is put back."""
+        counted = mkern.launches
+        rank_leaves = [tuple(leaf[r].contiguous() for leaf in stacked) for r in range(len(stacked[0]))]
+        comm = mkern.RingCommunicator([dev] * len(rank_leaves))
+        got = mkern.gather_parts(rank_leaves, comm)
+        comm.check()
+        if mkern.launches != counted + 1:
+            fail(f"gather_parts counted {mkern.launches - counted} launches for one call ({what})")
+        held(got, mkern.gather_parts_plain(rank_leaves, comm), what)
+        mkern.launches = counted
+
+    for mod in (kern, wkern, dkern, mkern):
+        mod.launches = 0
+    # uniform: four shards of unequal streams; an element is its position in
+    # the union stream of its row
+    lengths = [1000, 2 * B, 3 * B, 4 * B]
+    offsets = np.concatenate([[0], np.cumsum(lengths)])
+    N = int(offsets[-1])
+    cols = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
+    zero_rows = torch.zeros((R, 1), dtype=torch.int32, device=dev)
+    engines = []
+    t0 = time.perf_counter()
+    for s, length in enumerate(lengths):
+        eng = rtt.ReservoirEngine(rtt.SamplerConfig(max_sample_size=K, num_reservoirs=R, tile_size=B),
+                                  key=100 + s, reusable=True)
+        for start in range(0, length, B):
+            width = min(B, length - start)
+            tile = (zero_rows + int(offsets[s]) + start + cols).contiguous()
+            eng.sample(tile, None if width == B else np.full((R,), width, np.int32))
+        engines.append(eng)
+    states = [eng.state for eng in engines]
+    torch.cuda.synchronize()
+    t_feed = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_samples, m_count = pmerge.uniform_stream_merger(
+        [st.samples for st in states], [st.count for st in states], 5)
+    torch.cuda.synchronize()
+    t_merge_uniform = time.perf_counter() - t0
+    tiles_fed = sum(-(-length // B) for length in lengths)
+    if kern.launches != tiles_fed or mkern.launches != 1:
+        fail(f"the uniform merge path launched algl_update {kern.launches} times for {tiles_fed} tiles "
+             f"and merge_ring_gather {mkern.launches} times for one merge")
+    pos = m_samples.cpu().numpy()
+    count = m_count.cpu().numpy()
+    if count.dtype != np.uint32 or not (count == N).all():
+        fail(f"a merged count is not the union stream's length {N}")
+    if pos.min() < 0 or pos.max() >= N:
+        fail("a merged sample lies outside the union stream")
+    srt = np.sort(pos, axis=1)
+    if (srt[:, 1:] == srt[:, :-1]).any():
+        fail("a merged row holds one position twice")
+    ks = ks_one_sample_uniform(pos.ravel(), N)
+    if not ks < KS_GATE:
+        fail(f"KS distance {ks} of the merged positions is not below {KS_GATE}")
+    shares = []
+    for s, length in enumerate(lengths):
+        share = float(((pos >= offsets[s]) & (pos < offsets[s + 1])).mean())
+        p = length / N
+        sigma = (p * (1 - p) / pos.size) ** 0.5
+        if abs(share - p) > 5 * sigma:
+            fail(f"shard {s} holds {share:.6f} of the merged samples, its stream share is {p:.6f} "
+                 f"(5 sigma = {5 * sigma:.6f})")
+        shares.append(f"{share:.6f} of {p:.6f}")
+    log(f"[18 merge path] uniform: 4 shards of {lengths} elements a row, {kern.launches} tile launches and "
+        f"{mkern.launches} gather launch; every merged size {K}, every count {N}, KS {ks:.6f} < {KS_GATE}, "
+        f"shard shares {', '.join(shares)} (each within 5 sigma); fed in {t_feed:.3f} s, merged in "
+        f"{t_merge_uniform:.3f} s")
+    uniform_launches = mkern.launches
+    hold_path_gather([[st.samples for st in states], [st.count for st in states]],
+                     "the uniform merger's shards")
+    del engines, states, m_samples, m_count, pos, srt
+
+    # distinct: four shards with shared salts == one engine over the whole stream
+    gen.manual_seed(79)
+    tiles = [zipf_keys(gen, DR, DB, torch.int32, dev) for _ in range(10)]
+    dcfg = rtt.SamplerConfig(max_sample_size=DK, num_reservoirs=DR, tile_size=DB, distinct=True,
+                             element_dtype="int32")
+    whole = rtt.ReservoirEngine(dcfg, key=0, reusable=True)
+    for tile in tiles:
+        whole.sample(tile)
+    shard_states = []
+    nxt = 0
+    for n_tiles in (1, 2, 3, 4):
+        eng = rtt.ReservoirEngine(dcfg, key=0, reusable=True)
+        for tile in tiles[nxt:nxt + n_tiles]:
+            eng.sample(tile)
+        nxt += n_tiles
+        shard_states.append(eng.state)
+    d_stacked = [[getattr(st, f) for st in shard_states]
+                 for f in ("values", "hash_hi", "hash_lo", "size", "count", "salts")]
+    t0 = time.perf_counter()
+    merged = pmerge.distinct_stream_merger(*d_stacked)
+    torch.cuda.synchronize()
+    t_merge_distinct = time.perf_counter() - t0
+    if dkern.launches != 20 or mkern.launches != uniform_launches + 1:
+        fail(f"the distinct merge path launched distinct_update {dkern.launches} times for 20 tiles and "
+             f"merge_ring_gather {mkern.launches - uniform_launches} times for one merge")
+    hold_path_gather(d_stacked, "the distinct merger's shards")
+    want = whole.state
+    for name, got in zip(("values", "hash_hi", "hash_lo", "size", "count"), merged):
+        if not torch.equal(bits(got), bits(getattr(want, name))):
+            fail(f"the merge of four distinct shards differs from one engine over the stream in {name}")
+    salts = distinct_state_to_numpy(want)["salts"]
+    # the oracle over rows 0..ROWS_CPU-1 (phase 14 holds the engine to it on
+    # every row, and every merged row equals that engine's above)
+    ok, msg, _, _ = distinct_oracle([t[:ROWS_CPU].cpu().numpy() for t in tiles], salts[:ROWS_CPU],
+                                    merged[0][:ROWS_CPU].cpu().numpy(), merged[3][:ROWS_CPU].cpu().numpy())
+    if not ok:
+        fail(f"merged distinct shards: {msg}")
+    log(f"[18 merge path] distinct: 4 shards of 1/2/3/4 Zipf tiles with shared salts, merged in "
+        f"{t_merge_distinct:.3f} s: equal entry for entry to one engine over all 10 tiles, and on rows "
+        f"0..{ROWS_CPU - 1} to the exact oracle; sizes {int(merged[3].min())}..{int(merged[3].max())}")
+    del tiles, whole, shard_states, d_stacked, merged, want
+
+    # weighted: element = position in the union stream, weight = position % 3
+    wlengths = [WB, 2 * WB, 3 * WB, 4 * WB]
+    woffsets = np.concatenate([[0], np.cumsum(wlengths)])
+    wcols = torch.arange(WB, dtype=torch.int32, device=dev)[None, :]
+    wzero = torch.zeros((WR, 1), dtype=torch.int32, device=dev)
+    w_states = []
+    for s, length in enumerate(wlengths):
+        eng = rtt.ReservoirEngine(rtt.SamplerConfig(max_sample_size=WK, num_reservoirs=WR, tile_size=WB,
+                                                    weighted=True), key=200 + s, reusable=True)
+        for start in range(0, length, WB):
+            tile = (wzero + int(woffsets[s]) + start + wcols).contiguous()
+            eng.sample(tile, weights=(tile % 3).float())
+        w_states.append(eng.state)
+    w_stacked = [[st.samples for st in w_states], [st.lkeys for st in w_states],
+                 [st.count for st in w_states]]
+    t0 = time.perf_counter()
+    w_samples, w_lkeys, w_count = pmerge.weighted_stream_merger(*w_stacked)
+    torch.cuda.synchronize()
+    t_merge_weighted = time.perf_counter() - t0
+    if wkern.launches != 10 or mkern.launches != uniform_launches + 2:
+        fail(f"the weighted merge path launched weighted_update {wkern.launches} times for 10 tiles and "
+             f"merge_ring_gather {mkern.launches - uniform_launches - 1} times for one merge")
+    main_launches = mkern.launches
+    hold_path_gather(w_stacked, "the weighted merger's shards")
+    wpos = w_samples.cpu().numpy()
+    if not bool((w_lkeys > float("-inf")).all().item()) or not bool((w_count == int(woffsets[-1])).all().item()):
+        fail("a merged weighted reservoir is not full, or its count is not the union stream's length")
+    if (wpos % 3 == 0).any():
+        fail(f"{int((wpos % 3 == 0).sum())} zero-weight elements are in the merged weighted sample")
+    share2 = float((wpos % 3 == 2).mean())
+    if abs(share2 - 2.0 / 3.0) > 0.005:
+        fail(f"merged weight-2 share {share2:.6f} is not within 0.005 of 2/3")
+    log(f"[18 merge path] weighted: 4 shards of 1/2/3/4 tiles, merged in {t_merge_weighted:.3f} s: every "
+        f"reservoir full, no zero-weight sample, weight-2 share {share2:.6f} (2/3 +- 0.005); "
+        f"{main_launches} gather launches for the three mergers")
+    log(f"[18 merge path] the all-gather at each merger's launch shape, on its four shards' own leaves "
+        f"(uniform [{R}, {K}] + [{R}]; distinct 3 x [{DR}, {DK}] + 2 x [{DR}] + [{DR}, 4]; weighted "
+        f"2 x [{WR}, {WK}] + [{WR}]): every rank's copy bit-identical to the plain version's")
+    del w_states, w_stacked, w_samples, w_lkeys, w_count
+
+    # 19. timings at the uniform merge's shape
+    def gather_bound_ms(d: int, words: int) -> float:
+        """Every input word read once, every output word written once."""
+        return 1e3 * (d + d * d) * words * 4 / PEAK_BYTES
+
+    words = R * K + R
+    gather_ms = event_ms(lambda _: mkern.gather_parts(full_leaves, full_comm), batch=10)
+    full_comm.check()
+    plain_ms = event_ms(lambda _: mkern.gather_parts_plain(full_leaves, full_comm), batch=10)
+    packed = [torch.cat([s, c[:, None]], 1) for s, c in full_leaves]
+    library_ms = event_ms(lambda _: [torch.stack(packed) for _ in range(D)], batch=10)
+    bound = gather_bound_ms(D, words)
+    del packed
+
+    def host_ms(fn, runs: int = 3) -> float:
+        times = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    (sa, ca), (sb, cb) = full_leaves[0], full_leaves[1]
+    ca, cb = ca % (4 * K), cb % (4 * K)  # counts around k: every row draws
+    # one run: a second of host-launched tensor code, which a median of three
+    # would not steady
+    pair_uniform_ms = host_ms(lambda: plain.merge_samples(sa, ca, sb, cb, key_from_seed(1).to(dev)), runs=1)
+    lk = [-torch.rand((WR, WK), device=dev, generator=gen) for _ in range(2)]
+    ws = [torch.randint(0, 2**31 - 1, (WR, WK), dtype=torch.int32, device=dev, generator=gen) for _ in range(2)]
+    wc = torch.full((WR,), 4 * WK, dtype=torch.int32, device=dev)
+    pair_weighted_ms = host_ms(lambda: wplain.merge_parts(ws[0], lk[0], wc, ws[1], lk[1], wc))
+    dstates = []
+    for _ in range(2):
+        st = dplain.init(key_from_seed(0), DR, DK, device=dev)
+        dstates.append(dkern.update_cuda(st, zipf_keys(gen, DR, DB, torch.int32, dev)))
+    pair_distinct_ms = host_ms(lambda: dplain.merge(dstates[0], dstates[1]))
+    del full_leaves, lk, ws, dstates
+    card = card_line()
+    log(f"[19 merge timings] {card} | all-gather of {D} ranks x ([{R}, {K}] + [{R}]) words "
+        f"({4 * words / 1e6:.1f} MB a rank in, {4 * D * words / 1e6:.1f} MB a rank out): kernel "
+        f"{gather_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.stack of the packed blocks once a rank "
+        f"{library_ms:.4f} ms, bound {bound:.4f} ms (bytes)")
+    log(f"[19 merge timings] {card} | one batched pairwise merge: uniform [{R}, {K}] {pair_uniform_ms:.1f} ms, "
+        f"weighted [{WR}, {WK}] {pair_weighted_ms:.2f} ms, distinct [{DR}, {DK}] {pair_distinct_ms:.2f} ms; "
+        f"whole mergers over 4 shards: uniform {1e3 * t_merge_uniform:.1f} ms, distinct "
+        f"{1e3 * t_merge_distinct:.1f} ms, weighted {1e3 * t_merge_weighted:.1f} ms (first calls)")
+    return {
+        "name": "merge_ring_gather",
+        "route": "cuda",
+        "source": "reservoir_tpu_torch/csrc/merge_ring.cu",
+        "replaces": "reservoir_tpu/ops/merge_pallas.py:59",
+        "launches": main_launches,
+        "max_abs_err": worst_err,
+        "ms": gather_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": "bytes",
+        "library_ms": library_ms,
+        "library_note": f"torch.stack of the {D} packed [{R}, {K + 1}] blocks, once a rank, on one card",
+        "cards": n_cards,
+        "pairwise_merge_ms": {"uniform": pair_uniform_ms, "weighted": pair_weighted_ms,
+                              "distinct": pair_distinct_ms},
+        "stream_merger_ms": {"uniform": 1e3 * t_merge_uniform, "distinct": 1e3 * t_merge_distinct,
+                             "weighted": 1e3 * t_merge_weighted},
     }
 
 

@@ -2,7 +2,8 @@
 NVIDIA H100.
 
 It runs the uniform (duplicates-mode) Algorithm-L engine, the weighted
-A-ExpJ engine and the distinct (bottom-k) engine:
+A-ExpJ engine and the distinct (bottom-k) engine, and merges the reservoirs
+of several shards of one stream into one exact sample:
 
 - :mod:`reservoir_tpu_torch.ops.threefry`, :mod:`.ops.rng` — counter-keyed
   Threefry draws equal to ``jax.random``'s;
@@ -12,12 +13,15 @@ A-ExpJ engine and the distinct (bottom-k) engine:
   distinct mode;
 - :mod:`reservoir_tpu_torch.ops.algorithm_l`, :mod:`.ops.weighted` (with
   the blocked prefix sum of :mod:`.ops.prefix`) and :mod:`.ops.distinct` —
-  the plain torch versions;
-- :mod:`reservoir_tpu_torch.ops.algorithm_l_cuda`, :mod:`.ops.weighted_cuda`
-  and :mod:`.ops.distinct_cuda` — the hand-written CUDA kernels
-  (``csrc/algorithm_l.cu``, ``csrc/weighted.cu``, ``csrc/distinct.cu``),
-  built with ``nvcc`` at first use;
-- :class:`ReservoirEngine` with checkpoints in the JAX package's format.
+  the plain torch versions, each with its pairwise merge;
+- :mod:`reservoir_tpu_torch.ops.algorithm_l_cuda`, :mod:`.ops.weighted_cuda`,
+  :mod:`.ops.distinct_cuda` and :mod:`.ops.merge_cuda` — the hand-written
+  CUDA kernels (``csrc/algorithm_l.cu``, ``csrc/weighted.cu``,
+  ``csrc/distinct.cu``, ``csrc/merge_ring.cu``), built with ``nvcc`` at
+  first use;
+- :class:`ReservoirEngine` with checkpoints in the JAX package's format;
+- :mod:`reservoir_tpu_torch.parallel.merge` — the merge tree over parts
+  spread over ranks, and the stream mergers.
 
 The package imports torch and numpy, never jax and nothing of
 ``reservoir_tpu``.  Its entry points run on the card (``device=None`` means

@@ -10,11 +10,18 @@ uint32 low words for 8-byte keys), ``hash_hi``/``hash_lo [R, k]`` uint32,
 ``size``/``count [R]`` int32, ``salts [R, 4]`` uint32 and, for 8-byte keys,
 ``value_hi [R, k]`` uint32.  Two packages given the same arrays start from
 the same state.
+
+The merged count of a uniform merge is uint32 in the JAX package (the sum
+of two int32 counts can pass 2^31, never 2^32).  The port returns it as a
+``torch.uint32`` tensor, whose ``.numpy()`` is the JAX package's
+``np.uint32`` array; inside its arithmetic the port carries it, like every
+uint32 word, in masked int64.  :func:`state_parts` cuts a state into the
+per-row part tuples that ``parallel.merge.merge_samples_device`` takes.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,6 +38,7 @@ __all__ = [
     "weighted_state_to_numpy",
     "distinct_state_from_numpy",
     "distinct_state_to_numpy",
+    "state_parts",
 ]
 
 
@@ -178,3 +186,22 @@ def weighted_state_to_numpy(state: WeightedState) -> Dict[str, np.ndarray]:
     if not isinstance(state, WeightedState):
         raise TypeError(f"expected a WeightedState, got {type(state).__name__}")
     return state_to_numpy(state)
+
+
+def state_parts(state, rows: Optional[Sequence[int]] = None) -> List[tuple]:
+    """One part tuple a row (default: every row) of a state, as
+    ``parallel.merge.merge_samples_device`` takes them: uniform ``(sample
+    cut to its fill, count)``; weighted ``(samples [k], lkeys [k], count)``;
+    distinct (narrow keys) ``(values [k], hash_hi [k], hash_lo [k], size,
+    count, salts [4])``."""
+    host = state_to_numpy(state)
+    rows = range(len(host["count"])) if rows is None else rows
+    if isinstance(state, ReservoirState):
+        k = state.k
+        return [(host["samples"][r, : min(int(host["count"][r]), k)], int(host["count"][r])) for r in rows]
+    if isinstance(state, WeightedState):
+        return [(host["samples"][r], host["lkeys"][r], int(host["count"][r])) for r in rows]
+    if state.wide:
+        raise ValueError("merge parts take narrow (4-byte key) distinct states")
+    return [(host["values"][r], host["hash_hi"][r], host["hash_lo"][r], int(host["size"][r]),
+             int(host["count"][r]), host["salts"][r]) for r in rows]

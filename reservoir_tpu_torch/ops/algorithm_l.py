@@ -15,6 +15,12 @@ of a stream into tiles gives the same state.
 
 Every array moves as 32-bit words: samples and batch are handled through
 their int32 view, so float ``-0.0`` and NaN payloads survive untouched.
+
+:func:`merge_samples` combines two sets of reservoirs over disjoint streams
+into one exact sample of their union (a hypergeometric draw, then uniform
+subsets of the two sides); :func:`merge_samples_keyed` is the same with one
+key per row, so that a whole level of a merge tree runs as one call.
+Narrow counts only: int32 or uint32 in, uint32 out.
 """
 
 from __future__ import annotations
@@ -24,7 +30,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import fmath
+from .hashing import to_i32, words
 from .rng import accept_draws_words, split_keys
+from .threefry import MASK32, bits_words, fold_in_words, threefry2x32
 
 __all__ = [
     "ReservoirState",
@@ -34,6 +42,9 @@ __all__ = [
     "update_steady",
     "update_accepts",
     "result",
+    "merge_samples",
+    "merge_samples_keyed",
+    "merge",
 ]
 
 _INT32_MAX = 2**31 - 1
@@ -240,3 +251,146 @@ def result(state: ReservoirState) -> Tuple[torch.Tensor, torch.Tensor]:
     mask = torch.arange(state.k, device=state.samples.device)[None, :] < size[:, None]
     bits = torch.where(mask, state.samples.view(torch.int32), 0)
     return bits.view(state.samples.dtype), size
+
+
+# ------------------------------------------------------------------- merge
+
+
+def _randint_exact(f1: torch.Tensor, f2: torch.Tensor, denom: torch.Tensor) -> torch.Tensor:
+    """An exact uniform integer in ``[0, denom)`` for each lane's folded key
+    ``(f1, f2)``: every argument an int64 tensor of uint32 values,
+    ``denom >= 1``.
+
+    Rejection over fresh 32-bit draws: attempt ``a`` is ``b0 ^ b1`` of the
+    Threefry block ``(1, a)``, accepted when it lies below the largest
+    multiple of ``denom`` in the word space, then reduced mod ``denom``.
+    The lanes run in lockstep until every one has accepted (fewer than two
+    attempts each on average)."""
+    space_mod = ((MASK32 % denom) + 1) % denom
+    # 0 - space_mod wraps in uint32; 0 means denom divides 2^32: accept all
+    thresh = (-space_mod) & MASK32
+    one = torch.ones_like(f1)
+    b0, b1 = threefry2x32(f1, f2, one, torch.zeros_like(f1))
+    bits = b0 ^ b1
+    lanes = torch.nonzero((space_mod != 0) & (bits >= thresh)).flatten()
+    a = 0
+    while lanes.numel():
+        a += 1
+        b0, b1 = threefry2x32(f1[lanes], f2[lanes], one[lanes], torch.full_like(lanes, a))
+        again = b0 ^ b1
+        bits[lanes] = again
+        lanes = lanes[again >= thresh[lanes]]
+    return bits % denom
+
+
+def _masked_perm(f1: torch.Tensor, f2: torch.Tensor, k: int, size: torch.Tensor) -> torch.Tensor:
+    """Per row, a random permutation of ``[0, size)`` padded into k slots:
+    the k uniforms of ``jr.uniform(key, (k,))`` for the row's key ``(f1,
+    f2)`` (word ``j`` onto ``[0, 1)`` as ``(w >> 9) * 2^-23``), slots at or
+    past ``size`` pushed to ``+inf``, and a stable argsort."""
+    w = torch.stack(bits_words(f1, f2, k), dim=1)
+    u = (w >> 9).to(torch.float32) * float(2.0**-23)
+    slot = torch.arange(k, device=u.device)
+    u = torch.where(slot[None, :] < size[:, None], u, float("inf"))
+    return torch.argsort(u, dim=1, stable=True)
+
+
+def merge_samples_keyed(
+    samples_a: torch.Tensor,
+    count_a: torch.Tensor,
+    samples_b: torch.Tensor,
+    count_b: torch.Tensor,
+    row_keys: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`merge_samples` with row ``r`` drawing from its own key
+    ``row_keys[r]`` (``[R, 2]`` int64 key words).  The rows are independent,
+    so the pairs of one level of a merge tree, stacked along the rows with
+    their keys, merge in one call with the bits of one call a pair."""
+    R, k = samples_a.shape
+    if samples_b.shape != (R, k) or samples_a.dtype != samples_b.dtype:
+        raise ValueError(
+            f"both sides must be [R, k] samples of one dtype, got {samples_a.dtype} "
+            f"{tuple(samples_a.shape)} and {samples_b.dtype} {tuple(samples_b.shape)}"
+        )
+    if samples_a.dtype not in SAMPLE_DTYPES:
+        raise ValueError(f"sample dtype must be one of {SAMPLE_DTYPES}, got {samples_a.dtype}")
+    for name, c in (("count_a", count_a), ("count_b", count_b)):
+        if c.ndim == 2:
+            raise NotImplementedError(
+                "merging WIDE [R, 2] counts is not ported yet (ROADMAP.md, 'Left out of "
+                "the first slice', L3)"
+            )
+        if c.shape != (R,) or c.dtype not in (torch.int32, torch.uint32):
+            raise ValueError(f"{name} must be int32 or uint32 [R={R}], got {c.dtype} {tuple(c.shape)}")
+    if row_keys.shape != (R, 2) or row_keys.dtype != torch.int64:
+        raise ValueError(f"row_keys must be int64 [R={R}, 2] key words, got {row_keys.dtype} "
+                         f"{tuple(row_keys.shape)}")
+    dev = samples_a.device
+    c_a, c_b = words(count_a), words(count_b)  # widened to uint32, as the sum needs
+    sz_a, sz_b = torch.clamp(c_a, max=k), torch.clamp(c_b, max=k)
+    total = (c_a + c_b) & MASK32
+    m = torch.clamp(total, max=k)
+    kw1, kw2 = row_keys[:, 0], row_keys[:, 1]
+
+    # j_a ~ Hypergeometric(total, c_a, m): m draws without replacement, step
+    # t keyed on fold_in(key, t); steps at or past a row's m change nothing
+    rem_a, rem_b = c_a.clone(), c_b.clone()
+    j_a = torch.zeros(R, dtype=torch.int64, device=dev)
+    steps = int(m.max().item()) if R else 0
+    for t in range(steps):
+        f1, f2 = fold_in_words(kw1, kw2, torch.full((R,), t, dtype=torch.int32, device=dev))
+        r = _randint_exact(f1, f2, torch.clamp(rem_a + rem_b, min=1))
+        pick_a = r < rem_a
+        active = t < m
+        take_a = (active & pick_a).to(torch.int64)
+        take_b = (active & ~pick_a).to(torch.int64)
+        rem_a, rem_b, j_a = rem_a - take_a, rem_b - take_b, j_a + take_a
+
+    # a uniform j_a-subset of A, then an (m - j_a)-subset of B; the draw
+    # indices k and k + 1 are disjoint from the scan's t < k
+    at = lambda i: torch.full((R,), i, dtype=torch.int32, device=dev)  # noqa: E731
+    perm_a = _masked_perm(*fold_in_words(kw1, kw2, at(k)), k, sz_a)
+    perm_b = _masked_perm(*fold_in_words(kw1, kw2, at(k + 1)), k, sz_b)
+    pos = torch.arange(k, device=dev)[None, :].expand(R, k)
+    from_a = pos < j_a[:, None]
+    idx = torch.where(from_a, perm_a, perm_b.gather(1, torch.clamp(pos - j_a[:, None], min=0)))
+    bits_a, bits_b = samples_a.view(torch.int32), samples_b.view(torch.int32)
+    merged = torch.where(from_a, bits_a.gather(1, idx), bits_b.gather(1, idx))
+    merged = torch.where(pos < m[:, None], merged, 0)
+    return merged.view(samples_a.dtype), to_i32(total).view(torch.uint32)
+
+
+def merge_samples(
+    samples_a: torch.Tensor,
+    count_a: torch.Tensor,
+    samples_b: torch.Tensor,
+    count_b: torch.Tensor,
+    key_words: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact merge of two reservoir sets over disjoint streams: row ``r`` of
+    the result is a uniform ``min(k, nA + nB)``-subset of the union of the
+    two rows' streams.
+
+    Args are ``(samples [R, k], count [R])`` pairs as sampling produces them
+    (entries past ``min(count, k)`` are ignored; counts int32, or the uint32
+    of an earlier merge) and the merge key's ``[2]`` words, split into one
+    key a row.  Returns ``(samples [R, k], count [R])``; the count is
+    ``torch.uint32``, exact for any combined total below 2^32, and the
+    merged size is ``min(count, k)``.  The merge is terminal: it yields a
+    sample, not a resumable Algorithm-L state."""
+    key_words = torch.as_tensor(key_words, device=samples_a.device)
+    return merge_samples_keyed(
+        samples_a, count_a, samples_b, count_b, split_keys(key_words, samples_a.shape[0])
+    )
+
+
+def merge(
+    state_a: ReservoirState, state_b: ReservoirState, key_words: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`merge_samples` on two states: ``(samples [R, k], size [R]
+    int32, count [R] uint32)``."""
+    samples, count = merge_samples(
+        state_a.samples, state_a.count, state_b.samples, state_b.count, key_words
+    )
+    size = torch.clamp(words(count), max=state_a.k).to(torch.int32)
+    return samples, size, count

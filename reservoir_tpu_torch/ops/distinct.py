@@ -26,7 +26,11 @@ stored as 32-bit words: the narrow ``values`` in the sample dtype
 (``torch.int32`` or ``torch.uint32``), every other plane, and the salts, as
 ``torch.int32`` bit patterns of uint32 words.  A wide tile is an int64 (or
 uint64) ``[R, B]`` tensor or an ``(hi, lo)`` pair of 32-bit ``[R, B]``
-planes.  ``merge`` is not ported yet (ROADMAP.md, L8).
+planes.
+
+:func:`merge` combines two states over shards of the same logical streams
+(same salts) by the same sort: the union of their entries, deduplicated,
+cut to the k smallest hashes.  There padding is told by ``size`` alone.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .hashing import default_hash64, scramble64, words
+from .hashing import default_hash64, scramble64, to_i32, words
 from .threefry import MASK32, threefry2x32
 
 __all__ = [
@@ -46,6 +50,7 @@ __all__ = [
     "init",
     "update",
     "update_steady",
+    "merge",
     "result",
     "split_values_host",
     "split_values",
@@ -84,12 +89,6 @@ class DistinctState(NamedTuple):
     def wide(self) -> bool:
         """True when the state holds 8-byte keys as two word planes."""
         return self.value_hi is not None
-
-
-def to_i32(x: torch.Tensor) -> torch.Tensor:
-    """uint32 values carried in int64 as int32 bit patterns (exact, with no
-    out-of-range cast)."""
-    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
 
 
 def split_values_host(values) -> Tuple[np.ndarray, np.ndarray]:
@@ -213,13 +212,28 @@ def update(state: DistinctState, batch: Batch, valid: Optional[torch.Tensor] = N
     cvlo = words(state.values)
     cvhi = words(state.value_hi) if state.wide else _carried_hi(state.values)
 
-    pad = torch.cat([carried_pad, tile_pad], 1).to(torch.int64)
-    h_hi = torch.cat([words(state.hash_hi), hhi], 1)
-    h_lo = torch.cat([words(state.hash_lo), hlo], 1)
-    v_hi = torch.cat([cvhi, bhi], 1)
-    v_lo = torch.cat([cvlo, blo], 1)
+    new = _bottom_k(
+        torch.cat([carried_pad, tile_pad], 1),
+        torch.cat([words(state.hash_hi), hhi], 1),
+        torch.cat([words(state.hash_lo), hlo], 1),
+        torch.cat([cvhi, bhi], 1),
+        torch.cat([cvlo, blo], 1),
+        k,
+    )
+    return _state_of(new, state, to_i32((state.count.to(torch.int64) + v) & MASK32))
+
+
+def _bottom_k(pad, h_hi, h_lo, v_hi, v_lo, k: int):
+    """The sort, dedup and cut shared by :func:`update` and :func:`merge`:
+    ``[R, n]`` lanes (``pad`` bool, the rest uint32 words in int64) sorted
+    on ``(pad, hash, value)``, equal runs collapsed to their first lane,
+    padding dropped, the first k survivors kept.  Returns ``(hash_hi,
+    hash_lo, value_hi, value_lo, size)`` as int32 planes ``[R, k]`` and
+    int32 ``[R]``; slots past ``size`` hold hash ``(MAX, MAX)``, value 0."""
+    R = pad.shape[0]
+    dev = pad.device
     # a lexicographic sort on (pad, hash, value) by stable sorts, last key first
-    cols = (pad, h_hi, h_lo, v_hi, v_lo)
+    cols = (pad.to(torch.int64), h_hi, h_lo, v_hi, v_lo)
     cols = _sort_by(_key64(v_hi, v_lo), cols)
     cols = _sort_by(_key64(cols[1], cols[2]), cols)
     pad, h_hi, h_lo, v_hi, v_lo = _sort_by(cols[0], cols)
@@ -236,16 +250,55 @@ def update(state: DistinctState, batch: Batch, valid: Optional[torch.Tensor] = N
         out = torch.full((R, k + 1), fill, dtype=torch.int64, device=dev)
         return to_i32(out.scatter(1, dest, col)[:, :k])
 
-    new_vlo = compact(v_lo, 0)
+    size = torch.clamp(keep.sum(1), max=k).to(torch.int32)
+    return compact(h_hi, MASK32), compact(h_lo, MASK32), compact(v_hi, 0), compact(v_lo, 0), size
+
+
+def _state_of(new, like: DistinctState, count: torch.Tensor) -> DistinctState:
+    """:func:`_bottom_k`'s planes as a state of ``like``'s key width, dtype
+    and salts."""
+    h_hi, h_lo, v_hi, v_lo, size = new
     return DistinctState(
-        values=new_vlo if state.wide else new_vlo.view(state.values.dtype),
-        hash_hi=compact(h_hi, MASK32),
-        hash_lo=compact(h_lo, MASK32),
-        size=torch.clamp(keep.sum(1), max=k).to(torch.int32),
-        count=to_i32((state.count.to(torch.int64) + v) & MASK32),
-        salts=state.salts,
-        value_hi=compact(v_hi, 0) if state.wide else None,
+        values=v_lo if like.wide else v_lo.view(like.values.dtype),
+        hash_hi=h_hi,
+        hash_lo=h_lo,
+        size=size,
+        count=count,
+        salts=like.salts,
+        value_hi=v_hi if like.wide else None,
     )
+
+
+def merge(state_a: DistinctState, state_b: DistinctState) -> DistinctState:
+    """Merge two states over shards of the same logical streams: the union
+    of their entries, deduplicated, cut to the k smallest hashes (exact, by
+    the mergeable-summary property of bottom-k sketches).  Both states must
+    share salts (the same ``init`` key); A's are carried.  ``count`` adds.
+    A slot is padding when it lies at or past its state's ``size``, whatever
+    its hash."""
+    if state_a.wide != state_b.wide:
+        raise ValueError("cannot merge narrow and wide distinct states")
+    if state_a.values.shape != state_b.values.shape or state_a.values.dtype != state_b.values.dtype:
+        raise ValueError(
+            f"both states must hold [R, k] values of one dtype, got {state_a.values.dtype} "
+            f"{tuple(state_a.values.shape)} and {state_b.values.dtype} {tuple(state_b.values.shape)}"
+        )
+    k = state_a.values.shape[1]
+    slot = torch.arange(k, device=state_a.values.device)[None, :]
+
+    def both(plane) -> torch.Tensor:
+        return torch.cat([plane(state_a), plane(state_b)], 1)
+
+    new = _bottom_k(
+        both(lambda s: slot >= s.size[:, None]),
+        both(lambda s: words(s.hash_hi)),
+        both(lambda s: words(s.hash_lo)),
+        both(lambda s: words(s.value_hi) if s.wide else _carried_hi(s.values)),
+        both(lambda s: words(s.values)),
+        k,
+    )
+    count = to_i32((words(state_a.count) + words(state_b.count)) & MASK32)
+    return _state_of(new, state_a, count)
 
 
 #: distinct mode has no fill/steady split: the merge is one code path

@@ -36,6 +36,7 @@ __all__ = [
     "default_hash64",
     "salt_for_target",
     "words",
+    "to_i32",
 ]
 
 # the per-round constants of the JAX package's scramble
@@ -48,6 +49,12 @@ def words(x: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.uint32:
         x = x.view(torch.int32)
     return x.to(torch.int64) & MASK32
+
+
+def to_i32(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`words`: uint32 values carried in int64 as int32
+    bit patterns (exact, with no out-of-range cast)."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
 
 
 def _mul(x, c: int):

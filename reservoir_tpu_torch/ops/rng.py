@@ -60,10 +60,12 @@ def key_from_seed(seed: int, device=None) -> torch.Tensor:
 
 def split_keys(words: torch.Tensor, num: int) -> torch.Tensor:
     """``jr.key_data(jr.split(key, num))`` in the partitionable layout: key
-    ``i`` is the Threefry hash of the block ``(0, i)``."""
+    ``i`` is the Threefry hash of the block ``(0, i)``.  ``words`` is one
+    key ``[2]`` (giving ``[num, 2]``) or a batch ``[P, 2]`` (giving
+    ``[P, num, 2]``, each key split on its own)."""
     words = torch.as_tensor(words, dtype=torch.int64)
-    if words.shape != (2,):
-        raise ValueError(f"key words must have shape (2,), got {tuple(words.shape)}")
+    if words.ndim not in (1, 2) or words.shape[-1] != 2:
+        raise ValueError(f"key words must have shape (2,) or (P, 2), got {tuple(words.shape)}")
     lo = torch.arange(num, dtype=torch.int64, device=words.device)
-    b0, b1 = threefry2x32(words[0], words[1], torch.zeros_like(lo), lo)
-    return torch.stack([b0, b1], dim=1)
+    b0, b1 = threefry2x32(words[..., 0:1], words[..., 1:2], torch.zeros_like(lo), lo)
+    return torch.stack([b0, b1], dim=-1)

@@ -46,6 +46,8 @@ __all__ = [
     "update",
     "update_steady",
     "update_accepts",
+    "merge_parts",
+    "merge",
     "result",
 ]
 
@@ -260,6 +262,54 @@ def update_accepts(
     also returns the number of acceptances over all rows — the data-dependent
     work a kernel's bound is reckoned from."""
     return _update(state, elems, weights, valid, fill)
+
+
+def merge_parts(
+    samples_a: torch.Tensor,
+    lkeys_a: torch.Tensor,
+    count_a: torch.Tensor,
+    samples_b: torch.Tensor,
+    lkeys_b: torch.Tensor,
+    count_b: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-k-of-union merge on raw ``(samples [R, k], lkeys [R, k], count
+    [R])`` triples: the k largest log keys of A's slots followed by B's.
+    Exact, because the keys are independent draws per item, however the
+    stream was sharded.
+
+    The order is that of a stable ascending sort of the negated keys, as the
+    JAX package's ``argsort(-lkeys)``: equal keys keep the order A then B,
+    ``-0.0`` and ``0.0`` are equal, empty slots (``-inf``) come after every
+    key and NaN after those.  The sort key is made canonical (one zero, one
+    NaN) so that every sort algorithm orders it alike; the keys returned are
+    the inputs' own bits."""
+    R, k = samples_a.shape
+    if samples_b.shape != (R, k) or samples_a.dtype != samples_b.dtype:
+        raise ValueError(
+            f"both sides must be [R, k] samples of one dtype, got {samples_a.dtype} "
+            f"{tuple(samples_a.shape)} and {samples_b.dtype} {tuple(samples_b.shape)}"
+        )
+    for name, lk in (("lkeys_a", lkeys_a), ("lkeys_b", lkeys_b)):
+        if lk.shape != (R, k) or lk.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 [{R}, {k}], got {lk.dtype} {tuple(lk.shape)}")
+    m_s = torch.cat([samples_a.view(torch.int32), samples_b.view(torch.int32)], 1)
+    m_lk = torch.cat([lkeys_a, lkeys_b], 1)
+    neg = -m_lk
+    neg = torch.where(neg == 0.0, 0.0, neg)
+    neg = torch.where(torch.isnan(neg), float("nan"), neg)
+    order = torch.argsort(neg, dim=1, stable=True)[:, :k]
+    return m_s.gather(1, order).view(samples_a.dtype), m_lk.gather(1, order), count_a + count_b
+
+
+def merge(state_a: WeightedState, state_b: WeightedState) -> WeightedState:
+    """:func:`merge_parts` on two states.  The merged ``xw`` is not
+    meaningful (A's is kept, with A's keys, for result-only use): go on
+    streaming on the per-shard states."""
+    samples, lkeys, count = merge_parts(
+        state_a.samples, state_a.lkeys, state_a.count,
+        state_b.samples, state_b.lkeys, state_b.count,
+    )
+    return WeightedState(samples, lkeys, count, state_a.xw, state_a.key)
 
 
 def result(state: WeightedState) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -18,9 +18,11 @@ from reservoir_tpu_torch.ops import algorithm_l_cuda as TK
 from reservoir_tpu_torch.ops import distinct as TD
 from reservoir_tpu_torch.ops import distinct_cuda as TDK
 from reservoir_tpu_torch.ops import fmath
+from reservoir_tpu_torch.ops import merge_cuda as TM
 from reservoir_tpu_torch.ops import weighted as TW
 from reservoir_tpu_torch.ops import weighted_cuda as TWK
 from reservoir_tpu_torch.ops.rng import key_from_seed
+from reservoir_tpu_torch.parallel import merge as PM
 
 _FIELDS = ("samples", "count", "nxt", "log_w")
 
@@ -282,3 +284,203 @@ def test_distinct_wrapper_rejects_a_tile_on_the_host(cuda_device):
     s = TD.init(key_from_seed(0), 8, 4, device=cuda_device)
     with pytest.raises(ValueError, match="batch is on cpu"):
         TDK.update_cuda(s, torch.zeros((8, 16), dtype=torch.int32))
+
+
+# ------------------------------------------------------- the merge all-gather
+
+
+def _word_blocks(gen, d, b, w, dtype, device):
+    """d blocks of random 32-bit words, every bit pattern allowed (NaN
+    payloads and -0.0 among the floats)."""
+    blocks = []
+    for _ in range(d):
+        t = torch.randint(-(2**31), 2**31 - 1, (b, w), dtype=torch.int32, device=device, generator=gen)
+        t[0, 0] = -(2**31)  # -0.0
+        t[-1, -1] = 0x7FC00001  # NaN with a payload
+        blocks.append(t.view(dtype))
+    return blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("b, w", [(1, 1), (5, 129), (64, 8), (513, 31)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint32, torch.float32])
+def test_ring_all_gather_equals_plain_version_on_the_card(cuda_device, d, b, w, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 1000 + b)
+    comm = TM.RingCommunicator([cuda_device] * d)
+    before = TM.launches
+    for call in range(2):  # twice on one communicator: the flags count epochs
+        blocks = _word_blocks(gen, d, b, w, dtype, cuda_device)
+        got = TM.ring_all_gather(blocks, comm)
+        want = TM.ring_all_gather_plain(blocks, comm)
+        comm.check()
+        assert len(got) == d
+        for g, x in zip(got, want):
+            assert g.shape == (d, b, w) and g.dtype == dtype
+            assert torch.equal(_bits(g), _bits(x)), call
+    assert TM.launches - before == 2
+
+
+@pytest.mark.cuda
+def test_gather_parts_equals_plain_version_on_the_card(cuda_device):
+    d, b, k = 3, 7, 5
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    comm = TM.RingCommunicator([cuda_device] * d)
+    rank_leaves = [
+        (_word_blocks(gen, 1, b, k, torch.float32, cuda_device)[0],
+         torch.randint(0, 99, (b,), dtype=torch.int32, device=cuda_device, generator=gen),
+         _word_blocks(gen, 1, b, 4, torch.uint32, cuda_device)[0])
+        for _ in range(d)
+    ]
+    got = TM.gather_parts(rank_leaves, comm)
+    want = TM.gather_parts_plain(rank_leaves, comm)
+    comm.check()
+    for g_rank, w_rank in zip(got, want):
+        for g, x in zip(g_rank, w_rank):
+            assert g.shape == x.shape and g.dtype == x.dtype
+            assert torch.equal(_bits(g), _bits(x))
+
+
+@pytest.mark.cuda
+def test_gather_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    comm = TM.RingCommunicator([cuda_device] * 2)
+    ok = torch.zeros((4, 3), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="is on cpu"):
+        TM.ring_all_gather([ok, torch.zeros((4, 3), dtype=torch.int32)], comm)
+    with pytest.raises(ValueError, match="4-byte"):
+        TM.gather_parts([(ok.long(),), (ok.long(),)], comm)
+    with pytest.raises(ValueError, match="contiguous"):
+        TM.gather_parts([(ok.t(),), (ok.t(),)], comm)
+    with pytest.raises(ValueError, match="rank 0's is"):
+        TM.gather_parts([(ok,), (ok[:2].contiguous(),)], comm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["uniform", "weighted", "distinct"])
+@pytest.mark.parametrize("n_parts", [2, 3, 5, 8])
+def test_card_merge_tree_equals_the_host_tree(cuda_device, mode, n_parts):
+    k = 6
+    rng = np.random.default_rng(n_parts)
+    if mode == "uniform":
+        parts = []
+        for p in range(n_parts):
+            n = int(rng.integers(1, k)) if p % 2 else int(rng.integers(k, 4 * k))
+            parts.append((rng.integers(0, 1 << 30, min(n, k)).astype(np.int32), n))
+    else:
+        cfg = SamplerConfig(k, n_parts, 16, weighted=mode == "weighted", distinct=mode == "distinct")
+        eng = ReservoirEngine(cfg, key=2, device="cpu")
+        tile = rng.integers(0, 40, (n_parts, 16)).astype(np.int32)
+        valid = rng.integers(1, 17, n_parts).astype(np.int32)
+        if mode == "weighted":
+            eng.sample(tile, valid, weights=rng.uniform(0.5, 2.0, (n_parts, 16)).astype(np.float32))
+        else:
+            eng.sample(tile, valid)
+        from reservoir_tpu_torch.convert import state_parts
+
+        parts = state_parts(eng.state)
+        if mode == "distinct":  # shards of one stream share salts
+            parts = [p[:5] + (parts[0][5],) for p in parts]
+    before = TM.launches
+    want = PM.merge_samples_device(parts, 5, max_sample_size=k, mode=mode, impl="host")
+    got = PM.merge_samples_device(parts, 5, max_sample_size=k, mode=mode, impl="cuda",
+                                  devices=[cuda_device] * 4)
+    assert TM.launches - before == 1
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(x))
+
+
+@pytest.mark.cuda
+def test_a_rank_that_never_enters_times_out_and_check_raises(cuda_device):
+    # two ranks, but only rank 0's launch is made (as if the other card's were
+    # refused): rank 0 waits its bounded time, marks its status, and leaves
+    import ctypes
+
+    comm = TM.RingCommunicator([cuda_device] * 2)
+    blocks = [torch.ones((4, 4), dtype=torch.int32, device=cuda_device) for _ in range(2)]
+    outs = [torch.zeros((2, 4, 4), dtype=torch.int32, device=cuda_device) for _ in range(2)]
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))  # noqa: E731
+    code = TM._library().merge_ring_gather(
+        ptrs(blocks), ptrs(outs), (ctypes.c_longlong * 1)(16), ptrs(comm.flags()),
+        (ctypes.c_int * 1)(0), 1, 2, 1, 1, cuda_device.index, 1,
+        torch.cuda.current_stream(cuda_device).cuda_stream,
+    )
+    assert code == 0
+    with pytest.raises(RuntimeError, match="rank 0 .* timed out: a peer rank never entered"):
+        comm.check()
+    assert int(outs[0][1].abs().sum()) == 0  # nothing was read from the absent rank
+
+
+# ------------------------------------------- the all-gather over several cards
+
+
+@pytest.fixture
+def cuda_cards():
+    """One device a card, on a host with two cards or more."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards or more: the ranks lie on distinct cards")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 3, 4, 8])
+@pytest.mark.parametrize("b, w", [(1, 1), (5, 129), (64, 8), (4096, 129)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint32, torch.float32])
+def test_ring_all_gather_over_distinct_cards_equals_plain_version(cuda_cards, d, b, w, dtype):
+    # ranks dealt round the cards: with d above the number of cards a card
+    # holds several ranks, and reads both local and remote blocks
+    ranks = [cuda_cards[r % len(cuda_cards)] for r in range(d)]
+    gen = torch.Generator(device=cuda_cards[0]).manual_seed(d * 1000 + b)
+    comm = TM.RingCommunicator(ranks)
+    before = TM.launches
+    for call in range(2):  # twice on one communicator: the flags count epochs
+        blocks = [blk.to(rank) for blk, rank in zip(_word_blocks(gen, d, b, w, dtype, cuda_cards[0]), ranks)]
+        got = TM.ring_all_gather(blocks, comm)
+        want = TM.ring_all_gather_plain(blocks, comm)
+        comm.check()
+        for rank, g, x in zip(ranks, got, want):
+            assert g.device == rank and g.shape == (d, b, w) and g.dtype == dtype
+            assert torch.equal(_bits(g), _bits(x)), call
+    assert TM.launches - before == 2 * len(set(ranks))  # one launch a card and call
+
+
+@pytest.mark.cuda
+def test_gather_parts_over_distinct_cards_equals_plain_version(cuda_cards):
+    d, b, k = 4, 7, 5
+    ranks = [cuda_cards[r % len(cuda_cards)] for r in range(d)]
+    gen = torch.Generator(device=cuda_cards[0]).manual_seed(3)
+    comm = TM.RingCommunicator(ranks)
+    rank_leaves = [
+        (_word_blocks(gen, 1, b, k, torch.float32, cuda_cards[0])[0].to(rank),
+         torch.randint(0, 99, (b,), dtype=torch.int32, device=cuda_cards[0], generator=gen).to(rank),
+         _word_blocks(gen, 1, b, 4, torch.uint32, cuda_cards[0])[0].to(rank))
+        for rank in ranks
+    ]
+    got = TM.gather_parts(rank_leaves, comm)
+    want = TM.gather_parts_plain(rank_leaves, comm)
+    comm.check()
+    for g_rank, w_rank in zip(got, want):
+        for g, x in zip(g_rank, w_rank):
+            assert g.device == x.device and g.shape == x.shape and g.dtype == x.dtype
+            assert torch.equal(_bits(g), _bits(x))
+
+
+@pytest.mark.cuda
+def test_a_card_that_never_launches_times_out_the_other_and_check_raises(cuda_cards):
+    # two ranks on two cards, but only the first card's launch is made: its
+    # rank waits its bounded time on the remote flag, marks its status, leaves
+    import ctypes
+
+    ranks = cuda_cards[:2]
+    comm = TM.RingCommunicator(ranks)
+    blocks = [torch.ones((4, 4), dtype=torch.int32, device=rank) for rank in ranks]
+    outs = [torch.zeros((2, 4, 4), dtype=torch.int32, device=rank) for rank in ranks]
+    ptrs = lambda ts: (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))  # noqa: E731
+    code = TM._library().merge_ring_gather(
+        ptrs(blocks), ptrs(outs), (ctypes.c_longlong * 1)(16), ptrs(comm.flags()),
+        (ctypes.c_int * 1)(0), 1, 2, 1, 1, ranks[0].index, 1,
+        torch.cuda.current_stream(ranks[0]).cuda_stream,
+    )
+    assert code == 0
+    with pytest.raises(RuntimeError, match="rank 0 .* timed out: a peer rank never entered"):
+        comm.check()
+    assert int(outs[0][1].abs().sum()) == 0  # nothing was read from the absent card's rank

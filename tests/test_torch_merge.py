@@ -1,0 +1,346 @@
+"""The port's pairwise merges against the JAX package's, bit for bit:
+``reservoir_tpu_torch.ops.algorithm_l.merge_samples`` (with
+``_randint_exact`` and ``_masked_perm``), ``ops.weighted.merge_parts`` and
+``ops.distinct.merge`` against ``reservoir_tpu.ops``' functions, jitted and
+(for the uniform merge) eager as well, since XLA may rewrite float
+expressions inside compiled code.  The same numpy inputs, made from a seed,
+go through both packages.  The tolerance is zero on every output; floats
+are compared as their bits."""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import jax.random as jr
+import numpy as np
+import pytest
+import torch
+
+from reservoir_tpu.ops import algorithm_l as JA
+from reservoir_tpu.ops import distinct as JD
+from reservoir_tpu.ops import weighted as JW
+from reservoir_tpu_torch.convert import (
+    distinct_state_from_numpy,
+    distinct_state_to_numpy,
+    state_from_numpy,
+    weighted_state_from_numpy,
+)
+from reservoir_tpu_torch.ops import algorithm_l as TA
+from reservoir_tpu_torch.ops import distinct as TD
+from reservoir_tpu_torch.ops import weighted as TW
+from reservoir_tpu_torch.ops.rng import key_from_seed, split_keys
+from reservoir_tpu_torch.ops.threefry import MASK32, fold_in_words, threefry2x32
+
+_J_MERGE_SAMPLES = jax.jit(JA.merge_samples)
+_J_MERGE_PARTS = jax.jit(JW.merge_parts)
+_J_DISTINCT_MERGE = jax.jit(JD.merge)
+_J_RANDINT = jax.jit(jax.vmap(JA._randint_exact))
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view(np.uint32) if a.dtype.itemsize == 4 else a
+
+
+def _same(got, want):
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape, (got.dtype, want.dtype)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+
+
+# ----------------------------------------------------------------- uniform
+
+
+def _counts(rng, R, k, case):
+    """``(count_a, count_b)`` int32: counts of 0, below k, exactly k and
+    above k; one side empty; a first denominator that is a power of two, or
+    near 2^31 a side (the sum passes 2^31)."""
+    if case == "mixed":
+        pool = np.array([0, 1, k - 1, k, k + 1, 3 * k, 1000 * k + 7])
+        return rng.choice(pool, R).astype(np.int32), rng.choice(pool, R).astype(np.int32)
+    if case == "a_empty":
+        return np.zeros(R, np.int32), rng.integers(0, 3 * k, R).astype(np.int32)
+    if case == "b_empty":
+        return rng.integers(1, 3 * k, R).astype(np.int32), np.zeros(R, np.int32)
+    if case == "below_k":
+        return rng.integers(0, k // 2, R).astype(np.int32), rng.integers(0, k // 2, R).astype(np.int32)
+    if case == "pow2":
+        return np.full(R, 2**20, np.int32), np.full(R, 2**20, np.int32)
+    assert case == "large"
+    return (rng.integers(2**30, 2**31 - 1, R).astype(np.int32),
+            rng.integers(2**30, 2**31 - 1, R).astype(np.int32))
+
+
+@pytest.mark.parametrize("case", ["mixed", "a_empty", "b_empty", "below_k", "pow2", "large"])
+@pytest.mark.parametrize("k", [5, 8, 64])
+@pytest.mark.parametrize("R", [1, 8, 13])
+def test_merge_samples_equals_jitted_jax(R, k, case):
+    rng = np.random.default_rng(R * 100 + k)
+    sa = rng.integers(-(2**31), 2**31, (R, k)).astype(np.int32)
+    sb = rng.integers(-(2**31), 2**31, (R, k)).astype(np.int32)
+    ca, cb = _counts(rng, R, k, case)
+    ws, wc = _J_MERGE_SAMPLES(jnp.asarray(sa), jnp.asarray(ca), jnp.asarray(sb), jnp.asarray(cb),
+                              jr.key(k + 1))
+    gs, gc = TA.merge_samples(torch.from_numpy(sa), torch.from_numpy(ca), torch.from_numpy(sb),
+                              torch.from_numpy(cb), key_from_seed(k + 1))
+    _same(gs, ws)
+    assert gc.dtype == torch.uint32
+    _same(gc, wc)  # numpy uint32 on both sides
+    size = np.minimum(np.asarray(wc), k)
+    assert (gs.numpy()[np.arange(k)[None, :] >= size[:, None]] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32", "uint32"])
+@pytest.mark.parametrize("R, k", [(1, 5), (8, 8), (13, 64)])
+def test_merge_samples_equals_eager_jax_for_every_word_dtype(R, k, dtype):
+    rng = np.random.default_rng(k)
+    words = rng.integers(0, 2**32, (2, R, k), dtype=np.uint64).astype(np.uint32)
+    if dtype == "float32":
+        words[:, :, 0] = 0x80000000  # -0.0
+        words[:, :, 1] = 0x7FC00001  # NaN with a payload
+    sa, sb = words.view(dtype)
+    ca, cb = _counts(rng, R, k, "mixed")
+    # merged counts (uint32) go in again, as a tree's second level feeds them
+    cb = cb.astype(np.uint32)
+    args = (jnp.asarray(sa), jnp.asarray(ca), jnp.asarray(sb), jnp.asarray(cb), jr.key(3))
+    es, ec = JA.merge_samples(*args)
+    ws, wc = _J_MERGE_SAMPLES(*args)
+    gs, gc = TA.merge_samples(torch.from_numpy(sa), torch.from_numpy(ca), torch.from_numpy(sb),
+                              torch.from_numpy(cb), key_from_seed(3))
+    for want_s, want_c in ((es, ec), (ws, wc)):
+        _same(gs, want_s)
+        _same(gc, want_c)
+
+
+def test_merge_of_two_states_gives_size_and_count():
+    R, k = 6, 4
+    rng = np.random.default_rng(0)
+    states = []
+    for seed, n in ((1, 9), (2, 3)):
+        js = JA.update(JA.init(jr.key(seed), R, k), jnp.asarray(rng.integers(0, 99, (R, n)).astype(np.int32)))
+        ts = state_from_numpy(np.asarray(js.samples), np.asarray(js.count), np.asarray(js.nxt),
+                              np.asarray(js.log_w), np.asarray(jr.key_data(js.key)), device="cpu")
+        states.append((js, ts))
+    want = JA.merge(states[0][0], states[1][0], jr.key(5))
+    got = TA.merge(states[0][1], states[1][1], key_from_seed(5))
+    for g, w in zip(got, want):
+        _same(g, w)
+    assert got[1].dtype == torch.int32 and got[2].dtype == torch.uint32
+
+
+def test_a_level_of_stacked_pairs_equals_one_call_a_pair():
+    R, k, pairs = 5, 8, 3
+    rng = np.random.default_rng(4)
+    sa, sb = (torch.from_numpy(rng.integers(0, 2**31, (pairs * R, k)).astype(np.int32)) for _ in range(2))
+    ca, cb = (torch.from_numpy(rng.integers(0, 3 * k, pairs * R).astype(np.int32)) for _ in range(2))
+    keys = [key_from_seed(10 + p) for p in range(pairs)]
+    row_keys = torch.cat([split_keys(kw, R) for kw in keys])
+    got_s, got_c = TA.merge_samples_keyed(sa, ca, sb, cb, row_keys)
+    for p, kw in enumerate(keys):
+        rows = slice(p * R, (p + 1) * R)
+        want_s, want_c = TA.merge_samples(sa[rows], ca[rows], sb[rows], cb[rows], kw)
+        assert torch.equal(got_s[rows], want_s)
+        assert torch.equal(got_c[rows].view(torch.int32), want_c.view(torch.int32))
+    # and a batch of keys splits as each key does
+    assert torch.equal(split_keys(torch.stack(keys), R).reshape(pairs * R, 2), row_keys)
+
+
+def test_randint_exact_equals_jax_also_where_lanes_reject_more_than_once():
+    rng = np.random.default_rng(6)
+    # 2^31 + 1 rejects almost every second draw; 2^32 - 1 and 1 and powers of
+    # two accept (nearly) everything; 3 and 10^9 + 7 reject rarely
+    denoms = np.array([1, 2, 3, 2**16, 2**31, 2**31 + 1, 2**32 - 1, 10**9 + 7, 3 * 2**30], np.uint64)
+    n = 64
+    denom = np.repeat(denoms, n).astype(np.uint32)
+    f1 = rng.integers(0, 2**32, denom.shape, dtype=np.uint64).astype(np.uint32)
+    f2 = rng.integers(0, 2**32, denom.shape, dtype=np.uint64).astype(np.uint32)
+    want = np.asarray(_J_RANDINT(jnp.asarray(f1), jnp.asarray(f2), jnp.asarray(denom)))
+    t = lambda a: torch.from_numpy(a.astype(np.int64))  # noqa: E731
+    got = TA._randint_exact(t(f1), t(f2), t(denom))
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+    assert (got.numpy() < denom).all()
+    # count the attempts each lane needed, from the draws themselves
+    space_mod = ((MASK32 % t(denom)) + 1) % t(denom)
+    thresh = (-space_mod) & MASK32
+    rejected = torch.zeros_like(thresh)
+    for a in range(2):
+        b0, b1 = threefry2x32(t(f1), t(f2), torch.ones_like(thresh), torch.full_like(thresh, a))
+        rejected += ((space_mod != 0) & ((b0 ^ b1) >= thresh) & (rejected == a)).long()
+    assert int((rejected == 2).sum()) >= 10  # lanes that rejected twice or more
+
+
+@pytest.mark.parametrize("k", [1, 5, 64])
+def test_masked_perm_equals_jax(k):
+    rng = np.random.default_rng(k)
+    R = 9
+    words = rng.integers(0, 2**32, (R, 2), dtype=np.uint64).astype(np.uint32)
+    size = rng.integers(0, k + 1, R).astype(np.int32)
+    want = np.stack([
+        np.asarray(JA._masked_perm(jr.wrap_key_data(jnp.asarray(words[r])), k, int(size[r])))
+        for r in range(R)
+    ])
+    kw = torch.from_numpy(words.astype(np.int64))
+    got = TA._masked_perm(kw[:, 0], kw[:, 1], k, torch.from_numpy(size).long())
+    np.testing.assert_array_equal(got.numpy().astype(np.int32), want)
+    # the uniforms are those of jr.uniform for a (k,) shape
+    f1, f2 = fold_in_words(kw[:, 0], kw[:, 1], torch.full((R,), 7, dtype=torch.int32))
+    ju = np.stack([np.asarray(jr.uniform(jr.fold_in(jr.wrap_key_data(jnp.asarray(words[r])), 7), (k,)))
+                   for r in range(R)])
+    tu = TA._masked_perm(f1, f2, k, torch.full((R,), k)).numpy()
+    np.testing.assert_array_equal(tu, np.argsort(ju, axis=1, kind="stable"))
+
+
+def test_wide_counts_raise_naming_the_roadmap():
+    s = torch.zeros((2, 4), dtype=torch.int32)
+    wide = torch.zeros((2, 2), dtype=torch.int32).view(torch.uint32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*L3"):
+        TA.merge_samples(s, wide, s, wide, key_from_seed(0))
+    with pytest.raises(ValueError, match="int32 or uint32"):
+        TA.merge_samples(s, torch.zeros(2, dtype=torch.int64), s, torch.zeros(2, dtype=torch.int32),
+                         key_from_seed(0))
+    with pytest.raises(ValueError, match="one dtype"):
+        TA.merge_samples(s, torch.zeros(2, dtype=torch.int32), s.float(), torch.zeros(2, dtype=torch.int32),
+                         key_from_seed(0))
+
+
+# ---------------------------------------------------------------- weighted
+
+
+def _lkeys(rng, R, k, kind):
+    """float32 log keys as bit patterns: random negatives; ``ties`` (a few
+    values, so A and B share keys); ``empty`` (-inf tails); ``zeros`` (-0.0
+    and 0.0 mixed in); ``nan`` (NaNs of both signs mixed in)."""
+    lk = -rng.exponential(1.0, (R, k)).astype(np.float32)
+    if kind == "ties":
+        lk = -rng.integers(0, 4, (R, k)).astype(np.float32) / 4
+    elif kind == "empty":
+        filled = rng.integers(0, k + 1, R)
+        lk = -np.sort(-lk, axis=1)
+        lk[np.arange(k)[None, :] >= filled[:, None]] = -np.inf
+    elif kind == "zeros":
+        lk[rng.random((R, k)) < 0.3] = 0.0
+        lk[rng.random((R, k)) < 0.3] = -0.0
+    elif kind == "nan":
+        bits = lk.view(np.uint32)
+        bits[rng.random((R, k)) < 0.2] = 0x7FC00001
+        bits[rng.random((R, k)) < 0.2] = 0xFFC00002
+        lk[rng.random((R, k)) < 0.2] = -np.inf
+    return lk
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "empty", "zeros", "nan"])
+@pytest.mark.parametrize("R, k", [(1, 5), (8, 8), (13, 64)])
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_weighted_merge_parts_equals_jitted_jax(R, k, kind, dtype):
+    rng = np.random.default_rng(R + k)
+    sa, sb = rng.integers(0, 2**32, (2, R, k), dtype=np.uint64).astype(np.uint32).view(dtype)
+    lka, lkb = _lkeys(rng, R, k, kind), _lkeys(rng, R, k, kind)
+    ca, cb = rng.integers(0, 10 * k, (2, R)).astype(np.int32)
+    want = _J_MERGE_PARTS(*(jnp.asarray(x) for x in (sa, lka, ca, sb, lkb, cb)))
+    got = TW.merge_parts(*(torch.from_numpy(x) for x in (sa, lka, ca, sb, lkb, cb)))
+    for g, w in zip(got, want):
+        _same(g, w)
+
+
+def test_weighted_merge_of_two_states_keeps_the_first_states_jump_and_key():
+    R, k = 5, 4
+    rng = np.random.default_rng(2)
+    pairs = []
+    for seed in (1, 2):
+        elems = rng.integers(0, 99, (R, 12)).astype(np.int32)
+        weights = rng.uniform(0.0, 2.0, (R, 12)).astype(np.float32)
+        js = JW.update(JW.init(jr.key(seed), R, k), jnp.asarray(elems), jnp.asarray(weights))
+        ts = weighted_state_from_numpy(np.asarray(js.samples), np.asarray(js.lkeys), np.asarray(js.count),
+                                       np.asarray(js.xw), np.asarray(jr.key_data(js.key)), device="cpu")
+        pairs.append((js, ts))
+    want = JW.merge(pairs[0][0], pairs[1][0])
+    got = TW.merge(pairs[0][1], pairs[1][1])
+    for f in ("samples", "lkeys", "count", "xw"):
+        _same(getattr(got, f), getattr(want, f))
+    assert torch.equal(got.key, pairs[0][1].key)
+
+
+# ---------------------------------------------------------------- distinct
+
+
+def _distinct_pair(rng, R, k, dtype, kind):
+    """Two JAX states over shards of one logical stream (shared salts), and
+    the same as port states."""
+    wide = dtype == "int64"
+    base = JD.init(jr.key(9), R, k, sample_dtype=np.dtype(dtype)) if not wide else None
+    out = []
+    for shard in range(2):
+        n = {"full": 3 * k, "partial": max(1, k // 3), "overlap": 3 * k}[kind]
+        hi = 2 * k if kind == "overlap" else 2**31 - 1  # few values: shards share keys
+        vals = rng.integers(-hi, hi, (R, n)).astype(np.int64)
+        if wide:
+            vals = (vals * np.int64(0x9E3779B97F4A7C15 - 2**64)).astype(np.int64)
+            js = JD.init(jr.key(9), R, k, sample_dtype=np.dtype("int64"))
+            hi_w, lo_w = JD.split_values_host(vals)
+            js = JD.update(js, (jnp.asarray(hi_w), jnp.asarray(lo_w)))
+        else:
+            js = JD.update(base, jnp.asarray(vals.astype(np.int32).view(dtype)))
+        out.append(js)
+    return out
+
+
+def _to_port(js):
+    return distinct_state_from_numpy(
+        np.asarray(js.values), np.asarray(js.hash_hi), np.asarray(js.hash_lo), np.asarray(js.size),
+        np.asarray(js.count), np.asarray(js.salts),
+        None if js.value_hi is None else np.asarray(js.value_hi), device="cpu")
+
+
+def _same_distinct(got, want):
+    host = distinct_state_to_numpy(got)
+    for f in ("values", "hash_hi", "hash_lo", "size", "count", "salts", "value_hi"):
+        w = getattr(want, f)
+        if w is None:
+            assert host[f] is None
+        else:
+            _same(host[f], w)
+
+
+@pytest.mark.parametrize("kind", ["full", "partial", "overlap"])
+@pytest.mark.parametrize("dtype", ["int32", "uint32", "int64"])
+@pytest.mark.parametrize("R, k", [(1, 5), (8, 8), (13, 64)])
+def test_distinct_merge_equals_jitted_jax(R, k, dtype, kind):
+    rng = np.random.default_rng(R * k)
+    ja, jb = _distinct_pair(rng, R, k, dtype, kind)
+    _same_distinct(TD.merge(_to_port(ja), _to_port(jb)), _J_DISTINCT_MERGE(ja, jb))
+
+
+def test_distinct_merge_tells_padding_by_size_alone():
+    # slots past `size` may hold anything (here: small hashes that would win),
+    # and a slot below `size` may hold the hash (MAX, MAX): the merge, unlike
+    # the update, keeps that one, as the JAX package's does
+    R, k = 4, 6
+    rng = np.random.default_rng(8)
+
+    def state(size):
+        planes = rng.integers(0, 2**32, (3, R, k), dtype=np.uint64).astype(np.uint32)
+        order = np.lexsort((planes[2], planes[1]), axis=1)
+        hi, lo = (np.take_along_axis(planes[i], order, 1) for i in (1, 2))
+        hi[:, size - 1], lo[:, size - 1] = 0xFFFFFFFF, 0xFFFFFFFF  # the largest, held
+        hi[:, size:] = 0  # garbage past size
+        return JD.DistinctState(
+            jnp.asarray(planes[0].view(np.int32)), jnp.asarray(hi), jnp.asarray(lo),
+            jnp.full((R,), size, jnp.int32), jnp.full((R,), 100, jnp.int32),
+            jnp.asarray(planes[0][:, :4]))
+
+    ja, jb = state(2), state(3)
+    want = _J_DISTINCT_MERGE(ja, jb)
+    assert (np.asarray(want.size) == 5).all()
+    got = TD.merge(_to_port(ja), _to_port(jb))
+    _same_distinct(got, want)
+    assert (got.hash_hi[:, 4] == -1).all() and (got.size == 5).all()
+
+
+def test_distinct_merge_rejects_mixed_key_widths():
+    narrow = TD.init(key_from_seed(0), 2, 4, device="cpu")
+    wide = TD.init(key_from_seed(0), 2, 4, sample_dtype=torch.int64, device="cpu")
+    with pytest.raises(ValueError, match="narrow and wide"):
+        TD.merge(narrow, wide)
+    with pytest.raises(ValueError, match="one dtype"):
+        TD.merge(narrow, TD.init(key_from_seed(0), 2, 4, sample_dtype=torch.uint32, device="cpu"))
