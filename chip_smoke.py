@@ -29,7 +29,9 @@ which fails the run with a non-zero exit:
    and the sampled positions pass the one-sample KS gate;
 7. timings (CUDA events around 10 back-to-back launches, median of 11
    such runs): the kernel per fill tile and per steady tile beside the
-   plain version and the bound, the engine's
+   plain version and the bound, with the kernel's build (registers a
+   thread, local memory for spills, shared memory a block, resident warps
+   an SM), the engine's
    elements/s fed from the device and from the host, a host tile's
    snapshot into pinned memory and copy to the card, and the engine fed
    from the host once its pinned buffers are warm;
@@ -49,8 +51,9 @@ which fails the run with a non-zero exit:
    of weight-2 samples is within 0.005 of 2/3, and the positions sampled
    within the weight-1 class pass the KS gate;
 11. weighted timings as in 7: the kernel per fill tile (from empty) and per
-   steady tile (from count 7 B) beside the plain version and the bound, and
-   the steady tile again with every weight 0 (the scan without acceptances);
+   steady tile (from count 7 B) beside the plain version, the bound and the
+   build, and the steady tile again with every weight 0 (the scan without
+   acceptances) beside its bytes bound;
 12. distinct kernel vs plain version on the card at R=4096, k=256, B=1024,
    for int32, uint32 and int64 keys, from a state whose salts send a
    planted key to the hash (MAX, MAX) in every 97th row: a partial tile of
@@ -71,9 +74,10 @@ which fails the run with a non-zero exit:
    values, not weighted by frequency);
 15. distinct timings as in 7: the kernel on a Zipf tile from empty, on a
    steady Zipf tile (after 8) and on a steady tile of fresh random keys
-   (int32), and on a steady Zipf tile with int64 keys, each beside the
-   plain version and the bound; ``torch.sort`` of the ``[R, k + B]`` packed
-   hashes as context (not the same function);
+   (int32), and on a steady Zipf tile and a Zipf tile from empty with int64
+   keys, each beside the plain version, the bound and the build;
+   ``torch.sort`` of the ``[R, k + B]`` packed hashes as context (not the
+   same function);
 16. the all-gather kernel vs its plain version, bit for bit on every rank's
    copy: ``ring_all_gather`` for d in {2, 3, 4, 8} ranks on the card, b in
    {1, 5, 64, 4096}, W in {1, 8, 129} and int32, uint32 and float32 words
@@ -273,6 +277,13 @@ def event_ms(fn, reps: int = REPS, setup=None, batch: int = 1) -> float:
             times.append(e0.elapsed_time(e1) / batch)
         del args
     return statistics.median(times)
+
+
+def build_text(info: dict) -> str:
+    """A kernel's build as its timing line shows it."""
+    return (f"{info['registers']} registers, {info['local_bytes']} bytes local (spills), "
+            f"{info['static_smem'] + info['dynamic_smem']} bytes shared a block, "
+            f"{info['warps_per_sm']} resident warps an SM")
 
 
 def bound_ms(accepts: int, fill_elems: int) -> tuple:
@@ -540,8 +551,10 @@ def main() -> None:
     warm_host_eps = 4 * R * B / (time.perf_counter() - t0)
     del host_tile, warm
     card = card_line()
+    build = kern.kernel_info()
     log(f"[7 timings] {card} | fill tile (count 0 -> {B}): kernel {fill_ms:.4f} ms, plain "
-        f"{fill_plain_ms:.1f} ms, bound {fill_bound:.4f} ms ({fill_by}), accepts {fill_accepts}")
+        f"{fill_plain_ms:.1f} ms, bound {fill_bound:.4f} ms ({fill_by}), accepts {fill_accepts}; "
+        f"build {build_text(build)}")
     log(f"[7 timings] {card} | steady tile (count {7 * B} -> {8 * B}): kernel {steady_ms:.4f} ms, "
         f"plain {steady_plain_ms:.1f} ms, bound {steady_bound:.4f} ms ({steady_by}), "
         f"accepts {steady_accepts}")
@@ -576,9 +589,34 @@ def main() -> None:
         "engine_elem_per_s": {"device_fed": dev_eps, "host_fed": host_eps},
         "host_tile_ms": {"snapshot": snapshot_ms, "h2d": h2d_ms},
         "warm_host_fed_elem_per_s": warm_host_eps,
+        "build": build,
     }, weighted, distinct, merge]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
+
+
+def weighted_timing_cases(dev) -> list:
+    """Phase 11's tiles, each ``(label, state, elems, weights)``: bench.py's
+    tiles (elements ``t * WB + lane``, weights ``1 + 0.5 cos^2(elem *
+    1e-3)``) as the fill tile from empty, the steady tile from count 7 B,
+    and that tile with every weight 0 (``kernel_ab.py`` times the same)."""
+    from reservoir_tpu_torch.ops import weighted as wplain
+    from reservoir_tpu_torch.ops import weighted_cuda as wkern
+    from reservoir_tpu_torch.ops.rng import key_from_seed
+
+    def bench_tile(t):
+        elems = (t * WB + torch.arange(WB, dtype=torch.int32, device=dev))[None, :].expand(WR, WB)
+        elems = elems.contiguous()
+        return elems, bench_weights(elems)
+
+    s0 = wplain.init(key_from_seed(0), WR, WK, device=dev)
+    fill_e, fill_w = bench_tile(0)
+    state = wkern.update_cuda(clone(s0), fill_e, fill_w)
+    for t in range(1, 7):  # tiles 1..6: count reaches 7 * B
+        wkern.update_cuda(state, *bench_tile(t))
+    steady_e, steady_w = bench_tile(7)
+    return [("fill tile from empty", s0, fill_e, fill_w), ("steady tile (count 7B)", state, steady_e, steady_w),
+            ("steady tile with every weight 0", state, steady_e, torch.zeros_like(steady_w))]
 
 
 def weighted_phases(gen, dev) -> dict:
@@ -689,13 +727,7 @@ def weighted_phases(gen, dev) -> dict:
     del dev_tiles, host_tiles, engine
 
     # 11. timings at the weighted path's shapes (bench tiles)
-    def bench_tile(t):
-        elems = (t * WB + torch.arange(WB, dtype=torch.int32, device=dev))[None, :].expand(WR, WB)
-        elems = elems.contiguous()
-        return elems, bench_weights(elems)
-
-    s0 = wplain.init(key_from_seed(0), WR, WK, device=dev)
-    fill_e, fill_w = bench_tile(0)
+    (_, s0, fill_e, fill_w), (_, state, steady_e, steady_w), (_, _, _, zero_w) = weighted_timing_cases(dev)
     fill_ms = event_ms(lambda s: wkern.update_cuda(s, fill_e, fill_w), setup=lambda: clone(s0),
                        batch=10)
     t0 = time.perf_counter()
@@ -704,11 +736,7 @@ def weighted_phases(gen, dev) -> dict:
     fill_plain_ms = 1e3 * (time.perf_counter() - t0)
     fills = int((ref.lkeys > float("-inf")).sum().item())
     fill_bound, fill_by = weighted_bound_ms(fill_accepts, fills, WR * WB)
-    state = wkern.update_cuda(clone(s0), fill_e, fill_w)
     del ref, fill_e, fill_w
-    for t in range(1, 7):  # tiles 1..6: count reaches 7 * B
-        wkern.update_cuda(state, *bench_tile(t))
-    steady_e, steady_w = bench_tile(7)
     steady_ms = event_ms(lambda s: wkern.update_cuda(s, steady_e, steady_w),
                          setup=lambda: clone(state), batch=10)
     plain_times = []
@@ -721,10 +749,11 @@ def weighted_phases(gen, dev) -> dict:
     steady_bound, steady_by = weighted_bound_ms(steady_accepts, 0, WR * WB)
     # the same tile with every weight 0: the scan and state traffic alone,
     # with no acceptance
-    zero_w = torch.zeros_like(steady_w)
     scan_ms = event_ms(lambda s: wkern.update_cuda(s, steady_e, zero_w), setup=lambda: clone(state),
                        batch=10)
+    scan_bound, _ = weighted_bound_ms(0, 0, WR * WB)
     del state, steady_e, steady_w, zero_w
+    build = wkern.kernel_info(WK)
     card = card_line()
     log(f"[11 weighted timings] {card} | fill tile (count 0 -> {WB}): kernel {fill_ms:.4f} ms, "
         f"plain {fill_plain_ms:.1f} ms, bound {fill_bound:.4f} ms ({fill_by}), accepts "
@@ -732,7 +761,7 @@ def weighted_phases(gen, dev) -> dict:
     log(f"[11 weighted timings] {card} | steady tile (count {7 * WB} -> {8 * WB}): kernel "
         f"{steady_ms:.4f} ms, plain {steady_plain_ms:.1f} ms, bound {steady_bound:.4f} ms "
         f"({steady_by}), accepts {steady_accepts}; the same tile with zero weights (no "
-        f"acceptance) {scan_ms:.4f} ms")
+        f"acceptance) {scan_ms:.4f} ms, bound {scan_bound:.4f} ms (bytes); build {build_text(build)}")
     log(f"[11 weighted timings] {card} | engine: {dev_eps:.6e} elem/s fed from the device, "
         f"{host_eps:.6e} elem/s fed from the host")
     return {
@@ -751,6 +780,8 @@ def weighted_phases(gen, dev) -> dict:
                       "bound_by": fill_by, "accepts": fill_accepts, "fills": fills},
         "steady_accepts": steady_accepts,
         "steady_tile_zero_weights_ms": scan_ms,
+        "steady_tile_zero_weights_bound_ms": scan_bound,
+        "build": build,
         "engine_elem_per_s": {"device_fed": dev_eps, "host_fed": host_eps},
     }
 
@@ -850,6 +881,33 @@ def distinct_oracle(tiles, salts, samples, sizes) -> tuple:
     heavy = (ends - starts) >= 10
     sampled = sel.ravel()[starts]
     return True, "", float(heavy[sampled].mean()), float(heavy.mean())
+
+
+def distinct_timing_cases(gen, dev) -> list:
+    """Phase 15's tiles in its order, each ``(label, state, tile, wide)``:
+    Zipf tiles from empty and after 8 Zipf tiles, and fresh random keys
+    after 8, with int32 and int64 keys (``kernel_ab.py`` times the same)."""
+    from reservoir_tpu_torch.ops import distinct as dplain
+    from reservoir_tpu_torch.ops import distinct_cuda as dkern
+    from reservoir_tpu_torch.ops.rng import key_from_seed
+
+    gen.manual_seed(47)
+    s0 = dplain.init(key_from_seed(0), DR, DK, device=dev)
+    cases = [("Zipf tile from empty (int32)", s0, zipf_keys(gen, DR, DB, torch.int32, dev), False)]
+    state = clone(s0)
+    for _ in range(8):
+        state = dkern.update_cuda(state, zipf_keys(gen, DR, DB, torch.int32, dev))
+    cases.append(("steady Zipf tile after 8 (int32)", state, zipf_keys(gen, DR, DB, torch.int32, dev), False))
+    cases.append(("steady tile of fresh random keys after 8 Zipf (int32)", state,
+                  torch.randint(-(2**31), 2**31 - 1, (DR, DB), dtype=torch.int32, device=dev, generator=gen),
+                  False))
+    ws0 = dplain.init(key_from_seed(0), DR, DK, sample_dtype=torch.int64, device=dev)
+    ws = clone(ws0)
+    for _ in range(8):
+        ws = dkern.update_cuda(ws, zipf_keys(gen, DR, DB, torch.int64, dev))
+    cases.append(("steady Zipf tile after 8 (int64)", ws, zipf_keys(gen, DR, DB, torch.int64, dev), True))
+    cases.append(("Zipf tile from empty (int64)", ws0, zipf_keys(gen, DR, DB, torch.int64, dev), True))
+    return cases
 
 
 def distinct_phases(gen, dev) -> dict:
@@ -998,30 +1056,19 @@ def distinct_phases(gen, dev) -> dict:
         return {"ms": ms, "plain_ms": statistics.median(plain_times), "bound_ms": bound, "bound_by": by,
                 "net_inserts": inserts, "rows_inserting": rows_in}
 
-    gen.manual_seed(47)
-    s0 = dplain.init(key_from_seed(0), DR, DK, device=dev)
-    fill = timed(s0, zipf_keys(gen, DR, DB, torch.int32, dev))
-    state = clone(s0)
-    for _ in range(8):
-        state = dkern.update_cuda(state, zipf_keys(gen, DR, DB, torch.int32, dev))
-    steady = timed(state, zipf_keys(gen, DR, DB, torch.int32, dev))
-    fresh = timed(state, torch.randint(-(2**31), 2**31 - 1, (DR, DB), dtype=torch.int32, device=dev,
-                                       generator=gen))
-    ws = dplain.init(key_from_seed(0), DR, DK, sample_dtype=torch.int64, device=dev)
-    for _ in range(8):
-        ws = dkern.update_cuda(ws, zipf_keys(gen, DR, DB, torch.int64, dev))
-    steady_wide = timed(ws, zipf_keys(gen, DR, DB, torch.int64, dev), wide=True)
+    cases = distinct_timing_cases(gen, dev)
+    timings = {label: timed(state, tile, wide) for label, state, tile, wide in cases}
+    fill, steady, fresh, steady_wide, fill_wide = (timings[label] for label, *_ in cases)
     # context only: a sort of the [R, k + B] packed hashes, not the same function
     packed = torch.randint(-(2**62), 2**62, (DR, DK + DB), device=dev, generator=gen)
     sort_ms = event_ms(lambda _: torch.sort(packed, dim=1), batch=10)
-    del state, ws, packed
+    del cases, packed
     card = card_line()
-    for label, t in (("Zipf tile from empty (int32)", fill), ("steady Zipf tile after 8 (int32)", steady),
-                     ("steady tile of fresh random keys after 8 Zipf (int32)", fresh),
-                     ("steady Zipf tile after 8 (int64)", steady_wide)):
+    builds = {"int32": dkern.kernel_info(DK, False), "int64": dkern.kernel_info(DK, True)}
+    for label, t in timings.items():
         log(f"[15 distinct timings] {card} | {label}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.1f} ms, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), net inserts {t['net_inserts']} over "
-            f"{t['rows_inserting']} rows")
+            f"{t['rows_inserting']} rows; build {build_text(builds['int64' if 'int64' in label else 'int32'])}")
     log(f"[15 distinct timings] {card} | context, not the same function: torch.sort of [{DR}, {DK + DB}] "
         f"int64 {sort_ms:.4f} ms")
     log(f"[15 distinct timings] {card} | engine: int32 {rates['int32']['device_fed']:.6e} / "
@@ -1045,6 +1092,8 @@ def distinct_phases(gen, dev) -> dict:
         "fill_tile": fill,
         "steady_fresh_tile": fresh,
         "steady_zipf_tile_int64": steady_wide,
+        "fill_tile_int64": fill_wide,
+        "build": builds,
         "engine_elem_per_s": rates,
     }
 

@@ -34,6 +34,7 @@
 #include <cuda_runtime.h>
 
 #include "fmath.cuh"
+#include "kinfo.cuh"
 #include "threefry.cuh"
 
 namespace algl {
@@ -127,6 +128,12 @@ int algl_fmath(const float* x, float* y, int n, int which, cudaStream_t stream) 
   const int threads = 256;
   algl::fmath_kernel<<<(n + threads - 1) / threads, threads, 0, stream>>>(x, y, n, which);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The build's registers, spills, shared memory and resident warps an SM of
+// the update kernel (kinfo::query's five numbers in out).
+int algl_kernel_info(int* out) {
+  return kinfo::query(algl::update_kernel, algl::kThreads, 0, out);
 }
 
 const char* algl_error_string(int code) {

@@ -26,13 +26,15 @@ from typing import Optional
 
 import torch
 
-from .algorithm_l import SAMPLE_DTYPES, ReservoirState, update, update_steady
+from ._cuda_common import build_info, check_tensors
+from .algorithm_l import ReservoirState, update, update_steady
 
 __all__ = [
     "launches",
     "update_cuda",
     "update_steady_cuda",
     "fmath_cuda",
+    "kernel_info",
     "update",
     "update_steady",
 ]
@@ -67,35 +69,14 @@ def _raise_on(code: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
 
 
+def kernel_info() -> dict:
+    """:func:`~._cuda_common.build_info` of ``algl_update``'s kernel
+    (needs a card)."""
+    return build_info(_library().algl_kernel_info)
+
+
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
-
-
-def check_tensors(batch_name: str, tensors: dict, expect: dict) -> None:
-    """What a kernel's wrapper checks before any pointer crosses to CUDA:
-    every tensor in ``tensors`` on the device of ``tensors["samples"]`` and
-    contiguous; the samples of a 4-byte dtype; ``tensors[batch_name]`` an
-    ``[R, B]`` tile of the samples' dtype; each name in ``expect`` of its
-    ``(shape, dtype)``."""
-    samples, batch = tensors["samples"], tensors[batch_name]
-    R = samples.shape[0]
-    for name, t in tensors.items():
-        if t.device != samples.device:
-            raise ValueError(f"{name} is on {t.device}, samples on {samples.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if samples.dtype not in SAMPLE_DTYPES:
-        raise ValueError(f"samples dtype must be one of {SAMPLE_DTYPES}, got {samples.dtype}")
-    if batch.dtype != samples.dtype:
-        raise ValueError(f"{batch_name} dtype {batch.dtype} != samples dtype {samples.dtype}")
-    if batch.ndim != 2 or batch.shape[0] != R:
-        raise ValueError(f"{batch_name} must be [R={R}, B], got {tuple(batch.shape)}")
-    for name, (shape, dtype) in expect.items():
-        t = tensors[name]
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(
-                f"{name} must be {dtype} {shape}, got {t.dtype} {tuple(t.shape)}"
-            )
 
 
 def _validate(state: ReservoirState, batch: torch.Tensor, valid) -> None:

@@ -3,10 +3,15 @@
 Replaces the JAX package's Pallas TPU kernel
 (``reservoir_tpu/ops/distinct_pallas.py:_kernel``, entry point
 ``update_pallas``).  The kernel source is ``csrc/distinct.cu``: one warp per
-reservoir row scrambles the row's lanes 32 at a time, ballots those below
-the row's threshold and inserts each new one into the row's sorted block in
-shared memory.  Its note says what bounds it on an H100.  Unlike the Pallas
-kernel it takes ``valid``, so ragged tiles run through it too.
+reservoir row reads the row 128 keys at a time with 16-byte loads (the next
+chunk in flight while the current one is scrambled), ballots the keys below
+the row's threshold and merges them into the row's sorted block in shared
+memory up to 32 at a time: a binary search a lane for the rank and an equal
+entry, the new keys ranked among themselves, then one merge pass.  On an
+H100 the scramble's integer operations bound a steady tile, and the
+serial steps a row takes per round bound a tile from empty; its note says
+how the design answers both.  Unlike the Pallas kernel it takes ``valid``,
+so ragged tiles run through it too.
 
 :func:`update_cuda` takes the state and a tile on one device.  A narrow
 tile is ``[R, B]`` of the state's dtype; a wide one an int64/uint64
@@ -29,10 +34,10 @@ from typing import Optional
 
 import torch
 
-from .algorithm_l_cuda import check_tensors
+from ._cuda_common import build_info, check_tensors
 from .distinct import NARROW_DTYPES, WIDE_DTYPES, Batch, DistinctState, update
 
-__all__ = ["launches", "update_cuda", "update", "MAX_SMEM"]
+__all__ = ["launches", "update_cuda", "update", "MAX_SMEM", "kernel_info"]
 
 #: kernel launches so far (set it to 0 to count a run)
 launches = 0
@@ -46,18 +51,28 @@ _INT = ctypes.c_int
 _lib = None
 
 
-def _library():
+def _library(path: Optional[str] = None):
+    """The kernel's library, declared for ``ctypes``: the checkout's build
+    of ``csrc/distinct.cu``, or with ``path`` another build with the same C
+    entry points, which :func:`update_cuda` then launches until the next
+    call with a path (``kernel_ab.py`` times two builds so)."""
     global _lib
-    if _lib is None:
+    if _lib is None or path is not None:
         from .._build import load
 
-        lib = load("distinct")
+        lib = load("distinct") if path is None else ctypes.CDLL(path)
         lib.distinct_update.argtypes = [_VP] * 9 + [_INT] + [_VP] + [_INT] * 3 + [_VP]
         lib.distinct_update.restype = _INT
         lib.distinct_error_string.argtypes = [_INT]
         lib.distinct_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def kernel_info(k: int, wide: bool) -> dict:
+    """:func:`~._cuda_common.build_info` of the kernel a launch at
+    ``k`` runs, for narrow or wide keys (needs a card)."""
+    return build_info(_library().distinct_kernel_info, int(wide), k)
 
 
 def _tile_words(state: DistinctState, batch: Batch):

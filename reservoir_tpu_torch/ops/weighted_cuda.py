@@ -4,9 +4,14 @@ Replaces the JAX package's Pallas TPU kernel
 (``reservoir_tpu/ops/weighted_pallas.py:_kernel``, entry point
 ``update_pallas``).  The kernel source is ``csrc/weighted.cu``: one warp per
 reservoir row scans the row's weights in the blocked association of
-:mod:`.prefix`, fills and accepts in place, and reads only the elements it
-keeps.  Its note says what bounds it on an H100.  Unlike the Pallas kernel
-it takes ``valid``, so ragged tiles run through it too.
+:mod:`.prefix` while the next block's weights load, keeps the row's keys in
+shared memory (for k up to 7,136; beyond, in the state's own arrays) with a
+per-lane first minimum reduced across the warp, fills and accepts, and
+gathers only the elements it keeps, once a slot at the end.  On an H100 the
+bytes of the weights bound a steady tile and the sequential acceptance
+chain a fill tile; where acceptances come densely, their draws are made
+lane-parallel ahead of the chain.  Its note says more.  Unlike the Pallas
+kernel it takes ``valid``, so ragged tiles run through it too.
 
 :func:`update_cuda` takes the state, elements and weights on one device:
 
@@ -26,10 +31,10 @@ from typing import Optional
 
 import torch
 
-from .algorithm_l_cuda import check_tensors
+from ._cuda_common import build_info, check_tensors
 from .weighted import WeightedState, update
 
-__all__ = ["launches", "update_cuda", "update"]
+__all__ = ["launches", "update_cuda", "update", "kernel_info"]
 
 #: kernel launches so far (set it to 0 to count a run)
 launches = 0
@@ -39,18 +44,28 @@ _INT = ctypes.c_int
 _lib = None
 
 
-def _library():
+def _library(path: Optional[str] = None):
+    """The kernel's library, declared for ``ctypes``: the checkout's build
+    of ``csrc/weighted.cu``, or with ``path`` another build with the same C
+    entry points, which :func:`update_cuda` then launches until the next
+    call with a path (``kernel_ab.py`` times two builds so)."""
     global _lib
-    if _lib is None:
+    if _lib is None or path is not None:
         from .._build import load
 
-        lib = load("weighted")
+        lib = load("weighted") if path is None else ctypes.CDLL(path)
         lib.weighted_update.argtypes = [_VP] * 8 + [_INT] * 3 + [_VP]
         lib.weighted_update.restype = _INT
         lib.weighted_error_string.argtypes = [_INT]
         lib.weighted_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def kernel_info(k: int) -> dict:
+    """:func:`~._cuda_common.build_info` of the kernel a launch at
+    ``k`` runs (needs a card)."""
+    return build_info(_library().weighted_kernel_info, k)
 
 
 def _validate(state: WeightedState, elems: torch.Tensor, weights: torch.Tensor, valid) -> None:

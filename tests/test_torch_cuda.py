@@ -251,6 +251,134 @@ def test_distinct_kernel_with_a_large_block_equals_plain_version(cuda_device, R,
             assert (a is None and b is None) or torch.equal(a.view(torch.int32), b.view(torch.int32)), f
 
 
+def _as_batch(tile, layout):
+    """A wide tile as int64 or as its (hi, lo) planes; a narrow one as is."""
+    if layout != "planes":
+        return tile
+    w = tile.view(torch.int32).view(*tile.shape, 2)
+    return w[..., 1].contiguous(), w[..., 0].contiguous()
+
+
+def _planted_state(R, k, dtype, device, key):
+    """An empty state whose salts send ``key`` to the hash (MAX, MAX) in
+    every row."""
+    from reservoir_tpu_torch.convert import distinct_state_from_numpy, distinct_state_to_numpy
+    from reservoir_tpu_torch.ops.hashing import salt_for_target
+
+    host = distinct_state_to_numpy(TD.init(key_from_seed(8), R, k, sample_dtype=dtype))
+    salts = host["salts"].copy()
+    plant = ((key >> 32) & 0xFFFFFFFF, key & 0xFFFFFFFF)
+    for r in range(R):
+        salts[r, 2:] = salt_for_target(plant, (0xFFFFFFFF, 0xFFFFFFFF), tuple(int(x) for x in salts[r, :2]))
+    host["salts"] = salts
+    return distinct_state_from_numpy(**host, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fresh chunk", "one key", "held block", "max max", "k 1", "k 33",
+                                  "smem limit", "width 130"])
+@pytest.mark.parametrize("layout", ["int32", "int64", "planes"])
+def test_distinct_kernel_paths_equal_plain_version(cuda_device, layout, case):
+    """The redesigned kernel's paths, each against the plain version bit for
+    bit: a chunk of 128 fresh keys from empty (four full rounds of 32
+    candidates), chunks of one key repeated, a tile of the keys a full
+    block already holds, a key whose salted hash is (MAX, MAX), k = 1 and
+    33, k at the shared-memory limit, and a width that is not a multiple of
+    4 (4-byte loads), with narrow keys and both wide tile layouts."""
+    dtype = torch.int32 if layout == "int32" else torch.int64
+    wide = dtype == torch.int64
+    R, k, B = 64, 256, 512
+    if case in ("k 1", "k 33"):
+        k = int(case.split()[1])
+    elif case == "smem limit":
+        R, k, B = 3, 14528 if wide else 19370, 4096
+    elif case == "width 130":
+        B = 130
+    gen = torch.Generator(device=cuda_device).manual_seed(len(case) * 7 + len(layout))
+    planted = 0x0123456789ABCDEF if wide else 123456789
+    s = (_planted_state(R, k, dtype, cuda_device, planted) if case == "max max"
+         else TD.init(key_from_seed(6), R, k, sample_dtype=dtype, device=cuda_device))
+
+    def held_keys(state):
+        lo = state.values.view(torch.int32)
+        return lo if not state.wide else (state.value_hi.long() << 32) | (lo.long() & 0xFFFFFFFF)
+
+    def tile_of(i):
+        if case == "fresh chunk":
+            return _card_keys(gen, R, 128, cuda_device, dtype, "random")
+        if case == "one key":  # every chunk of 128 lanes one key, a new one each chunk
+            t = _card_keys(gen, R, B // 128, cuda_device, dtype, "random")
+            return t.repeat_interleave(128, dim=1).contiguous()
+        if case == "held block" and i > 0:
+            return held_keys(s).repeat(1, 2).contiguous()
+        t = _card_keys(gen, R, B, cuda_device, dtype, "zipf" if i % 2 else "random")
+        if case == "max max":
+            t.view(torch.int64 if wide else torch.int32)[:, 3::50] = planted
+        return t
+
+    before = TDK.launches
+    for i in range(4):
+        tile = tile_of(i)
+        valid = (torch.randint(0, tile.shape[1] + 1, (R,), dtype=torch.int32, device=cuda_device,
+                               generator=gen) if i == 2 else None)
+        ref = TD.update(_dclone(s), tile, valid)
+        s = TDK.update_cuda(s, _as_batch(tile, layout), valid)
+        for f in _DFIELDS:
+            a, b = getattr(s, f), getattr(ref, f)
+            assert (a is None and b is None) or torch.equal(a.view(torch.int32), b.view(torch.int32)), (f, i)
+    assert TDK.launches - before == 4
+    if case == "max max":
+        assert not (held_keys(s) == planted).any()
+    if case == "held block":
+        assert int(s.size.min()) == k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k 1", "k 5", "k 64", "k 7136", "k 7137", "k 7264", "large k",
+                                  "width 300", "dense", "ragged"])
+def test_weighted_kernel_paths_equal_plain_version(cuda_device, case):
+    """The redesigned kernel's paths, each against the plain version bit for
+    bit over a fill tile and steady tiles: k = 1, 5 and 64, the largest k
+    whose keys stay on chip (7,136: 4 rows' keys and positions beside the
+    4 KiB of draws fill a block's shared memory) and the next ones up, the
+    instantiation that keeps the keys in global memory (k = 8,000), a width
+    that is not a multiple of 128, a fill tile whose blocks hold dozens of
+    acceptances each (lane-parallel draws), and ragged valid counts."""
+    R, k, B = 256, 16, 1024
+    zeros = True  # every other tile has zero weights
+    if case.startswith("k "):
+        k = int(case.split()[1])
+        if k > 64:  # the fill ends in the third tile (7136, 7137) or the last (7264)
+            R, B, zeros = 8, 2400, False
+    elif case == "large k":
+        R, k, B = 8, 8000, 4096
+    elif case == "width 300":
+        B = 300
+    elif case == "dense":
+        R, k = 512, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(len(case))
+    s = TW.init(key_from_seed(9), R, k, device=cuda_device)
+    assert (TWK.kernel_info(k)["dynamic_smem"] > 0) == (k <= 7136)  # keys on chip
+    before = TWK.launches
+    for i in range(4):
+        if case == "dense":  # the benchmark's smooth weights: acceptances come densely
+            elems = (i * B + torch.arange(B, dtype=torch.int32, device=cuda_device)).expand(R, B).contiguous()
+            weights = (1.0 + 0.5 * torch.cos(elems.float() * 1e-3) ** 2).contiguous()
+        else:
+            elems = torch.randint(-(2**31), 2**31 - 1, (R, B), dtype=torch.int32, device=cuda_device,
+                                  generator=gen)
+            weights = _card_weights(gen, R, B, cuda_device, "zeros" if zeros and i % 2 else "lognormal")
+        valid = (torch.randint(0, B + 1, (R,), dtype=torch.int32, device=cuda_device, generator=gen)
+                 if case == "ragged" or i == 3 else None)
+        ref, accepts = TW.update_accepts(_wclone(s), elems, weights, valid)
+        s = TWK.update_cuda(s, elems, weights, valid)
+        for f in _WFIELDS:
+            assert torch.equal(_bits(getattr(s, f)), _bits(getattr(ref, f))), (f, i)
+        if case == "dense" and i == 0:
+            assert accepts > 12 * R  # dozens a row, several in every block
+    assert TWK.launches - before == 4
+
+
 @pytest.mark.cuda
 def test_distinct_kernel_refuses_a_block_beyond_shared_memory(cuda_device):
     s = TD.init(key_from_seed(0), 4, 14529, sample_dtype=torch.int64, device=cuda_device)

@@ -245,3 +245,50 @@ def test_state_round_trips_through_numpy(dtype):
                                   np.asarray(js.count), np.asarray(js.salts),
                                   None if js.value_hi is None else np.asarray(js.value_hi),
                                   device="cpu")
+
+
+def _permuted_rows(rng, tile, valid):
+    """Each row's valid lanes in a random order (the lanes past valid stay)."""
+    out = tile.copy()
+    for r, v in enumerate(valid):
+        out[r, :v] = tile[r, rng.permutation(v)]
+    return out
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("k", [1, 5, 32])
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_the_state_is_a_function_of_the_set_of_keys(dtype, k, split):
+    """What the CUDA kernel's design rests on: permuting the lanes of each
+    row (and, with ``split``, feeding the tile as two tiles) leaves the
+    plain version's state bit-identical, and the JAX package's XLA update on
+    the permuted (split) inputs gives the same state.  A Zipf tile with many
+    repeats and ragged valid counts, over a state that already holds keys."""
+    R, B = 8, 64
+    rng = np.random.default_rng(100 + k)
+    js = JD.init(jr.key(k), R, k, sample_dtype=jnp.dtype(dtype))
+    ts = TD.init(key_from_seed(k), R, k, sample_dtype=_TORCH[dtype])
+    first = _tile(rng, R, B, dtype, "random")
+    js = _J_UPDATE(js, _jax_batch(first))
+    ts = TD.update(ts, torch.from_numpy(first))
+    assert_same(js, ts)
+    tile = _tile(rng, R, B, dtype, "zipf")
+    tile[:, 1::4] = tile[:, :1]  # a key repeated in every fourth lane
+    valid = rng.integers(0, B + 1, R).astype(np.int32)
+    valid[:2] = (0, B)
+    want = TD.update(ts, torch.from_numpy(tile), torch.from_numpy(valid))
+    perm = _permuted_rows(rng, tile, valid)
+    if split:
+        cut = B // 3
+        parts = [(np.ascontiguousarray(perm[:, :cut]), np.minimum(valid, cut).astype(np.int32)),
+                 (np.ascontiguousarray(perm[:, cut:]), np.maximum(valid - cut, 0).astype(np.int32))]
+    else:
+        parts = [(perm, valid)]
+    got, jgot = ts, js
+    for part, v in parts:
+        got = TD.update(got, torch.from_numpy(part), torch.from_numpy(v))
+        jgot = _J_UPDATE(jgot, _jax_batch(part), jnp.asarray(v))
+    for f in _FIELDS:
+        a, b = getattr(want, f), getattr(got, f)
+        assert (a is None and b is None) or torch.equal(a, b), f
+    assert_same(jgot, got)
