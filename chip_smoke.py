@@ -29,7 +29,8 @@ which fails the run with a non-zero exit:
    and the sampled positions pass the one-sample KS gate;
 7. timings (CUDA events around 10 back-to-back launches, median of 11
    such runs): the kernel per fill tile and per steady tile beside the
-   plain version and the bound, with the kernel's build (registers a
+   plain version and the bound, and per steady tile deep in the stream
+   (count 24 B) beside the bound, with the kernel's build (registers a
    thread, local memory for spills, shared memory a block, resident warps
    an SM), the engine's
    elements/s fed from the device and from the host, a host tile's
@@ -61,7 +62,9 @@ which fails the run with a non-zero exit:
    fill's end, three Zipf tiles (bench.py's recipe), a tile of one value,
    a tile of values already held, a tile of negative keys and a ragged tile
    — values, value_hi, hash_hi, hash_lo, size and count must be
-   bit-identical, and no planted row may hold the planted key;
+   bit-identical, and no planted row may hold the planted key; then, at
+   R=8, k=19371 (int32) and k=14529 (int64), the first k whose row block
+   passes shared memory, two tiles that fill the rows and evict;
 13. the plain distinct version on the CPU for rows 0..1023 must equal the
    kernel's rows bit for bit;
 14. distinct engine path, int32 and int64 keys: 8 device-resident Zipf
@@ -149,9 +152,11 @@ PEAK_INT32 = 64 * 132 * 1.98e9
 INT_OPS_PER_ACCEPT = 330
 FLOPS_PER_ACCEPT = 134
 # state bytes per row and tile (count, nxt, log_w read and written, key
-# read) and per acceptance (one 32-byte sector gathered, one written)
+# read); per acceptance one 32-byte sector gathered, but no more than the
+# tile, and one written, but each sample reaches memory once (rewrites stay
+# in L2); a fill element is 4 bytes read and 4 written under the same caps
 STATE_BYTES_PER_ROW = 28
-BYTES_PER_ACCEPT = 64
+SECTOR_BYTES = 32
 # the weighted kernel, counted from csrc/weighted.cu: per weight lane the
 # scan's adds and flushes and the ballots; per acceptance three Threefry
 # blocks, the search ballots and the warp minimum, log twice, exp and two
@@ -168,7 +173,6 @@ W_FLOPS_PER_FILL = 28
 # element tile; one sector of samples and one of lkeys written per filled or
 # accepted slot, but each slot reaches memory once (rewrites stay in L2)
 W_STATE_BYTES_PER_ROW = 24
-SECTOR_BYTES = 32
 # the distinct path: bench.py's distinct configuration (BASELINE.md config 3)
 DR, DK, DB = 4096, 256, 1024
 # the distinct kernel, counted from csrc/distinct.cu and csrc/hashing.cuh:
@@ -287,7 +291,10 @@ def build_text(info: dict) -> str:
 
 
 def bound_ms(accepts: int, fill_elems: int) -> tuple:
-    nbytes = R * STATE_BYTES_PER_ROW + accepts * BYTES_PER_ACCEPT + 8 * fill_elems
+    """The uniform kernel's bound for a tile with ``accepts`` acceptances
+    and ``fill_elems`` elements copied by the fill over all R rows."""
+    moved = SECTOR_BYTES * accepts + 4 * fill_elems
+    nbytes = R * STATE_BYTES_PER_ROW + min(moved, 4 * R * B) + min(moved, 4 * R * K)
     t_bytes = nbytes / PEAK_BYTES
     t_ops = max(accepts * INT_OPS_PER_ACCEPT / PEAK_INT32, accepts * FLOPS_PER_ACCEPT / PEAK_F32)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -502,21 +509,15 @@ def main() -> None:
     del dev_tiles, host_tiles, engine
 
     # 7. timings at the main path's shapes
-    gen.manual_seed(23)
-    s0 = plain.init(key_from_seed(0), R, K, device=dev)
-    fill_tile = random_tile(gen, B, torch.int32, dev)
+    (_, s0, fill_tile, _), (_, state, steady_tile, _), (deep_label, deep, deep_tile, _) = \
+        uniform_timing_cases(gen, dev)
     fill_ms = event_ms(lambda s: kern.update_cuda(s, fill_tile), setup=lambda: clone(s0), batch=10)
     t0 = time.perf_counter()
     ref, fill_accepts = plain.update_accepts(clone(s0), fill_tile, fill=True)
     torch.cuda.synchronize()
     fill_plain_ms = 1e3 * (time.perf_counter() - t0)
     fill_bound, fill_by = bound_ms(fill_accepts, R * K)
-    state = clone(s0)
-    kern.update_cuda(state, fill_tile)
-    del ref, fill_tile
-    for _ in range(6):  # steady tiles 2..7: count reaches 7 * B
-        kern.update_steady_cuda(state, random_tile(gen, B, torch.int32, dev))
-    steady_tile = random_tile(gen, B, torch.int32, dev)
+    del ref, fill_tile, s0
     steady_ms = event_ms(lambda s: kern.update_steady_cuda(s, steady_tile), setup=lambda: clone(state),
                          batch=10)
     plain_times = []
@@ -527,7 +528,10 @@ def main() -> None:
         plain_times.append(1e3 * (time.perf_counter() - t0))
     steady_plain_ms = statistics.median(plain_times)
     steady_bound, steady_by = bound_ms(steady_accepts, 0)
-    del steady_tile, state
+    deep_ms = event_ms(lambda s: kern.update_steady_cuda(s, deep_tile), setup=lambda: clone(deep), batch=10)
+    _, deep_accepts = plain.update_accepts(clone(deep), deep_tile, fill=False)
+    deep_bound, deep_by = bound_ms(deep_accepts, 0)
+    del steady_tile, state, deep_tile, deep
     # where a host-fed tile's time goes: the engine's snapshot into pinned
     # memory (host clock), then the non-blocking copy to the card (events)
     host_tile = np.arange(R * B, dtype=np.int32).reshape(R, B)
@@ -558,6 +562,8 @@ def main() -> None:
     log(f"[7 timings] {card} | steady tile (count {7 * B} -> {8 * B}): kernel {steady_ms:.4f} ms, "
         f"plain {steady_plain_ms:.1f} ms, bound {steady_bound:.4f} ms ({steady_by}), "
         f"accepts {steady_accepts}")
+    log(f"[7 timings] {card} | {deep_label}: kernel {deep_ms:.4f} ms, bound {deep_bound:.4f} ms "
+        f"({deep_by}), accepts {deep_accepts}")
     log(f"[7 timings] {card} | engine: {dev_eps:.6e} elem/s fed from the device, "
         f"{host_eps:.6e} elem/s fed from the host")
     log(f"[7 timings] {card} | host tile of {4 * R * B} bytes: snapshot into pinned memory "
@@ -586,6 +592,8 @@ def main() -> None:
         "fill_tile": {"ms": fill_ms, "plain_ms": fill_plain_ms, "bound_ms": fill_bound,
                       "bound_by": fill_by, "accepts": fill_accepts},
         "steady_accepts": steady_accepts,
+        "deep_steady_tile": {"ms": deep_ms, "bound_ms": deep_bound, "bound_by": deep_by,
+                             "accepts": deep_accepts},
         "engine_elem_per_s": {"device_fed": dev_eps, "host_fed": host_eps},
         "host_tile_ms": {"snapshot": snapshot_ms, "h2d": h2d_ms},
         "warm_host_fed_elem_per_s": warm_host_eps,
@@ -593,6 +601,32 @@ def main() -> None:
     }, weighted, distinct, merge]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
+
+
+def uniform_timing_cases(gen, dev) -> list:
+    """Phase 7's tiles, each ``(label, state, tile, fill)``: random int32
+    tiles at the main path's shape as the fill tile from count 0, the
+    steady tile from count 7 B and a steady tile deep in the stream, from
+    count 24 B, where a row expects ~5 accepts (``kernel_ab.py`` times the
+    same)."""
+    from reservoir_tpu_torch.ops import algorithm_l as plain
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.ops.rng import key_from_seed
+
+    gen.manual_seed(23)
+    s0 = plain.init(key_from_seed(0), R, K, device=dev)
+    fill_tile = random_tile(gen, B, torch.int32, dev)
+    state = kern.update_cuda(clone(s0), fill_tile)
+    for _ in range(6):  # steady tiles 2..7: count reaches 7 * B
+        kern.update_steady_cuda(state, random_tile(gen, B, torch.int32, dev))
+    steady_tile = random_tile(gen, B, torch.int32, dev)
+    deep = clone(state)
+    for _ in range(17):  # tiles 8..24: count reaches 24 * B
+        kern.update_steady_cuda(deep, random_tile(gen, B, torch.int32, dev))
+    deep_tile = random_tile(gen, B, torch.int32, dev)
+    return [(f"fill tile (count 0 -> {B})", s0, fill_tile, True),
+            (f"steady tile (count {7 * B} -> {8 * B})", state, steady_tile, False),
+            (f"steady tile deep in the stream (count {24 * B} -> {25 * B})", deep, deep_tile, False)]
 
 
 def weighted_timing_cases(dev) -> list:
@@ -986,6 +1020,26 @@ def distinct_phases(gen, dev) -> dict:
             f"and by {elsewhere} of the others")
         cpu_checks.append((f"{dtype}", start_cpu, fed, clone(state, ROWS_CPU, "cpu")))
         del state
+    # beyond shared memory: the first k whose row block passes a block's
+    # shared memory runs the instantiation that keeps it in global memory
+    for dtype, k_big in ((torch.int32, 19371), (torch.int64, 14529)):
+        wide = dtype == torch.int64
+        if dkern.kernel_info(k_big, wide)["dynamic_smem"] != 0:
+            fail(f"the distinct kernel at k {k_big} ({dtype}) reports a block in shared memory")
+        state = dplain.init(key_from_seed(5), 8, k_big, sample_dtype=dtype, device=dev)
+        for t in range(2):
+            tile = wide_or_narrow(torch.randint(-(2**62), 2**62, (8, 12288), generator=gen, device=dev), dtype)
+            ref = dplain.update(clone(state), tile)
+            state = dkern.update_cuda(state, tile)
+            torch.cuda.synchronize()
+            worst_err = max(worst_err, max_abs_err(state, ref))
+            if not same(state, ref):
+                fail(f"distinct kernel != plain version beyond shared memory ({dtype}, k {k_big}, tile {t})")
+        if int(state.size.min().item()) != k_big:
+            fail(f"a distinct reservoir at k {k_big} ({dtype}) holds fewer than k keys after 2 tiles")
+        log(f"[12 distinct kernel vs plain] {dtype}, k {k_big} (beyond shared memory, R 8): 2 tiles "
+            "(fill, evict) bit-identical")
+        del state, ref
 
     # 13. card vs CPU
     for case, state_c, fed, want in cpu_checks:

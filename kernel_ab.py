@@ -1,18 +1,25 @@
-"""Time two builds of the distinct and weighted kernels in turns on one card.
+"""Time two builds of the uniform, distinct and weighted kernels in turns on one card.
 
-    python3 kernel_ab.py --old DIR [--out FILE]
+    python3 kernel_ab.py --old DIR [--unchecked] [--out FILE]
 
 ``DIR`` holds another version of ``reservoir_tpu_torch/csrc`` (for example
-the parent commit's, from ``git archive``, or a variant of this one); its
-``distinct.cu`` and ``weighted.cu`` must keep the C entry points
-``distinct_update`` and ``weighted_update`` with their arguments.  The
-script builds those two files of both versions with the port's own nvcc
-flags (plus ``-Xptxas -v``) into ``reservoir_tpu_torch/_build/ab/``, all at
+the parent commit's, from ``git archive``, or a variant of this one, with
+the headers its sources include).  Each of ``algorithm_l.cu``,
+``distinct.cu`` and ``weighted.cu`` that it holds must keep the C entry
+point ``algl_update``, ``distinct_update`` or ``weighted_update`` with its
+arguments, and only those kernels are timed (a variant directory holds just
+the file it edits).  The script builds those files of both versions with
+the port's own nvcc flags
+(plus ``-Xptxas -v``) into ``reservoir_tpu_torch/_build/ab/``, all at
 once, loads each build through its wrapper (``_library(path)`` of
-``ops/distinct_cuda.py`` and ``ops/weighted_cuda.py``), and then, at
-``chip_smoke.py``'s shapes and on its tiles, times old and new in turns
-(old, new, new, old) with ``chip_smoke.event_ms``:
+``ops/algorithm_l_cuda.py``, ``ops/distinct_cuda.py`` and
+``ops/weighted_cuda.py``), and then, at ``chip_smoke.py``'s shapes and on
+its tiles, times old and new in turns (old, new, new, old) with
+``chip_smoke.event_ms``:
 
+- ``algl_update`` (R = 65,536, k = 128, B = 2,048) on phase 7's tiles
+  (``chip_smoke.uniform_timing_cases``): the fill tile from count 0 and the
+  steady tiles from count 7 B and 24 B;
 - ``distinct_update`` (R = 4,096, k = 256, B = 1,024) on phase 15's tiles
   (``chip_smoke.distinct_timing_cases``): Zipf tiles from empty and after 8
   Zipf tiles, int32 and int64, and fresh random keys after 8 (int32);
@@ -21,9 +28,13 @@ once, loads each build through its wrapper (``_library(path)`` of
   steady tile from count 7 B, and that tile with every weight 0.
 
 Each tile is first run once by both builds, and their states must be
-bit-identical.  Each build's registers, spills and static shared memory
-(``-Xptxas -v``) are printed, and for the checkout's build its
-``kernel_info`` at the launch shape (shared memory and resident warps an
+bit-identical, unless ``--unchecked`` says that the old build is a
+diagnosis variant that computes something else (a one-edit copy with the
+gathers or the writes taken out, say), which is then only timed.  Each
+build's registers, spills and static shared memory (``-Xptxas -v``) are
+printed, with its instructions by the pipe their opcodes issue to
+(``cuobjdump -sass``: the update kernel's, and its largest loop's), and
+for the checkout's build its ``kernel_info`` at the launch shape (shared memory and resident warps an
 SM), with the card's name and power limit and each tile's bound
 (``chip_smoke``'s bound functions); the whole goes to ``--out`` as JSON.
 It needs a CUDA card and nvcc.
@@ -34,6 +45,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -41,19 +53,19 @@ import sys
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("distinct", "weighted")
+KERNELS = ("algorithm_l", "distinct", "weighted")
 
 
-def build(dirs: dict, out_dir: str) -> dict:
-    """Compile ``distinct.cu`` and ``weighted.cu`` of each ``{tag: csrc
-    directory}``, all in parallel; returns ``{tag: {name: (library path,
-    ptxas lines)}}``."""
+def build(dirs: dict, out_dir: str, names=KERNELS) -> dict:
+    """Compile the sources ``names`` (``KERNELS`` by default) of each
+    ``{tag: csrc directory}``, all in parallel; returns ``{tag: {name:
+    (library path, ptxas lines)}}``."""
     from reservoir_tpu_torch import _build
 
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for tag, csrc in dirs.items():
-        for name in KERNELS:
+        for name in names:
             lib = os.path.join(out_dir, f"lib{name}_{tag}.so")
             cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", lib,
                    os.path.join(csrc, f"{name}.cu")]
@@ -69,16 +81,74 @@ def build(dirs: dict, out_dir: str) -> dict:
     return built
 
 
+# SASS opcodes by the pipe that issues them (the rest count as "other")
+PIPES = {
+    "integer": ("LOP3", "SHF", "IADD3", "ISETP", "LEA", "SEL", "PRMT", "FSETP", "FSEL", "FMNMX",
+                "VIADD", "IABS", "POPC", "FLO", "BMSK", "PLOP3"),
+    "fma": ("IMAD", "FFMA", "FADD", "FMUL", "HFMA2"),
+    "convert/special": ("I2F", "I2FP", "F2I", "FRND", "MUFU", "FCHK"),
+    "memory": ("LDG", "STG", "LDS", "STS", "LDL", "STL", "LDGSTS", "LDC", "ULDC", "LDGDEPBAR",
+               "DEPBAR", "CCTL", "UBLKPF"),
+    "control": ("BRA", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "WARPSYNC", "VOTE", "BAR", "NOP"),
+}
+
+
+def sass_counts(lib: str, kernel: str = "update_kernel") -> dict:
+    """``cuobjdump -sass`` of a build: the instructions of the first
+    function whose name holds ``kernel``, and of its largest loop (the span
+    of its longest backward branch), each by the pipe of ``PIPES``."""
+    from reservoir_tpu_torch import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True, check=True).stdout
+    ops, addr_of, inside = [], {}, False
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            if inside:
+                break
+            inside = kernel in ln
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4})\*/\s+(.*?);", ln)
+        if inside and m:
+            addr_of[int(m.group(1), 16)] = len(ops)
+            ops.append(m.group(2).split())
+    loops = []
+    for i, words in enumerate(ops):
+        op = words[1] if words[0].startswith("@") else words[0]
+        if op.startswith("BRA") and words[-1].startswith("0x") and int(words[-1], 16) in addr_of:
+            start = addr_of[int(words[-1], 16)]
+            if start < i:
+                loops.append((i - start + 1, start, i))
+
+    def by_pipe(chunk):
+        counts = {pipe: 0 for pipe in PIPES} | {"other": 0}
+        for words in chunk:
+            op = (words[1] if words[0].startswith("@") else words[0]).split(".")[0]
+            counts[next((p for p, names in PIPES.items() if op in names), "other")] += 1
+        return counts
+
+    size, start, end = max(loops, default=(0, 0, -1))
+    return {"instructions": len(ops), "by_pipe": by_pipe(ops),
+            "largest_loop": {"instructions": size, "by_pipe": by_pipe(ops[start:end + 1])}}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", required=True, help="directory with the old csrc sources")
+    ap.add_argument("--unchecked", action="store_true",
+                    help="the old build is a variant that computes something else: time it, do not compare")
     ap.add_argument("--out", default=os.path.join(HERE, "reservoir_tpu_torch", "_build", "ab", "kernel_ab.json"),
                     help="where the JSON of times and builds goes")
     args = ap.parse_args()
+    names = tuple(n for n in KERNELS if os.path.isfile(os.path.join(args.old, f"{n}.cu")))
+    if not names:
+        sys.exit(f"{args.old} holds none of " + ", ".join(f"{n}.cu" for n in KERNELS))
     if not torch.cuda.is_available():
         sys.exit("kernel_ab.py needs a CUDA card")
     sys.path.insert(0, HERE)
     import chip_smoke as cs
+    from reservoir_tpu_torch.ops import algorithm_l as uplain
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as ukern
     from reservoir_tpu_torch.ops import distinct as dplain
     from reservoir_tpu_torch.ops import distinct_cuda as dkern
     from reservoir_tpu_torch.ops import weighted as wplain
@@ -87,20 +157,22 @@ def main() -> None:
     card = cs.card_line()
     dev = torch.device("cuda")
     built = build({"old": args.old, "new": os.path.join(HERE, "reservoir_tpu_torch", "csrc")},
-                  os.path.join(HERE, "reservoir_tpu_torch", "_build", "ab"))
-    modules = {"distinct": dkern, "weighted": wkern}
+                  os.path.join(HERE, "reservoir_tpu_torch", "_build", "ab"), names)
+    modules = {"algorithm_l": ukern, "distinct": dkern, "weighted": wkern}
 
     def use(which: str, name: str) -> None:
         """Make ``which`` build the one the wrapper of ``name`` launches."""
         modules[name]._library(built[which][name][0])
 
-    for name in KERNELS:
+    for name in names:
         use("new", name)
-    results = {"card": card, "tiles": [],
+    info = {"algorithm_l": lambda: {"algorithm_l": ukern.kernel_info()},
+            "distinct": lambda: {"distinct": dkern.kernel_info(cs.DK, False),
+                                 "distinct_wide": dkern.kernel_info(cs.DK, True)},
+            "weighted": lambda: {"weighted": wkern.kernel_info(cs.WK)}}
+    results = {"card": card, "old": args.old, "unchecked": args.unchecked, "tiles": [],
                "ptxas": {which: {n: lines for n, (_, lines) in b.items()} for which, b in built.items()},
-               "kernel_info_new": {"distinct": dkern.kernel_info(cs.DK, False),
-                                   "distinct_wide": dkern.kernel_info(cs.DK, True),
-                                   "weighted": wkern.kernel_info(cs.WK)}}
+               "kernel_info_new": {n: i for name in names for n, i in info[name]().items()}}
     print(f"[ab] {card} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
     for which, lines_of in results["ptxas"].items():
         for n, lines in lines_of.items():
@@ -108,6 +180,11 @@ def main() -> None:
                 print(f"[ab ptxas] {which} {n}: {ln}", flush=True)
     for n, info in results["kernel_info_new"].items():
         print(f"[ab build] new {n}: {cs.build_text(info)}", flush=True)
+    results["sass"] = {which: {n: sass_counts(lib) for n, (lib, _) in b.items()} for which, b in built.items()}
+    for which, counts_of in results["sass"].items():
+        for n, c in counts_of.items():
+            print(f"[ab sass] {which} {n}: {c['instructions']} instructions, largest loop "
+                  f"{c['largest_loop']['instructions']} ({c['largest_loop']['by_pipe']})", flush=True)
 
     def ab(name: str, label: str, state, step, bound: tuple, extra: dict) -> None:
         """Check old and new agree on this tile, then time them in turns:
@@ -117,7 +194,7 @@ def main() -> None:
             use(which, name)
             got[which] = step(cs.clone(state))
         torch.cuda.synchronize()
-        if not cs.same(got["old"], got["new"]):
+        if not args.unchecked and not cs.same(got["old"], got["new"]):
             sys.exit(f"FAIL: old and new {name} differ on the {label}")
         times = {"old": [], "new": []}
         for which in ("old", "new", "new", "old"):
@@ -130,9 +207,16 @@ def main() -> None:
               f"{times['new'][0]:.4f} / {times['new'][1]:.4f} ms (old, new, new, old), bound "
               f"{bound[0]:.4f} ms ({bound[1]})", flush=True)
 
-    # distinct_update on phase 15's tiles
     gen = torch.Generator(device=dev)
-    for label, state, tile, wide in cs.distinct_timing_cases(gen, dev):
+    # algl_update on phase 7's tiles
+    for label, state, tile, fill in cs.uniform_timing_cases(gen, dev) if "algorithm_l" in names else ():
+        _, accepts = uplain.update_accepts(cs.clone(state), tile, fill=fill)
+        step = ukern.update_cuda if fill else ukern.update_steady_cuda
+        ab("algorithm_l", label, state, lambda s, t=tile, f=step: f(s, t),
+           cs.bound_ms(accepts, cs.R * cs.K if fill else 0), {"accepts": accepts})
+
+    # distinct_update on phase 15's tiles
+    for label, state, tile, wide in cs.distinct_timing_cases(gen, dev) if "distinct" in names else ():
         ref = dplain.update(state, tile)
         inserts, rows_in = cs.net_inserts(state, ref)
         bound = cs.distinct_bound_ms(tile.numel(), wide, inserts, rows_in)
@@ -140,7 +224,7 @@ def main() -> None:
            {"net_inserts": inserts, "rows_inserting": rows_in})
 
     # weighted_update on phase 11's tiles
-    for label, state, elems, weights in cs.weighted_timing_cases(dev):
+    for label, state, elems, weights in cs.weighted_timing_cases(dev) if "weighted" in names else ():
         _, accepts = wplain.update_accepts(cs.clone(state), elems, weights)
         fills = 0
         if "empty" in label:

@@ -8,30 +8,65 @@
 // keyed on the absolute index nxt, update log W and the skip with XLA's
 // float32 log/exp/log1p, and overwrite a uniform slot.
 //
-// Design.  One thread per reservoir row; blocks of 128 threads over R.
-// The TPU kernel kept each row block resident in VMEM and gathered with a
-// one-hot reduction over the whole chunk; here a thread reads only the
-// elements it accepts, so a tile costs R * 28 bytes of state traffic plus
-// one 32-byte sector for each accepted element's gather and one for its
-// slot write.  State is updated in place (count += valid included).
-// Samples and batch move as 32-bit words and are never touched as floats,
-// which keeps -0.0 and NaN payloads.
+// Bound.  Per tile with A accepts over all rows: bytes R*28 of state, one
+// 32-byte sector gathered per accept (no more than the tile) and one written
+// (no more than the samples); integer work ~ A * (4 Threefry blocks * ~80
+// ops) and ~130 float ops per accept.  At R = 65,536, k = 128, B = 2,048 a
+// steady tile from count 14,336 has ~1.1 M accepts and a fill tile from
+// count 0 ~23 M, both bound by their operations (~22 us and ~0.46 ms).
+// What the byte count does not see: each steady gather is a random read of
+// HBM, which an H100 serves at ~20 G a second, not at its streaming rate,
+// so ~1.1 M of them take ~57 us on their own (PERF.md, Findings).
+// chip_smoke.py reports the measured times beside the bounds.
 //
-// Bound.  Per steady tile with A accepts over all rows: bytes ~ R*28 + A*64,
-// integer work ~ A * (4 Threefry blocks * ~100 ops) and ~60 float ops per
-// accept.  At R = 65,536, k = 128, B = 2,048 a steady tile from count
-// 14,336 has ~1.1 M accepts, and both bounds are ~22 microseconds; a
-// fill tile from count 0 has ~23 M accepts and is bound by bytes
-// (~0.46 ms).  chip_smoke.py reports the measured times beside them
-// (PERF.md).  This simple design is latency-bound: ~16 warps per SM, each
-// thread a long dependent Threefry/log chain, and a warp's loop runs as
-// long as its row with the most accepts.
+// What held the first design back (one thread a row gathering and writing
+// each accept inside its chain; PERF.md, Findings): with the gather and the
+// write removed, a steady tile took 44% of its time and a fill tile 58%;
+// the per-thread fill copy took 12% of the fill; the slot's Threefry block
+// cost nothing measurable; equal accept counts in every row saved 4-12%.
+// The chain itself is bound by the integer pipe: 287 of its 536
+// instructions an accept (the Threefry rounds' SHF and LOP3 among them)
+// issue at half rate, ~16 warps an SM.
+//
+// Design.  Blocks of 128 threads over R; a thread walks its row's chain and
+// never waits on memory inside it.
+// - Each accept starts its gather at once, as a cp.async of the 4-byte
+//   element into a per-thread ring in shared memory (kList entries, its
+//   slot beside it), and the chain goes on.  When the ring is full, the
+//   oldest kList - kLag accepts, whose gathers have had kLag accepts' time
+//   to land, are written to their slots; the rest when the row is done.
+//   One thread writes a row, in acceptance order, so a later accept to a
+//   slot wins by program order.  A small ring leaves L1 room for the fill
+//   tile's dense gathers (32 entries a thread ran 43% slower there).
+// - L2 policies: the tile's words are gathered evict_first (read once), the
+//   samples written evict_last; on a fill tile that keeps the samples the
+//   fill copy wrote in L2 (without them the fill tile took 67% longer).
+// - A full row that expects many accepts (count <= kPrefetchSpan * valid)
+//   has its samples brought into L2 by one bulk prefetch before its chain
+//   starts, so its scattered writes do not each wait on a random read of
+//   HBM.  A row expects ~k * v / c accepts; the span (~k / 11 of them at
+//   k = 128) is where a prefetched row and its writes into cold sectors
+//   cost about the same on an H100, read from memory-only variants of this
+//   kernel.  Prefetching every full row instead made a tile deep in the
+//   stream ~9% slower (PERF.md, Findings).
+// - The fill copy is coalesced: a warp copies its rows' prefixes a row at a
+//   time, 32 lanes wide, four rows' loads in flight, with 16-byte words
+//   where the row, the slots and the pointers are 4-word aligned; it comes
+//   before any accept's write (__syncwarp).
+// - Per-row constants are hoisted: f32(1/k) once, w2 % k by Lemire's
+//   multiply-high remainder (exact for every uint32 and every k >= 1), and
+//   the two logs of uniform draws skip xla_log's special cases, which a
+//   draw in [2^-24, 1] never takes.
+// State is updated in place (count += valid included).  Samples and batch
+// move as 32-bit words and are never touched as floats, which keeps -0.0
+// and NaN payloads.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // (see reservoir_tpu_torch/_build.py).  Plain C interface for ctypes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "fmath.cuh"
 #include "kinfo.cuh"
@@ -40,21 +75,80 @@
 namespace algl {
 
 constexpr int kThreads = 128;
+constexpr int kList = 16;     // accepts a thread holds recorded and not yet written
+constexpr int kLag = 4;       // of which the newest, whose gathers may be in flight
+constexpr int kFillRows = 4;  // rows whose fill loads a warp keeps in flight
+constexpr int kPrefetchSpan = 12;  // a full row's samples are prefetched while c <= 12 v
+static_assert((kList & (kList - 1)) == 0 && kLag < kList, "a ring of 2^n entries");
+constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int32_t kInt32Max = 2147483647;
+
+// L2 policies: evict_first for the tile's gathered words, which are read
+// once, and evict_last for the samples, which take many scattered writes.
+__device__ __forceinline__ uint64_t evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint64_t evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+// 4 bytes from global to shared memory without waiting (cp.async) under an
+// L2 policy, as a group of its own; and the wait until at most N of this
+// thread's most recent such groups are still in flight.
+__device__ __forceinline__ void copy4_async(void* dst, const void* src, uint64_t policy) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile(
+      "cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, 4, %2;\n"
+      "cp.async.commit_group;\n" ::"r"(d),
+      "l"(src), "l"(policy)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wait_async_but() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The n bytes at p (16-byte aligned, n a multiple of 16) into L2 under a
+// policy, without waiting (one bulk prefetch).
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t n, uint64_t policy) {
+  asm volatile("cp.async.bulk.prefetch.L2.global.L2::cache_hint [%0], %1, %2;" ::"l"(p), "r"(n),
+               "l"(policy)
+               : "memory");
+}
+
+// A 4-byte store under an L2 policy.
+__device__ __forceinline__ void store4(uint32_t* p, uint32_t v, uint64_t policy) {
+  asm volatile("st.global.L2::cache_hint.b32 [%0], %1, %2;" ::"l"(p), "r"(v), "l"(policy)
+               : "memory");
+}
+
+// a % d for every uint32 a, given m = 2^64 / d rounded up (Lemire, Kaser and
+// Kurz, "Faster remainder by direct computation", 2019)
+__device__ __forceinline__ uint32_t fastmod(uint32_t a, uint64_t m, uint32_t d) {
+  return static_cast<uint32_t>(__umul64hi(m * a, d));
+}
 
 // One acceptance at absolute index nxt: returns the slot, advances log_w
 // and nxt (the port of ops/algorithm_l.py:_advance_words).
-__device__ __forceinline__ int32_t advance(float& log_w, int32_t& nxt,
-                                           uint32_t k1, uint32_t k2, int k) {
+__device__ __forceinline__ int32_t advance(float& log_w, int32_t& nxt, uint32_t k1, uint32_t k2,
+                                           uint32_t k, uint64_t kmod, float inv_k) {
   uint32_t w[3];
   accept_words(k1, k2, static_cast<uint32_t>(nxt), w);
   const float u1 = uniform_from_word(w[0]);
   const float u2 = uniform_from_word(w[1]);
-  const int32_t slot = static_cast<int32_t>(w[2] % static_cast<uint32_t>(k));
-  // XLA folds log(u1) / k into fma(log(u1), 1/k, log_w), 1/k in float32
-  log_w = __fmaf_rn(xla_log(u1), __fdiv_rn(1.0f, __int2float_rn(k)), log_w);
+  const int32_t slot = static_cast<int32_t>(fastmod(w[2], kmod, k));
+  // XLA folds log(u1) / k into fma(log(u1), 1/k, log_w), 1/k in float32.
+  // u1 and u2 lie in [2^-24, 1] (rng.uniform_from_bits), where xla_log takes
+  // none of its special cases: log_normal is xla_log there.
+  log_w = __fmaf_rn(log_normal(u1), inv_k, log_w);
   const float wv = xla_exp(log_w);
-  float skip_f = floorf(__fdiv_rn(xla_log(u2), xla_log1p(-wv)));
+  float skip_f = floorf(__fdiv_rn(log_normal(u2), xla_log1p(-wv)));
   // min(skip_f, 2^30) that keeps NaN, as jnp.minimum and torch.minimum do
   if (skip_f > 1073741824.0f) skip_f = 1073741824.0f;
   // float -> int32 as XLA converts: NaN gives 0
@@ -64,38 +158,130 @@ __device__ __forceinline__ int32_t advance(float& log_w, int32_t& nxt,
   return slot;
 }
 
+// The warp's fill copy, W words a lane (1, or 4 as one 16-byte word): row
+// j of the warp (row0 + j) copies its elements s_j + i to slots d_j + i for
+// i < m_j.  Lane l holds s, d and m of row l; rows with nothing to copy
+// (rows past R among them) hold m = 0.
+template <int W>
+__device__ __forceinline__ void fill_rows(uint32_t* __restrict__ samples,
+                                          const uint32_t* __restrict__ batch, int row0, int s,
+                                          int d, int m, int k, int B, int lane) {
+  using V = typename std::conditional<W == 4, uint4, uint32_t>::type;
+  for (int j0 = 0; j0 < 32; j0 += kFillRows) {
+    const uint32_t* src[kFillRows];
+    uint32_t* dst[kFillRows];
+    int mj[kFillRows], most = 0;
+#pragma unroll
+    for (int q = 0; q < kFillRows; ++q) {
+      const int j = row0 + j0 + q;
+      src[q] = batch + static_cast<size_t>(j) * B + __shfl_sync(kFull, s, j0 + q);
+      dst[q] = samples + static_cast<size_t>(j) * k + __shfl_sync(kFull, d, j0 + q);
+      mj[q] = __shfl_sync(kFull, m, j0 + q);
+      most = mj[q] > most ? mj[q] : most;
+    }
+    for (int i = lane * W; i < most; i += 32 * W) {
+      V x[kFillRows];
+#pragma unroll
+      for (int q = 0; q < kFillRows; ++q)
+        if (i < mj[q]) x[q] = __ldg(reinterpret_cast<const V*>(src[q] + i));
+#pragma unroll
+      for (int q = 0; q < kFillRows; ++q)
+        if (i < mj[q]) *reinterpret_cast<V*>(dst[q] + i) = x[q];
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 update_kernel(uint32_t* __restrict__ samples, int32_t* __restrict__ count,
               int32_t* __restrict__ nxt, float* __restrict__ log_w,
               const uint32_t* __restrict__ key, const uint32_t* __restrict__ batch,
-              const int32_t* __restrict__ valid, int R, int k, int B, int fill) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const int32_t c = count[r];
-  const int32_t v = valid != nullptr ? valid[r] : B;
+              const int32_t* __restrict__ valid, int R, int k, int B, int fill, int vec,
+              uint64_t kmod) {
+  // the thread's recorded accepts: the gathered element (copied in by
+  // cp.async while the chain goes on) and the slot, entry d of thread t at
+  // [d][t], so a warp's lanes touch 32 banks whatever their d
+  __shared__ uint32_t lelem[kList][kThreads];
+  __shared__ int32_t lslot[kList][kThreads];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int r = blockIdx.x * kThreads + t;
+  const bool live = r < R;  // rows past R ride along, whole warps only
+  int32_t c = 0, v = 0, n = 1;
+  float lw = 0.0f;
+  uint32_t k1 = 0u, k2 = 0u;
+  if (live) {
+    c = count[r];
+    v = valid != nullptr ? valid[r] : B;
+    n = nxt[r];
+    lw = log_w[r];
+    k1 = key[2 * r];
+    k2 = key[2 * r + 1];
+  }
   const uint32_t* row = batch + static_cast<size_t>(r) * B;
   uint32_t* out = samples + static_cast<size_t>(r) * k;
-  if (fill && c < k) {
-    const int m = min(v, k - c);
-    for (int j = 0; j < m; ++j) out[c + j] = row[j];
+
+  if (fill) {
+    // elements j < min(v, k - c) go to slot c + j; as the Pallas kernel,
+    // a slot below 0 (a count past int32 max) takes nothing
+    const int64_t lo = c < 0 ? -static_cast<int64_t>(c) : 0;
+    const int64_t hi = live && c < k ? min(static_cast<int64_t>(v), static_cast<int64_t>(k) - c) : 0;
+    const int m = hi > lo ? static_cast<int>(hi - lo) : 0;
+    const int s = m > 0 ? static_cast<int>(lo) : 0;
+    const int d = m > 0 ? static_cast<int>(c + lo) : 0;
+    if (__any_sync(kFull, m > 0)) {
+      // 16-byte words only where every row the warp copies is aligned:
+      // whole words from element 0 to a slot that is a multiple of 4
+      const bool ok = m == 0 || (s == 0 && (d & 3) == 0 && (m & 3) == 0);
+      if (vec && __all_sync(kFull, ok))
+        fill_rows<4>(samples, batch, r - lane, s, d, m, k, B, lane);
+      else
+        fill_rows<1>(samples, batch, r - lane, s, d, m, k, B, lane);
+    }
+    __syncwarp();  // the copy's writes, by any lane, before the accepts' below
   }
+
   // int32 wraparound as in the reference's count + valid
   const int32_t end = static_cast<int32_t>(static_cast<uint32_t>(c) + static_cast<uint32_t>(v));
-  const uint32_t k1 = key[2 * r], k2 = key[2 * r + 1];
-  int32_t n = nxt[r];
-  float lw = log_w[r];
-  while (n <= end) {
+  const float inv_k = __fdiv_rn(1.0f, __int2float_rn(k));
+  const uint64_t once = evict_first(), kept = evict_last();
+  // a full row expecting about k * v / c accepts: when that many random
+  // 32-byte writes cost more than streaming its 4k bytes of samples, the
+  // row is brought into L2 now, while the chain runs (see the note above)
+  if (live && n <= end && c >= k && static_cast<int64_t>(c) <= kPrefetchSpan * static_cast<int64_t>(v)) {
+    const uint64_t bytes = 4ull * static_cast<uint32_t>(k);
+    if (((reinterpret_cast<uintptr_t>(out) | bytes) & 15u) == 0 && bytes < (1ull << 31))
+      prefetch_l2(out, static_cast<uint32_t>(bytes), kept);
+    else
+      for (int i = 0; i < k; i += 8) asm volatile("prefetch.global.L2::evict_last [%0];" ::"l"(out + i));
+  }
+  // the ring of recorded accepts: head counts those recorded, tail those
+  // written; entry i lives at i % kList
+  uint32_t head = 0, tail = 0;
+  bool more = live && n <= end;
+  while (more) {
+    if (head - tail == kList) {
+      // full: write the oldest, whose gathers were started kLag accepts ago
+      wait_async_but<kLag>();
+      for (; tail != head - kLag; ++tail)
+        store4(out + lslot[tail % kList][t], lelem[tail % kList][t], kept);
+    }
     // the reference's gather index rule: wrap a negative index, then clamp
     int64_t pos = static_cast<int64_t>(n) - c - 1;
     if (pos < 0) pos += B;
     pos = pos < 0 ? 0 : (pos >= B ? B - 1 : pos);
-    const uint32_t elem = row[pos];
-    const int32_t slot = advance(lw, n, k1, k2, k);
-    out[slot] = elem;
+    copy4_async(&lelem[head % kList][t], row + pos, once);
+    lslot[head % kList][t] = advance(lw, n, k1, k2, static_cast<uint32_t>(k), kmod, inv_k);
+    ++head;
+    more = n <= end;
   }
-  nxt[r] = n;
-  log_w[r] = lw;
-  count[r] = end;
+  // the rest, once every gather of the thread has landed
+  wait_async_but<0>();
+  for (; tail != head; ++tail) store4(out + lslot[tail % kList][t], lelem[tail % kList][t], kept);
+  if (live) {
+    nxt[r] = n;
+    log_w[r] = lw;
+    count[r] = end;
+  }
 }
 
 __global__ void fmath_kernel(const float* __restrict__ x, float* __restrict__ y, int n,
@@ -114,10 +300,14 @@ extern "C" {
 int algl_update(uint32_t* samples, int32_t* count, int32_t* nxt, float* log_w,
                 const uint32_t* key, const uint32_t* batch, const int32_t* valid, int R,
                 int k, int B, int fill, cudaStream_t stream) {
-  if (R <= 0) return static_cast<int>(cudaSuccess);
+  if (R <= 0 || B <= 0) return static_cast<int>(cudaSuccess);  // an empty tile changes nothing
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (R + algl::kThreads - 1) / algl::kThreads;
-  algl::update_kernel<<<blocks, algl::kThreads, 0, stream>>>(samples, count, nxt, log_w, key,
-                                                              batch, valid, R, k, B, fill);
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; };
+  const int vec = B % 4 == 0 && k % 4 == 0 && aligned(samples) && aligned(batch);
+  const uint64_t kmod = ~uint64_t{0} / static_cast<uint32_t>(k) + 1u;
+  algl::update_kernel<<<blocks, algl::kThreads, 0, stream>>>(
+      samples, count, nxt, log_w, key, batch, valid, R, k, B, fill, vec, kmod);
   return static_cast<int>(cudaGetLastError());
 }
 

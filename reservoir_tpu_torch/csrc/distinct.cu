@@ -54,6 +54,13 @@
 //   into shared memory with cp.async at the row's first candidate, while
 //   the row's next chunks are scrambled, and goes back at the end if it
 //   changed, so a row with no candidate reads only its last entry.
+// - Beyond shared memory: when one row's block does not fit in a block's
+//   232,448 bytes (k > 19,370 narrow, k > 14,528 wide; the kernel holds no
+//   static shared memory, so the dynamic block is all of it), the same
+//   kernel, instantiated with ON_CHIP false, searches and merges the row's
+//   block in place in the state's own arrays, four rows a block.  The
+//   rounds' __syncwarp orders those global reads and writes as it orders
+//   the shared ones, and nothing is copied in or written back.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // (see reservoir_tpu_torch/_build.py).  Plain C interface for ctypes.
@@ -107,11 +114,32 @@ __device__ __forceinline__ void copy4_async(void* dst, const void* src) {
 
 __device__ __forceinline__ void wait_async() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
-// One warp's row block in shared memory: hash pairs, value_lo, value_hi.
-struct Block {
+// One warp's row block: on chip, hash pairs, value_lo and value_hi in
+// shared memory; else the state's own hash_hi, hash_lo, values and value_hi
+// rows in global memory.  Entry i is read and written through hash/set.
+template <bool ON_CHIP>
+struct Block;
+
+template <>
+struct Block<true> {
   uint2* h;
   uint32_t* vl;
   uint32_t* vh;  // wide keys only
+  __device__ __forceinline__ uint2 hash(int i) const { return h[i]; }
+  __device__ __forceinline__ void set_hash(int i, uint2 x) const { h[i] = x; }
+};
+
+template <>
+struct Block<false> {
+  uint32_t* hh;
+  uint32_t* hl;
+  uint32_t* vl;
+  uint32_t* vh;  // wide keys only
+  __device__ __forceinline__ uint2 hash(int i) const { return make_uint2(hh[i], hl[i]); }
+  __device__ __forceinline__ void set_hash(int i, uint2 x) const {
+    hh[i] = x.x;
+    hl[i] = x.y;
+  }
 };
 
 // Keys first .. first + 3 of the row (those below v) into lo/hi words.
@@ -154,8 +182,8 @@ __device__ __forceinline__ void load_keys(const uint32_t* __restrict__ lo_row,
 // One round: each lane with c set offers the key (ch, cl) / (cvh, cvl).
 // Keys already held or repeated in the round go; the rest are merged into
 // the sorted block in one pass.  Updates sz, the threshold and dirty.
-template <bool WIDE>
-__device__ __forceinline__ void take_round(const Block& blk, int k, int lane, bool c,
+template <bool WIDE, bool ON_CHIP>
+__device__ __forceinline__ void take_round(const Block<ON_CHIP>& blk, int k, int lane, bool c,
                                            uint32_t ch, uint32_t cl, uint32_t cvh, uint32_t cvl,
                                            int& sz, uint32_t& th, uint32_t& tl, bool& dirty) {
   // rank in the block (entries below) and an equal entry, by binary search
@@ -164,14 +192,14 @@ __device__ __forceinline__ void take_round(const Block& blk, int k, int lane, bo
     for (int step = 1 << (31 - __clz(sz)); step > 0; step >>= 1) {
       const int probe = p + step - 1;
       if (probe < sz) {
-        const uint2 e = blk.h[probe];
+        const uint2 e = blk.hash(probe);
         if (lt64(e.x, e.y, ch, cl)) p += step;
       }
     }
   }
   bool s = c;
   if (s && p < sz) {
-    const uint2 e = blk.h[p];
+    const uint2 e = blk.hash(p);
     s = !(e.x == ch && e.y == cl);
   }
   const unsigned sm = __ballot_sync(kFull, s);
@@ -219,13 +247,13 @@ __device__ __forceinline__ void take_round(const Block& blk, int k, int lane, bo
     uint2 h = make_uint2(0u, 0u);
     uint32_t a = 0u, b = 0u;
     if (mv) {
-      h = blk.h[i];
+      h = blk.hash(i);
       a = blk.vl[i];
       if (WIDE) b = blk.vh[i];
     }
     __syncwarp();
     if (mv && i + shift < k) {
-      blk.h[i + shift] = h;
+      blk.set_hash(i + shift, h);
       blk.vl[i + shift] = a;
       if (WIDE) blk.vh[i + shift] = b;
     }
@@ -233,21 +261,21 @@ __device__ __forceinline__ void take_round(const Block& blk, int k, int lane, bo
   }
   if (lane < n && np + lane < k) {
     const int d = np + lane;
-    blk.h[d] = make_uint2(nh, nl);
+    blk.set_hash(d, make_uint2(nh, nl));
     blk.vl[d] = nvl;
     if (WIDE) blk.vh[d] = nvh;
   }
   __syncwarp();
   sz = sz + n < k ? sz + n : k;
   if (sz == k) {
-    const uint2 t = blk.h[k - 1];
+    const uint2 t = blk.hash(k - 1);
     th = t.x;
     tl = t.y;
   }
   dirty = true;
 }
 
-template <bool WIDE>
+template <bool WIDE, bool ON_CHIP>
 __global__ void __launch_bounds__(kMaxWarps * 32, 8)
 update_kernel(uint32_t* __restrict__ values, uint32_t* __restrict__ value_hi,
               uint32_t* __restrict__ hash_hi, uint32_t* __restrict__ hash_lo,
@@ -260,11 +288,18 @@ update_kernel(uint32_t* __restrict__ values, uint32_t* __restrict__ value_hi,
   const int w = threadIdx.x >> 5;
   const int r = blockIdx.x * (blockDim.x >> 5) + w;
   if (r >= R) return;  // whole warps only: R rows, one warp each
-  Block blk;
-  blk.h = reinterpret_cast<uint2*>(smem + static_cast<size_t>(w) * warp_bytes);
-  blk.vl = reinterpret_cast<uint32_t*>(blk.h + k);
-  blk.vh = blk.vl + k;
   const size_t row = static_cast<size_t>(r) * k;
+  Block<ON_CHIP> blk;
+  if constexpr (ON_CHIP) {
+    blk.h = reinterpret_cast<uint2*>(smem + static_cast<size_t>(w) * warp_bytes);
+    blk.vl = reinterpret_cast<uint32_t*>(blk.h + k);
+    blk.vh = blk.vl + k;
+  } else {
+    blk.hh = hash_hi + row;
+    blk.hl = hash_lo + row;
+    blk.vl = values + row;
+    blk.vh = WIDE ? value_hi + row : nullptr;
+  }
   const uint32_t r0h = salts[4 * r], r0l = salts[4 * r + 1];
   const uint32_t r1h = salts[4 * r + 2], r1l = salts[4 * r + 3];
   const int v = valid != nullptr ? valid[r] : B;
@@ -282,7 +317,7 @@ update_kernel(uint32_t* __restrict__ values, uint32_t* __restrict__ value_hi,
   // ends; the threshold may have tightened since their chunk's ballots
   uint32_t pch = 0u, pcl = 0u, pcvh = 0u, pcvl = 0u;
   int npend = 0;
-  bool ready = false;  // the block's copy has landed
+  bool ready = !ON_CHIP;  // the block's copy has landed
   auto flush = [&]() {
     if (!ready) {
       wait_async();
@@ -290,7 +325,7 @@ update_kernel(uint32_t* __restrict__ values, uint32_t* __restrict__ value_hi,
       ready = true;
     }
     const bool c = lane < npend && lt64(pch, pcl, th, tl);
-    take_round<WIDE>(blk, k, lane, c, pch, pcl, pcvh, pcvl, sz, th, tl, dirty);
+    take_round<WIDE, ON_CHIP>(blk, k, lane, c, pch, pcl, pcvh, pcvl, sz, th, tl, dirty);
   };
 
   uint32_t nlo[kPer] = {0u, 0u, 0u, 0u}, nhi[kPer] = {0u, 0u, 0u, 0u};
@@ -321,15 +356,17 @@ update_kernel(uint32_t* __restrict__ values, uint32_t* __restrict__ value_hi,
       total += __popc(bal[e]);
     }
     if (total == 0) continue;
-    if (!held) {  // the row's block, copied while the row goes on
+    if constexpr (ON_CHIP) {
+      if (!held) {  // the row's block, copied while the row goes on
 #pragma unroll 4
-      for (int i = lane; i < k; i += 32) {
-        copy4_async(&blk.h[i].x, hash_hi + row + i);
-        copy4_async(&blk.h[i].y, hash_lo + row + i);
-        copy4_async(blk.vl + i, values + row + i);
-        if (WIDE) copy4_async(blk.vh + i, value_hi + row + i);
+        for (int i = lane; i < k; i += 32) {
+          copy4_async(&blk.h[i].x, hash_hi + row + i);
+          copy4_async(&blk.h[i].y, hash_lo + row + i);
+          copy4_async(blk.vl + i, values + row + i);
+          if (WIDE) copy4_async(blk.vh + i, value_hi + row + i);
+        }
+        held = true;
       }
-      held = true;
     }
     // the chunk's candidates in slot-then-lane order join the pending ones,
     // lanes npend.. taking the next; a round runs when all 32 lanes hold one
@@ -370,14 +407,16 @@ update_kernel(uint32_t* __restrict__ values, uint32_t* __restrict__ value_hi,
     }
   }
   if (npend > 0) flush();
-  if (dirty) {
+  if constexpr (ON_CHIP) {
+    if (dirty) {
 #pragma unroll 4
-    for (int i = lane; i < k; i += 32) {
-      const uint2 h = blk.h[i];
-      hash_hi[row + i] = h.x;
-      hash_lo[row + i] = h.y;
-      values[row + i] = blk.vl[i];
-      if (WIDE) value_hi[row + i] = blk.vh[i];
+      for (int i = lane; i < k; i += 32) {
+        const uint2 h = blk.h[i];
+        hash_hi[row + i] = h.x;
+        hash_lo[row + i] = h.y;
+        values[row + i] = blk.vl[i];
+        if (WIDE) value_hi[row + i] = blk.vh[i];
+      }
     }
   }
   if (lane == 0) {
@@ -387,40 +426,68 @@ update_kernel(uint32_t* __restrict__ values, uint32_t* __restrict__ value_hi,
 }
 
 // Shared memory a warp takes for its row's block (16-byte aligned), and the
-// warps a block runs; 0 warps when one row's block does not fit.
+// warps a block runs on chip; 0 warps when one row's block does not fit
+// (the kernel's static shared memory, none, is counted: kStaticSmem).
+constexpr size_t kStaticSmem = 0;
+
 __host__ inline size_t warp_bytes(bool wide, int k) {
   return (static_cast<size_t>(k) * (wide ? 16 : 12) + 15) / 16 * 16;
 }
 
 __host__ inline int warps_for(bool wide, int k) {
+  const size_t room = static_cast<size_t>(kMaxSmem) - kStaticSmem;
   const size_t per_warp = warp_bytes(wide, k);
-  if (per_warp > static_cast<size_t>(kMaxSmem)) return 0;
-  const int warps = static_cast<int>(kMaxSmem / per_warp);
+  if (per_warp > room) return 0;
+  const int warps = static_cast<int>(room / per_warp);
   return warps < kMaxWarps ? warps : kMaxWarps;
 }
 
-template <bool WIDE>
-int launch(uint32_t* values, uint32_t* value_hi, uint32_t* hash_hi, uint32_t* hash_lo,
-           int32_t* size, int32_t* count, const uint32_t* salts, const uint32_t* tile_lo,
-           const uint32_t* tile_hi, int stride, const int32_t* valid, int R, int k, int B,
-           cudaStream_t stream) {
-  const int warps = warps_for(WIDE, k);
-  if (warps == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t per_warp = warp_bytes(WIDE, k);
-  const size_t smem = warps * per_warp;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        update_kernel<WIDE>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+// The launch shape at k: warps a block, dynamic shared memory a block, and
+// whether the row's block is kept on chip.
+struct Shape {
+  int warps;
+  size_t smem;
+  bool on_chip;
+};
+
+__host__ inline Shape shape_for(bool wide, int k) {
+  const int warps = warps_for(wide, k);
+  if (warps == 0) return {kMaxWarps, 0, false};
+  return {warps, warps * warp_bytes(wide, k), true};
+}
+
+template <bool WIDE, bool ON_CHIP>
+int launch(const Shape& sh, uint32_t* values, uint32_t* value_hi, uint32_t* hash_hi,
+           uint32_t* hash_lo, int32_t* size, int32_t* count, const uint32_t* salts,
+           const uint32_t* tile_lo, const uint32_t* tile_hi, int stride, const int32_t* valid,
+           int R, int k, int B, cudaStream_t stream) {
+  if (sh.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(update_kernel<WIDE, ON_CHIP>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(sh.smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; };
   const int vec = B % 4 == 0 && aligned(tile_lo) &&
                   (!WIDE || stride == 2 || aligned(tile_hi));
-  const int blocks = (R + warps - 1) / warps;
-  update_kernel<WIDE><<<blocks, warps * 32, smem, stream>>>(
+  const int blocks = (R + sh.warps - 1) / sh.warps;
+  update_kernel<WIDE, ON_CHIP><<<blocks, sh.warps * 32, sh.smem, stream>>>(
       values, value_hi, hash_hi, hash_lo, size, count, salts, tile_lo, tile_hi, stride, vec,
-      valid, R, k, B, static_cast<int>(per_warp));
+      valid, R, k, B, static_cast<int>(warp_bytes(WIDE, k)));
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool WIDE>
+int launch_at(uint32_t* values, uint32_t* value_hi, uint32_t* hash_hi, uint32_t* hash_lo,
+              int32_t* size, int32_t* count, const uint32_t* salts, const uint32_t* tile_lo,
+              const uint32_t* tile_hi, int stride, const int32_t* valid, int R, int k, int B,
+              cudaStream_t stream) {
+  const Shape sh = shape_for(WIDE, k);
+  return sh.on_chip
+             ? launch<WIDE, true>(sh, values, value_hi, hash_hi, hash_lo, size, count, salts,
+                                  tile_lo, tile_hi, stride, valid, R, k, B, stream)
+             : launch<WIDE, false>(sh, values, value_hi, hash_hi, hash_lo, size, count, salts,
+                                   tile_lo, tile_hi, stride, valid, R, k, B, stream);
 }
 
 }  // namespace dst
@@ -431,28 +498,30 @@ extern "C" {
 // narrow keys.  Lane p of row r is word (r * B + p) * stride of tile_lo (and
 // tile_hi); stride 2 is an int64 tile read in place (tile_hi = tile_lo + 1).
 // valid may be null (every row takes B).  Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue when a row's block does not fit in
-// shared memory.
+// the launch.
 int distinct_update(uint32_t* values, uint32_t* value_hi, uint32_t* hash_hi, uint32_t* hash_lo,
                     int32_t* size, int32_t* count, const uint32_t* salts,
                     const uint32_t* tile_lo, const uint32_t* tile_hi, int stride,
                     const int32_t* valid, int R, int k, int B, cudaStream_t stream) {
   if (R <= 0) return static_cast<int>(cudaSuccess);
   if (value_hi != nullptr)
-    return dst::launch<true>(values, value_hi, hash_hi, hash_lo, size, count, salts, tile_lo,
+    return dst::launch_at<true>(values, value_hi, hash_hi, hash_lo, size, count, salts, tile_lo,
                              tile_hi, stride, valid, R, k, B, stream);
-  return dst::launch<false>(values, value_hi, hash_hi, hash_lo, size, count, salts, tile_lo,
+  return dst::launch_at<false>(values, value_hi, hash_hi, hash_lo, size, count, salts, tile_lo,
                             tile_hi, stride, valid, R, k, B, stream);
 }
 
 // The build's registers, spills, shared memory and resident warps an SM of
-// the kernel at k (kinfo::query's five numbers in out).
+// the kernel a launch at k runs (kinfo::query's five numbers in out); its
+// dynamic shared memory is 0 where the row's block stays in global memory.
 int distinct_kernel_info(int wide, int k, int* out) {
-  const int warps = dst::warps_for(wide != 0, k);
-  if (warps == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = warps * dst::warp_bytes(wide != 0, k);
-  return wide ? kinfo::query(dst::update_kernel<true>, warps * 32, smem, out)
-              : kinfo::query(dst::update_kernel<false>, warps * 32, smem, out);
+  const dst::Shape sh = dst::shape_for(wide != 0, k);
+  const int threads = sh.warps * 32;
+  if (wide)
+    return sh.on_chip ? kinfo::query(dst::update_kernel<true, true>, threads, sh.smem, out)
+                      : kinfo::query(dst::update_kernel<true, false>, threads, 0, out);
+  return sh.on_chip ? kinfo::query(dst::update_kernel<false, true>, threads, sh.smem, out)
+                    : kinfo::query(dst::update_kernel<false, false>, threads, 0, out);
 }
 
 const char* distinct_error_string(int code) {

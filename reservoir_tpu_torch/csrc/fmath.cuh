@@ -23,9 +23,9 @@ __device__ __forceinline__ float flush(float x) {
   return fabsf(x) < ALGL_FLT_MIN ? __fmul_rn(x, 0.0f) : x;
 }
 
-__device__ __forceinline__ float xla_log(float x) {
-  x = flush(x);
-  const float xc = x > ALGL_FLT_MIN ? x : ALGL_FLT_MIN;
+// XLA's log polynomial of a normal, positive, finite float: xla_log
+// without its flush, clamp and special cases, which such an x never takes.
+__device__ __forceinline__ float log_normal(float xc) {
   const uint32_t b = __float_as_uint(xc);
   float e = __fadd_rn(static_cast<float>(static_cast<int>(b >> 23) - 127), 1.0f);
   const float m = __uint_as_float((b & 0x807FFFFFu) | 0x3F000000u);
@@ -49,7 +49,12 @@ __device__ __forceinline__ float xla_log(float x) {
   y = __fmaf_rn(y, x3, __fmul_rn(f32(0xB95E8083u), e));
   float r = __fmaf_rn(-0.5f, x2, xm);
   r = __fadd_rn(r, y);
-  r = __fmaf_rn(f32(0x3F318000u), e, r);
+  return __fmaf_rn(f32(0x3F318000u), e, r);
+}
+
+__device__ __forceinline__ float xla_log(float x) {
+  x = flush(x);
+  float r = log_normal(x > ALGL_FLT_MIN ? x : ALGL_FLT_MIN);
   if (x < ALGL_FLT_MIN) r = -ALGL_INF;  // zeros
   if (x == ALGL_INF) r = ALGL_INF;
   if (x < 0.0f || isnan(x)) r = ALGL_NAN;

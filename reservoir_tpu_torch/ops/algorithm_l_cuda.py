@@ -3,9 +3,13 @@
 Replaces the JAX package's Pallas TPU kernel
 (``reservoir_tpu/ops/algorithm_l_pallas.py:_kernel``, entry points
 ``update_pallas`` and ``update_steady_pallas``).  The kernel source is
-``csrc/algorithm_l.cu``: one thread per reservoir row reads only the
-elements it accepts and updates the state in place.  Its note says what
-bounds it on an H100.
+``csrc/algorithm_l.cu``: one thread per reservoir row walks the row's
+acceptance chain without waiting on memory: each accept's element is
+gathered by ``cp.async`` into a ring in shared memory and written to its
+slot a few accepts later, in acceptance order; the fill copy is coalesced;
+a row expecting many accepts has its samples prefetched into L2.  It reads
+only the elements it accepts and updates the state in place.  Its note says
+what bounds it on an H100.
 
 :func:`update_cuda` and :func:`update_steady_cuda` take the state and tile
 on one device:
@@ -47,12 +51,16 @@ _INT = ctypes.c_int
 _lib = None
 
 
-def _library():
+def _library(path: Optional[str] = None):
+    """The kernel's library, declared for ``ctypes``: the checkout's build
+    of ``csrc/algorithm_l.cu``, or with ``path`` another build with the same
+    C entry points, which :func:`update_cuda` then launches until the next
+    call with a path (``kernel_ab.py`` times two builds so)."""
     global _lib
-    if _lib is None:
+    if _lib is None or path is not None:
         from .._build import load
 
-        lib = load("algorithm_l")
+        lib = load("algorithm_l") if path is None else ctypes.CDLL(path)
         lib.algl_update.argtypes = [_VP] * 7 + [_INT] * 4 + [_VP]
         lib.algl_update.restype = _INT
         lib.algl_fmath.argtypes = [_VP, _VP, _INT, _INT, _VP]

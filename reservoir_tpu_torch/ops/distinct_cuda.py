@@ -7,7 +7,9 @@ reservoir row reads the row 128 keys at a time with 16-byte loads (the next
 chunk in flight while the current one is scrambled), ballots the keys below
 the row's threshold and merges them into the row's sorted block in shared
 memory up to 32 at a time: a binary search a lane for the rank and an equal
-entry, the new keys ranked among themselves, then one merge pass.  On an
+entry, the new keys ranked among themselves, then one merge pass.  Where a
+row's block passes shared memory (k > 19,370 narrow, k > 14,528 wide), the
+same rounds run on the block in place in the state's global arrays.  On an
 H100 the scramble's integer operations bound a steady tile, and the
 serial steps a row takes per round bound a tile from empty; its note says
 how the design answers both.  Unlike the Pallas kernel it takes ``valid``,
@@ -37,14 +39,10 @@ import torch
 from ._cuda_common import build_info, check_tensors
 from .distinct import NARROW_DTYPES, WIDE_DTYPES, Batch, DistinctState, update
 
-__all__ = ["launches", "update_cuda", "update", "MAX_SMEM", "kernel_info"]
+__all__ = ["launches", "update_cuda", "update", "kernel_info"]
 
 #: kernel launches so far (set it to 0 to count a run)
 launches = 0
-
-#: shared memory a block may use on sm_90: a row's block (12 bytes an entry
-#: narrow, 16 wide) must fit, so k <= 19,370 narrow and k <= 14,528 wide
-MAX_SMEM = 232448
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -71,7 +69,10 @@ def _library(path: Optional[str] = None):
 
 def kernel_info(k: int, wide: bool) -> dict:
     """:func:`~._cuda_common.build_info` of the kernel a launch at
-    ``k`` runs, for narrow or wide keys (needs a card)."""
+    ``k`` runs, for narrow or wide keys (needs a card): ``dynamic_smem`` is
+    0 where a row's block passes shared memory (k > 19,370 narrow, k >
+    14,528 wide) and the instantiation that keeps it in the state's own
+    arrays runs."""
     return build_info(_library().distinct_kernel_info, int(wide), k)
 
 
@@ -142,11 +143,6 @@ def update_cuda(
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     R, k = state.values.shape
-    if (4 if state.wide else 3) * 4 * k > MAX_SMEM:
-        raise ValueError(
-            f"k={k} is too large for the distinct kernel: a row's entries must fit in "
-            f"{MAX_SMEM} bytes of shared memory"
-        )
     lib = _library()
     hi_ptr = None if hi is None else hi.data_ptr() + (4 if stride == 2 else 0)
     code = lib.distinct_update(

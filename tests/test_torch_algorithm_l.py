@@ -190,6 +190,61 @@ def test_numeric_edges(case, log_w, count, nxt, key, path):
         np.testing.assert_array_equal(np.asarray(jn1), n1.numpy())
 
 
+def _one_accept_at_a_time(ts, tile, fill):
+    """The samples a tile leaves, walked one row and one acceptance at a
+    time with each write made at once (after the fill's copy): a later
+    accept to a slot overwrites an earlier one."""
+    samples = ts.samples.clone().view(torch.int32)
+    bits = torch.from_numpy(tile).view(torch.int32)
+    B = tile.shape[1]
+    for r in range(ts.samples.shape[0]):
+        c, n, lw = int(ts.count[r]), ts.nxt[r : r + 1], ts.log_w[r : r + 1]
+        k1, k2 = ts.key[r : r + 1, 0], ts.key[r : r + 1, 1]
+        if fill:
+            for j in range(max(0, min(B, ts.k - c))):
+                samples[r, c + j] = bits[r, j]
+        while int(n) <= c + B:
+            slot, lw, n_new = T._advance_words(lw, n, k1, k2, n, ts.k)
+            samples[r, int(slot)] = bits[r, int(n) - c - 1]
+            n = n_new
+    return samples
+
+
+@pytest.mark.parametrize("start", ["count 0", "w_is_one"])
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_dense_accepts_keep_the_latest_write_to_a_slot(k, start):
+    """Tiny k, where accepts come densely and overwrite slots that earlier
+    accepts of the same tile took (k = 1: every accept after the first):
+    the plain version equals XLA and the Pallas kernel in interpret mode,
+    and its samples equal a walk that writes each accept at once, in order,
+    so the latest accept to a slot wins.  From an empty reservoir (a fill
+    tile, then steady tiles) and from W = 1, where the first element is
+    accepted (steady tiles)."""
+    R, B = 8, 64
+    rng = np.random.default_rng(20 + k)
+    if start == "count 0":
+        js = J.init(jr.key(k), R, k)
+        ts = T.init(key_from_seed(k), R, k)
+    else:
+        arrays = _edge_state(R, k, -1e-9, 101, 100, (11, 12))  # nxt 101, count 100
+        js, ts = _to_jax(arrays), state_from_numpy(
+            arrays["samples"], arrays["count"], arrays["nxt"], arrays["log_w"], arrays["key"],
+            device="cpu")
+    for i in range(3):
+        tile = _tile(rng, R, B, "int32")
+        fill = start == "count 0" and i == 0
+        pallas = JP.update_pallas if fill else JP.update_steady_pallas
+        xla = (_J_UPDATE if fill else _J_STEADY)(js, jnp.asarray(tile))
+        js = pallas(js, jnp.asarray(tile), interpret=True)
+        walked = _one_accept_at_a_time(ts, tile, fill)
+        ts, accepts = T.update_accepts(ts, torch.from_numpy(tile), fill=fill)
+        assert_same(xla, ts)
+        assert_same(js, ts)
+        assert torch.equal(ts.samples.view(torch.int32), walked)
+        if i == 0:
+            assert accepts > R * k  # more accepts than slots: slots are overwritten
+
+
 @pytest.mark.parametrize("k", [1, 3, 7, 100, 128, 65537, 2**24 + 1, 2**31 - 3])
 def test_advance_words_equals_xla_for_any_k(k):
     # XLA folds log(u1) / k into fma(log(u1), f32(1/k), log_w): a power of

@@ -68,6 +68,96 @@ def test_kernel_equals_plain_version_on_the_card(cuda_device, k, dtype):
     assert TK.launches - before == len(plan)
 
 
+def _edge_state(R, k, log_w, count, nxt, key, device):
+    """R reservoirs in one numeric corner: the given log W, count, nxt and
+    key words in every row, random samples."""
+    g = torch.Generator().manual_seed(5)
+    return T.ReservoirState(
+        samples=torch.randint(0, 100, (R, k), dtype=torch.int32, generator=g).to(device),
+        count=torch.full((R,), count, dtype=torch.int32, device=device),
+        nxt=torch.full((R,), nxt, dtype=torch.int32, device=device),
+        log_w=torch.full((R,), log_w, dtype=torch.float32, device=device),
+        key=torch.tensor(key, dtype=torch.int64, device=device).expand(R, 2).contiguous(),
+    )
+
+
+# the numeric corners of tests/test_torch_algorithm_l.py::test_numeric_edges:
+# (log_w, count, nxt, key)
+_EDGES = {
+    "w_is_one": (-1e-9, 100, 101, (1, 2)),
+    "w_is_zero": (-110.0, 100, 101, (3, 4)),
+    "nan_skip": (-110.0, 22300, 22370, (0x12345678, 0x9ABCDEF0)),
+    "w_above_one": (1.0, 100, 101, (5, 6)),
+    "saturation": (-40.0, 2**31 - 200, 2**31 - 150, (7, 8)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [*_EDGES, "k 1 w_is_one", "k 2 w_is_one", "k 3000 B 512", "B 1",
+                                  "B 0", "odd B", "ragged zeros", "count wraps", "float32", "R 1000"])
+def test_algl_kernel_paths_equal_plain_version(cuda_device, case):
+    """The redesigned kernel's paths, each against the plain version bit for
+    bit (samples, count, nxt, log_w) over several tiles: the five numeric
+    corners of the CPU edge test; k = 1 and 2 where W starts at 1 (long
+    accept lists, many writes to one slot); a fill that spans tiles (k =
+    3,000, B = 512); widths 1 and 37 (unaligned rows, the 4-byte fill copy)
+    and 0 (an empty tile changes nothing);
+    ragged valid counts with zeros; accepts just below 2^31, then a tile
+    whose count + valid wraps; float32 tiles with -0.0 and NaN payloads; and an R that is
+    not a multiple of the kernel's 128-row blocks."""
+    R, k, B, dtype = 256, 16, 256, torch.int32
+    plan = [True, True, False, False]  # fill-capable tiles, then steady ones
+    gen = torch.Generator(device=cuda_device).manual_seed(len(case))
+    if case in _EDGES or case.endswith("w_is_one"):
+        name = case.split()[-1]
+        R, B, plan = 8, 128, [False, False]
+        if case.startswith("k "):
+            R, k, plan = 64, int(case.split()[1]), [False, False, False]
+        else:
+            k = 4
+        s = _edge_state(R, k, *_EDGES[name], cuda_device)
+    elif case == "count wraps":
+        R, k = 64, 8
+        s = _edge_state(R, k, -3.0, 2**31 - 100, 2**31 - 50, (9, 10), cuda_device)
+        plan = [False, False]
+    else:
+        if case == "k 3000 B 512":
+            k, B, plan = 3000, 512, [True] * 8 + [False]
+        elif case == "B 1":
+            R, k, B, plan = 300, 5, 1, [True] * 12
+        elif case == "B 0":
+            R, k, B, plan = 300, 5, 0, [True, False]
+        elif case == "odd B":
+            R, k, B, plan = 300, 7, 37, [True] * 4 + [False]
+        elif case == "float32":
+            R, dtype = 1000, torch.float32
+        elif case == "R 1000":
+            R = 1000
+        s = T.init(key_from_seed(len(case)), R, k, sample_dtype=dtype, device=cuda_device)
+    before = TK.launches
+    for i, fill in enumerate(plan):
+        tile = torch.randint(-(2**31), 2**31 - 1, (R, B), dtype=torch.int32, device=cuda_device,
+                             generator=gen)
+        if dtype == torch.float32:
+            tile[::5, 0] = -(2**31)  # -0.0
+            tile[1::5, -1] = 0x7FC00001  # NaN with a payload
+            tile[2::7, B // 2] = -1  # 0xFFFFFFFF, a negative NaN
+        tile = tile.view(dtype)
+        valid = None
+        if case == "ragged zeros" or (case == "odd B" and i == 2):
+            valid = torch.randint(0, B + 1, (R,), dtype=torch.int32, device=cuda_device, generator=gen)
+            valid[::3] = 0
+        elif case == "count wraps" and i == 0:  # accepts just below 2^31, no wrap yet
+            valid = torch.full((R,), 60, dtype=torch.int32, device=cuda_device)
+        ref = (T.update if fill else T.update_steady)(_clone(s), tile, valid)
+        s = (TK.update_cuda if fill else TK.update_steady_cuda)(s, tile, valid)
+        for f in _FIELDS:
+            assert torch.equal(_bits(getattr(s, f)), _bits(getattr(ref, f))), (f, i)
+    assert TK.launches - before == len(plan)
+    if case == "count wraps":
+        assert int(s.count[0]) < 0  # count + valid wrapped
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name, lo, hi", [("log", 2.0**-24, 1.0), ("exp", -90.0, 0.0),
                                           ("log1p", -1.0, 0.0)])
@@ -380,10 +470,33 @@ def test_weighted_kernel_paths_equal_plain_version(cuda_device, case):
 
 
 @pytest.mark.cuda
-def test_distinct_kernel_refuses_a_block_beyond_shared_memory(cuda_device):
-    s = TD.init(key_from_seed(0), 4, 14529, sample_dtype=torch.int64, device=cuda_device)
-    with pytest.raises(ValueError, match="too large"):
-        TDK.update_cuda(s, torch.zeros((4, 8), dtype=torch.int64, device=cuda_device))
+@pytest.mark.parametrize("dtype, k", [(torch.int32, 19370), (torch.int32, 19371),
+                                      (torch.int64, 14528), (torch.int64, 14529)])
+def test_distinct_kernel_beyond_shared_memory_equals_plain_version(cuda_device, dtype, k):
+    """The largest k whose row block fits a block's shared memory (one warp
+    a block) and the next k up, which runs the instantiation that searches
+    and merges the block in place in the state's global arrays: fresh keys
+    that fill the rows and evict, a Zipf tile and a ragged tile, bit for bit
+    against the plain version."""
+    R, B = 5, 12288
+    wide = dtype == torch.int64
+    on_chip = k in (19370, 14528)
+    info = TDK.kernel_info(k, wide)
+    assert (info["dynamic_smem"] > 0) == on_chip
+    gen = torch.Generator(device=cuda_device).manual_seed(k)
+    s = TD.init(key_from_seed(7), R, k, sample_dtype=dtype, device=cuda_device)
+    before = TDK.launches
+    for i, kind in enumerate(("random", "random", "zipf", "random")):
+        tile = _card_keys(gen, R, B, cuda_device, dtype, kind)
+        valid = (torch.randint(0, B + 1, (R,), dtype=torch.int32, device=cuda_device, generator=gen)
+                 if i == 3 else None)
+        ref = TD.update(_dclone(s), tile, valid)
+        s = TDK.update_cuda(s, tile, valid)
+        for f in _DFIELDS:
+            a, b = getattr(s, f), getattr(ref, f)
+            assert (a is None and b is None) or torch.equal(a.view(torch.int32), b.view(torch.int32)), (f, i)
+    assert TDK.launches - before == 4
+    assert int(s.size.min()) == k
 
 
 @pytest.mark.cuda

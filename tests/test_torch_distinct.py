@@ -292,3 +292,22 @@ def test_the_state_is_a_function_of_the_set_of_keys(dtype, k, split):
         a, b = getattr(want, f), getattr(got, f)
         assert (a is None and b is None) or torch.equal(a, b), f
     assert_same(jgot, got)
+
+
+@pytest.mark.parametrize("dtype, k", [("int32", 19371), ("int64", 14529)])
+def test_a_block_beyond_the_cards_shared_memory_equals_xla(dtype, k):
+    """The reference the card's global-memory instantiation is held to: at
+    the first k whose row block passes a block's 232,448 bytes of shared
+    memory (12 bytes an entry narrow, 16 wide), two tiles of fresh keys
+    fill the rows and then evict, and the plain version equals JAX's XLA
+    update, which sets no bound on k."""
+    R, B = 2, 12288
+    rng = np.random.default_rng(k)
+    js = JD.init(jr.key(3), R, k, sample_dtype=jnp.dtype(dtype))
+    ts = TD.init(key_from_seed(3), R, k, sample_dtype=_TORCH[dtype])
+    for _ in range(2):
+        tile = _tile(rng, R, B, dtype, "random")
+        js = _J_UPDATE(js, _jax_batch(tile))
+        ts = TDK.update_cuda(ts, torch.from_numpy(tile))
+        assert_same(js, ts)
+    assert (ts.size == k).all()
