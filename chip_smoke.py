@@ -114,19 +114,49 @@ which fails the run with a non-zero exit:
    packed blocks once a rank (the library yardstick; over NCCL only where
    there is more than one card), and one batched pairwise merge of each
    mode at its configuration's shape (host clock, synchronised; the
-   uniform one, a second of host-launched tensor code, once).
+   uniform one, a second of host-launched tensor code, once);
+20. bridge build: the host staging library built with g++ and loaded
+   (``NativeStaging(...).available()``), with ``os.cpu_count()`` and the
+   demux's thread count;
+21. the stream bridge at full width, ``DeviceStreamBridge(SamplerConfig(
+   k=128, R=65536, tile_size=2048), key=0)``: R x B x 3 random (stream,
+   element) pairs through ``push_interleaved``, pipelined and serial, the
+   launch count set to 0 before the pipelined run: both states
+   bit-identical, each flush where the staging contract puts it (from the
+   pairs' ranks in their rows), one ``algl_update`` a flush, equal to the
+   card engine fed the same per-row streams in tiles of 1536, and rows
+   0..1023 equal to the plain version on the CPU; ``algl_update`` timed on
+   the second flush's ragged tile beside the same tile full; the weighted
+   (R=16384, k=64, B=1024) and distinct (R=4096, k=256, B=1024, int32 and
+   int64 Zipf keys) bridges journal their flushes, and the card engine fed
+   the journaled tiles must reach the same state; ``DeviceSampler`` (R=1,
+   B=2048, k=128) equals the engine on the same stream;
+22. bridge timings at full width (host clock around a window that ends in
+   ``drain_barrier()`` and ``torch.cuda.synchronize()``, after a warm
+   pass): elem/s for (a) the random pairs, (b) a lockstep interleave, one
+   full tile a step, (c) ``push_tile`` of host tiles, each with its stage
+   table (demux, take, copy by CUDA events, dispatch, wait in reserve);
+   the engine's rates from phase 7; the wire's ceiling, 4RB bytes over
+   the copy's ms; and, from one ``torch.profiler`` window over feed (b),
+   how much of the tile copies' time overlaps the demux of the next tile;
+23. bridge recovery on the card: R=4096, B=1024, ``checkpoint_every=2``,
+   dropped halfway; ``recover()`` and the rest of the stream from the
+   durable watermark give the uninterrupted run's samples, bit for bit.
 
 A phase's line ends with the seconds since the script started.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+The line before the last is ``{"kernels": [...]}``, and the line before it
+``{"bridge": {...}}`` (phases 20-23); the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or run outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -175,6 +205,9 @@ W_FLOPS_PER_FILL = 28
 W_STATE_BYTES_PER_ROW = 24
 # the distinct path: bench.py's distinct configuration (BASELINE.md config 3)
 DR, DK, DB = 4096, 256, 1024
+# the bridge's recovery phase: tiles small enough that the journal costs
+# seconds
+RR, RB = 4096, 1024
 # the distinct kernel, counted from csrc/distinct.cu and csrc/hashing.cuh:
 # per lane the scramble (4 salt xors, 6 rounds of an add, fmix32's 3 shifts,
 # 3 xors and 2 multiplies, and the Feistel xor) and the compare and ballot;
@@ -574,15 +607,19 @@ def main() -> None:
     weighted = weighted_phases(gen, dev)
     distinct = distinct_phases(gen, dev)
     merge = merge_phases(gen, dev)
+    bridge = bridge_phases(gen, dev, here, {"device_fed": dev_eps, "host_fed": host_eps,
+                                            "host_fed_warm": warm_host_eps})
 
     card = card_line()
     log(card)
+    log(json.dumps({"bridge": bridge}))
     log(json.dumps({"kernels": [{
         "name": "algl_update",
         "route": "cuda",
         "source": "reservoir_tpu_torch/csrc/algorithm_l.cu",
         "replaces": "reservoir_tpu/ops/algorithm_l_pallas.py:110",
         "launches": main_launches,
+        "bridge_launches": bridge["launches"],
         "max_abs_err": worst_err,
         "ms": steady_ms,
         "plain_ms": steady_plain_ms,
@@ -598,6 +635,7 @@ def main() -> None:
         "host_tile_ms": {"snapshot": snapshot_ms, "h2d": h2d_ms},
         "warm_host_fed_elem_per_s": warm_host_eps,
         "build": build,
+        "bridge_ragged_flush": bridge["ragged_flush"],
     }, weighted, distinct, merge]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
@@ -1557,6 +1595,337 @@ def merge_phases(gen, dev) -> dict:
                               "distinct": pair_distinct_ms},
         "stream_merger_ms": {"uniform": 1e3 * t_merge_uniform, "distinct": 1e3 * t_merge_distinct,
                              "weighted": 1e3 * t_merge_weighted},
+    }
+
+
+def flush_plan(streams: torch.Tensor, rank: torch.Tensor, rows: int, width: int) -> list:
+    """Where the bridge must flush a feed of pair ``streams`` whose ranks in
+    their rows are ``rank``: the staging takes pairs in order and stops at
+    the first whose row already holds ``width`` since the last flush.
+    Returns each flush's per-row base (elements of the row flushed before
+    it); the last flush is the remainder, at ``flush()``."""
+    bases = [torch.zeros(rows, dtype=torch.int64, device=streams.device)]
+    start = 0
+    while True:
+        base = bases[-1]
+        full = (rank[start:] - base[streams[start:].long()]) >= width
+        if not bool(full.any()):
+            return bases
+        stop = start + int(torch.argmax(full.to(torch.uint8)))
+        bases.append(base + torch.bincount(streams[start:stop], minlength=rows))
+        start = stop
+
+
+def copies_overlapping_demux(trace_path: str) -> list:
+    """From a ``torch.profiler`` Chrome trace: for each tile copy to the
+    card (1 ms or more), in order, the share of its time during a demux
+    range; empty when the trace holds no device copies."""
+    with open(trace_path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    spans = lambda keep: [(e["ts"], e["ts"] + e["dur"]) for e in events  # noqa: E731
+                          if e.get("ph") == "X" and "dur" in e and keep(e)]
+    copies = spans(lambda e: e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")
+                   and e["dur"] >= 1000)
+    demux = spans(lambda e: e.get("name") == "reservoir_bridge_demux" and e.get("cat") != "gpu_user_annotation")
+    return [sum(max(0.0, min(b, d1) - max(a, d0)) for d0, d1 in demux) / (b - a)
+            for a, b in sorted(copies)]
+
+
+def bridge_phases(gen, dev, here: str, engine_eps: dict) -> dict:
+    """Phases 20-23, the stream bridge; returns the ``bridge`` line."""
+    import reservoir_tpu_torch as rtt
+    from reservoir_tpu_torch import native
+    from reservoir_tpu_torch.ops import algorithm_l as plain
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.ops import distinct_cuda as dkern
+    from reservoir_tpu_torch.ops import weighted_cuda as wkern
+    from reservoir_tpu_torch.stream.bridge import _FlushJournal
+    from reservoir_tpu_torch.utils.tracing import profile_capture
+
+    work = os.path.join(here, "build", "chip_smoke")  # gitignored
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    # 20. the host staging library
+    t0 = time.perf_counter()
+    staging = native.NativeStaging(R, B, np.int32)
+    if not staging.available():
+        fail("the native staging library is not in use")
+    threads = staging.threads()
+    del staging
+    log(f"[20 bridge build] g++ staging library built and loaded in {time.perf_counter() - t0:.2f} s; "
+        f"os.cpu_count() {os.cpu_count()}, demux threads {threads}")
+
+    # 21. the bridge at full width: random pairs, pipelined and serial
+    cfg = rtt.SamplerConfig(max_sample_size=K, num_reservoirs=R, tile_size=B)
+    N = 3 * R * B
+    gen.manual_seed(31)
+    streams_d = torch.randint(0, R, (N,), generator=gen, device=dev, dtype=torch.int32)
+    elems_d = torch.randint(-(2**31), 2**31 - 1, (N,), generator=gen, device=dev, dtype=torch.int32)
+    streams_h = streams_d.cpu().numpy()
+    elems_h = elems_d.cpu().numpy()
+    # each row's own stream, in order: [R, L] with the row counts
+    order = torch.sort(streams_d, stable=True).indices
+    sorted_s = streams_d[order].long()
+    counts = torch.bincount(streams_d, minlength=R)
+    rank_sorted = torch.arange(N, device=dev) - (torch.cumsum(counts, 0) - counts)[sorted_s]
+    L = int(counts.max())
+    rows_m = torch.zeros((R, L), dtype=torch.int32, device=dev)
+    rows_m[sorted_s, rank_sorted] = elems_d[order]
+    rank = torch.empty(N, dtype=torch.int64, device=dev)
+    rank[order] = rank_sorted
+    del order, sorted_s, rank_sorted, elems_d
+    bases = flush_plan(streams_d, rank, R, B)
+    del rank, streams_d
+    states = {}
+    for pipelined in (True, False):
+        bridge = rtt.DeviceStreamBridge(cfg, key=0, pipelined=pipelined)
+        torch.cuda.synchronize()
+        kern.launches = 0
+        bridge.push_interleaved(streams_h, elems_h)
+        bridge.flush()
+        bridge.drain_barrier()
+        launches = kern.launches
+        if pipelined:
+            bridge_launches = launches
+        if bridge.metrics.flushes != len(bases) or launches != len(bases):
+            fail(f"the bridge (pipelined {pipelined}) made {bridge.metrics.flushes} flushes and "
+                 f"{launches} launches where the staging contract puts {len(bases)}")
+        if bridge.metrics.flushed_elements != N:
+            fail(f"the bridge flushed {bridge.metrics.flushed_elements} of {N} elements")
+        states[pipelined] = clone(bridge.engine._state)
+        del bridge
+        gc.collect()
+    if not same(states[True], states[False]):
+        fail("the pipelined bridge's state != the serial bridge's")
+    engine = rtt.ReservoirEngine(cfg, key=0)
+    start_cpu = clone(engine._state, ROWS_CPU, "cpu")
+    s0 = clone(engine._state)
+    W2 = 1536
+    for c0 in range(0, L, W2):
+        width = min(W2, L - c0)
+        valid = torch.clamp(counts - c0, 0, width).to(torch.int32)
+        engine.sample(rows_m[:, c0 : c0 + width].contiguous(), valid=valid.cpu().numpy())
+    torch.cuda.synchronize()
+    if not same(engine._state, states[True]):
+        fail(f"the bridge's state != the card engine fed the same row streams in tiles of {W2}")
+    del engine
+    st = start_cpu
+    rows_cpu, counts_cpu = rows_m[:ROWS_CPU].cpu(), counts[:ROWS_CPU].cpu()
+    for c0 in range(0, L, B):
+        width = min(B, L - c0)
+        st = plain.update(st, rows_cpu[:, c0 : c0 + width].contiguous(),
+                          torch.clamp(counts_cpu - c0, 0, width).to(torch.int32))
+    if not same(st, clone(states[True], ROWS_CPU, "cpu")):
+        fail(f"the bridge's rows 0..{ROWS_CPU - 1} != the plain version on the CPU")
+    log(f"[21 bridge vs engine] {N} random pairs, R {R}, k {K}, B {B}: {len(bases)} ragged flushes "
+        f"where the staging contract puts them, {bridge_launches} launches; pipelined == serial == "
+        f"card engine in tiles of {W2} == plain version on rows 0..{ROWS_CPU - 1}, bit for bit")
+
+    # algl_update on the second flush's ragged tile, and on the same tile full
+    def flush_tile(j):
+        hi = bases[j + 1] if j + 1 < len(bases) else counts
+        idx = torch.clamp(bases[j][:, None] + torch.arange(B, device=dev)[None, :], max=L - 1)
+        return torch.gather(rows_m, 1, idx).contiguous(), (hi - bases[j]).to(torch.int32)
+
+    if len(bases) < 2:
+        fail("the random feed made a single flush")
+    t1, v1 = flush_tile(0)
+    s1 = kern.update_cuda(clone(s0), t1, v1)
+    t2, v2 = flush_tile(1)
+    fill2 = int(v1.min()) < K
+    upd = kern.update_cuda if fill2 else kern.update_steady_cuda
+    ragged_ms = event_ms(lambda s: upd(s, t2, v2), setup=lambda: clone(s1), batch=10)
+    full_ms = event_ms(lambda s: upd(s, t2), setup=lambda: clone(s1), batch=10)
+    _, ragged_accepts = plain.update_accepts(clone(s1), t2, v2, fill=fill2)
+    ragged_bound, ragged_by = bound_ms(ragged_accepts, 0)
+    ragged = {"ms": ragged_ms, "full_tile_ms": full_ms, "bound_ms": ragged_bound, "bound_by": ragged_by,
+              "accepts": ragged_accepts, "elements": int(v2.sum()), "fill_kernel": fill2,
+              "count_before": [int(v1.min()), int(v1.max())]}
+    del rows_m, t1, t2, s0, s1, states
+    card = card_line()
+    log(f"[21 bridge vs engine] {card} | algl_update on flush 2's ragged tile ({int(v2.sum())} of {R * B} "
+        f"elements, counts {int(v1.min())}..{int(v1.max())} before): {ragged_ms:.4f} ms, the same tile full "
+        f"{full_ms:.4f} ms, bound {ragged_bound:.4f} ms ({ragged_by}), accepts {ragged_accepts}")
+
+    # the weighted and distinct bridges: the card engine fed the journaled
+    # flushes reaches the bridge's state
+    def journaled(name, cfg_x, streams, elems, weights, counter):
+        ckdir = os.path.join(work, name)
+        bridge = rtt.DeviceStreamBridge(cfg_x, key=0, checkpoint_dir=ckdir, checkpoint_every=1 << 30)
+        before = counter.launches
+        bridge.push_interleaved(streams, elems, weights=weights)
+        bridge.flush()
+        bridge.drain_barrier()
+        flushes, launches = bridge.metrics.flushes, counter.launches - before
+        state = clone(bridge.engine._state)
+        del bridge
+        gc.collect()
+        engine = rtt.ReservoirEngine(cfg_x, key=0)
+        replayed = 0
+        for _, tile, valid, wtile, _ in _FlushJournal.replay(
+            os.path.join(ckdir, "journal.bin"), cfg_x.num_reservoirs, cfg_x.tile_size,
+            np.dtype(cfg_x.element_dtype), cfg_x.weighted,
+        ):
+            engine.sample(tile, valid=valid, weights=wtile)
+            replayed += 1
+        torch.cuda.synchronize()
+        shutil.rmtree(ckdir)
+        if replayed != flushes or launches != flushes or flushes < 2:
+            fail(f"{name}: {flushes} flushes, {launches} launches, {replayed} journaled")
+        if not same(engine._state, state):
+            fail(f"the {name} bridge's state != the card engine fed its journaled flushes")
+        return flushes
+
+    n_w = 2 * WR * WB
+    w_streams = torch.randint(0, WR, (n_w,), generator=gen, device=dev, dtype=torch.int32).cpu().numpy()
+    w_elems = torch.randint(-(2**31), 2**31 - 1, (n_w,), generator=gen, device=dev,
+                            dtype=torch.int32).cpu().numpy()
+    w_weights = weight_tile(gen, 1, n_w, "zeros", dev)[0].cpu().numpy()
+    wcfg = rtt.SamplerConfig(max_sample_size=WK, num_reservoirs=WR, tile_size=WB, weighted=True)
+    w_flushes = journaled("weighted", wcfg, w_streams, w_elems, w_weights, wkern)
+    del w_streams, w_elems, w_weights
+    d_flushes = {}
+    for dtype in (torch.int32, torch.int64):
+        n_d = 3 * DR * DB
+        d_streams = torch.randint(0, DR, (n_d,), generator=gen, device=dev, dtype=torch.int32).cpu().numpy()
+        d_keys = zipf_keys(gen, 1, n_d, dtype, dev)[0].cpu().numpy()
+        name = str(dtype).replace("torch.", "")
+        dcfg = rtt.SamplerConfig(max_sample_size=DK, num_reservoirs=DR, tile_size=DB, distinct=True,
+                                 element_dtype=name)
+        d_flushes[name] = journaled(f"distinct {name}", dcfg, d_streams, d_keys, None, dkern)
+    scfg = rtt.SamplerConfig(max_sample_size=K, num_reservoirs=1, tile_size=B)
+    one = torch.randint(-(2**31), 2**31 - 1, (5 * B + 77,), generator=gen, device=dev,
+                        dtype=torch.int32).cpu().numpy()
+    sampler = rtt.DeviceSampler(scfg, key=0)
+    sampler.sample_all(one)
+    ref = rtt.ReservoirEngine(scfg, key=0)
+    ref.sample_stream(one[None, :])
+    if not np.array_equal(sampler.result(), ref.result()[0]):
+        fail("DeviceSampler != the engine on the same stream")
+    log(f"[21 bridge vs engine] weighted bridge ({w_flushes} flushes of [{WR}, {WB}]), distinct bridges "
+        f"int32 ({d_flushes['int32']}) and int64 ({d_flushes['int64']}) of [{DR}, {DB}]: each == the card "
+        f"engine fed its journaled flushes; DeviceSampler (R 1, B {B}, k {K}) == the engine")
+
+    # 22. timings of three feeds at full width
+    gen.manual_seed(37)
+    lock = torch.randint(-(2**31), 2**31 - 1, (3, B, R), generator=gen, device=dev, dtype=torch.int32)
+    lock_streams = np.tile(np.arange(R, dtype=np.int32), B)
+    lock_chunks = [lock[t].reshape(-1).cpu().numpy() for t in range(3)]
+    host_tiles = [lock[t].T.contiguous().cpu().numpy() for t in range(3)]
+    del lock
+
+    def interleaved(bridge):
+        bridge.push_interleaved(streams_h, elems_h)
+
+    def lockstep(bridge):
+        for chunk in lock_chunks:
+            bridge.push_interleaved(lock_streams, chunk)
+
+    def tiles(bridge):
+        for tile in host_tiles:
+            bridge.push_tile(tile)
+
+    def window(bridge, feed) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feed(bridge)
+        bridge.flush()
+        bridge.drain_barrier()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    feeds = {}
+    overlap = []
+    for name, feed, n in (("interleaved", interleaved, N), ("lockstep", lockstep, 3 * R * B),
+                          ("push_tile", tiles, 3 * R * B)):
+        bridge = rtt.DeviceStreamBridge(cfg, key=0)
+        window(bridge, feed)  # warm
+        m = bridge.metrics
+        for f in ("demux_s", "drain_s", "dispatch_s", "copy_s", "reserve_s"):
+            setattr(m, f, 0.0)
+        m.flushes = m.elements = m.flushed_elements = 0
+        dt = window(bridge, feed)
+        feeds[name] = {
+            "elem_per_s": n / dt, "seconds": dt, "flushes": m.flushes, "demux_s": m.demux_s,
+            "take_s": m.drain_s, "copy_ms": 1e3 * m.copy_s / max(1, m.flushes), "dispatch_s": m.dispatch_s,
+            "reserve_s": m.reserve_s,
+        }
+        if name == "lockstep":
+            # one more pass in a profiler window: do the copies overlap
+            # the demux of the next tile?
+            try:
+                with profile_capture(os.path.join(work, "profile")):
+                    window(bridge, feed)
+                overlap = copies_overlapping_demux(os.path.join(work, "profile", "trace.json"))
+            except RuntimeError as e:
+                log(f"[22 bridge timings] the profiler failed ({e}); overlap not measured")
+        del bridge
+        gc.collect()
+    copy_ms = feeds["lockstep"]["copy_ms"]
+    wire_eps = R * B / (copy_ms / 1e3) if copy_ms > 0 else None
+    card = card_line()
+    for name, f in feeds.items():
+        log(f"[22 bridge timings] {card} | {name}: {f['elem_per_s']:.6e} elem/s ({f['seconds']:.3f} s, "
+            f"{f['flushes']} flushes); demux {f['demux_s']:.3f} s, take {f['take_s']:.4f} s, copy "
+            f"{f['copy_ms']:.2f} ms a flush, dispatch {f['dispatch_s']:.3f} s, waiting in reserve "
+            f"{f['reserve_s']:.3f} s")
+    log(f"[22 bridge timings] {card} | engine fed from the device {engine_eps['device_fed']:.6e}, from the "
+        f"host {engine_eps['host_fed']:.6e} elem/s (phase 7); the wire's ceiling {4 * R * B} bytes / "
+        f"{copy_ms:.2f} ms = {wire_eps or 0:.6e} elem/s; demux threads {threads} of {os.cpu_count()} cores; "
+        + (f"profile: {len(overlap)} tile copies, each's share of its time during a demux range "
+           + ", ".join(f"{share:.3f}" for share in overlap) + " (the last flush has no next tile)"
+           if overlap else "profile: no device copies in the trace (overlap not measured)"))
+    del lock_chunks, host_tiles, lock_streams, streams_h, elems_h
+
+    # 23. recovery on the card
+    rr, rb = RR, RB
+    rcfg = rtt.SamplerConfig(max_sample_size=K, num_reservoirs=rr, tile_size=rb)
+    n_r = 8 * rr * rb
+    r_streams = torch.randint(0, rr, (n_r,), generator=gen, device=dev, dtype=torch.int32).cpu().numpy()
+    r_elems = torch.randint(-(2**31), 2**31 - 1, (n_r,), generator=gen, device=dev,
+                            dtype=torch.int32).cpu().numpy()
+    whole = rtt.DeviceStreamBridge(rcfg, key=0)
+    whole.push_interleaved(r_streams, r_elems)
+    want = whole.complete()
+    del whole
+    ckdir = os.path.join(work, "recovery")
+    dropped = rtt.DeviceStreamBridge(rcfg, key=0, checkpoint_dir=ckdir, checkpoint_every=2)
+    dropped.push_interleaved(r_streams[: n_r // 2], r_elems[: n_r // 2])
+    dropped.drain_barrier()
+    seq, durable, checkpoints = dropped.flushed_seq, dropped.metrics.flushed_elements, dropped.metrics.checkpoints
+    del dropped  # the crash: no complete(), the staged remainder is lost
+    gc.collect()
+    t0 = time.perf_counter()
+    recovered = rtt.DeviceStreamBridge.recover(ckdir)
+    recover_s = time.perf_counter() - t0
+    if recovered.flushed_seq != seq or recovered.metrics.flushed_elements != durable:
+        fail(f"recover() came back at flush {recovered.flushed_seq} ({recovered.metrics.flushed_elements} "
+             f"elements), the drop was at {seq} ({durable})")
+    # resume from the durable watermark: the flushes took a prefix of the pairs
+    recovered.push_interleaved(r_streams[durable:], r_elems[durable:])
+    got = recovered.complete()
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        fail("the recovered bridge's samples != the uninterrupted run's")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[23 bridge recovery] R {rr}, B {rb}, checkpoint_every 2: dropped after flush {seq} "
+        f"({checkpoints} checkpoints, {durable} of {n_r // 2} pushed elements durable); recover() on the "
+        f"card in {recover_s:.2f} s, then the rest of the stream: samples == the uninterrupted run")
+    return {
+        "card": card,
+        "config": {"R": R, "k": K, "B": B, "element_dtype": "int32", "pairs": N},
+        "cpu_count": os.cpu_count(),
+        "demux_threads": threads,
+        "launches": bridge_launches,
+        "flushes": len(bases),
+        "feeds": feeds,
+        "engine_elem_per_s": engine_eps,
+        "wire_elem_per_s": wire_eps,
+        "copy_time_share_during_demux": overlap,
+        "ragged_flush": ragged,
+        "weighted_flushes": w_flushes,
+        "distinct_flushes": d_flushes,
+        "recovery": {"flushes_before_drop": seq, "checkpoints": checkpoints, "recover_s": recover_s},
     }
 
 

@@ -20,6 +20,10 @@ of several shards of one stream into one exact sample:
   ``csrc/distinct.cu``, ``csrc/merge_ring.cu``), built with ``nvcc`` at
   first use;
 - :class:`ReservoirEngine` with checkpoints in the JAX package's format;
+- :class:`DeviceStreamBridge` and :class:`DeviceSampler`
+  (:mod:`reservoir_tpu_torch.stream`) — the host-to-device stream bridge:
+  the C++ demux of :mod:`.native` into pinned host tiles, ragged flushes,
+  the flush journal and recovery, in the JAX package's formats;
 - :mod:`reservoir_tpu_torch.parallel.merge` — the merge tree over parts
   spread over ranks, and the stream mergers.
 
@@ -31,6 +35,7 @@ The package imports torch and numpy, never jax and nothing of
 from .config import MAX_SIZE, SamplerConfig
 from .engine import ReservoirEngine
 from .errors import CheckpointCorrupt, CheckpointMismatch, SamplerClosedError
+from .stream import DeviceSampler, DeviceStreamBridge
 
 __version__ = "0.1.0"
 
@@ -38,6 +43,8 @@ __all__ = [
     "MAX_SIZE",
     "CheckpointCorrupt",
     "CheckpointMismatch",
+    "DeviceSampler",
+    "DeviceStreamBridge",
     "ReservoirEngine",
     "SamplerClosedError",
     "SamplerConfig",

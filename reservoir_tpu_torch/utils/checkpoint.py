@@ -13,10 +13,16 @@ lower bound).  A checkpoint written by either package restores in the
 other and continues bit-identically: every draw is keyed on the absolute
 stream index, and a distinct state is a function of the values seen.
 
-Writes are atomic (temp file, fsync, rename).  A truncated or corrupt file
-raises :class:`~reservoir_tpu_torch.errors.CheckpointCorrupt`; a checkpoint
-of a mode this port does not run raises
+Writes are atomic (temp file, fsync, rename); the writer carries the
+``checkpoint.write`` fault-injection site (:mod:`.faults`).  A truncated or
+corrupt file raises :class:`~reservoir_tpu_torch.errors.CheckpointCorrupt`;
+a checkpoint of a mode this port does not run raises
 :class:`~reservoir_tpu_torch.errors.CheckpointMismatch`.
+
+A bare state (:func:`save_state`) has the same manifest without the
+``engine`` block.  A checkpoint directory's ``epoch.json`` (:func:`read_epoch`,
+:func:`write_epoch`, :func:`advance_epoch`) is the JAX package's too, so an
+epoch advanced by either package fences the other's bridges.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import dataclasses
 import json
 import os
 import tempfile
+import time
 import zipfile
 from typing import Any, Optional, Tuple
 
@@ -39,10 +46,23 @@ from ..convert import (
     weighted_state_from_numpy,
 )
 from ..errors import CheckpointCorrupt, CheckpointMismatch
+from ..obs import registry as _obs
+from . import faults
+from .tracing import trace_span
 
-__all__ = ["save_engine", "load_engine"]
+__all__ = [
+    "save_state",
+    "load_state",
+    "save_engine",
+    "load_engine",
+    "read_engine_metadata",
+    "read_epoch",
+    "write_epoch",
+    "advance_epoch",
+]
 
 _FORMAT_VERSION = 1
+_EPOCH_NAME = "epoch.json"
 _KEY_IMPL = "threefry2x32"
 #: state class -> (its fields in order, each with its manifest kind, and the
 #: converter from numpy); an "optional" field is an array or absent
@@ -80,6 +100,9 @@ def _atomic_write_npz(path: str, arrays: dict, manifest: dict) -> None:
         os.umask(umask)
         os.chmod(tmp, 0o666 & ~umask)
         with os.fdopen(fd, "wb") as fh:
+            # inside the temp-file guard: an injected crash mid-write leaves
+            # the previous checkpoint and no temp file behind
+            faults.fire("checkpoint.write")
             np.savez(
                 fh,
                 __manifest__=np.frombuffer(json.dumps(manifest).encode(), dtype=np.uint8),
@@ -99,13 +122,15 @@ def _atomic_write_npz(path: str, arrays: dict, manifest: dict) -> None:
         raise
 
 
-def _read_npz(path: str) -> Tuple[dict, dict]:
+def _read_npz(path: str, arrays: bool = True) -> Tuple[dict, dict]:
+    """``(arrays, manifest)`` of a checkpoint (``arrays`` empty when not
+    asked for)."""
     try:
         with np.load(path) as data:
             if "__manifest__" not in data.files:
                 raise CheckpointCorrupt(f"{path!r} has no checkpoint manifest")
             manifest = json.loads(bytes(data["__manifest__"]).decode())
-            arrays = {k: data[k] for k in data.files if k != "__manifest__"}
+            arrays = {k: data[k] for k in data.files if k != "__manifest__"} if arrays else {}
     except FileNotFoundError:
         raise
     except (zipfile.BadZipFile, EOFError, OSError, KeyError, ValueError) as e:
@@ -131,11 +156,12 @@ def _config_to_jsonable(config: SamplerConfig) -> dict:
     return d
 
 
-def save_engine(path: str, engine, metadata: Optional[dict] = None) -> None:
-    """Checkpoint a live engine: state, config and lifecycle."""
-    engine._check_open()
-    state_class = type(engine._state).__name__
-    host = state_to_numpy(engine._state)
+def _pack_state(state, metadata: Optional[dict]) -> Tuple[dict, dict]:
+    """A state's arrays and its manifest (without the ``engine`` block)."""
+    state_class = type(state).__name__
+    if state_class not in _STATES:
+        raise TypeError(f"expected one of {', '.join(_STATES)}, got {state_class}")
+    host = state_to_numpy(state)
     arrays, fields = {}, []
     for name, kind in _STATES[state_class][0]:
         if host[name] is None:
@@ -146,48 +172,24 @@ def save_engine(path: str, engine, metadata: Optional[dict] = None) -> None:
             fields.append({"name": name, "kind": "prng_key", "impl": _KEY_IMPL})
         else:
             fields.append({"name": name, "kind": "array"})
-    dev = engine.device
     manifest = {
         "state_class": state_class,
         "fields": fields,
         "format_version": _FORMAT_VERSION,
         "metadata": metadata or {},
-        "engine": {
-            "config": _config_to_jsonable(engine.config),
-            "reusable": engine._reusable,
-            "min_count": engine._min_count,
-            "has_map_fn": False,
-            "has_hash_fn": False,
-            "backend": {
-                "platform": dev.type,
-                "device_count": torch.cuda.device_count() if dev.type == "cuda" else 1,
-            },
-        },
     }
-    _atomic_write_npz(path, arrays, manifest)
+    return arrays, manifest
 
 
-def load_engine(path: str, engine_cls: Optional[type] = None, *, device: Any = None):
-    """Rebuild a checkpointed uniform, weighted or distinct engine on
-    ``device``."""
-    from ..engine import ReservoirEngine
-
-    arrays, manifest = _read_npz(path)
-    info = manifest.get("engine")
-    if info is None:
-        raise ValueError(f"{path!r} is a bare state checkpoint, not an engine checkpoint")
+def _unpack_state(path: str, arrays: dict, manifest: dict, device: Any = "cpu"):
+    """The state a checkpoint's arrays and manifest describe, on ``device``."""
     state_class = manifest.get("state_class")
     if state_class not in _STATES:
         raise CheckpointMismatch(
             f"checkpoint {path!r} holds a {state_class}; the torch port restores "
-            f"{', '.join(_STATES)} engines only"
+            f"{', '.join(_STATES)} only"
         )
     specs, from_numpy = _STATES[state_class]
-    if info.get("has_map_fn") or info.get("has_hash_fn"):
-        raise CheckpointMismatch(
-            f"checkpoint {path!r} was saved with a map_fn/hash_fn, which the "
-            "torch port does not run"
-        )
     kinds = {f["name"]: f for f in manifest.get("fields", ())}
     values = []
     for name, kind in specs:
@@ -202,6 +204,127 @@ def load_engine(path: str, engine_cls: Optional[type] = None, *, device: Any = N
                 f"checkpoint {path!r}: key field {field} is not {_KEY_IMPL} key data"
             )
         values.append(arrays[name])
+    return from_numpy(*values, device=device)
+
+
+def save_state(path: str, state, metadata: Optional[dict] = None) -> None:
+    """Write one state (``ReservoirState``, ``WeightedState`` or
+    ``DistinctState``) to ``path`` atomically, in the JAX package's bare
+    state format; ``metadata`` (JSON-able) comes back from
+    :func:`load_state`."""
+    arrays, manifest = _pack_state(state, metadata)
+    _atomic_write_npz(path, arrays, manifest)
+
+
+def load_state(path: str, with_metadata: bool = False, *, device: Any = "cpu"):
+    """The state saved by :func:`save_state` (by either package) on
+    ``device``; with ``with_metadata``, ``(state, metadata)``."""
+    arrays, manifest = _read_npz(path)
+    state = _unpack_state(path, arrays, manifest, device)
+    return (state, manifest.get("metadata", {})) if with_metadata else state
+
+
+def read_engine_metadata(path: str) -> dict:
+    """The ``metadata`` a checkpoint was saved with, without restoring its
+    state."""
+    return _read_npz(path, arrays=False)[1].get("metadata", {})
+
+
+def read_epoch(directory: str) -> int:
+    """The primary epoch persisted in a checkpoint directory (0 when none
+    was ever written).  A writer admitted at epoch E refuses durable writes
+    once the persisted epoch exceeds E
+    (:class:`~reservoir_tpu_torch.errors.FencedError`)."""
+    try:
+        with open(os.path.join(directory, _EPOCH_NAME), encoding="utf-8") as fh:
+            return int(json.load(fh)["epoch"])
+    except FileNotFoundError:
+        return 0
+    except (OSError, ValueError, KeyError, TypeError) as e:
+        raise CheckpointCorrupt(
+            f"epoch file in {directory!r} is unreadable ({type(e).__name__}: {e})"
+        ) from e
+
+
+def write_epoch(directory: str, epoch: int) -> int:
+    """Persist ``epoch`` atomically (temp file and rename, the file and the
+    directory fsynced: an epoch bump lost in an OS crash would un-fence the
+    old primary)."""
+    os.makedirs(directory, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp.epoch")
+    try:
+        with os.fdopen(fd, "w", encoding="utf-8") as fh:
+            json.dump({"epoch": int(epoch)}, fh)
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, os.path.join(directory, _EPOCH_NAME))
+        dir_fd = os.open(directory, os.O_RDONLY)
+        try:
+            os.fsync(dir_fd)
+        finally:
+            os.close(dir_fd)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+    return int(epoch)
+
+
+def advance_epoch(directory: str) -> int:
+    """Bump and persist the primary epoch; returns the new value.  Every
+    writer admitted at an older epoch (of either package) fails its next
+    durable write with ``FencedError``."""
+    return write_epoch(directory, read_epoch(directory) + 1)
+
+
+def save_engine(path: str, engine, metadata: Optional[dict] = None) -> None:
+    """Checkpoint a live engine: state, config and lifecycle."""
+    engine._check_open()
+    arrays, manifest = _pack_state(engine._state, metadata)
+    dev = engine.device
+    manifest.update({
+        "engine": {
+            "config": _config_to_jsonable(engine.config),
+            "reusable": engine._reusable,
+            "min_count": engine._min_count,
+            "has_map_fn": False,
+            "has_hash_fn": False,
+            "backend": {
+                "platform": dev.type,
+                "device_count": torch.cuda.device_count() if dev.type == "cuda" else 1,
+            },
+        },
+    })
+    reg = _obs.get()
+    t0 = time.perf_counter() if reg is not None else 0.0
+    with trace_span("reservoir_checkpoint_write"):
+        _atomic_write_npz(path, arrays, manifest)
+    if reg is not None:
+        reg.histogram("checkpoint.write_s").observe(time.perf_counter() - t0)
+
+
+def load_engine(path: str, engine_cls: Optional[type] = None, *, device: Any = None,
+                with_metadata: bool = False):
+    """Rebuild a checkpointed uniform, weighted or distinct engine on
+    ``device``; with ``with_metadata``, ``(engine, metadata)`` (the stream
+    bridge's recovery reads its journal watermark there)."""
+    from ..engine import ReservoirEngine
+
+    arrays, manifest = _read_npz(path)
+    info = manifest.get("engine")
+    if info is None:
+        raise ValueError(f"{path!r} is a bare state checkpoint, not an engine checkpoint")
+    state_class = manifest.get("state_class")
+    if state_class not in _STATES:
+        raise CheckpointMismatch(
+            f"checkpoint {path!r} holds a {state_class}; the torch port restores "
+            f"{', '.join(_STATES)} engines only"
+        )
+    if info.get("has_map_fn") or info.get("has_hash_fn"):
+        raise CheckpointMismatch(
+            f"checkpoint {path!r} was saved with a map_fn/hash_fn, which the "
+            "torch port does not run"
+        )
     config = SamplerConfig(**info["config"])
     if _state_class(config) != state_class:
         raise CheckpointMismatch(
@@ -209,15 +332,15 @@ def load_engine(path: str, engine_cls: Optional[type] = None, *, device: Any = N
             f"{config.weighted}, distinct={config.distinct}"
         )
     R, k = config.num_reservoirs, config.max_sample_size
-    first = specs[0][0]
-    if arrays[first].shape != (R, k):
+    first = _STATES[state_class][0][0][0]
+    if first in arrays and arrays[first].shape != (R, k):
         raise CheckpointMismatch(
             f"checkpoint {path!r}: {first} have shape {arrays[first].shape}, "
             f"but the recorded config has R={R}, k={k}"
         )
-    state = from_numpy(*values, device="cpu")
+    state = _unpack_state(path, arrays, manifest)
     engine = (engine_cls or ReservoirEngine)(
         config, reusable=info["reusable"], device=device, _initial_state=state
     )
     engine._min_count = info["min_count"]
-    return engine
+    return (engine, manifest.get("metadata", {})) if with_metadata else engine

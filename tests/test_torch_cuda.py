@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from reservoir_tpu_torch import ReservoirEngine, SamplerConfig
+from reservoir_tpu_torch import DeviceSampler, DeviceStreamBridge, ReservoirEngine, SamplerConfig
 from reservoir_tpu_torch.ops import algorithm_l as T
 from reservoir_tpu_torch.ops import algorithm_l_cuda as TK
 from reservoir_tpu_torch.ops import distinct as TD
@@ -725,3 +725,145 @@ def test_a_card_that_never_launches_times_out_the_other_and_check_raises(cuda_ca
     with pytest.raises(RuntimeError, match="rank 0 .* timed out: a peer rank never entered"):
         comm.check()
     assert int(outs[0][1].abs().sum()) == 0  # nothing was read from the absent card's rank
+
+
+# ------------------------------------------------------------- stream bridge
+
+
+def _card_and_cpu_state_equal(card, host):
+    for a, b in zip(card.engine.state, host.engine.state):
+        if a is None:
+            assert b is None
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.cpu().contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_bridge_on_the_card_holds_pinned_tiles(cuda_device):
+    for cfg in (SamplerConfig(8, 64, 32), SamplerConfig(8, 64, 32, weighted=True),
+                SamplerConfig(8, 64, 32, distinct=True, element_dtype="uint64")):
+        bridge = DeviceStreamBridge(cfg, key=1, device=cuda_device)
+        assert bridge.device == cuda_device and len(bridge._pinned) == 2
+        for pinned, tile in zip(bridge._pinned, bridge._tiles):
+            assert pinned.is_pinned() and tile.ctypes.data == pinned.data_ptr()
+            assert tile.dtype == np.dtype(cfg.element_dtype) and tile.shape == (64, 32)
+        if cfg.weighted:
+            assert all(w.is_pinned() for w in bridge._wpinned)
+    serial = DeviceStreamBridge(SamplerConfig(8, 64, 32), key=1, device=cuda_device, pipelined=False)
+    assert len(serial._pinned) == 1
+
+
+@pytest.mark.cuda
+def test_pinned_tile_reuse_waits_for_the_copy(cuda_device):
+    # many flushes of a few elements each from a large tile: the demux of
+    # the next tile takes microseconds, the copy of the last one (the whole
+    # [S, B] tile) milliseconds, so a tile handed back to the demux before
+    # its copy completed would send the card the next flush's elements
+    S, B = 65536, 512
+    cfg = SamplerConfig(4, S, B)
+    rng = np.random.default_rng(2)
+    rounds = [(rng.integers(0, S, 3000).astype(np.int32), rng.integers(0, 1 << 30, 3000).astype(np.int32))
+              for _ in range(24)]
+    out = []
+    for pipelined in (True, False):
+        bridge = DeviceStreamBridge(cfg, key=3, device=cuda_device, pipelined=pipelined)
+        for streams, elems in rounds:
+            bridge.push_interleaved(streams, elems)
+            bridge.flush()
+        bridge.drain_barrier()
+        assert bridge.metrics.flushes == len(rounds)
+        out.append(bridge.engine.peek_arrays())
+        assert bridge.metrics.copy_s > 0
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bridge_runs_on_the_stream_current_at_construction(cuda_device):
+    # built under a side stream, fed and completed from the default one:
+    # the worker's kernels, push_tile's and the result's reads all run on
+    # the side stream, in order
+    S, B = 1024, 128
+    cfg = SamplerConfig(8, S, B)
+    rng = np.random.default_rng(3)
+    streams = rng.integers(0, S, S * B * 3).astype(np.int32)
+    elems = rng.integers(0, 1 << 30, streams.size).astype(np.int32)
+    tile = rng.integers(0, 1 << 30, (S, B)).astype(np.int32)
+    side = torch.cuda.Stream(device=cuda_device)
+    with torch.cuda.stream(side):
+        card = DeviceStreamBridge(cfg, key=1, device=cuda_device)
+    assert card._stream == side
+    host = DeviceStreamBridge(cfg, key=1, device="cpu")
+    for b in (card, host):
+        b.push_interleaved(streams, elems)
+        b.push_tile(tile)
+        b.push_interleaved(streams[::-1].copy(), elems)
+    for a, b in zip(card.complete(), host.complete()):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["uniform", "weighted"])
+def test_ragged_bridge_flushes_equal_the_plain_version(cuda_device, mode):
+    S, B, k = 4096, 256, 16
+    cfg = SamplerConfig(k, S, B, weighted=mode == "weighted")
+    rng = np.random.default_rng(4)
+    n = S * B * 2
+    # random streams: every flush is ragged; every 97th row gets only a
+    # few elements and stays below k
+    streams = rng.integers(0, S, n).astype(np.int32)
+    keep = streams % 97 != 0
+    streams = streams[keep]
+    elems = rng.integers(-(2**31), 2**31 - 1, streams.size).astype(np.int32)
+    weights = rng.uniform(0.0, 2.0, streams.size).astype(np.float32) if cfg.weighted else None
+    before = (TWK if cfg.weighted else TK).launches
+    card = DeviceStreamBridge(cfg, key=6, device=cuda_device)
+    host = DeviceStreamBridge(cfg, key=6, device="cpu")
+    for b in (card, host):
+        b.push_interleaved(streams, elems, weights=weights)
+        for r in range(0, S, 97):
+            few = r % k
+            b.push(r, elems[:few], weights=None if weights is None else weights[:few])
+        b.flush()
+        b.drain_barrier()
+    assert (TWK if cfg.weighted else TK).launches - before == card.metrics.flushes > 2
+    _card_and_cpu_state_equal(card, host)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int64", "int32"])
+def test_distinct_bridge_equals_the_card_engine(cuda_device, dtype):
+    S, B, k = 1024, 256, 32
+    cfg = SamplerConfig(k, S, B, distinct=True, element_dtype=dtype)
+    rng = np.random.default_rng(8)
+    steps = 4
+    tiles = [(rng.integers(0, 5000, (S, B)) * np.int64(0x9E3779B97F4A7C15 - 2**64)).astype(dtype)
+             for _ in range(steps)]
+    lockstep = np.tile(np.arange(S, dtype=np.int32), B)
+    bridge = DeviceStreamBridge(cfg, key=2, device=cuda_device)
+    engine = ReservoirEngine(cfg, key=2, device=cuda_device)
+    for tile in tiles:
+        # one full tile a step: the bridge flushes exactly these tiles
+        bridge.push_interleaved(lockstep, np.ascontiguousarray(tile.T).ravel())
+        engine.sample(tile)
+    bridge.push(3, tiles[0][0, :5])
+    last = np.zeros((S, B), dtype)
+    last[3, :5] = tiles[0][0, :5]
+    engine.sample(last, valid=np.eye(1, S, 3, dtype=np.int32)[0] * 5)
+    bridge.flush()
+    bridge.drain_barrier()
+    assert bridge.metrics.flushes == steps + 1
+    for a, b in zip(bridge.engine.peek_arrays(), engine.peek_arrays()):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_device_sampler_on_the_card_equals_the_cpu(cuda_device):
+    cfg = SamplerConfig(128, 1, 2048)
+    data = np.random.default_rng(5).integers(0, 1 << 30, 2048 * 5 + 77).astype(np.int32)
+    card = DeviceSampler(cfg, key=4, device=cuda_device)
+    host = DeviceSampler(cfg, key=4, device="cpu")
+    for s in (card, host):
+        s.sample_all(data)
+    np.testing.assert_array_equal(card.result(), host.result())
