@@ -1,14 +1,15 @@
 """Smoke test of the torch port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Drives the port's four paths on ``"cuda"`` — the uniform engine,
+Drives the port's paths on ``"cuda"`` — the uniform engine,
 ``ReservoirEngine(SamplerConfig(k=128, R=65536, tile_size=2048), key=0)``,
 the weighted engine, ``ReservoirEngine(SamplerConfig(k=64, R=16384,
 tile_size=1024, weighted=True), key=0)``, and the distinct engine,
 ``ReservoirEngine(SamplerConfig(k=256, R=4096, tile_size=1024,
 distinct=True, element_dtype=...), key=0)`` with int32 and int64 keys, and
 the merge path, four shard engines of each of those configurations combined
-by ``parallel.merge``'s stream mergers through the all-gather kernel — and
-holds each CUDA kernel against its plain torch version.  Phases, each of
+by ``parallel.merge``'s stream mergers through the all-gather kernel, and
+the stream bridge at the uniform configuration, with and without its skip
+gate — and holds each CUDA kernel against its plain torch version.  Phases, each of
 which fails the run with a non-zero exit:
 
 1. device: require a CUDA card; print its name and power limit;
@@ -141,13 +142,52 @@ which fails the run with a non-zero exit:
    how much of the tile copies' time overlaps the demux of the next tile;
 23. bridge recovery on the card: R=4096, B=1024, ``checkpoint_every=2``,
    dropped halfway; ``recover()`` and the rest of the stream from the
-   durable watermark give the uninterrupted run's samples, bit for bit.
+   durable watermark give the uninterrupted run's samples, bit for bit;
+24. the gated kernel ``algl_update_gated`` vs its plain version at R=65536,
+   k=128, gate tile 64, int32 and float32 (-0.0 and NaN planted), on
+   candidate tiles the port's own replica builds from card states: across
+   the fill's end (count k - 20), past the fill with few candidates (count
+   k - 3), steady (count 4 B) and deep (count 24 B), every 7th row with
+   nvalid 0 and advance 0 — samples, count, nxt and log_w bit-identical to
+   the plain version on the card and to ``algl_update`` over the whole
+   tile, rows 0..1023 to the plain version on the CPU; the native replica
+   over all 65,536 rows of each state (its rows split over threads) equal
+   to the torch replica on every 64th row;
+25. the gated bridge at full width, ``DeviceStreamBridge(SamplerConfig(
+   k=128, R=65536, tile_size=2048), key=0, gated=True)``, every launch
+   count set to 0 first: (a) a lockstep ``push_interleaved`` of 12 tiles,
+   then (b) 8 rounds of ``push(row, chunk)`` of 8,192 elements
+   ``row * N + pos`` a row, round-robin, made at each push; after each,
+   the state equals the card engine fed the same row streams in
+   ``[R, B]`` tiles, with one ``algl_update_gated`` launch a gated
+   dispatch and one ``algl_update`` a fallback flush; the skip fraction;
+   then a gated journaling bridge (R=4096, B=1024, ``checkpoint_every=2``)
+   dropped from halfway on at the first tile after which its journal
+   holds a gated frame, ``recover()`` replaying the ``RTJG`` frames
+   through the kernel, and the rest of the stream: the uninterrupted
+   run's samples;
+26. gate timings (host clock around a window that ends in
+   ``drain_barrier()`` and ``torch.cuda.synchronize()``, after a warm
+   pass): logical elem/s of feeds (a) and (b) gated and through an
+   ungated bridge fed the same pushes, with each window's stage table
+   (demux, take, copy, dispatch, reserve, gate eval, bytes shipped and
+   elided); the replica's ``evaluate`` over 65536 rows and
+   ``evaluate_row``, native and torch; ``algl_update_gated`` a dispatch
+   beside its bound and its plain version, with its build.
+
+Depth cut for the time limit: feed (b) follows feed (a) on the same
+bridge, so its rows are past the early stream, where a row's 8,192
+elements have more candidates than the gate tile and go through the
+staging, one whole-tile flush per 2,048; the windows of (a) are its tiles
+5-12 and of (b) its rounds 2-8; the ungated bridge's (b) window is 64
+pushes of round 1 (each push of 8,192 elements to one row flushes the
+whole 512 MiB tile four times).
 
 A phase's line ends with the seconds since the script started.
 
-The line before the last is ``{"kernels": [...]}``, and the line before it
-``{"bridge": {...}}`` (phases 20-23); the last line is
-``{"ok": true, "device": {...}}``.  Without a card, or run outside a
+The line before the last is ``{"kernels": [...]}``, before it
+``{"gate": {...}}`` (phases 24-26) and ``{"bridge": {...}}`` (phases
+20-23); the last line is ``{"ok": true, "device": {...}}``.  Without a card, or run outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
 
@@ -208,6 +248,13 @@ DR, DK, DB = 4096, 256, 1024
 # the bridge's recovery phase: tiles small enough that the journal costs
 # seconds
 RR, RB = 4096, 1024
+# the skip gate's phases: the gate tile, feed (a)'s lockstep tiles, feed
+# (b)'s rounds and chunk a row, and the ungated bridge's window of (b)
+GATE_CAP = 64
+FEED_A_TILES = 12
+FEED_B_ROUNDS = 8
+FEED_B_CHUNK = 8192
+UNGATED_B_PUSHES = 64
 # the distinct kernel, counted from csrc/distinct.cu and csrc/hashing.cuh:
 # per lane the scramble (4 salt xors, 6 rounds of an add, fmix32's 3 shifts,
 # 3 xors and 2 multiplies, and the Feistel xor) and the compare and ballot;
@@ -609,10 +656,12 @@ def main() -> None:
     merge = merge_phases(gen, dev)
     bridge = bridge_phases(gen, dev, here, {"device_fed": dev_eps, "host_fed": host_eps,
                                             "host_fed_warm": warm_host_eps})
+    gate, gated_entry = gate_phases(gen, dev, here)
 
     card = card_line()
     log(card)
     log(json.dumps({"bridge": bridge}))
+    log(json.dumps({"gate": gate}))
     log(json.dumps({"kernels": [{
         "name": "algl_update",
         "route": "cuda",
@@ -636,7 +685,8 @@ def main() -> None:
         "warm_host_fed_elem_per_s": warm_host_eps,
         "build": build,
         "bridge_ragged_flush": bridge["ragged_flush"],
-    }, weighted, distinct, merge]}))
+        "gated_bridge_fallback_launches": gate["fallback_launches"],
+    }, weighted, distinct, merge, gated_entry]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
 
@@ -1927,6 +1977,428 @@ def bridge_phases(gen, dev, here: str, engine_eps: dict) -> dict:
         "distinct_flushes": d_flushes,
         "recovery": {"flushes_before_drop": seq, "checkpoints": checkpoints, "recover_s": recover_s},
     }
+
+
+class _EngineView:
+    """What the skip gate's ``resync`` reads of an engine: its state."""
+
+    def __init__(self, state):
+        self._state = state
+        self.reset_epochs = 0
+
+
+def gated_candidates(state, tile: torch.Tensor, m: np.ndarray, cap: int):
+    """The skip gate's candidate tile for ``tile[r, :m[r]]`` from the card
+    ``state``, built by the port's own replica (native): rows whose
+    candidates would overflow ``cap`` take nothing.  Returns ``(gtile,
+    nvalid, advance)`` on the card and the fill and accept counts (the
+    kernel's data-dependent work)."""
+    from reservoir_tpu_torch.stream.gate import SkipGate
+
+    rows, width = tile.shape
+    gate = SkipGate(rows, state.k, width, np.int32, cap=cap)
+    gate.resync(_EngineView(state))
+    m = np.asarray(m, np.int32).copy()
+    ev = gate.evaluate(m)
+    m[ev.n_cand > cap] = 0
+    ev = gate.evaluate(m)
+    gate.append(tile.view(torch.int32).cpu().numpy(), m, ev)
+    gtile, nvalid, advance, _ = gate.take()
+    dev = tile.device
+    fills, accepts = int(ev.fill.sum()), int(ev.n_acc.sum())
+    return ((torch.from_numpy(gtile).to(dev).view(tile.dtype), torch.from_numpy(nvalid).to(dev),
+             torch.from_numpy(advance).to(dev)), fills, accepts)
+
+
+def gated_bound_ms(fills: int, accepts: int, rows: int) -> tuple:
+    """The gated kernel's bound: per row the state (28 bytes) with nvalid
+    and advance (8), each candidate read once (4 bytes), one 32-byte
+    sector written per filled or accepted slot (each sample once at most);
+    an acceptance's operations as in :func:`bound_ms`."""
+    moved = fills + accepts
+    nbytes = rows * (STATE_BYTES_PER_ROW + 8) + 4 * moved + min(SECTOR_BYTES * moved, 4 * rows * K)
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = max(accepts * INT_OPS_PER_ACCEPT / PEAK_INT32, accepts * FLOPS_PER_ACCEPT / PEAK_F32)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def wrap32(x: int) -> int:
+    return ((x + 2**31) % 2**32) - 2**31
+
+
+def stage_row(m, before: dict) -> dict:
+    """A window's stage table from the bridge's metrics, less ``before``."""
+    keys = ("elements", "flushes", "gated_dispatches", "demux_s", "drain_s", "dispatch_s", "copy_s",
+            "reserve_s", "gate_eval_s", "gate_bytes_shipped", "gate_bytes_elided")
+    return {key: getattr(m, key) - before.get(key, 0) for key in keys}
+
+
+def snap(m) -> dict:
+    return stage_row(m, {})
+
+
+def gate_phases(gen, dev, here: str) -> tuple:
+    """Phases 24-26, the skip gate; returns the ``gate`` line and the gated
+    kernel's ``kernels`` entry."""
+    import reservoir_tpu_torch as rtt
+    from reservoir_tpu_torch import native
+    from reservoir_tpu_torch.ops import algorithm_l as plain
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.ops import distinct_cuda as dkern
+    from reservoir_tpu_torch.ops import merge_cuda as mkern
+    from reservoir_tpu_torch.ops import weighted_cuda as wkern
+    from reservoir_tpu_torch.ops.rng import key_from_seed
+    from reservoir_tpu_torch.stream.bridge import _FlushJournal
+    from reservoir_tpu_torch.stream.gate import SkipGate
+
+    work = os.path.join(here, "build", "chip_smoke")  # gitignored
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cap = GATE_CAP
+    t0 = time.perf_counter()
+    native.load_gate_library()
+    log(f"[24 gate build] g++ skip-gate library (csrc/algl_chain.cuh for the CPU) built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # 24. the gated kernel against its plain version at full width
+    worst_err = 0.0
+    rng = np.random.default_rng(24)
+    timing_case = None
+    cases = 0
+    for dtype in (torch.int32, torch.float32):
+        gen.manual_seed(41)
+        s0 = plain.init(key_from_seed(3), R, K, sample_dtype=dtype, device=dev)
+        near = kern.update_cuda(clone(s0), random_tile(gen, B, dtype, dev),
+                                torch.full((R,), K - 20, dtype=torch.int32, device=dev))
+        edge = kern.update_cuda(clone(s0), random_tile(gen, B, dtype, dev),
+                                torch.full((R,), K - 3, dtype=torch.int32, device=dev))
+        steady = kern.update_cuda(clone(s0), random_tile(gen, B, dtype, dev))
+        for _ in range(3):  # count 4 B
+            kern.update_steady_cuda(steady, random_tile(gen, B, dtype, dev))
+        deep = clone(steady)
+        for _ in range(20):  # count 24 B
+            kern.update_steady_cuda(deep, random_tile(gen, B, dtype, dev))
+        plan = [("across the fill's end (count k - 20)", near, 60),
+                ("past the fill with few candidates (count k - 3)", edge, 14),
+                (f"steady (count {4 * B})", steady, B + 1), (f"deep (count {24 * B})", deep, B + 1)]
+        for label, state, hi in plan:
+            tile = random_tile(gen, B, dtype, dev)
+            m = rng.integers(max(0, hi - 40), hi, R).astype(np.int32) if hi > B else \
+                rng.integers(0, hi, R).astype(np.int32)
+            m[::7] = 0  # nvalid 0 and advance 0
+            (gtile, nvalid, advance), fills, accepts = gated_candidates(state, tile, m, cap)
+            ref = plain.update_gated(clone(state), gtile, nvalid, advance)
+            got = kern.update_gated_cuda(clone(state), gtile, nvalid, advance)
+            full = kern.update_cuda(clone(state), tile, advance)
+            torch.cuda.synchronize()
+            worst_err = max(worst_err, max_abs_err(got, ref))
+            if not same(got, ref):
+                fail(f"algl_update_gated != its plain version ({dtype}, {label})")
+            if not same(got, full):
+                fail(f"algl_update_gated != algl_update over the whole tile ({dtype}, {label})")
+            # rows 0..ROWS_CPU-1 on the CPU
+            cpu = plain.update_gated(clone(state, ROWS_CPU, "cpu"), gtile[:ROWS_CPU].cpu(),
+                                     nvalid[:ROWS_CPU].cpu(), advance[:ROWS_CPU].cpu())
+            if not same(cpu, clone(got, ROWS_CPU, "cpu")):
+                fail(f"the plain version on the CPU != the kernel's rows 0..{ROWS_CPU - 1} ({dtype}, {label})")
+            cases += 1
+            if dtype == torch.int32 and label.startswith("steady"):
+                timing_case = (state, (gtile, nvalid, advance), fills, accepts)
+            log(f"[24 gated kernel vs plain] {dtype}, {label}: {int(nvalid.sum())} candidates "
+                f"({fills} fill, {accepts} accepts) of {int(advance.sum())} elements: kernel == plain "
+                f"version on the card == algl_update of the whole tile; rows 0..{ROWS_CPU - 1} == the "
+                "plain version on the CPU")
+            del ref, got, full, tile
+        # the two replicas on each of these states: the native one over all
+        # R rows (split over its threads), the torch one over every
+        # (R // ROWS_CPU)-th row, a sample that falls in every thread's range
+        idx = torch.arange(0, R, R // ROWS_CPU, device=dev)
+        idx_np = idx.cpu().numpy()
+        threads = 0
+        for label, state, hi in plan:
+            m = rng.integers(0, 2 * hi, R).astype(np.int32)
+            row, extra = 5, 3000
+            full_gate = SkipGate(R, K, B, np.int32, cap=cap)
+            full_gate.resync(_EngineView(state))
+            threads = min(full_gate.threads(), R // 1024)
+            full_n = full_gate.evaluate(m)
+            row_n = full_gate.evaluate_row(int(idx_np[row]), int(m[idx_np[row]]) + extra)
+            sub_gate = SkipGate(ROWS_CPU, K, B, np.int32, cap=cap, native=False)
+            sub_gate.resync(_EngineView(type(state)(*(None if t is None else t[idx].cpu() for t in state))))
+            full_t = sub_gate.evaluate(m[idx_np])
+            row_t = sub_gate.evaluate_row(row, int(m[idx_np[row]]) + extra)
+            pairs = [(np.asarray(x)[idx_np], y) for x, y in zip((full_n.pos, full_n.fill, full_n.n_acc)
+                                                                + full_n.state,
+                                                                (full_t.pos, full_t.fill, full_t.n_acc)
+                                                                + full_t.state)]
+            pairs += list(zip((row_n.pos, row_n.fill, row_n.n_acc) + row_n.state,
+                              (row_t.pos, row_t.fill, row_t.n_acc) + row_t.state))
+            for x, y in pairs:
+                if not np.array_equal(np.asarray(x).view(np.int32), np.asarray(y).view(np.int32)):
+                    fail(f"the native replica != the torch replica ({dtype}, {label})")
+        log(f"[24 replicas] {dtype}: native replica over all {R} rows ({threads} threads) == torch "
+            f"replica on every {R // ROWS_CPU}th row of the four states (evaluate and evaluate_row: "
+            "pos, fill, n_acc, count, nxt, log_w)")
+        del s0, near, edge, steady, deep
+
+    # 25. the gated bridge at full width
+    cfg = rtt.SamplerConfig(max_sample_size=K, num_reservoirs=R, tile_size=B)
+    TILES_A, ROUNDS_B, CHUNK_B = FEED_A_TILES, FEED_B_ROUNDS, FEED_B_CHUNK
+    N = TILES_A * B + ROUNDS_B * CHUNK_B  # each row's stream
+    gen.manual_seed(43)
+    lock_tiles = [torch.randint(-(2**31), 2**31 - 1, (R, B), generator=gen, device=dev, dtype=torch.int32)
+                  for _ in range(TILES_A)]
+    lock_streams = np.tile(np.arange(R, dtype=np.int32), B)
+    lock_chunks = [t.T.contiguous().reshape(-1).cpu().numpy() for t in lock_tiles]
+    ramp = np.arange(CHUNK_B, dtype=np.int32)
+
+    def feed_a(bridge, tiles):
+        for t in tiles:
+            bridge.push_interleaved(lock_streams, lock_chunks[t])
+
+    def feed_b(bridge, rounds, rows=None):
+        """Per-row pushes of CHUNK_B elements ``row * N + pos`` (int32),
+        made at each push, round-robin over the rows."""
+        for rnd in rounds:
+            pos0 = TILES_A * B + rnd * CHUNK_B
+            for row in (range(R) if rows is None else rows):
+                bridge.push(row, ramp + np.int32(wrap32(row * N + pos0)))
+
+    def b_tile(j: int) -> torch.Tensor:
+        """The [R, B] tile j of feed (b)'s part of every row's stream."""
+        pos = TILES_A * B + j * B + torch.arange(B, device=dev, dtype=torch.int64)
+        x = torch.arange(R, device=dev, dtype=torch.int64)[:, None] * N + pos[None, :]
+        return (((x + 2**31) % 2**32) - 2**31).to(torch.int32).contiguous()
+
+    def window(bridge, feed) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feed()
+        bridge.flush()
+        bridge.drain_barrier()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    for mod in (kern, wkern, dkern, mkern):
+        mod.launches = 0
+    kern.gated_launches = 0
+    bridge = rtt.DeviceStreamBridge(cfg, key=0, gated=True)
+    if not (bridge.gate_active and bridge._gate.native and bridge._gate.cap == cap):
+        fail("the gated bridge's gate is not active with the native replica")
+    warm_a = 4
+    window(bridge, lambda: feed_a(bridge, range(warm_a)))  # the fill: fallback flushes
+    before = snap(bridge.metrics)
+    dt_a = window(bridge, lambda: feed_a(bridge, range(warm_a, TILES_A)))
+    gated_a = stage_row(bridge.metrics, before)
+    m = bridge.metrics
+    launches_a = (kern.launches, kern.gated_launches)
+    if kern.gated_launches != m.gated_dispatches or kern.launches != m.flushes - m.gated_dispatches:
+        fail(f"feed (a): {kern.launches} algl_update and {kern.gated_launches} algl_update_gated launches "
+             f"for {m.flushes} flushes, {m.gated_dispatches} of them gated")
+    if m.gated_dispatches < 1 or m.flushes == m.gated_dispatches:
+        fail(f"feed (a) made {m.gated_dispatches} gated dispatches of {m.flushes} flushes: "
+             "both kinds were expected")
+    # the reference engine's launches are a comparison's: the count skips them
+    counted = kern.launches
+    engine = rtt.ReservoirEngine(cfg, key=0)
+    for t in lock_tiles:
+        engine.sample(t)
+    torch.cuda.synchronize()
+    kern.launches = counted
+    if not same(bridge.engine._state, engine._state):
+        fail("feed (a): the gated bridge's state != the card engine fed the same row streams")
+    state_a = clone(bridge.engine._state)
+    log(f"[25 gated bridge] feed (a), {TILES_A} lockstep tiles of [{R}, {B}] through push_interleaved: "
+        f"{m.flushes} flushes, {m.gated_dispatches} gated; {launches_a[0]} algl_update and "
+        f"{launches_a[1]} algl_update_gated launches; state == the card engine fed the same row streams")
+    feed_b(bridge, range(1))  # warm: round 1
+    before = snap(bridge.metrics)
+    dt_b = window(bridge, lambda: feed_b(bridge, range(1, ROUNDS_B)))
+    gated_b = stage_row(bridge.metrics, before)
+    m = bridge.metrics
+    if kern.gated_launches != m.gated_dispatches or kern.launches != m.flushes - m.gated_dispatches:
+        fail(f"feed (b): {kern.launches} algl_update and {kern.gated_launches} algl_update_gated launches "
+             f"for {m.flushes} flushes, {m.gated_dispatches} of them gated")
+    main_gated = kern.gated_launches
+    main_fallback = kern.launches
+    if wkern.launches or dkern.launches or mkern.launches:
+        fail("the gated bridge launched a weighted, distinct or merge kernel")
+    for j in range(ROUNDS_B * CHUNK_B // B):
+        engine.sample(b_tile(j))
+    torch.cuda.synchronize()
+    kern.launches = main_fallback
+    if not same(bridge.engine._state, engine._state):
+        fail("feed (b): the gated bridge's state != the card engine fed the same row streams")
+    shipped, elided = m.gate_bytes_shipped, m.gate_bytes_elided
+    skip = elided / (elided + shipped)
+    log(f"[25 gated bridge] feed (b), {ROUNDS_B} rounds of push(row, {CHUNK_B} elements) over {R} rows: "
+        f"state == the card engine fed the same row streams in [{R}, {B}] tiles; in all "
+        f"{m.flushes} flushes, {m.gated_dispatches} gated ({main_gated} algl_update_gated launches), "
+        f"{main_fallback} fallback algl_update launches; bytes shipped {shipped}, elided {elided}: "
+        f"skip fraction {skip:.6f}")
+    del bridge, engine
+    gc.collect()
+
+    # the gated journal: dropped halfway, recovered on the card
+    rr, rb, rtiles = RR, RB, 24
+    rcfg = rtt.SamplerConfig(max_sample_size=K, num_reservoirs=rr, tile_size=rb)
+    rdata = torch.randint(-(2**31), 2**31 - 1, (rr, rtiles * rb), generator=gen, device=dev,
+                          dtype=torch.int32).cpu().numpy()
+    r_streams = np.tile(np.arange(rr, dtype=np.int32), rb)
+
+    def r_feed(bridge, tiles):
+        for t in tiles:
+            bridge.push_interleaved(r_streams, np.ascontiguousarray(rdata[:, t * rb:(t + 1) * rb].T).ravel())
+
+    whole = rtt.DeviceStreamBridge(rcfg, key=0, gated=True)
+    r_feed(whole, range(rtiles))
+    want = whole.complete()
+    del whole
+    ckdir = os.path.join(work, "gated_recovery")
+    journal = os.path.join(ckdir, "journal.bin")
+    dropped = rtt.DeviceStreamBridge(rcfg, key=0, gated=True, checkpoint_dir=ckdir, checkpoint_every=2)
+    # from halfway on, drop at the first tile after which the journal (the
+    # frames since the last checkpoint) holds a gated frame
+    frames = []
+    for t in range(rtiles - 1):
+        r_feed(dropped, [t])
+        if t + 1 >= rtiles // 2:
+            dropped.drain_barrier()
+            frames = [rec[5] is not None for rec in _FlushJournal.read_records(journal, rr, rb, np.int32, False)]
+            if any(frames):
+                break
+    dropped_at = t + 1
+    seq, dispatches = dropped.flushed_seq, dropped.metrics.gated_dispatches
+    del dropped  # the crash: the staged rows and the gate's buffer are lost
+    gc.collect()
+    before = kern.gated_launches
+    t0 = time.perf_counter()
+    recovered = rtt.DeviceStreamBridge.recover(ckdir)
+    recover_s = time.perf_counter() - t0
+    replayed = kern.gated_launches - before
+    if not any(frames) or replayed != sum(frames) or recovered.flushed_seq != seq:
+        fail(f"gated recovery: {sum(frames)} RTJG frames of {len(frames)} in the journal, {replayed} "
+             f"algl_update_gated launches in the replay, back at flush {recovered.flushed_seq} of {seq}")
+    # lockstep tiles leave every row at one durable count, a whole tile
+    counts = recovered.engine.state.count.cpu().numpy()
+    if (counts != counts[0]).any() or counts[0] % rb:
+        fail(f"the recovered rows' durable counts are not one whole tile: {counts.min()}..{counts.max()}")
+    r_feed(recovered, range(int(counts[0]) // rb, rtiles))
+    got = recovered.complete()
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        fail("the recovered gated bridge's samples != the uninterrupted run's")
+    del recovered
+    gc.collect()
+    log(f"[25 gated recovery] R {rr}, B {rb}, checkpoint_every 2, {rtiles} lockstep tiles: dropped after "
+        f"tile {dropped_at}, flush {seq} ({dispatches} gated dispatches); recover() replayed {len(frames)} frames, {sum(frames)} "
+        f"of them RTJG through {replayed} algl_update_gated launches, in {recover_s:.2f} s; the rows resumed "
+        f"from their durable count {int(counts[0])}: samples == the uninterrupted run")
+
+    # 26. timings: the same feeds through an ungated bridge
+    ungated = rtt.DeviceStreamBridge(cfg, key=0)
+    window(ungated, lambda: feed_a(ungated, range(warm_a)))
+    before = snap(ungated.metrics)
+    dt_ua = window(ungated, lambda: feed_a(ungated, range(warm_a, TILES_A)))
+    ungated_a = stage_row(ungated.metrics, before)
+    # feed (b) ungated: every push of CHUNK_B > B elements to one row fills
+    # it CHUNK_B / B times, and each fill flushes the whole [R, B] tile,
+    # so the window is the first pushes of round 1 only
+    warm_rows, win_rows = 8, UNGATED_B_PUSHES
+    feed_b(ungated, range(1), rows=range(warm_rows))
+    before = snap(ungated.metrics)
+    dt_ub = window(ungated, lambda: feed_b(ungated, range(1), rows=range(warm_rows, warm_rows + win_rows)))
+    ungated_b = stage_row(ungated.metrics, before)
+    del ungated, lock_chunks, lock_tiles
+    gc.collect()
+    rates = {
+        "a": {"gated": (TILES_A - warm_a) * R * B / dt_a, "ungated": (TILES_A - warm_a) * R * B / dt_ua},
+        "b": {"gated": (ROUNDS_B - 1) * R * CHUNK_B / dt_b, "ungated": win_rows * CHUNK_B / dt_ub},
+    }
+    # the replica's evaluation, native and plain, from the state after feed (a)
+    view = _EngineView(state_a)
+    times = {}
+    for native in (True, False):
+        gate = SkipGate(R, K, B, np.int32, cap=cap, native=native)
+        gate.resync(view)
+        full_t, row_t = [], []
+        for _ in range(5 if native else 1):
+            t0 = time.perf_counter()
+            ev = gate.evaluate(np.full(R, B, np.int32))
+            full_t.append(1e3 * (time.perf_counter() - t0))
+        for row in range(200 if native else 3):
+            t0 = time.perf_counter()
+            gate.evaluate_row(row, CHUNK_B)
+            row_t.append(1e3 * (time.perf_counter() - t0))
+        times["native" if native else "torch"] = {
+            "evaluate_ms": statistics.median(full_t), "evaluate_row_ms": statistics.median(row_t),
+            "accepts": int(ev.n_acc.sum()), "threads": gate.threads()}
+        del gate
+    # the gated kernel on phase 24's steady candidate tile
+    state, (gtile, nvalid, advance), fills, accepts = timing_case
+    gated_ms = event_ms(lambda s: kern.update_gated_cuda(s, gtile, nvalid, advance),
+                        setup=lambda: clone(state), batch=10)
+    plain_t = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        plain.update_gated(clone(state), gtile, nvalid, advance)
+        torch.cuda.synchronize()
+        plain_t.append(1e3 * (time.perf_counter() - t0))
+    gated_plain_ms = statistics.median(plain_t)
+    gated_bound, gated_by = gated_bound_ms(fills, accepts, R)
+    build = kern.gated_kernel_info()
+    card = card_line()
+    for feed in ("a", "b"):
+        g, u = rates[feed]["gated"], rates[feed]["ungated"]
+        log(f"[26 gate timings] {card} | feed ({feed}): gated {g:.6e} elem/s, ungated {u:.6e} elem/s "
+            f"({g / u:.3f}x)")
+    for name, row in (("gated (a)", gated_a), ("ungated (a)", ungated_a), ("gated (b)", gated_b),
+                      ("ungated (b)", ungated_b)):
+        log(f"[26 gate timings] {card} | {name}: {row['elements']} elements, {row['flushes']} flushes "
+            f"({row['gated_dispatches']} gated); demux {row['demux_s']:.3f} s, take {row['drain_s']:.4f} s, "
+            f"copy {row['copy_s']:.4f} s, dispatch {row['dispatch_s']:.3f} s, reserve {row['reserve_s']:.3f} s, "
+            f"gate eval {row['gate_eval_s']:.3f} s; shipped {row['gate_bytes_shipped']} B, elided "
+            f"{row['gate_bytes_elided']} B")
+    for name, t in times.items():
+        log(f"[26 gate timings] {card} | {name} replica at R {R}: evaluate of a {B}-element chunk a row "
+            f"{t['evaluate_ms']:.3f} ms ({t['accepts']} accepts, {t['threads']} threads), evaluate_row of "
+            f"{CHUNK_B} elements {t['evaluate_row_ms']:.4f} ms")
+    log(f"[26 gate timings] {card} | algl_update_gated on phase 24's steady candidate tile ({int(nvalid.sum())} "
+        f"candidates: {fills} fill, {accepts} accepts): {gated_ms:.4f} ms, plain {gated_plain_ms:.1f} ms, "
+        f"bound {gated_bound:.4f} ms ({gated_by}); build {build_text(build)}")
+    shutil.rmtree(work, ignore_errors=True)
+    gate_line = {
+        "card": card,
+        "config": {"R": R, "k": K, "B": B, "gate_tile": cap, "feed_a_tiles": TILES_A,
+                   "feed_b_rounds": ROUNDS_B, "feed_b_chunk": CHUNK_B},
+        "kernel_cases": cases,
+        "elem_per_s": rates,
+        "stages": {"gated_a": gated_a, "ungated_a": ungated_a, "gated_b": gated_b, "ungated_b": ungated_b},
+        "skip_frac": skip,
+        "bytes": {"shipped": shipped, "elided": elided},
+        "fallback_launches": main_fallback,
+        "replica_ms": times,
+        "recovery": {"frames": len(frames), "gated_frames": sum(frames), "replayed_launches": replayed,
+                     "recover_s": recover_s},
+    }
+    entry = {
+        "name": "algl_update_gated",
+        "route": "cuda",
+        "source": "reservoir_tpu_torch/csrc/algorithm_l.cu",
+        "replaces": "reservoir_tpu/ops/algorithm_l.py:427",
+        "replaces_note": "no TPU kernel: the reference's update_gated is XLA",
+        "launches": main_gated,
+        "max_abs_err": worst_err,
+        "ms": gated_ms,
+        "plain_ms": gated_plain_ms,
+        "bound_ms": gated_bound,
+        "bound_by": gated_by,
+        "library_ms": None,
+        "candidates": int(nvalid.sum()),
+        "accepts": accepts,
+        "build": build,
+    }
+    return gate_line, entry
 
 
 if __name__ == "__main__":

@@ -6,9 +6,11 @@ loaded with ``ctypes``; nothing links against PyTorch, so a build takes
 seconds.  Libraries go to ``reservoir_tpu_torch/_build/`` under a name keyed
 by a hash of every source in ``csrc/`` and of the flags, so an edited
 source is rebuilt and a stale library is never loaded.  All sources are
-compiled in parallel, one ``nvcc`` each.  The host library
-(:func:`build_host`, ``_native/staging_buffer.cc``) follows the same rules
-with ``g++``.  Every build writes a temporary file beside its library and
+compiled in parallel, one ``nvcc`` each.  The host libraries
+(:func:`build_host`: ``_native/staging_buffer.cc``, and
+``_native/skip_gate.cc``, which compiles ``csrc/algl_chain.cuh`` for the
+CPU) follow the same rules with ``g++``, their digest keyed on the
+``csrc`` headers they include as well.  Every build writes a temporary file beside its library and
 renames it into place, so processes that build at once never load a half
 written file, and a failed build leaves no temporary file behind.
 
@@ -26,7 +28,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 __all__ = ["CXX", "CXX_FLAGS", "NVCC_FLAGS", "build_all", "build_host", "load", "nvcc_path"]
 
@@ -40,11 +42,13 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-#: the host library's compiler, found on the ``PATH``, and its flags: no
+#: the host libraries' compiler, found on the ``PATH``, and its flags: no
 #: ``-march=native``, since a library built on one machine may be found by
-#: another that shares the checkout
+#: another that shares the checkout, and no contraction of a multiply and an
+#: add, so the skip gate's chain rounds as the kernels' does
 CXX = "g++"
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-Wall", "-Wextra")
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-Wall", "-Wextra",
+             "-ffp-contract=off")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -137,21 +141,26 @@ def build_all() -> Dict[str, str]:
     return {name: _lib_path(name, digest) for name in names}
 
 
-def build_host(source: str) -> str:
+def build_host(source: str, headers: Tuple[str, ...] = ()) -> str:
     """The host library built from the C++ file ``source`` with :data:`CXX`
     and :data:`CXX_FLAGS` (built if there is no current one); returns its
-    path.  Raises if the compiler is missing or fails."""
+    path.  ``headers`` names the ``csrc/`` headers it includes (``csrc/`` is
+    then on the include path); the digest covers them too.  Raises if the
+    compiler is missing or fails."""
     found = shutil.which(CXX)
     if found is None:
         raise RuntimeError(f"{CXX} not found on PATH; the port's host library is "
                            f"built from {os.path.relpath(source, _HERE)} at first use")
+    flags = CXX_FLAGS + (("-I", _CSRC) if headers else ())
     h = hashlib.sha256(" ".join((CXX,) + CXX_FLAGS).encode())
-    with open(source, "rb") as fh:
-        h.update(fh.read())
+    for path in (source, *(os.path.join(_CSRC, name) for name in headers)):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as fh:
+            h.update(fh.read())
     name = os.path.splitext(os.path.basename(source))[0]
     path = _lib_path(name, h.hexdigest()[:16])
     if not os.path.exists(path):
-        _compile({os.path.basename(source): ([found, *CXX_FLAGS], source, path)})
+        _compile({os.path.basename(source): ([found, *flags], source, path)})
     return path
 
 

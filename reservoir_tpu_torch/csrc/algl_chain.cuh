@@ -1,0 +1,54 @@
+// The Algorithm-L skip chain: one acceptance's draws and the update of
+// log W and nxt (the port of ops/algorithm_l.py:_advance_words).
+//
+// One copy for every caller: the tile update and the gated update of
+// algorithm_l.cu, and the skip gate's host replica
+// (_native/skip_gate.cc), which compiles this header for the CPU through
+// a shim of the intrinsics (each one IEEE operation there too, with
+// -ffp-contract=off), so the host and the card walk the same chain bit for
+// bit.
+#pragma once
+
+#include <cstdint>
+
+#include "fmath.cuh"
+#include "threefry.cuh"
+
+namespace algl {
+
+constexpr int32_t kInt32Max = 2147483647;
+
+// a % d for every uint32 a, given m = 2^64 / d rounded up (Lemire, Kaser and
+// Kurz, "Faster remainder by direct computation", 2019)
+__device__ __forceinline__ uint32_t fastmod(uint32_t a, uint64_t m, uint32_t d) {
+  return static_cast<uint32_t>(__umul64hi(m * a, d));
+}
+
+// One acceptance at absolute index nxt: returns the slot, advances log_w
+// and nxt (the port of ops/algorithm_l.py:_advance_words).
+__device__ __forceinline__ int32_t advance(float& log_w, int32_t& nxt, uint32_t k1, uint32_t k2,
+                                           uint32_t k, uint64_t kmod, float inv_k) {
+  uint32_t w[3];
+  accept_words(k1, k2, static_cast<uint32_t>(nxt), w);
+  const float u1 = uniform_from_word(w[0]);
+  const float u2 = uniform_from_word(w[1]);
+  const int32_t slot = static_cast<int32_t>(fastmod(w[2], kmod, k));
+  // XLA folds log(u1) / k into fma(log(u1), 1/k, log_w), 1/k in float32.
+  // u1 and u2 lie in [2^-24, 1] (rng.uniform_from_bits), where xla_log takes
+  // none of its special cases: log_normal is xla_log there.
+  log_w = __fmaf_rn(log_normal(u1), inv_k, log_w);
+  const float wv = xla_exp(log_w);
+  float skip_f = floorf(__fdiv_rn(log_normal(u2), xla_log1p(-wv)));
+  // min(skip_f, 2^30) that keeps NaN, as jnp.minimum and torch.minimum do
+  if (skip_f > 1073741824.0f) skip_f = 1073741824.0f;
+  // float -> int32 as XLA converts: NaN gives 0
+  const int32_t skip = isnan(skip_f) ? 0 : static_cast<int32_t>(skip_f);
+  const int32_t headroom = kInt32Max - skip - 1;
+  nxt = nxt > headroom ? kInt32Max : nxt + skip + 1;
+  return slot;
+}
+
+// The multiplier of fastmod for the divisor k (>= 1).
+inline uint64_t fastmod_multiplier(uint32_t k) { return ~uint64_t{0} / k + 1u; }
+
+}  // namespace algl

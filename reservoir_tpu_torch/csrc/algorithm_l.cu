@@ -61,6 +61,9 @@
 // move as 32-bit words and are never touched as floats, which keeps -0.0
 // and NaN payloads.
 //
+// The gated update of the skip gate (algl_update_gated, below) walks the
+// same chain (algl_chain.cuh) over the candidates the gate shipped.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // (see reservoir_tpu_torch/_build.py).  Plain C interface for ctypes.
 
@@ -68,9 +71,8 @@
 #include <cuda_runtime.h>
 #include <type_traits>
 
-#include "fmath.cuh"
+#include "algl_chain.cuh"
 #include "kinfo.cuh"
-#include "threefry.cuh"
 
 namespace algl {
 
@@ -81,7 +83,6 @@ constexpr int kFillRows = 4;  // rows whose fill loads a warp keeps in flight
 constexpr int kPrefetchSpan = 12;  // a full row's samples are prefetched while c <= 12 v
 static_assert((kList & (kList - 1)) == 0 && kLag < kList, "a ring of 2^n entries");
 constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int32_t kInt32Max = 2147483647;
 
 // L2 policies: evict_first for the tile's gathered words, which are read
 // once, and evict_last for the samples, which take many scattered writes.
@@ -126,36 +127,6 @@ __device__ __forceinline__ void prefetch_l2(const void* p, uint32_t n, uint64_t 
 __device__ __forceinline__ void store4(uint32_t* p, uint32_t v, uint64_t policy) {
   asm volatile("st.global.L2::cache_hint.b32 [%0], %1, %2;" ::"l"(p), "r"(v), "l"(policy)
                : "memory");
-}
-
-// a % d for every uint32 a, given m = 2^64 / d rounded up (Lemire, Kaser and
-// Kurz, "Faster remainder by direct computation", 2019)
-__device__ __forceinline__ uint32_t fastmod(uint32_t a, uint64_t m, uint32_t d) {
-  return static_cast<uint32_t>(__umul64hi(m * a, d));
-}
-
-// One acceptance at absolute index nxt: returns the slot, advances log_w
-// and nxt (the port of ops/algorithm_l.py:_advance_words).
-__device__ __forceinline__ int32_t advance(float& log_w, int32_t& nxt, uint32_t k1, uint32_t k2,
-                                           uint32_t k, uint64_t kmod, float inv_k) {
-  uint32_t w[3];
-  accept_words(k1, k2, static_cast<uint32_t>(nxt), w);
-  const float u1 = uniform_from_word(w[0]);
-  const float u2 = uniform_from_word(w[1]);
-  const int32_t slot = static_cast<int32_t>(fastmod(w[2], kmod, k));
-  // XLA folds log(u1) / k into fma(log(u1), 1/k, log_w), 1/k in float32.
-  // u1 and u2 lie in [2^-24, 1] (rng.uniform_from_bits), where xla_log takes
-  // none of its special cases: log_normal is xla_log there.
-  log_w = __fmaf_rn(log_normal(u1), inv_k, log_w);
-  const float wv = xla_exp(log_w);
-  float skip_f = floorf(__fdiv_rn(log_normal(u2), xla_log1p(-wv)));
-  // min(skip_f, 2^30) that keeps NaN, as jnp.minimum and torch.minimum do
-  if (skip_f > 1073741824.0f) skip_f = 1073741824.0f;
-  // float -> int32 as XLA converts: NaN gives 0
-  const int32_t skip = isnan(skip_f) ? 0 : static_cast<int32_t>(skip_f);
-  const int32_t headroom = kInt32Max - skip - 1;
-  nxt = nxt > headroom ? kInt32Max : nxt + skip + 1;
-  return slot;
 }
 
 // The warp's fill copy, W words a lane (1, or 4 as one 16-byte word): row
@@ -284,6 +255,55 @@ update_kernel(uint32_t* __restrict__ samples, int32_t* __restrict__ count,
   }
 }
 
+// The gated update (algl_update_gated): one thread a row.  Row r took
+// advance[r] logical elements, of which the nvalid[r] candidates in
+// tile[r, :nvalid[r]] were shipped by the skip gate: the first
+// f = clip(k - count, 0, advance) are the fill prefix, copied to slots
+// count.., and each later one is the acceptance at absolute index nxt,
+// written to the slot its draws pick.  No tile element but a candidate is
+// read, and none is skipped: the gate proved that.  The reference is XLA
+// (reservoir_tpu/ops/algorithm_l.py:_update_gated_one), not Pallas.
+// Bound: the state (R*36 bytes with nvalid and advance), each candidate
+// read once and each written sample's sector; ~330 integer and ~134 float
+// operations an acceptance, as in the tile update.  A simple kernel: a
+// thread walks its row's candidates in order, so a later accept to a slot
+// wins by program order, and the candidates a thread reads sit in one
+// row (a few sectors at Bg = 64).
+__global__ void __launch_bounds__(kThreads)
+gated_kernel(uint32_t* __restrict__ samples, int32_t* __restrict__ count,
+             int32_t* __restrict__ nxt, float* __restrict__ log_w,
+             const uint32_t* __restrict__ key, const uint32_t* __restrict__ tile,
+             const int32_t* __restrict__ nvalid, const int32_t* __restrict__ steps, int R,
+             int k, int Bg, uint64_t kmod) {
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  if (r >= R) return;
+  const int32_t c = count[r];
+  const int32_t adv = steps[r];
+  const int32_t nv = nvalid[r];
+  // clip(k - count, 0, advance), k - count wrapping in int32 as XLA's does
+  int32_t f = static_cast<int32_t>(static_cast<uint32_t>(k) - static_cast<uint32_t>(c));
+  f = f < 0 ? 0 : f;
+  f = f > adv ? adv : f;
+  const uint32_t* row = tile + static_cast<size_t>(r) * Bg;
+  uint32_t* out = samples + static_cast<size_t>(r) * k;
+  const int nf = f < Bg ? f : Bg;
+  for (int j = 0; j < nf; ++j) {
+    const int64_t d = static_cast<int64_t>(c) + j;
+    if (d >= 0 && d < k) out[d] = __ldg(row + j);
+  }
+  int32_t n = nxt[r];
+  float lw = log_w[r];
+  const uint32_t k1 = key[2 * r], k2 = key[2 * r + 1];
+  const float inv_k = __fdiv_rn(1.0f, __int2float_rn(k));
+  for (int j = f; j < nv; ++j) {
+    const uint32_t e = __ldg(row + j);
+    out[advance(lw, n, k1, k2, static_cast<uint32_t>(k), kmod, inv_k)] = e;
+  }
+  nxt[r] = n;
+  log_w[r] = lw;
+  count[r] = static_cast<int32_t>(static_cast<uint32_t>(c) + static_cast<uint32_t>(adv));
+}
+
 __global__ void fmath_kernel(const float* __restrict__ x, float* __restrict__ y, int n,
                              int which) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -305,9 +325,24 @@ int algl_update(uint32_t* samples, int32_t* count, int32_t* nxt, float* log_w,
   const int blocks = (R + algl::kThreads - 1) / algl::kThreads;
   auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; };
   const int vec = B % 4 == 0 && k % 4 == 0 && aligned(samples) && aligned(batch);
-  const uint64_t kmod = ~uint64_t{0} / static_cast<uint32_t>(k) + 1u;
+  const uint64_t kmod = algl::fastmod_multiplier(static_cast<uint32_t>(k));
   algl::update_kernel<<<blocks, algl::kThreads, 0, stream>>>(
       samples, count, nxt, log_w, key, batch, valid, R, k, B, fill, vec, kmod);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One gated update, in place: tile is [R, Bg], nvalid and advance [R]
+// (nvalid in [0, Bg], advance >= 0).  Returns cudaGetLastError() after the
+// launch.
+int algl_update_gated(uint32_t* samples, int32_t* count, int32_t* nxt, float* log_w,
+                      const uint32_t* key, const uint32_t* tile, const int32_t* nvalid,
+                      const int32_t* advance, int R, int k, int Bg, cudaStream_t stream) {
+  if (R <= 0) return static_cast<int>(cudaSuccess);
+  if (k < 1 || Bg < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (R + algl::kThreads - 1) / algl::kThreads;
+  algl::gated_kernel<<<blocks, algl::kThreads, 0, stream>>>(
+      samples, count, nxt, log_w, key, tile, nvalid, advance, R, k, Bg,
+      algl::fastmod_multiplier(static_cast<uint32_t>(k)));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -324,6 +359,11 @@ int algl_fmath(const float* x, float* y, int n, int which, cudaStream_t stream) 
 // the update kernel (kinfo::query's five numbers in out).
 int algl_kernel_info(int* out) {
   return kinfo::query(algl::update_kernel, algl::kThreads, 0, out);
+}
+
+// kinfo::query's five numbers of the gated kernel.
+int algl_gated_kernel_info(int* out) {
+  return kinfo::query(algl::gated_kernel, algl::kThreads, 0, out);
 }
 
 const char* algl_error_string(int code) {

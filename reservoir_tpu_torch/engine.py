@@ -11,8 +11,9 @@ parallel ``[R, B]`` weights tile).
 Every uniform tile goes through the CUDA kernel of
 :mod:`~reservoir_tpu_torch.ops.algorithm_l_cuda`, every weighted tile
 through that of :mod:`~reservoir_tpu_torch.ops.weighted_cuda`, every
-distinct tile through that of :mod:`~reservoir_tpu_torch.ops.distinct_cuda`;
-with ``device="cpu"`` the same wrappers run the plain torch versions.  There
+distinct tile through that of :mod:`~reservoir_tpu_torch.ops.distinct_cuda`,
+and every pre-gated candidate tile of the skip gate (:meth:`ReservoirEngine.sample_gated`)
+through ``algl_update_gated``; with ``device="cpu"`` the same wrappers run the plain torch versions.  There
 is no other path and no fallback: a build or launch failure raises.  In
 uniform mode a host-side lower bound on every reservoir's count (no device
 read) decides between the fill-capable and the steady update, as in the JAX
@@ -158,6 +159,9 @@ class ReservoirEngine:
         self._min_count = 0
         # (pinned buffer, copy event) pairs not yet known to be complete
         self._staging: deque = deque()
+        #: row resets applied so far.  The skip gate keys its replica's
+        #: staleness on it; it stays 0 until row operations (L8) land.
+        self.reset_epochs = 0
 
     # ------------------------------------------------------------ properties
 
@@ -196,15 +200,26 @@ class ReservoirEngine:
     def _to_device(self, host: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
         """A host array (already of ``dtype``) as a tensor on the engine's
         device: a snapshot, through a pinned buffer on the card."""
+        buf = self._host_buffer(host.shape, dtype)
+        buf.numpy()[...] = host  # the snapshot
+        return self._ship(buf)
+
+    def _host_buffer(self, shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+        """A fresh host buffer for :meth:`_ship`: pinned on the card."""
         if self._device.type == "cpu":
-            return torch.from_numpy(np.array(host, copy=True))
+            return torch.empty(shape, dtype=dtype)
         self._release_staging()
-        pinned = torch.empty(host.shape, dtype=dtype, pin_memory=True)
-        pinned.numpy()[...] = host  # the snapshot
-        out = pinned.to(self._device, non_blocking=True)
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+    def _ship(self, buf: torch.Tensor) -> torch.Tensor:
+        """A filled :meth:`_host_buffer` on the engine's device: one
+        ``non_blocking`` copy on the card, held until it has run."""
+        if self._device.type == "cpu":
+            return buf
+        out = buf.to(self._device, non_blocking=True)
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self._device))
-        self._staging.append((pinned, event))
+        self._staging.append((buf, event))
         return out
 
     def _on_card(self, x: Any, what: str) -> bool:
@@ -371,7 +386,64 @@ class ReservoirEngine:
             self._sample(chunk, valid, wchunk, check_weights=False)
 
     def sample_gated(self, tile: Any, nvalid: Any, advance: Any) -> None:
-        raise _not_in_slice("sample_gated", "L6")
+        """Consume one pre-gated ``[R, Bg]`` candidate tile.
+
+        The skip gate (:mod:`reservoir_tpu_torch.stream.gate`) ships only
+        the elements that can win: row ``r`` advances by ``advance[r]``
+        logical elements, of which the ``nvalid[r]`` candidates in
+        ``tile[r, :nvalid[r]]`` (fill prefix, then every acceptance, in
+        order) were shipped.  Bit-identical to :meth:`sample` over the
+        full tiles (:func:`~.ops.algorithm_l.update_gated`).
+
+        Duplicates mode with int32 counters only, the
+        :func:`~reservoir_tpu_torch.stream.gate.gate_ineligible_reason`
+        contract.  The host tile (a numpy array, a list or a CPU tensor),
+        ``nvalid`` and ``advance`` are snapshotted into one pinned buffer
+        and copied to the card in one ``non_blocking`` copy, then
+        ``algl_update_gated`` runs once (the plain version with
+        ``device="cpu"``).
+        """
+        self._check_open()
+        if self._ops is not _algl:
+            raise ValueError(
+                "sample_gated requires duplicates mode (the skip gate "
+                "replicates the Algorithm-L recursion only)"
+            )
+        if self._state.count.ndim != 1 or self._state.count.dtype != torch.int32:
+            raise ValueError("sample_gated requires narrow int32 counters")
+        R = self._config.num_reservoirs
+        host = tile.numpy() if isinstance(tile, torch.Tensor) else tile
+        tile_host = np.asarray(host, dtype=self._np_dtype)
+        if tile_host.ndim != 2 or tile_host.shape[0] != R:
+            raise ValueError(f"gated tile must be [num_reservoirs={R}, Bg], got {tile_host.shape}")
+        bg = tile_host.shape[1]
+        nvalid_np = np.asarray(nvalid, np.int32)
+        advance_np = np.asarray(advance, np.int32)
+        if nvalid_np.shape != (R,) or advance_np.shape != (R,):
+            raise ValueError(
+                f"nvalid/advance must be [{R}], got {nvalid_np.shape} / {advance_np.shape}"
+            )
+        if np.any(nvalid_np < 0) or np.any(nvalid_np > bg):
+            raise ValueError(
+                f"nvalid entries must be in [0, {bg}], got "
+                f"[{nvalid_np.min()}, {nvalid_np.max()}]"
+            )
+        if np.any(advance_np < 0):
+            raise ValueError("advance entries must be nonnegative")
+        # one buffer, one copy: nvalid, advance, then the tile's words,
+        # written straight into it (the snapshot: the caller may reuse its
+        # arrays at once)
+        packed_host = self._host_buffer((2 * R + R * bg,), torch.int32)
+        words = packed_host.numpy()
+        words[:R] = nvalid_np
+        words[R:2 * R] = advance_np
+        words[2 * R:].view(self._np_dtype).reshape(R, bg)[...] = tile_host
+        min_advance = int(advance_np.min())
+        packed = self._ship(packed_host)
+        nv_dev, adv_dev = packed[:R], packed[R:2 * R]
+        batch = packed[2 * R:].view(self._dtype).view(R, bg)
+        self._state = _kernel.update_gated_cuda(self._state, batch, nv_dev, adv_dev)
+        self._min_count += min_advance
 
     def reset_rows(self, rows: Any, key: Any) -> None:
         raise _not_in_slice("reset_rows", "L8")

@@ -1,6 +1,8 @@
-"""The stream bridge's host staging: the C++ demux of
-``_native/staging_buffer.cc`` (a copy of the JAX package's), loaded with
-``ctypes``, and a numpy staging with the same semantics.
+"""The stream bridge's host libraries, loaded with ``ctypes``: the C++
+demux of ``_native/staging_buffer.cc`` (a copy of the JAX package's), with
+a numpy staging of the same semantics, and the skip gate's replica of the
+Algorithm-L chain, ``_native/skip_gate.cc`` (:func:`load_gate_library`,
+used by :mod:`reservoir_tpu_torch.stream.gate`).
 
 The bridge's costly host step is the demux: an interleaved feed of
 ``(stream_id, element)`` pairs is scattered into per-stream rows of an
@@ -13,7 +15,8 @@ The library is built with ``g++`` at first use into
 ``reservoir_tpu_torch/_build/`` (:func:`reservoir_tpu_torch._build.build_host`).
 There is no silent fallback: :class:`NativeStaging` raises if the library
 fails to build or load, and uses the numpy staging only when the caller
-passes ``native=False``.
+passes ``native=False``; so does the skip gate, whose torch replica runs
+only on ``native=False``.
 """
 
 from __future__ import annotations
@@ -27,11 +30,15 @@ import numpy as np
 
 from .utils import faults as _faults
 
-__all__ = ["NativeStaging", "load_library"]
+__all__ = ["NativeStaging", "load_gate_library", "load_library"]
 
 _SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_native", "staging_buffer.cc")
+_GATE_SOURCE = os.path.join(os.path.dirname(_SOURCE), "skip_gate.cc")
+#: the ``csrc/`` headers the gate's library compiles for the CPU
+GATE_HEADERS = ("algl_chain.cuh", "fmath.cuh", "threefry.cuh")
 
 _lib: Optional[ctypes.CDLL] = None
+_gate_lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
 _VP = ctypes.c_void_p
@@ -66,6 +73,30 @@ def load_library() -> ctypes.CDLL:
             lib.rsv_staging_threads.argtypes = []
             _lib = lib
         return _lib
+
+
+def load_gate_library() -> ctypes.CDLL:
+    """The skip gate's replica library (``_native/skip_gate.cc`` over the
+    kernels' chain header), built on first use; raises if it cannot be
+    built or loaded."""
+    global _gate_lib
+    with _lock:
+        if _gate_lib is None:
+            from ._build import build_host
+
+            lib = ctypes.CDLL(build_host(_GATE_SOURCE, GATE_HEADERS))
+            lib.rsv_gate_create.restype = _VP
+            lib.rsv_gate_create.argtypes = [_I32] * 3 + [_VP] * 5
+            lib.rsv_gate_destroy.restype = None
+            lib.rsv_gate_destroy.argtypes = [_VP]
+            lib.rsv_gate_eval_row.restype = _I32
+            lib.rsv_gate_eval_row.argtypes = [_VP, _I32, _I32, _VP, _VP]
+            lib.rsv_gate_eval.restype = _I32
+            lib.rsv_gate_eval.argtypes = [_VP] * 8
+            lib.rsv_gate_threads.restype = _I32
+            lib.rsv_gate_threads.argtypes = []
+            _gate_lib = lib
+        return _gate_lib
 
 
 def _ptr(a: Optional[np.ndarray]):

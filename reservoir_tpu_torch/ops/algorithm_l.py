@@ -16,6 +16,10 @@ of a stream into tiles gives the same state.
 Every array moves as 32-bit words: samples and batch are handled through
 their int32 view, so float ``-0.0`` and NaN payloads survive untouched.
 
+:func:`update_gated` consumes a pre-gated ``[R, Bg]`` tile of candidates
+(the skip gate's dispatch): the same state as :func:`update` over the full
+tiles, from the shipped fill prefixes and acceptances alone.
+
 :func:`merge_samples` combines two sets of reservoirs over disjoint streams
 into one exact sample of their union (a hypergeometric draw, then uniform
 subsets of the two sides); :func:`merge_samples_keyed` is the same with one
@@ -41,6 +45,7 @@ __all__ = [
     "update",
     "update_steady",
     "update_accepts",
+    "update_gated",
     "result",
     "merge_samples",
     "merge_samples_keyed",
@@ -242,6 +247,63 @@ def update_accepts(
     also returns the number of acceptances over all rows — the data-dependent
     work a kernel's bound is reckoned from."""
     return _update(state, batch, valid, fill)
+
+
+def update_gated(
+    state: ReservoirState,
+    batch: torch.Tensor,
+    nvalid: torch.Tensor,
+    advance: torch.Tensor,
+) -> ReservoirState:
+    """Consume one pre-gated ``[R, Bg]`` candidate tile (the port of the
+    reference's ``update_gated``, which is XLA, not Pallas).
+
+    Reservoir ``r`` advances by ``advance[r]`` logical elements, of which
+    only the ``nvalid[r]`` candidates in ``batch[r, :nvalid[r]]`` were
+    shipped, in stream order: first the fill prefix (its first
+    ``f = clip(k - count, 0, advance)`` entries go to slots
+    ``count .. count + f - 1``), then every acceptance in
+    ``(count, count + advance]``, each at the absolute index ``nxt`` it
+    is drawn for.  The skip gate (:mod:`reservoir_tpu_torch.stream.gate`)
+    proved that no acceptance lands on an element it did not ship, so the
+    state equals :func:`update` over the full tiles.  The reference is
+    always compiled, so the chain takes the fused ``log_w`` update.  A
+    lockstep loop over the candidates: the plain version, for the CPU and
+    as the kernel's reference.  Returns a new state."""
+    R, k = state.samples.shape
+    _check(state, batch, None)
+    for name, t in (("nvalid", nvalid), ("advance", advance)):
+        if t.shape != (R,) or t.dtype != torch.int32:
+            raise ValueError(f"{name} must be an int32 [R={R}] tensor, got {t.dtype} {tuple(t.shape)}")
+    bg = batch.shape[1]
+    dev = batch.device
+    bits = batch.view(torch.int32)
+    samples = state.samples.clone()
+    out = samples.view(torch.int32)
+    count = state.count
+    # k - count wraps in int32, as the reference's does
+    f = torch.minimum(torch.clamp(k - count, min=0), advance).to(torch.int64)
+    lane = torch.arange(bg, dtype=torch.int64, device=dev)
+    dest = count.to(torch.int64)[:, None] + lane[None, :]
+    take = (lane[None, :] < f[:, None]) & (dest >= 0) & (dest < k)
+    rows = torch.arange(R, device=dev)[:, None].expand(R, bg)
+    out[rows[take], dest[take]] = bits[take]
+    nxt = state.nxt.clone()
+    log_w = state.log_w.clone()
+    k1, k2 = state.key[:, 0], state.key[:, 1]
+    nv = nvalid.to(torch.int64)
+    # candidate j >= f of row r is the acceptance at absolute index nxt
+    j = f.clone()
+    rows = torch.nonzero(j < nv).flatten()
+    while rows.numel():
+        n = nxt[rows]
+        slot, lw, n_new = _advance_words(log_w[rows], n, k1[rows], k2[rows], n, k)
+        out[rows, slot.to(torch.int64)] = bits[rows, j[rows]]
+        nxt[rows] = n_new
+        log_w[rows] = lw
+        j[rows] += 1
+        rows = rows[j[rows] < nv[rows]]
+    return ReservoirState(samples, count + advance, nxt, log_w, state.key)
 
 
 def result(state: ReservoirState) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -11,6 +11,13 @@ a row expecting many accepts has its samples prefetched into L2.  It reads
 only the elements it accepts and updates the state in place.  Its note says
 what bounds it on an H100.
 
+:func:`update_gated_cuda` applies the skip gate's candidate tiles with the
+second kernel of that file, ``algl_update_gated`` (one thread a row, the
+same chain from ``csrc/algl_chain.cuh``).  The JAX package's gated update
+is XLA, not Pallas (``reservoir_tpu/ops/algorithm_l.py:_update_gated_one``):
+the port gives it a kernel because a lockstep loop on the card would cost
+tens of launches and a host sync a step.
+
 :func:`update_cuda` and :func:`update_steady_cuda` take the state and tile
 on one device:
 
@@ -20,7 +27,8 @@ on one device:
 - on CPU tensors they run the plain version (:func:`update` /
   :func:`update_steady` of :mod:`.algorithm_l`), which returns a new state.
 
-:data:`launches` counts kernel launches, and nothing else.
+:data:`launches` counts ``algl_update`` launches and
+:data:`gated_launches` ``algl_update_gated`` launches, and nothing else.
 """
 
 from __future__ import annotations
@@ -31,20 +39,25 @@ from typing import Optional
 import torch
 
 from ._cuda_common import build_info, check_tensors
-from .algorithm_l import ReservoirState, update, update_steady
+from .algorithm_l import ReservoirState, update, update_gated, update_steady
 
 __all__ = [
     "launches",
+    "gated_launches",
     "update_cuda",
+    "update_gated_cuda",
     "update_steady_cuda",
     "fmath_cuda",
     "kernel_info",
+    "gated_kernel_info",
     "update",
     "update_steady",
 ]
 
-#: kernel launches so far (set it to 0 to count a run)
+#: ``algl_update`` launches so far (set it to 0 to count a run)
 launches = 0
+#: ``algl_update_gated`` launches so far (set it to 0 to count a run)
+gated_launches = 0
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -63,6 +76,9 @@ def _library(path: Optional[str] = None):
         lib = load("algorithm_l") if path is None else ctypes.CDLL(path)
         lib.algl_update.argtypes = [_VP] * 7 + [_INT] * 4 + [_VP]
         lib.algl_update.restype = _INT
+        if hasattr(lib, "algl_update_gated"):  # an older build (kernel_ab.py) has none
+            lib.algl_update_gated.argtypes = [_VP] * 8 + [_INT] * 3 + [_VP]
+            lib.algl_update_gated.restype = _INT
         lib.algl_fmath.argtypes = [_VP, _VP, _INT, _INT, _VP]
         lib.algl_fmath.restype = _INT
         lib.algl_error_string.argtypes = [_INT]
@@ -81,6 +97,12 @@ def kernel_info() -> dict:
     """:func:`~._cuda_common.build_info` of ``algl_update``'s kernel
     (needs a card)."""
     return build_info(_library().algl_kernel_info)
+
+
+def gated_kernel_info() -> dict:
+    """:func:`~._cuda_common.build_info` of ``algl_update_gated``'s kernel
+    (needs a card)."""
+    return build_info(_library().algl_gated_kernel_info)
 
 
 def _stream(device: torch.device) -> int:
@@ -139,6 +161,46 @@ def update_steady_cuda(
     """Steady tile update without the fill copy (the port of
     ``update_steady_pallas``)."""
     return _launch(state, batch, valid, fill=False)
+
+
+def update_gated_cuda(
+    state: ReservoirState, batch: torch.Tensor, nvalid: torch.Tensor, advance: torch.Tensor
+) -> ReservoirState:
+    """Apply one pre-gated ``[R, Bg]`` candidate tile: row ``r`` advances
+    by ``advance[r]`` elements, of which ``batch[r, :nvalid[r]]`` were
+    shipped (the plain version is :func:`~.algorithm_l.update_gated`).
+    On CUDA tensors it launches ``algl_update_gated``, which mutates the
+    state in place and returns it; on CPU tensors it runs the plain
+    version, which returns a new state.  ``nvalid`` must lie in
+    ``[0, Bg]`` and ``advance`` be nonnegative (the engine checks both on
+    the host; the kernel trusts them)."""
+    global gated_launches
+    R = state.samples.shape[0]
+    tensors = {
+        "samples": state.samples, "count": state.count, "nxt": state.nxt,
+        "log_w": state.log_w, "key": state.key, "batch": batch, "nvalid": nvalid,
+        "advance": advance,
+    }
+    expect = {
+        "count": ((R,), torch.int32), "nxt": ((R,), torch.int32),
+        "log_w": ((R,), torch.float32), "key": ((R, 2), torch.int64),
+        "nvalid": ((R,), torch.int32), "advance": ((R,), torch.int32),
+    }
+    check_tensors("batch", tensors, expect)
+    if state.samples.device.type == "cpu":
+        return update_gated(state, batch, nvalid, advance)
+    if state.samples.device.type != "cuda":
+        raise ValueError(f"unsupported device {state.samples.device}")
+    R, k = state.samples.shape
+    key32 = state.key.to(torch.int32)
+    code = _library().algl_update_gated(
+        state.samples.data_ptr(), state.count.data_ptr(), state.nxt.data_ptr(),
+        state.log_w.data_ptr(), key32.data_ptr(), batch.data_ptr(), nvalid.data_ptr(),
+        advance.data_ptr(), R, k, batch.shape[1], _stream(state.samples.device),
+    )
+    _raise_on(code, "algl_update_gated launch")
+    gated_launches += 1
+    return state
 
 
 def fmath_cuda(x: torch.Tensor, which: str) -> torch.Tensor:

@@ -1,6 +1,5 @@
 """Host-to-device stream bridge: per-stream buffers, tile-granular flushes
-(the port of the JAX package's ``stream/bridge.py``, without the skip gate
-and row adoption).
+(the port of the JAX package's ``stream/bridge.py``, without row adoption).
 
 S logical streams buffer on the host into an ``[S, B]`` tile, which is
 dispatched to a :class:`~reservoir_tpu_torch.engine.ReservoirEngine`
@@ -11,6 +10,17 @@ pinned host memory, so a flush is the fill counts, one ``non_blocking``
 copy to the card and the kernel's launch: no host copy of the tile.  The
 tile is handed back to the demux only once its copy's CUDA event has
 completed; nothing waits for the kernel.
+
+With ``gated=True`` (duplicates mode, int32 counters) the skip gate of
+:mod:`~reservoir_tpu_torch.stream.gate` decides, from a host replica of
+every row's Algorithm-L chain, which elements can still win: only those
+ship, coalesced into a small ``[S, gate_tile]`` candidate tile that
+:meth:`~reservoir_tpu_torch.engine.ReservoirEngine.sample_gated` applies
+with one ``algl_update_gated`` launch.  A row-contiguous :meth:`push` chunk
+is gated before staging, so an elided element costs no demux, copy or
+kernel lane; a staged (interleaved) tile is gated at its flush, and a tile
+whose candidates overflow the gate tile (the fill phase) ships whole.
+Reservoirs are bit-identical to the ungated bridge's.
 
 The completion protocol: :meth:`DeviceStreamBridge.complete` (the future
 succeeds with the per-stream samples), :meth:`~DeviceStreamBridge.fail`
@@ -67,6 +77,7 @@ from ..utils.checkpoint import load_engine, read_epoch, save_engine
 from ..utils.log import warn_once
 from ..utils.metrics import BridgeMetrics
 from ..utils.tracing import trace_span
+from .gate import SkipGate, gate_ineligible_reason
 
 __all__ = ["DeviceStreamBridge", "DeviceSampler"]
 
@@ -288,10 +299,11 @@ class _FlushJournal:
     checkpoint already covers (a crash between the checkpoint's write and
     the truncation).
 
-    The JAX package also writes gated frames (``RTJG``: candidate counts,
-    per-row advance, a compacted ``[S, Bg]`` tile) and adopt frames
-    (``RTJA``: a packed row adoption).  They are read here as the JAX
-    package reads them, so recovery can name what it cannot replay.
+    A gated bridge writes gated frames (``RTJG``: candidate counts,
+    per-row advance, a compacted ``[S, Bg]`` tile), which recovery
+    replays through ``sample_gated``.  The JAX package also writes adopt
+    frames (``RTJA``: a packed row adoption); they are read here as the
+    JAX package reads them, so recovery can name what it cannot replay.
 
     ``fsync=True`` also fsyncs every frame (and the file and directory on
     truncation), closing the OS-crash window, at one fsync a flush counted
@@ -344,6 +356,18 @@ class _FlushJournal:
     ) -> None:
         parts = [valid, tile] + ([wtile] if wtile is not None else [])
         self._append_frame(self._MAGIC, seq, [np.ascontiguousarray(p) for p in parts])
+
+    def append_gated(
+        self,
+        seq: int,
+        tile: np.ndarray,
+        nvalid: np.ndarray,
+        advance: np.ndarray,
+    ) -> None:
+        """One gated frame: candidate counts, per-row logical advance and
+        the compacted ``[S, Bg]`` candidate tile."""
+        parts = [nvalid, advance, tile]
+        self._append_frame(self._MAGIC_GATED, seq, [np.ascontiguousarray(p) for p in parts])
 
     def _append_frame(self, magic: bytes, seq: int, parts: List[np.ndarray]) -> None:
         """One frame, its payload written part by part from the arrays'
@@ -492,16 +516,37 @@ class DeviceStreamBridge:
       faults: a :class:`~reservoir_tpu_torch.utils.faults.FaultPlane` for
         the ``bridge.*`` sites of this bridge; ``None`` defers to the
         globally installed plane.
-      gated, gate_tile, gate_push_chunk: the skip gate is not ported (L6):
-        ``gated=True``, ``gate_tile=0`` and ``gate_push_chunk=0`` raise
-        ``NotImplementedError``.  ``gate_tile`` is recorded in checkpoints.
+      gated: the ingest-side skip gate (default off).  A host replica of
+        every row's Algorithm-L chain (:mod:`~reservoir_tpu_torch.stream.gate`)
+        names the elements of each chunk that can still win; only those
+        (fill prefixes and acceptances) are compacted into a small
+        ``[S, gate_tile]`` tile, journaled and dispatched, with reservoirs
+        bit-identical to the ungated path.  Active in duplicates mode with
+        int32 counters; in weighted and distinct mode the flag is inert
+        (same results, no elision; :attr:`gate_inert_reason` says why).
+        A chunk whose candidates overflow ``gate_tile`` (the fill phase,
+        mostly) ships ungated, still bit-exact.
+      gate_tile: the candidate tile's width ``Bg`` (default 64): a row
+        ships at most this many candidates a gated dispatch; candidates
+        coalesce across flushes until a row's buffer fills or a barrier
+        (:meth:`flush`, :meth:`complete`) forces the dispatch.  ``0``
+        means 64: the JAX package resolves 0 from its autotune cache,
+        falling back to 64; the port has no autotune cache.
+      gate_push_chunk: the slice width of the pre-staging push path
+        (default 1 Mi elements; ``0`` means 1 Mi, as above): a
+        row-contiguous :meth:`push` chunk is gated in slices of this many
+        elements, one replica evaluation a slice, its candidates gathered
+        straight from the producer's array; a slice whose candidates
+        exceed ``gate_tile`` goes through the staged path.
       device: the engine's device; ``None`` means ``"cuda"`` and raises
         without a card.  On the card the staging tiles are pinned host
         memory; with ``"cpu"`` they are numpy arrays and the plain versions
         run.
-      native: ``True`` (default) demuxes in the C++ staging library, which
-        is built with ``g++`` at first use and raises if it cannot be;
-        ``False`` demuxes in numpy, with the same results.
+      native: ``True`` (default) demuxes in the C++ staging library and
+        runs the skip gate's replica in its C++ library, each built with
+        ``g++`` at first use and raising if it cannot be; ``False`` demuxes
+        in numpy and runs the replica as the plain torch chain, with the
+        same results.
     """
 
     def __init__(
@@ -531,8 +576,6 @@ class DeviceStreamBridge:
             raise _not_in_slice("a bridge over a mesh (mesh=)", "L4")
         if map_fn is not None or hash_fn is not None:
             raise _not_in_slice("map_fn / hash_fn", "L5")
-        if gated or gate_tile == 0 or gate_push_chunk == 0:
-            raise _not_in_slice("the skip gate (gated=True, or its tuned geometry: 0)", "L6")
         if durability not in ("buffered", "fsync"):
             raise ValueError(f"durability must be 'buffered' or 'fsync', got {durability!r}")
         self._config = config
@@ -583,7 +626,20 @@ class DeviceStreamBridge:
         # the demux scatters straight into the active flush tile: a flush
         # reads the fill counts and swaps the demux onto the other tile
         self._staging.attach(self._tiles[0], self._wtiles[0] if self._wtiles is not None else None)
+        # the skip gate: built only when asked for and eligible.  0 takes
+        # the reference's untuned defaults (the port has no autotune cache)
+        gate_tile = 64 if gate_tile == 0 else gate_tile
+        gate_push_chunk = 1 << 20 if gate_push_chunk == 0 else gate_push_chunk
+        self._gate: Optional[SkipGate] = None
+        self._gate_reason: Optional[str] = None
+        if gated:
+            self._gate_reason = gate_ineligible_reason(config)
+            if self._gate_reason is None:
+                self._gate = SkipGate(S, config.max_sample_size, B, dtype, cap=gate_tile,
+                                      native=native)
         self._gate_tile = int(gate_tile)
+        self._gate_push_chunk = max(1, int(gate_push_chunk))
+        self._gated_requested = bool(gated)
         self._future: Future = Future()
         self._metrics = BridgeMetrics()
         self._metrics.demux_threads = self._staging.threads()
@@ -659,6 +715,30 @@ class DeviceStreamBridge:
         return self._metrics
 
     @property
+    def gate_active(self) -> bool:
+        """Whether the skip gate is live (``gated=True`` and the config is
+        eligible; see :attr:`gate_inert_reason`)."""
+        return self._gate is not None
+
+    @property
+    def gate_inert_reason(self) -> Optional[str]:
+        """Why a requested gate is inert (None when active or never
+        requested): weighted and distinct configs take the ungated path
+        with the same results."""
+        return self._gate_reason
+
+    @property
+    def gate_push_chunk(self) -> int:
+        """Live slice width of the gated push path (see
+        :meth:`set_gate_push_chunk`)."""
+        return self._gate_push_chunk
+
+    def set_gate_push_chunk(self, n: int) -> None:
+        """Retune the gated push slice width of a live bridge, from the
+        next push; a field of every bridge, used by gated ones."""
+        self._gate_push_chunk = max(1, int(n))
+
+    @property
     def checkpoint_every(self) -> int:
         """Live auto-checkpoint cadence in flushes."""
         return self._ckpt_every
@@ -696,6 +776,12 @@ class DeviceStreamBridge:
             ) from None
         warr = self._check_weights(arr, weights, stream=int(stream))
         n = arr.shape[0]
+        if self._gate is not None and warr is None:
+            # the pre-staging path: a row-contiguous chunk is gated before
+            # any staging copy, so an elided element costs no demux byte
+            self._gate_push(int(stream), arr)
+            self._metrics.elements += n
+            return
         off = 0
         while off < n:
             t0 = time.perf_counter()
@@ -705,6 +791,9 @@ class DeviceStreamBridge:
             self._metrics.demux_s += time.perf_counter() - t0
             off += took
             if off < n or self._staging.row_full(stream):
+                # an internal row-full flush: a gated bridge may coalesce it
+                # into the candidate buffer; flush() and complete() force
+                # the dispatch
                 self._flush_staging()
         self._metrics.elements += n
 
@@ -759,6 +848,12 @@ class DeviceStreamBridge:
         self._check_open()
         self._check_fence()
         self._metrics.start()
+        if self._gate is not None:
+            # a tile of the caller's bypasses the gate: ship the coalesced
+            # candidates first (stream order), then mark the replica stale;
+            # it pulls the engine's state before the next gated eval
+            self._dispatch_gated_pending()
+            self._gate.mark_dirty()
         self._join()  # the engine is single-writer: wait out the worker
         tile = np.asarray(tile)
         if self._journal is not None:
@@ -791,9 +886,12 @@ class DeviceStreamBridge:
     def adopt_rows(self, rows: Any, sub_state: Any) -> None:
         raise _not_in_slice("adopt_rows", "L8")
 
-    def _dispatch_flush(self, i: int) -> None:
+    def _dispatch_flush(self, i: Optional[int], gated: Optional[tuple] = None) -> None:
         """The device half of the flush of host tile ``i`` (the worker
-        thread when pipelined).
+        thread when pipelined), or with ``gated = (tile, nvalid, advance)``
+        of the gate's candidate tile, through
+        :meth:`~reservoir_tpu_torch.engine.ReservoirEngine.sample_gated`
+        (which snapshots it into a pinned buffer of its own).
 
         The ``bridge.dispatch`` fault site fires before the engine update:
         a transient failure is retried by the worker and, since engine
@@ -806,17 +904,24 @@ class DeviceStreamBridge:
         completed, whatever the kernel is doing.
         """
         _faults.fire("bridge.dispatch", self._faults)
-        valid = self._valids[i]
         t0 = time.perf_counter()
         tr = _ctrace.get()
         cm = (
-            tr.span("bridge.dispatch", key=self._flush_seq, flush_seq=self._flush_seq, gated=False)
+            tr.span("bridge.dispatch", key=self._flush_seq, flush_seq=self._flush_seq,
+                    gated=gated is not None)
             if tr is not None
             else contextlib.nullcontext()
         )
-        nbytes = self._tiles[i].nbytes + (self._wtiles[i].nbytes if self._wtiles is not None else 0)
+        if gated is not None:
+            nbytes = gated[0].nbytes
+        else:
+            valid = self._valids[i]
+            nbytes = self._tiles[i].nbytes + (self._wtiles[i].nbytes if self._wtiles is not None else 0)
         with cm, trace_span("reservoir_bridge_flush"):
-            if self._cuda:
+            if gated is not None:
+                with self._on_stream():
+                    self._engine.sample_gated(*gated)
+            elif self._cuda:
                 self._copy_and_sample(i, valid)
             else:
                 # slots past each row's valid count hold stale elements and
@@ -864,8 +969,11 @@ class DeviceStreamBridge:
     def flush(self) -> None:
         """Dispatch the buffered elements (a ragged tile): the public
         visibility barrier.  After it (and :meth:`drain_barrier`) every
-        pushed element has been applied."""
+        pushed element has been applied, a gated bridge's coalesced
+        candidates included."""
         self._flush_staging()
+        if self._gate is not None:
+            self._dispatch_gated_pending()
 
     def _flush_staging(self) -> None:
         # fence before the fill counts are taken or the journal appended:
@@ -877,6 +985,10 @@ class DeviceStreamBridge:
         total = self._staging.take(valid)
         self._metrics.drain_s += time.perf_counter() - t0
         if total == 0:
+            return
+        if self._gate is not None and self._gate_flush(self._tiles[i], valid):
+            # the gate took the tile's candidates (and may have dispatched):
+            # the gather consumed the tile, so the demux goes on into it
             return
         # journal before handing the tile to the worker: the producer still
         # owns it, and a dispatch that later fails was still journaled, so
@@ -911,6 +1023,171 @@ class DeviceStreamBridge:
         self._metrics.flushes += 1
         self._metrics.flushed_elements += total
         self._maybe_checkpoint()
+
+    # ------------------------------------------------------- skip-ahead gate
+
+    def _gate_push(self, stream: int, arr: np.ndarray) -> None:
+        """Gate a row-contiguous pushed chunk before staging.
+
+        The chunk is evaluated in ``gate_push_chunk``-element slices: one
+        replica evaluation of the row decides each slice's candidates,
+        which are gathered straight from the producer's array into the
+        coalescing buffer; elided elements are never demuxed, staged,
+        journaled or copied.  A slice with more candidates than the gate
+        tile (the fill phase, early in a stream) goes through the staged
+        path, whose flushes evaluate again tile by tile; the row stays in
+        order because the fast path runs only while its staging is empty."""
+        gate = self._gate
+        if gate.stale(self._engine):
+            self.drain_barrier()
+            gate.resync(self._engine)
+        m = self._metrics
+        n = int(arr.shape[0])
+        off = 0
+        while off < n:
+            if self._staging.fill(stream):
+                # staged residue (a fallback slice's partial row): keep
+                # this slice on the staged path so the row stays ordered
+                off += self._push_staged(stream, arr[off:])
+                continue
+            self._check_fence()
+            take = min(n - off, self._gate_push_chunk)
+            chunk = arr[off : off + take]
+            reg = _obs.get()
+            tr = _ctrace.get()
+            gcm = tr.span("gate.eval", stream=stream) if tr is not None else contextlib.nullcontext()
+            t0 = time.perf_counter()
+            with gcm, trace_span("reservoir_gate_eval"):
+                ev = gate.evaluate_row(stream, take)
+            dt = time.perf_counter() - t0
+            m.gate_eval_s += dt
+            if reg is not None:
+                reg.histogram("gate.eval_s").observe(dt)
+            if ev.fallback:
+                # candidate-dense slice, not committed: the staged flushes
+                # walk the chain again in tile pieces and commit
+                off += self._push_staged(stream, chunk)
+                continue
+            if not gate.fits_row(stream, ev):
+                self._dispatch_gated_pending()
+            gate.commit(ev)
+            elided = gate.append_row(stream, chunk, ev)
+            m.gate_buffered_flushes += 1
+            m.gate_bytes_elided += elided * arr.itemsize
+            if reg is not None:
+                reg.counter("gate.bytes_elided").inc(elided * arr.itemsize)
+            if gate.advance_high():
+                self._dispatch_gated_pending()
+            off += take
+
+    def _push_staged(self, stream: int, arr: np.ndarray) -> int:
+        """One staged step of a single-row push: stage what fits, flush on
+        a full row; returns the elements consumed."""
+        t0 = time.perf_counter()
+        took = self._staging.push_chunk(stream, arr, None)
+        self._metrics.demux_s += time.perf_counter() - t0
+        if took < arr.shape[0] or self._staging.row_full(stream):
+            self._flush_staging()
+        return took
+
+    def _gate_flush(self, tile: np.ndarray, valid: np.ndarray) -> bool:
+        """Gate one staged tile.  True when the gate took it whole
+        (candidates buffered, perhaps a gated dispatch); False when the
+        caller must ship this tile ungated (its candidates overflow the
+        gate tile: the fill phase, mostly).  Either way the replica has
+        advanced over it, so a fallback tile stays bit-consistent."""
+        gate = self._gate
+        if gate.stale(self._engine):
+            # the engine changed outside the gated path (recovery replay,
+            # push_tile): pull the replica under the single-writer slot.
+            # Every such path dispatches the pending buffer first, so
+            # resync() refusing a pending buffer marks a contract breach
+            self.drain_barrier()
+            gate.resync(self._engine)
+        m = self._metrics
+        reg = _obs.get()
+        tr = _ctrace.get()
+        gcm = tr.span("gate.eval") if tr is not None else contextlib.nullcontext()
+        t0 = time.perf_counter()
+        with gcm, trace_span("reservoir_gate_eval"):
+            ev = gate.evaluate(valid)
+        dt = time.perf_counter() - t0
+        m.gate_eval_s += dt
+        if reg is not None:
+            reg.histogram("gate.eval_s").observe(dt)
+        # both branches consume the tile at this granularity (buffered
+        # gated or shipped whole), so the replica advances either way
+        gate.commit(ev)
+        if ev.fallback:
+            # ship the tile whole, but dispatch the buffered advance first
+            # (stream order)
+            self._dispatch_gated_pending()
+            shipped = int(np.asarray(valid).sum()) * tile.itemsize
+            m.gate_bytes_shipped += shipped
+            if reg is not None:
+                reg.counter("gate.bytes_shipped").inc(shipped)
+                self._observe_skip_frac(reg)
+            return False
+        if not gate.fits(ev):
+            self._dispatch_gated_pending()
+        elided = gate.append(tile, valid, ev)
+        m.gate_buffered_flushes += 1
+        m.gate_bytes_elided += elided * tile.itemsize
+        if reg is not None:
+            reg.counter("gate.bytes_elided").inc(elided * tile.itemsize)
+        if gate.advance_high():
+            self._dispatch_gated_pending()
+        return True
+
+    def _dispatch_gated_pending(self) -> None:
+        """Dispatch the gate's coalesced candidates as one gated flush
+        (journaled like any other flush; replay goes through
+        ``sample_gated``).  Nothing when the buffer is empty."""
+        gate = self._gate
+        if gate is None or not gate.pending():
+            return
+        self._check_fence()
+        gtile, nvalid, advance, total_adv = gate.take()
+        self._flush_seq += 1
+        tr = _ctrace.get()
+        if self._journal is not None:
+            reg = _obs.get()
+            t0 = time.perf_counter() if reg is not None else 0.0
+            jcm = (tr.span("bridge.journal", key=self._flush_seq, flush_seq=self._flush_seq)
+                   if tr is not None else contextlib.nullcontext())
+            with jcm, trace_span("reservoir_journal_append"):
+                self._journal.append_gated(self._flush_seq, gtile, nvalid, advance)
+            if reg is not None:
+                reg.histogram("bridge.journal_append_s").observe(time.perf_counter() - t0)
+        if self._pipeline is not None:
+            qcm = (tr.span("bridge.queue", key=self._flush_seq, flush_seq=self._flush_seq)
+                   if tr is not None else contextlib.nullcontext())
+            t0 = time.perf_counter()
+            with qcm:
+                self._pipeline.reserve()
+            self._metrics.reserve_s += time.perf_counter() - t0
+            self._pipeline.submit(None, (gtile, nvalid, advance))
+        else:
+            self._dispatch_flush(None, (gtile, nvalid, advance))
+        m = self._metrics
+        m.flushes += 1
+        m.gated_dispatches += 1
+        # the folded advance is durable from here (the journal, when on,
+        # covers these elements), so they count as flushed
+        m.flushed_elements += total_adv
+        shipped = gtile.nbytes + nvalid.nbytes + advance.nbytes
+        m.gate_bytes_shipped += shipped
+        reg = _obs.get()
+        if reg is not None:
+            reg.counter("gate.bytes_shipped").inc(shipped)
+            self._observe_skip_frac(reg)
+        self._maybe_checkpoint()
+
+    def _observe_skip_frac(self, reg) -> None:
+        m = self._metrics
+        denom = m.gate_bytes_shipped + m.gate_bytes_elided
+        if denom:
+            reg.gauge("gate.skip_frac").set(m.gate_bytes_elided / denom)
 
     def _journal_append(self, seq, tile, valid, wtile) -> None:
         """Journal one flushed tile, traced and, with telemetry on, timed
@@ -1020,7 +1297,7 @@ class DeviceStreamBridge:
                     "durability": self._durability,
                     "elements": self._metrics.elements,
                     "flushed_elements": self._metrics.flushed_elements,
-                    "gated": False,
+                    "gated": self._gated_requested,
                     "gate_tile": self._gate_tile,
                 }
             },
@@ -1080,9 +1357,11 @@ class DeviceStreamBridge:
         The reservoirs are bit-identical to those of an uninterrupted run
         over the same flushes.  Resume pushing from :attr:`flushed_seq` /
         ``metrics.flushed_elements``.  ``pipelined``/``checkpoint_every``
-        default to the crashed bridge's settings.  A journal frame of the
-        skip gate (``RTJG``) or of a row adoption (``RTJA``) raises
-        ``NotImplementedError`` (L6, L8): it is not skipped.
+        default to the crashed bridge's settings, ``gated`` and
+        ``gate_tile`` too.  A gated frame (``RTJG``) replays through
+        :meth:`~reservoir_tpu_torch.engine.ReservoirEngine.sample_gated`,
+        as the live path applied it.  A frame of a row adoption (``RTJA``)
+        raises ``NotImplementedError`` (L8): it is not skipped.
 
         ``replay_hook(bridge, watermark)`` is called once when the state
         reaches the checkpoint's watermark and again after each replayed
@@ -1150,11 +1429,15 @@ class DeviceStreamBridge:
                 continue
             if advance is _FlushJournal.ADOPT:
                 raise _not_in_slice(f"replay of a row adoption (journal frame RTJA, seq {seq})", "L8")
-            if advance is not None:
-                raise _not_in_slice(f"replay of a gated flush (journal frame RTJG, seq {seq})", "L6")
             with bridge._on_stream():
-                engine.sample(tile, valid=valid, weights=wtile)
-            total = int(valid.sum())
+                if advance is not None:
+                    # a gated frame: candidates and per-row advance, through
+                    # the gated apply the live path used
+                    engine.sample_gated(tile, valid, advance)
+                    total = int(advance.sum())
+                else:
+                    engine.sample(tile, valid=valid, weights=wtile)
+                    total = int(valid.sum())
             bridge._flush_seq = seq
             m.flushes += 1
             m.elements += total

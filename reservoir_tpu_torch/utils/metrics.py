@@ -4,7 +4,9 @@
 The counters say whether the host feed or the device sets the pace:
 elements consumed, flushes dispatched, wall-clock throughput, and the busy
 time of each stage.  The port never demotes a kernel, so ``demotions``
-stays 0; the skip gate is not ported, so the ``gate_*`` counters stay 0.
+stays 0.  The skip gate's counters count on a gated bridge: gated
+dispatches, staged tiles and pushed slices it took (``gate_buffered_flushes``),
+bytes shipped and elided, and the replica's evaluation time.
 """
 
 from __future__ import annotations
@@ -41,7 +43,10 @@ class BridgeMetrics:
     # buffered); flush/checkpoint attempts refused by the epoch fence
     journal_syncs: int = dataclasses.field(default=0, init=False)
     fenced_writes: int = dataclasses.field(default=0, init=False)
-    # the skip gate's counters (not ported: always zero)
+    # the skip gate's counters: gated dispatches; chunks the gate took
+    # whole (staged tiles and pushed slices); bytes shipped (candidate
+    # tiles with their counts, and tiles that overflowed the gate) and
+    # elided; the replica's evaluation time
     gated_dispatches: int = dataclasses.field(default=0, init=False)
     gate_buffered_flushes: int = dataclasses.field(default=0, init=False)
     gate_bytes_shipped: int = dataclasses.field(default=0, init=False)

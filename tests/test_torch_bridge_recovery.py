@@ -176,7 +176,7 @@ def test_fenced_by_either_packages_advance_epoch(tmp_path, fencer):
         DeviceStreamBridge.recover(ckdir, device="cpu")
 
 
-@pytest.mark.parametrize("frame", ["gated", "adopt"])
+@pytest.mark.parametrize("frame", ["adopt"])
 def test_recover_raises_on_gated_and_adopt_frames(tmp_path, frame):
     ckdir = str(tmp_path / "ck")
     bridge = _port("uniform", checkpoint_dir=ckdir, checkpoint_every=100)
@@ -186,14 +186,10 @@ def test_recover_raises_on_gated_and_adopt_frames(tmp_path, frame):
     del bridge
     gc.collect()
     journal = JJournal(os.path.join(ckdir, "journal.bin"), S, B, np.int32, False)
-    if frame == "gated":
-        journal.append_gated(seq, np.zeros((S, 2), np.int32), np.ones(S, np.int32),
-                             np.full(S, B, np.int32))
-    else:
-        journal.append_adopt(seq, b"a packed row adoption")
+    journal.append_adopt(seq, b"a packed row adoption")
     journal.close()
-    label = "L6" if frame == "gated" else "L8"
-    with pytest.raises(NotImplementedError, match=f"RTJ{'G' if frame == 'gated' else 'A'}.*{label}"):
+    # a gated frame replays (test_gated_recovery_across_packages_is_bit_identical)
+    with pytest.raises(NotImplementedError, match="RTJA.*L8"):
         DeviceStreamBridge.recover(ckdir, device="cpu")
 
 
@@ -338,3 +334,113 @@ def test_state_and_metadata_round_trip_across_packages(tmp_path):
     assert meta == {"bridge": {"seq": 4}}
     assert checkpoint.read_epoch(str(tmp_path)) == 0
     assert checkpoint.write_epoch(str(tmp_path), 4) == 4 and jckpt.read_epoch(str(tmp_path)) == 4
+
+
+# ------------------------------------------------------------- skip gate
+
+
+def _gated_run(bridge, data, rounds):
+    """Rounds of per-row pushes (two pieces a row, the first straddling
+    the gate's pre-staging path and the staging)."""
+    for r in range(rounds):
+        for s in range(S):
+            row = data[s, r * B:(r + 1) * B]
+            bridge.push(s, row[:3])
+            bridge.push(s, row[3:])
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_gated_recovery_across_packages_is_bit_identical(tmp_path, direction):
+    """A gated journaling bridge of one package is dropped mid-stream; the
+    other package recovers it, replaying its plain and gated (``RTJG``)
+    frames, and resumes each row from its durable count: the reservoirs of
+    an uninterrupted gated run of the writer's package."""
+    rounds, crash = 16, 9
+    data = np.random.default_rng(31).integers(0, 1 << 30, (S, rounds * B)).astype(np.int32)
+    make_writer = _jax if direction == "jax_to_port" else _port
+    whole = make_writer("uniform", gated=True, gate_tile=4)
+    _gated_run(whole, data, rounds)
+    expected = whole.complete()
+    assert whole.metrics.gated_dispatches >= 2
+
+    ckdir = str(tmp_path / "ck")
+    writer = make_writer("uniform", gated=True, gate_tile=4, checkpoint_dir=ckdir, checkpoint_every=4)
+    _gated_run(writer, data, crash)
+    writer.drain_barrier()
+    gated_frames = writer.metrics.gated_dispatches
+    del writer  # the crash: the staged rows and the gate's buffer are lost
+    gc.collect()
+    frames = [rec[5] is not None for rec in JJournal.read_records(
+        os.path.join(ckdir, "journal.bin"), S, B, np.int32, False)]
+    assert gated_frames >= 1 and any(frames), "the journal must hold a gated frame to replay"
+
+    if direction == "jax_to_port":
+        recovered = DeviceStreamBridge.recover(ckdir, device="cpu")
+        counts = recovered.engine.state.count.numpy()
+    else:
+        recovered = JBridge.recover(ckdir)
+        counts = np.asarray(recovered.engine._state.count)
+    assert recovered.gate_active  # the metadata carries the gate
+    for s in range(S):
+        recovered.push(s, data[s, counts[s]:])
+    _same(expected, recovered.complete())
+
+
+def test_gated_frames_are_the_jax_packages_bytes_and_a_torn_gated_tail_is_dropped(tmp_path):
+    """Plain and gated frames interleave in one journal, byte for byte the
+    JAX package's; the reader recovers Bg from a gated frame's length; a
+    tail torn inside the gated frame stops the replay before it, as the
+    reference's reader does, and recovery then resumes from the rows'
+    durable counts."""
+    bg = 5
+    rng = np.random.default_rng(4)
+    tile = rng.integers(0, 1 << 30, (S, B)).astype(np.int32)
+    gtile = rng.integers(0, 1 << 30, (S, bg)).astype(np.int32)
+    nvalid = np.asarray([2, 0, 5], np.int32)
+    advance = np.asarray([17, 40, 9], np.int32)
+    valid = np.full(S, B, np.int32)
+    paths = {}
+    for name, journal_cls in (("jax", JJournal), ("port", _FlushJournal)):
+        paths[name] = str(tmp_path / f"{name}.bin")
+        journal = journal_cls(paths[name], S, B, np.int32, False)
+        journal.append(1, tile, valid, None)
+        journal.append_gated(2, gtile, nvalid, advance)
+        journal.append(3, tile + 5, valid, None)
+        journal.close()
+    with open(paths["jax"], "rb") as a, open(paths["port"], "rb") as b:
+        assert a.read() == b.read()
+    recs = list(_FlushJournal.replay(paths["port"], S, B, np.int32, False))
+    assert [r[0] for r in recs] == [1, 2, 3] and recs[0][4] is None and recs[2][4] is None
+    np.testing.assert_array_equal(recs[1][1], gtile)
+    np.testing.assert_array_equal(recs[1][2], nvalid)
+    np.testing.assert_array_equal(recs[1][4], advance)
+    plain_frame = _FlushJournal._HEADER.size + S * 4 + S * B * 4 + 4
+    with open(paths["port"], "r+b") as fh:
+        fh.truncate(plain_frame + 10)  # inside the gated frame
+    for reader in (_FlushJournal, JJournal):
+        assert [r[0] for r in reader.replay(paths["port"], S, B, np.int32, False)] == [1]
+
+    # a gated bridge torn inside its last gated frame recovers to the
+    # frames before it, and the rows resume from their durable counts
+    data = rng.integers(0, 1 << 30, (S, 14 * B)).astype(np.int32)
+    expected = _port("uniform", gated=True, gate_tile=4)
+    _gated_run(expected, data, 14)
+    expected = expected.complete()
+    ckdir = str(tmp_path / "ck")
+    writer = _port("uniform", gated=True, gate_tile=4, checkpoint_dir=ckdir, checkpoint_every=1000)
+    _gated_run(writer, data, 8)
+    writer.flush()  # the pending candidates become the journal's last frame
+    writer.drain_barrier()
+    del writer
+    gc.collect()
+    path = os.path.join(ckdir, "journal.bin")
+    ends = [(rec[0], rec[5] is not None) for rec in _FlushJournal.read_records(path, S, B, np.int32, False)]
+    assert ends[-1][1], "the last frame must be gated"
+    with open(path, "r+b") as fh:
+        fh.truncate(ends[-1][0] - 3)
+    recovered = DeviceStreamBridge.recover(ckdir, device="cpu")
+    assert recovered.flushed_seq == len(ends) - 1
+    counts = recovered.engine.state.count.numpy()
+    for s in range(S):
+        recovered.push(s, data[s, counts[s]:])
+    _same(expected, recovered.complete())

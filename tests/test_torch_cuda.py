@@ -8,6 +8,8 @@ no jax, so it also runs on a GPU host that has none:
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -867,3 +869,189 @@ def test_device_sampler_on_the_card_equals_the_cpu(cuda_device):
     for s in (card, host):
         s.sample_all(data)
     np.testing.assert_array_equal(card.result(), host.result())
+
+
+# -------------------------------------------------------------- skip gate
+
+
+class _Engine:
+    """What the gate's resync reads of an engine."""
+
+    def __init__(self, state):
+        self._state = state
+        self.reset_epochs = 0
+
+
+def _gated_tiles(state, tile, m, cap):
+    """The skip gate's candidate tile for ``tile[r, :m[r]]`` from ``state``
+    (card tensors), built by the port's replica: rows whose candidates
+    overflow ``cap`` take nothing.  Returns ``(gtile, nvalid, advance)``
+    on the card."""
+    from reservoir_tpu_torch.stream.gate import SkipGate
+
+    R, B = tile.shape
+    gate = SkipGate(R, state.k, B, np.dtype(str(tile.dtype).replace("torch.", "")), cap=cap)
+    gate.resync(_Engine(state))
+    m = np.asarray(m, np.int32).copy()
+    ev = gate.evaluate(m)
+    m[ev.n_cand > cap] = 0
+    ev = gate.evaluate(m)
+    gate.append(tile.cpu().numpy(), m, ev)
+    gtile, nvalid, advance, _ = gate.take()
+    dev = tile.device
+    return (torch.from_numpy(gtile).to(dev), torch.from_numpy(nvalid).to(dev),
+            torch.from_numpy(advance).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [128, 6])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_gated_kernel_equals_plain_version_on_the_card(cuda_device, k, dtype):
+    """``algl_update_gated`` against the plain ``update_gated`` on the card,
+    bit for bit, from states across the fill's end, steady (count 4 B) and
+    deep (count 24 B), with rows of nvalid 0 and advance 0, advances past
+    the fill with few candidates and float payloads with -0.0 and NaN; the
+    gated state also equals the full tile's update."""
+    R, B, cap = 4096, 256, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(k)
+    rng = np.random.default_rng(k)
+    s0 = T.init(key_from_seed(5), R, k, sample_dtype=dtype, device=cuda_device)
+
+    def tiles(n):
+        out = []
+        for _ in range(n):
+            t = torch.randint(-(2**31), 2**31 - 1, (R, B), dtype=torch.int32, device=cuda_device,
+                              generator=gen)
+            t[::5, 0] = -(2**31)
+            t[1::5, 3] = 0x7FC00001
+            out.append(t.view(dtype))
+        return out
+
+    # k - 3 elements a row, then the deeper states
+    near = T.update(_clone(s0), tiles(1)[0], torch.full((R,), k - 3, dtype=torch.int32,
+                                                          device=cuda_device))
+    steady = _clone(s0)
+    for t in tiles(4):
+        steady = TK.update_cuda(steady, t)
+    deep = _clone(steady)
+    for t in tiles(20):
+        deep = TK.update_steady_cuda(deep, t)
+    before = TK.gated_launches
+    launches = 0
+    for state, hi in ((s0, 60), (near, 12), (steady, B + 1), (deep, B + 1)):
+        tile = tiles(1)[0]
+        m = rng.integers(0, hi, R).astype(np.int32)
+        m[::7] = 0  # nvalid 0, advance 0
+        gtile, nvalid, advance = _gated_tiles(state, tile, m, cap)
+        ref = T.update_gated(_clone(state), gtile, nvalid, advance)
+        got = TK.update_gated_cuda(_clone(state), gtile, nvalid, advance)
+        full = TK.update_cuda(_clone(state), tile, advance)
+        launches += 1
+        torch.cuda.synchronize()
+        for f in _FIELDS:
+            assert torch.equal(_bits(getattr(got, f)), _bits(getattr(ref, f))), f
+            assert torch.equal(_bits(getattr(got, f)), _bits(getattr(full, f))), f
+    assert TK.gated_launches - before == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 6, 128])
+def test_update_kernel_over_the_shared_chain_equals_plain_version(cuda_device, k):
+    """``algl_update`` walks the chain of ``csrc/algl_chain.cuh``, shared with
+    the gated kernel and the host replica: fill, steady and ragged tiles
+    stay bit-identical to the plain version."""
+    R, B = 2048, 512
+    gen = torch.Generator(device=cuda_device).manual_seed(k)
+    s = T.init(key_from_seed(9), R, k, device=cuda_device)
+    for fill, ragged in ((True, False), (True, True), (False, False), (False, True)):
+        tile = torch.randint(-(2**31), 2**31 - 1, (R, B), dtype=torch.int32, device=cuda_device,
+                             generator=gen)
+        valid = (torch.randint(0, B + 1, (R,), dtype=torch.int32, device=cuda_device, generator=gen)
+                 if ragged else None)
+        ref = (T.update if fill else T.update_steady)(_clone(s), tile, valid)
+        s = (TK.update_cuda if fill else TK.update_steady_cuda)(s, tile, valid)
+        for f in _FIELDS:
+            assert torch.equal(_bits(getattr(s, f)), _bits(getattr(ref, f))), f
+
+
+@pytest.mark.cuda
+def test_gated_kernel_on_an_empty_candidate_tile_advances_the_counts(cuda_device):
+    R, k = 256, 8
+    s = T.init(key_from_seed(2), R, k, device=cuda_device)
+    advance = torch.arange(R, dtype=torch.int32, device=cuda_device) % 3
+    empty = torch.zeros((R, 0), dtype=torch.int32, device=cuda_device)
+    ref = T.update_gated(_clone(s), empty, torch.zeros_like(advance), advance)
+    got = TK.update_gated_cuda(_clone(s), empty, torch.zeros_like(advance), advance)
+    for f in _FIELDS:
+        assert torch.equal(_bits(getattr(got, f)), _bits(getattr(ref, f))), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feed", ["push", "interleaved"])
+def test_gated_bridge_on_the_card_equals_the_ungated_card_bridge(cuda_device, feed):
+    """A gated bridge on the card: one ``algl_update_gated`` a gated
+    dispatch, one ``algl_update`` a fallback flush, and the ungated card
+    bridge's state; then journaled, dropped and recovered on the card."""
+    S, B, k = 1024, 256, 16
+    cfg = SamplerConfig(k, S, B)
+    rng = np.random.default_rng(12)
+    rounds = 12
+    data = rng.integers(-(2**31), 2**31 - 1, (S, rounds * B)).astype(np.int32)
+    lockstep = np.tile(np.arange(S, dtype=np.int32), B)
+    gated = DeviceStreamBridge(cfg, key=3, device=cuda_device, gated=True, gate_tile=32)
+    ungated = DeviceStreamBridge(cfg, key=3, device=cuda_device)
+    for b in (gated, ungated):
+        before = (TK.launches, TK.gated_launches)
+        for t in range(rounds):
+            cols = slice(t * B, (t + 1) * B)
+            if feed == "push":
+                for s in range(S):
+                    b.push(s, data[s, cols])
+            else:
+                b.push_interleaved(lockstep, np.ascontiguousarray(data[:, cols].T).ravel())
+        b.flush()
+        b.drain_barrier()
+        m = b.metrics
+        assert TK.gated_launches - before[1] == m.gated_dispatches
+        assert TK.launches - before[0] == m.flushes - m.gated_dispatches
+    assert gated.metrics.gated_dispatches >= 1 and gated.metrics.gate_bytes_elided > 0
+    assert gated.gate_active and gated._gate.native
+    for a, b in zip(gated.engine.state, ungated.engine.state):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_gated_recovery_on_the_card(cuda_device, tmp_path):
+    S, B, k = 512, 128, 8
+    cfg = SamplerConfig(k, S, B)
+    data = np.random.default_rng(13).integers(0, 1 << 30, (S, 16 * B)).astype(np.int32)
+
+    def run(bridge, rounds):
+        for t in range(rounds):
+            for s in range(S):
+                bridge.push(s, data[s, t * B:(t + 1) * B])
+
+    whole = DeviceStreamBridge(cfg, key=4, device=cuda_device, gated=True, gate_tile=16)
+    run(whole, 16)
+    want = whole.complete()
+    ckdir = str(tmp_path / "ck")
+    dropped = DeviceStreamBridge(cfg, key=4, device=cuda_device, gated=True, gate_tile=16,
+                                 checkpoint_dir=ckdir, checkpoint_every=2)
+    run(dropped, 8)
+    dropped.drain_barrier()
+    assert dropped.metrics.gated_dispatches >= 1
+    del dropped
+    from reservoir_tpu_torch.stream.bridge import _FlushJournal
+
+    # the journal holds the frames since the last checkpoint: each gated
+    # one replays through one algl_update_gated launch
+    gated_frames = sum(rec[5] is not None for rec in _FlushJournal.read_records(
+        os.path.join(ckdir, "journal.bin"), S, B, np.int32, False))
+    before = TK.gated_launches
+    recovered = DeviceStreamBridge.recover(ckdir, device=cuda_device)
+    assert TK.gated_launches - before == gated_frames
+    counts = recovered.engine.state.count.cpu().numpy()
+    for s in range(S):
+        recovered.push(s, data[s, counts[s]:])
+    for a, b in zip(recovered.complete(), want):
+        np.testing.assert_array_equal(a, b)

@@ -299,15 +299,14 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         lambda: ReservoirEngine(SamplerConfig(4, 2, mesh_axis="res"), device="cpu"),
         lambda: ReservoirEngine(SamplerConfig(4, 2), map_fn=abs, device="cpu"),
         lambda: ReservoirEngine(SamplerConfig(4, 2), hash_fn=hash, device="cpu"),
-        lambda: ReservoirEngine(SamplerConfig(4, 2), device="cpu").sample_gated(None, None, None),
         lambda: ReservoirEngine(SamplerConfig(4, 2), device="cpu").sample_stream(
             np.zeros((2, 8), np.int32), fused=True),
         lambda: ReservoirEngine(SamplerConfig(4, 2), device="cpu").reset_rows([0], 0),
         lambda: ReservoirEngine(SamplerConfig(4, 2), device="cpu").export_rows([0]),
         lambda: ReservoirEngine(SamplerConfig(4, 2), device="cpu").adopt_rows([0], None),
     ],
-    ids=["weighted", "distinct", "wide", "int64_counts", "mesh_axis", "map_fn", "hash_fn", "sample_gated",
-         "fused", "reset_rows", "export_rows", "adopt_rows"],
+    ids=["weighted", "distinct", "wide", "int64_counts", "mesh_axis", "map_fn", "hash_fn", "fused",
+         "reset_rows", "export_rows", "adopt_rows"],
 )
 def test_what_the_slice_leaves_out_raises_naming_the_roadmap(make):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
