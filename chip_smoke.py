@@ -93,7 +93,18 @@ which fails the run with a non-zero exit:
 17. the merge tree on the card equals the same on the CPU: uniform,
    weighted and distinct ``merge_samples_device`` over P in {2, 3, 5, 8}
    parts with partial fills (4 ranks on the card against the host tree),
-   and the three stream mergers over 5 shards of 256 rows;
+   and the three stream mergers over 5 shards of 256 rows; then the merge
+   kernel ``algl_merge_draws`` against its plain version ``merge_draws``
+   on the card, bit for bit (j_a and both sides' keys), at k in {1, 5, 128,
+   1000} over 2,048 rows of counts 0, partial, one side empty, totals past
+   2^31, totals wrapping past 2^32 and denominators just past 2^31 (about
+   every second draw rejected), A's counts uint32 and B's int32 (negative
+   past 2^31 - 1) and, but at k = 1000, the other way round, one launch a
+   call, and the merge through it
+   (``merge_samples_keyed``) equal to the plain merge for int32, uint32
+   and float32 words with NaN payloads, with no host sync (sync debug mode
+   "error"); at [65536, 128] against the plain version on the card (timed
+   once) and rows 0..1023 against the plain version on the CPU;
 18. the merge path at full width, the launch counts set to 0 before it:
    four uniform shard engines (R=65536, k=128, B=2048, their own seeds) fed
    streams of 1000, 4096, 6144 and 8192 elements a row, merged by
@@ -107,15 +118,18 @@ which fails the run with a non-zero exit:
    weighted shard engines (R=16384, k=64, their own seeds) fed 1, 2, 3 and
    4 tiles with weight ``pos % 3``, merged by ``weighted_stream_merger``:
    no zero-weight sample, the weight-2 share within 0.005 of 2/3; one
-   gather launch a merger; and beside each merger, ``gather_parts`` on its four shards' own
+   gather launch a merger, and one merge kernel launch a level of the
+   uniform merger's tree (2); and beside each merger, ``gather_parts`` on its four shards' own
    leaves (its launch shape) against the plain version, every rank's copy
    bit for bit, in a launch that the path's count leaves out;
 19. merge timings as in 7: the all-gather at phase 18's uniform shape
    beside its bytes bound, its plain version and ``torch.stack`` of the
    packed blocks once a rank (the library yardstick; over NCCL only where
-   there is more than one card), and one batched pairwise merge of each
-   mode at its configuration's shape (host clock, synchronised; the
-   uniform one, a second of host-launched tensor code, once);
+   there is more than one card); the merge kernel at [65536, 128] beside
+   its bound (from the draws of phase 17's plain run), its plain version
+   and the torch argsort and gather that follow it; and one batched
+   pairwise merge of each mode at its configuration's shape (host clock,
+   synchronised);
 20. bridge build: the host staging library built with g++ and loaded
    (``NativeStaging(...).available()``), with ``os.cpu_count()`` and the
    demux's thread count;
@@ -216,10 +230,16 @@ REPS = 11
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_INT32 = 64 * 132 * 1.98e9
-# work per acceptance, counted from csrc/: four Threefry-2x32 blocks (~79
-# integer ops each) plus the draw words, slot and gather index; log (x2),
-# exp, log1p and the skip arithmetic in float32 (an FMA counted as 2)
-INT_OPS_PER_ACCEPT = 330
+# a Threefry-2x32 block's operations that only the INT32 pipe issues: its
+# 20 rounds' rotations and xors (its ~32 adds may issue to the FMA pipe as
+# IMAD, so they are left out); every integer bound below counts a block so
+THREEFRY_INT32_OPS = 40
+# work per acceptance, counted from csrc/: four Threefry-2x32 blocks plus
+# ~10 more INT32-pipe ops (the draw words' xors, the shifts of the
+# uniforms, the skip's compares and selects; the slot's fastmod is IMAD);
+# log (x2), exp, log1p and the skip arithmetic in float32 (an FMA counted
+# as 2)
+INT_OPS_PER_ACCEPT = 4 * THREEFRY_INT32_OPS + 10
 FLOPS_PER_ACCEPT = 134
 # state bytes per row and tile (count, nxt, log_w read and written, key
 # read); per acceptance one 32-byte sector gathered, but no more than the
@@ -229,13 +249,14 @@ STATE_BYTES_PER_ROW = 28
 SECTOR_BYTES = 32
 # the weighted kernel, counted from csrc/weighted.cu: per weight lane the
 # scan's adds and flushes and the ballots; per acceptance three Threefry
-# blocks, the search ballots and the warp minimum, log twice, exp and two
-# divisions; per filled slot two Threefry blocks, a log and a division
+# blocks and 83 ops of the search ballots and the warp minimum, log twice,
+# exp and two divisions; per filled slot two Threefry blocks and 17 ops, a
+# log and a division
 W_INT_OPS_PER_LANE = 4
 W_FLOPS_PER_LANE = 16
-W_INT_OPS_PER_ACCEPT = 320
+W_INT_OPS_PER_ACCEPT = 3 * THREEFRY_INT32_OPS + 83
 W_FLOPS_PER_ACCEPT = 90
-W_INT_OPS_PER_FILL = 175
+W_INT_OPS_PER_FILL = 2 * THREEFRY_INT32_OPS + 17
 W_FLOPS_PER_FILL = 28
 # bytes: every weight read once (4 per lane), per row the lkeys read (4 k),
 # count and xw read and written and the key read (24); one 32-byte sector
@@ -255,6 +276,9 @@ FEED_A_TILES = 12
 FEED_B_ROUNDS = 8
 FEED_B_CHUNK = 8192
 UNGATED_B_PUSHES = 64
+# the merge kernel's sample sizes in its cases
+MERGE_KS = (1, 5, 128, 1000)
+MERGE_ROWS = 2048
 # the distinct kernel, counted from csrc/distinct.cu and csrc/hashing.cuh:
 # per lane the scramble (4 salt xors, 6 rounds of an add, fmix32's 3 shifts,
 # 3 xors and 2 multiplies, and the Feistel xor) and the compare and ballot;
@@ -302,6 +326,7 @@ FIELDS = {
     "ReservoirState": (("samples", "count", "nxt"), ("log_w",)),
     "WeightedState": (("samples", "count"), ("lkeys", "xw")),
     "DistinctState": (("values", "value_hi", "hash_hi", "hash_lo", "size", "count"), ()),
+    "MergeDraws": (("j_a",), ("u_a", "u_b")),
 }
 
 
@@ -477,6 +502,7 @@ def main() -> None:
     wkern._library()
     dkern._library()
     mkern._library()
+    kern._merge_library()
     log(f"[2 build] csrc built and loaded in {time.perf_counter() - t0:.2f} s")
 
     # 3. kernel vs plain version, full width
@@ -653,7 +679,7 @@ def main() -> None:
 
     weighted = weighted_phases(gen, dev)
     distinct = distinct_phases(gen, dev)
-    merge = merge_phases(gen, dev)
+    merge, merge_entry = merge_phases(gen, dev)
     bridge = bridge_phases(gen, dev, here, {"device_fed": dev_eps, "host_fed": host_eps,
                                             "host_fed_warm": warm_host_eps})
     gate, gated_entry = gate_phases(gen, dev, here)
@@ -686,7 +712,7 @@ def main() -> None:
         "build": build,
         "bridge_ragged_flush": bridge["ragged_flush"],
         "gated_bridge_fallback_launches": gate["fallback_launches"],
-    }, weighted, distinct, merge, gated_entry]}))
+    }, weighted, distinct, merge, gated_entry, merge_entry]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
 
@@ -1265,8 +1291,77 @@ def words_err(got, want) -> float:
     return err
 
 
-def merge_phases(gen, dev) -> dict:
-    """Phases 16-19, the merge path; returns its ``kernels`` entry."""
+def merge_bound_ms(steps: int, draws: int, rows: int, k: int) -> tuple:
+    """The merge kernel's bound for ``rows`` rows of sample size ``k``
+    whose scans ran ``steps`` steps and drew ``draws`` words in all (each
+    rejected attempt counted): per step a fold and each word drawn one
+    Threefry block; per row two folds and 2k key words; each block's
+    INT32-pipe operations over that pipe's rate (the scan's remainders
+    left out); bytes the counts, flags and keys read (17 a row), j_a and the
+    keys written (4 + 8k a row)."""
+    blocks = steps + draws + 2 * rows * (k + 1)
+    t_ops = THREEFRY_INT32_OPS * blocks / PEAK_INT32
+    t_bytes = rows * (21 + 8 * k) / PEAK_BYTES
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def merge_steps(count_a: torch.Tensor, count_b: torch.Tensor, k: int) -> int:
+    """The scan steps of a merge: min(total mod 2^32, k) summed over rows."""
+    total = (count_a.view(torch.int32).long() + count_b.view(torch.int32).long()) % 2**32
+    return int(torch.clamp(total, max=k).sum().item())
+
+
+def merge_case_counts(rng, rows: int, k: int) -> np.ndarray:
+    """``[2, rows]`` uint32 counts, a case to a block of rows: both 0;
+    partial (below k); one side empty; totals past 2^31; totals that wrap
+    past 2^32 (an int32 view of these is negative); denominators just past
+    2^31, where about every second attempt is rejected; and a mix of all."""
+    cases = [
+        lambda n: np.zeros((2, n)),
+        lambda n: rng.integers(0, k, (2, n)),
+        lambda n: np.stack([np.zeros(n), rng.integers(1, 4 * k, n)])[rng.permutation(2)],
+        lambda n: rng.integers(2**30, 2**31, (2, n)),
+        lambda n: rng.integers(2**31, 2**32, (2, n)),
+        lambda n: (lambda a: np.stack([a, 2**31 + k + 1 + rng.integers(0, k + 1, n) - a]))(
+            rng.integers(0, 2**31, n)),
+    ]
+    pool = np.array([0, 1, k - 1, k, k + 1, 3 * k, 2**31 - 1, 2**31 + 1, 2**32 - 1], np.int64)
+    cases.append(lambda n: rng.choice(pool, (2, n)))
+    per = -(-rows // len(cases))
+    counts = np.concatenate([np.asarray(c(per), np.int64) for c in cases], axis=1)[:, :rows]
+    return counts.astype(np.uint32)
+
+
+def merge_timing_case(gen, dev) -> tuple:
+    """Phase 19's uniform pair at the main path's shape, ``(samples_a,
+    count_a, samples_b, count_b, row_keys)``: random int32 samples, int32
+    counts below 4k (every row draws k times) and the rows' keys split from
+    seed 1 (``kernel_ab.py`` times the same)."""
+    from reservoir_tpu_torch.ops.rng import key_from_seed, split_keys
+
+    gen.manual_seed(89)
+    sa, sb = random_tile(gen, K, torch.int32, dev), random_tile(gen, K, torch.int32, dev)
+    ca, cb = (torch.randint(0, 4 * K, (R,), dtype=torch.int32, device=dev, generator=gen) for _ in range(2))
+    return sa, ca, sb, cb, split_keys(key_from_seed(1, device=dev), R)
+
+
+def draws_err(got, want) -> float:
+    """Largest difference between two ``MergeDraws``: j_a as integers, the
+    keys as floats where both are finite, inf where a non-finite key's bits
+    differ; 0 when bit-identical."""
+    err = float((got.j_a.long() - want.j_a.long()).abs().max().item()) if got.j_a.numel() else 0.0
+    for g, w in ((got.u_a, want.u_a), (got.u_b, want.u_b)):
+        both = torch.isfinite(g) & torch.isfinite(w)
+        if both.any():
+            err = max(err, float((g[both].double() - w[both].double()).abs().max().item()))
+        if not torch.equal(bits(g)[~both], bits(w)[~both]):
+            err = float("inf")
+    return err
+
+
+def merge_phases(gen, dev) -> tuple:
+    """Phases 16-19, the merge path; returns the ``kernels`` entries of the
+    all-gather and of the merge kernel."""
     import reservoir_tpu_torch as rtt
     from reservoir_tpu_torch.convert import distinct_state_to_numpy, state_parts
     from reservoir_tpu_torch.ops import algorithm_l as plain
@@ -1420,6 +1515,81 @@ def merge_phases(gen, dev) -> dict:
         "the card's rows equal the CPU's")
     del u_s, u_c, w_states, d_states, w_leaves, d_leaves
 
+    # 17. the merge kernel against its plain version
+    merge_err = 0.0
+    rng17 = np.random.default_rng(17)
+    cases17 = 0
+    for k in MERGE_KS:
+        # both sign cases at each k but the largest, whose plain version
+        # runs k lockstep steps of host-launched tensor code (~10 ms each)
+        combos = ((torch.uint32, torch.int32), (torch.int32, torch.uint32))
+        for dtypes in combos[:1] if k == max(MERGE_KS) else combos:
+            counts = torch.from_numpy(merge_case_counts(rng17, MERGE_ROWS, k).view(np.int32)).to(dev)
+            ca, cb = (counts[i].contiguous().view(dt) for i, dt in enumerate(dtypes))
+            keys = torch.randint(0, 2**32, (MERGE_ROWS, 2), dtype=torch.int64, device=dev, generator=gen)
+            want = plain.merge_draws(ca, cb, keys, k)
+            before = kern.merge_launches
+            got = kern.merge_draws_cuda(ca, cb, keys, k)
+            torch.cuda.synchronize()
+            if kern.merge_launches - before != 1:
+                fail(f"merge_draws_cuda counted {kern.merge_launches - before} launches for one call")
+            merge_err = max(merge_err, draws_err(got, want))
+            if merge_err != 0.0:
+                fail(f"merge kernel != plain version (k {k}, counts {dtypes}): j_a, u_a or u_b differ")
+            for dtype in (torch.int32, torch.uint32, torch.float32):
+                sa, sb = word_blocks(gen, 2, MERGE_ROWS, k, dtype, dev)
+                want_s, want_c = plain.merge_from_draws(sa, ca, sb, cb, want)
+                before = kern.merge_launches
+                got_s, got_c = plain.merge_samples_keyed(sa, ca, sb, cb, keys)
+                if kern.merge_launches - before != 1:
+                    fail(f"merge_samples_keyed launched the merge kernel {kern.merge_launches - before} "
+                         "times for one merge")
+                err = words_err([[got_s, got_c]], [[want_s, want_c]])
+                merge_err = max(merge_err, err)
+                if err != 0.0:
+                    fail(f"the merge through the kernel != the plain merge (k {k}, counts {dtypes}, {dtype})")
+                cases17 += 1
+    # no host sync on the kernel's path
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        plain.merge_samples_keyed(sa, ca, sb, cb, keys)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log(f"[17 merge kernel vs plain] k 1/5/128/1000 x {MERGE_ROWS} rows (counts 0, partial, one side empty, "
+        "totals past 2^31, totals wrapping past 2^32, denominators just past 2^31) x uint32/int32 counts "
+        "(at k 1000 A's uint32 and B's int32 only): "
+        "j_a, u_a, u_b bit-identical, one launch a call; merged samples and counts bit-identical for "
+        f"int32/uint32/float32 words (NaN payloads, -0.0): {cases17} merges; merge_samples_keyed made no "
+        "host sync (sync debug mode 'error')")
+    # at the main path's shape: against the plain version on the card, timed
+    # once (host-launched, about a second), and rows 0..ROWS_CPU-1 on the CPU
+    sa, ca, sb, cb, keys = merge_timing_case(gen, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    j_a, n_draws = plain.merge_scan(ca, cb, keys, K)
+    plain_draws = plain.MergeDraws(j_a, *plain.merge_keys(ca, cb, keys, K))
+    torch.cuda.synchronize()
+    merge_plain_ms = 1e3 * (time.perf_counter() - t0)
+    got = kern.merge_draws_cuda(ca, cb, keys, K)
+    merge_err = max(merge_err, draws_err(got, plain_draws))
+    got_s, got_c = plain.merge_samples_keyed(sa, ca, sb, cb, keys)
+    want_s, want_c = plain.merge_from_draws(sa, ca, sb, cb, plain_draws)
+    merge_err = max(merge_err, words_err([[got_s, got_c]], [[want_s, want_c]]))
+    if merge_err != 0.0:
+        fail(f"merge kernel != plain version at [{R}, {K}]")
+    cpu = plain.merge_samples_keyed(*(t[:ROWS_CPU].cpu() for t in (sa, ca, sb, cb, keys)))
+    if words_err([cpu], [[got_s[:ROWS_CPU].cpu(), got_c[:ROWS_CPU].cpu()]]) != 0.0:
+        fail(f"the plain merge on the CPU != the card's rows 0..{ROWS_CPU - 1}")
+    u = torch.sort(plain_draws.u_a, dim=1).values
+    tied = int(((u[:, 1:] == u[:, :-1]) & torch.isfinite(u[:, 1:])).any(dim=1).sum().item())
+    merge_steps_full = merge_steps(ca, cb, K)
+    log(f"[17 merge kernel vs plain] [{R}, {K}]: j_a, keys, merged samples and counts bit-identical to the "
+        f"plain version on the card ({merge_steps_full} scan steps, {n_draws} words drawn, {tied} rows with "
+        f"tied keys in A), rows 0..{ROWS_CPU - 1} to the plain version on the CPU")
+    merge_case = (sa, ca, sb, cb, keys, plain_draws, n_draws, merge_steps_full)
+    del got, got_s, got_c, want_s, want_c, cpu, u
+
     # 18. the merge path at full width
     def hold_path_gather(stacked, what: str) -> None:
         """The all-gather as a merger launches it, on the shards' own leaves
@@ -1438,6 +1608,7 @@ def merge_phases(gen, dev) -> dict:
 
     for mod in (kern, wkern, dkern, mkern):
         mod.launches = 0
+    kern.merge_launches = 0
     # uniform: four shards of unequal streams; an element is its position in
     # the union stream of its row
     lengths = [1000, 2 * B, 3 * B, 4 * B]
@@ -1467,6 +1638,10 @@ def merge_phases(gen, dev) -> dict:
     if kern.launches != tiles_fed or mkern.launches != 1:
         fail(f"the uniform merge path launched algl_update {kern.launches} times for {tiles_fed} tiles "
              f"and merge_ring_gather {mkern.launches} times for one merge")
+    merge_path_launches = kern.merge_launches
+    if merge_path_launches != 2:
+        fail(f"the uniform merger over 4 shards launched algl_merge_draws {merge_path_launches} times, "
+             "not once a tree level (2)")
     pos = m_samples.cpu().numpy()
     count = m_count.cpu().numpy()
     if count.dtype != np.uint32 or not (count == N).all():
@@ -1488,8 +1663,9 @@ def merge_phases(gen, dev) -> dict:
             fail(f"shard {s} holds {share:.6f} of the merged samples, its stream share is {p:.6f} "
                  f"(5 sigma = {5 * sigma:.6f})")
         shares.append(f"{share:.6f} of {p:.6f}")
-    log(f"[18 merge path] uniform: 4 shards of {lengths} elements a row, {kern.launches} tile launches and "
-        f"{mkern.launches} gather launch; every merged size {K}, every count {N}, KS {ks:.6f} < {KS_GATE}, "
+    log(f"[18 merge path] uniform: 4 shards of {lengths} elements a row, {kern.launches} tile launches, "
+        f"{mkern.launches} gather launch and {merge_path_launches} merge kernel launches (one a tree level); "
+        f"every merged size {K}, every count {N}, KS {ks:.6f} < {KS_GATE}, "
         f"shard shares {', '.join(shares)} (each within 5 sigma); fed in {t_feed:.3f} s, merged in "
         f"{t_merge_uniform:.3f} s")
     uniform_launches = mkern.launches
@@ -1519,7 +1695,7 @@ def merge_phases(gen, dev) -> dict:
     merged = pmerge.distinct_stream_merger(*d_stacked)
     torch.cuda.synchronize()
     t_merge_distinct = time.perf_counter() - t0
-    if dkern.launches != 20 or mkern.launches != uniform_launches + 1:
+    if dkern.launches != 20 or mkern.launches != uniform_launches + 1 or kern.merge_launches != 2:
         fail(f"the distinct merge path launched distinct_update {dkern.launches} times for 20 tiles and "
              f"merge_ring_gather {mkern.launches - uniform_launches} times for one merge")
     hold_path_gather(d_stacked, "the distinct merger's shards")
@@ -1603,11 +1779,14 @@ def merge_phases(gen, dev) -> dict:
             times.append(1e3 * (time.perf_counter() - t0))
         return statistics.median(times)
 
-    (sa, ca), (sb, cb) = full_leaves[0], full_leaves[1]
-    ca, cb = ca % (4 * K), cb % (4 * K)  # counts around k: every row draws
-    # one run: a second of host-launched tensor code, which a median of three
-    # would not steady
-    pair_uniform_ms = host_ms(lambda: plain.merge_samples(sa, ca, sb, cb, key_from_seed(1).to(dev)), runs=1)
+    # the uniform pair: the merge kernel's draws, the torch sort and gather
+    # that follow them, and the whole pairwise merge
+    sa, ca, sb, cb, keys, plain_draws, n_draws, steps = merge_case
+    merge_ms = event_ms(lambda _: kern.merge_draws_cuda(ca, cb, keys, K), batch=10)
+    sort_gather_ms = event_ms(lambda _: plain.merge_from_draws(sa, ca, sb, cb, plain_draws), batch=10)
+    merge_bound, merge_by = merge_bound_ms(steps, n_draws, R, K)
+    pair_uniform_ms = host_ms(lambda: plain.merge_samples(sa, ca, sb, cb, key_from_seed(1, device=dev)))
+    del merge_case, plain_draws
     lk = [-torch.rand((WR, WK), device=dev, generator=gen) for _ in range(2)]
     ws = [torch.randint(0, 2**31 - 1, (WR, WK), dtype=torch.int32, device=dev, generator=gen) for _ in range(2)]
     wc = torch.full((WR,), 4 * WK, dtype=torch.int32, device=dev)
@@ -1623,10 +1802,40 @@ def merge_phases(gen, dev) -> dict:
         f"({4 * words / 1e6:.1f} MB a rank in, {4 * D * words / 1e6:.1f} MB a rank out): kernel "
         f"{gather_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.stack of the packed blocks once a rank "
         f"{library_ms:.4f} ms, bound {bound:.4f} ms (bytes)")
-    log(f"[19 merge timings] {card} | one batched pairwise merge: uniform [{R}, {K}] {pair_uniform_ms:.1f} ms, "
+    merge_build = kern.merge_kernel_info()
+    log(f"[19 merge timings] {card} | merge kernel (algl_merge_draws) at [{R}, {K}] ({steps} scan steps, "
+        f"{n_draws} words drawn): {merge_ms:.4f} ms, plain {merge_plain_ms:.1f} ms, bound {merge_bound:.4f} ms "
+        f"({merge_by}); the torch argsort and gather after it {sort_gather_ms:.4f} ms; build "
+        f"{build_text(merge_build)}")
+    log(f"[19 merge timings] {card} | one batched pairwise merge: uniform [{R}, {K}] {pair_uniform_ms:.2f} ms, "
         f"weighted [{WR}, {WK}] {pair_weighted_ms:.2f} ms, distinct [{DR}, {DK}] {pair_distinct_ms:.2f} ms; "
         f"whole mergers over 4 shards: uniform {1e3 * t_merge_uniform:.1f} ms, distinct "
         f"{1e3 * t_merge_distinct:.1f} ms, weighted {1e3 * t_merge_weighted:.1f} ms (first calls)")
+    stream_ms = {"uniform": 1e3 * t_merge_uniform, "distinct": 1e3 * t_merge_distinct,
+                 "weighted": 1e3 * t_merge_weighted}
+    pair_ms = {"uniform": pair_uniform_ms, "weighted": pair_weighted_ms, "distinct": pair_distinct_ms}
+    merge_entry = {
+        "name": "algl_merge_draws",
+        "route": "cuda",
+        "source": "reservoir_tpu_torch/csrc/algl_merge.cu",
+        "replaces": "reservoir_tpu/ops/algorithm_l.py:567",
+        "replaces_note": "no TPU kernel: the reference's merge scan (lax.scan) and _masked_perm's "
+                         "uniforms (:718) are XLA",
+        "launches": merge_path_launches,
+        "max_abs_err": merge_err,
+        "ms": merge_ms,
+        "plain_ms": merge_plain_ms,
+        "bound_ms": merge_bound,
+        "bound_by": merge_by,
+        "library_ms": None,
+        "sort_gather_ms": sort_gather_ms,
+        "scan_steps": steps,
+        "words_drawn": n_draws,
+        "cases": cases17,
+        "pairwise_merge_ms": pair_uniform_ms,
+        "stream_merger_ms": 1e3 * t_merge_uniform,
+        "build": merge_build,
+    }
     return {
         "name": "merge_ring_gather",
         "route": "cuda",
@@ -1641,11 +1850,9 @@ def merge_phases(gen, dev) -> dict:
         "library_ms": library_ms,
         "library_note": f"torch.stack of the {D} packed [{R}, {K + 1}] blocks, once a rank, on one card",
         "cards": n_cards,
-        "pairwise_merge_ms": {"uniform": pair_uniform_ms, "weighted": pair_weighted_ms,
-                              "distinct": pair_distinct_ms},
-        "stream_merger_ms": {"uniform": 1e3 * t_merge_uniform, "distinct": 1e3 * t_merge_distinct,
-                             "weighted": 1e3 * t_merge_weighted},
-    }
+        "pairwise_merge_ms": pair_ms,
+        "stream_merger_ms": stream_ms,
+    }, merge_entry
 
 
 def flush_plan(streams: torch.Tensor, rank: torch.Tensor, rows: int, width: int) -> list:
@@ -2010,6 +2217,56 @@ def gated_candidates(state, tile: torch.Tensor, m: np.ndarray, cap: int):
              torch.from_numpy(advance).to(dev)), fills, accepts)
 
 
+def gated_states(gen, dtype, dev) -> list:
+    """Phase 24's states for one sample dtype, each ``(label, state, hi)``
+    (``hi`` bounds the elements a row's candidates are drawn from, see
+    :func:`gated_draw`): across the fill's end (count k - 20), past the fill
+    (count k - 3), steady (count 4 B) and deep (count 24 B)."""
+    from reservoir_tpu_torch.ops import algorithm_l as plain
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.ops.rng import key_from_seed
+
+    gen.manual_seed(41)
+    s0 = plain.init(key_from_seed(3), R, K, sample_dtype=dtype, device=dev)
+    near = kern.update_cuda(clone(s0), random_tile(gen, B, dtype, dev),
+                            torch.full((R,), K - 20, dtype=torch.int32, device=dev))
+    edge = kern.update_cuda(clone(s0), random_tile(gen, B, dtype, dev),
+                            torch.full((R,), K - 3, dtype=torch.int32, device=dev))
+    steady = kern.update_cuda(clone(s0), random_tile(gen, B, dtype, dev))
+    for _ in range(3):  # count 4 B
+        kern.update_steady_cuda(steady, random_tile(gen, B, dtype, dev))
+    deep = clone(steady)
+    for _ in range(20):  # count 24 B
+        kern.update_steady_cuda(deep, random_tile(gen, B, dtype, dev))
+    return [("across the fill's end (count k - 20)", near, 60),
+            ("past the fill with few candidates (count k - 3)", edge, 14),
+            (f"steady (count {4 * B})", steady, B + 1), (f"deep (count {24 * B})", deep, B + 1)]
+
+
+def gated_draw(gen, rng, hi: int, dtype, dev) -> tuple:
+    """A random ``[R, B]`` tile and each row's element count ``m`` for a
+    state of :func:`gated_states`: below ``hi``, within 40 of it where
+    ``hi`` passes B; every 7th row takes nothing."""
+    tile = random_tile(gen, B, dtype, dev)
+    m = rng.integers(max(0, hi - 40), hi, R).astype(np.int32) if hi > B else \
+        rng.integers(0, hi, R).astype(np.int32)
+    m[::7] = 0  # nvalid 0 and advance 0
+    return tile, m
+
+
+def gated_timing_cases(gen, dev) -> list:
+    """Phase 24's int32 candidate tiles on its steady and deep states, each
+    ``(label, state, (gtile, nvalid, advance), fills, accepts)``: phase 26
+    times the steady one (``kernel_ab.py`` times both)."""
+    rng = np.random.default_rng(24)
+    out = []
+    for label, state, hi in gated_states(gen, torch.int32, dev):
+        tile, m = gated_draw(gen, rng, hi, torch.int32, dev)
+        if label.startswith(("steady", "deep")):
+            out.append((label, state, *gated_candidates(state, tile, m, GATE_CAP)))
+    return out
+
+
 def gated_bound_ms(fills: int, accepts: int, rows: int) -> tuple:
     """The gated kernel's bound: per row the state (28 bytes) with nvalid
     and advance (8), each candidate read once (4 bytes), one 32-byte
@@ -2047,7 +2304,6 @@ def gate_phases(gen, dev, here: str) -> tuple:
     from reservoir_tpu_torch.ops import distinct_cuda as dkern
     from reservoir_tpu_torch.ops import merge_cuda as mkern
     from reservoir_tpu_torch.ops import weighted_cuda as wkern
-    from reservoir_tpu_torch.ops.rng import key_from_seed
     from reservoir_tpu_torch.stream.bridge import _FlushJournal
     from reservoir_tpu_torch.stream.gate import SkipGate
 
@@ -2066,26 +2322,9 @@ def gate_phases(gen, dev, here: str) -> tuple:
     timing_case = None
     cases = 0
     for dtype in (torch.int32, torch.float32):
-        gen.manual_seed(41)
-        s0 = plain.init(key_from_seed(3), R, K, sample_dtype=dtype, device=dev)
-        near = kern.update_cuda(clone(s0), random_tile(gen, B, dtype, dev),
-                                torch.full((R,), K - 20, dtype=torch.int32, device=dev))
-        edge = kern.update_cuda(clone(s0), random_tile(gen, B, dtype, dev),
-                                torch.full((R,), K - 3, dtype=torch.int32, device=dev))
-        steady = kern.update_cuda(clone(s0), random_tile(gen, B, dtype, dev))
-        for _ in range(3):  # count 4 B
-            kern.update_steady_cuda(steady, random_tile(gen, B, dtype, dev))
-        deep = clone(steady)
-        for _ in range(20):  # count 24 B
-            kern.update_steady_cuda(deep, random_tile(gen, B, dtype, dev))
-        plan = [("across the fill's end (count k - 20)", near, 60),
-                ("past the fill with few candidates (count k - 3)", edge, 14),
-                (f"steady (count {4 * B})", steady, B + 1), (f"deep (count {24 * B})", deep, B + 1)]
+        plan = gated_states(gen, dtype, dev)
         for label, state, hi in plan:
-            tile = random_tile(gen, B, dtype, dev)
-            m = rng.integers(max(0, hi - 40), hi, R).astype(np.int32) if hi > B else \
-                rng.integers(0, hi, R).astype(np.int32)
-            m[::7] = 0  # nvalid 0 and advance 0
+            tile, m = gated_draw(gen, rng, hi, dtype, dev)
             (gtile, nvalid, advance), fills, accepts = gated_candidates(state, tile, m, cap)
             ref = plain.update_gated(clone(state), gtile, nvalid, advance)
             got = kern.update_gated_cuda(clone(state), gtile, nvalid, advance)
@@ -2139,7 +2378,7 @@ def gate_phases(gen, dev, here: str) -> tuple:
         log(f"[24 replicas] {dtype}: native replica over all {R} rows ({threads} threads) == torch "
             f"replica on every {R // ROWS_CPU}th row of the four states (evaluate and evaluate_row: "
             "pos, fill, n_acc, count, nxt, log_w)")
-        del s0, near, edge, steady, deep
+        del plan, state
 
     # 25. the gated bridge at full width
     cfg = rtt.SamplerConfig(max_sample_size=K, num_reservoirs=R, tile_size=B)

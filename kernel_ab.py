@@ -1,48 +1,56 @@
-"""Time two builds of the uniform, distinct and weighted kernels in turns on one card.
+"""Time two builds of the port's kernels in turns on one card.
 
     python3 kernel_ab.py --old DIR [--unchecked] [--out FILE]
 
 ``DIR`` holds another version of ``reservoir_tpu_torch/csrc`` (for example
 the parent commit's, from ``git archive``, or a variant of this one, with
 the headers its sources include).  Each of ``algorithm_l.cu``,
-``distinct.cu`` and ``weighted.cu`` that it holds must keep the C entry
-point ``algl_update``, ``distinct_update`` or ``weighted_update`` with its
-arguments, and only those kernels are timed (a variant directory holds just
-the file it edits).  The script builds those files of both versions with
-the port's own nvcc flags
-(plus ``-Xptxas -v``) into ``reservoir_tpu_torch/_build/ab/``, all at
-once, loads each build through its wrapper (``_library(path)`` of
+``distinct.cu``, ``weighted.cu`` and ``algl_merge.cu`` that it holds must
+keep the C entry points of its wrapper (``algl_update`` and
+``algl_update_gated``, ``distinct_update``, ``weighted_update``,
+``algl_merge_draws``) with their arguments, and only those kernels are
+timed (a variant directory holds just the file it edits).  The script
+builds those files of both versions with the port's own nvcc flags (plus
+``-Xptxas -v``) into ``reservoir_tpu_torch/_build/ab/``, all at once,
+loads each build through its wrapper (``_library(path)`` of
 ``ops/algorithm_l_cuda.py``, ``ops/distinct_cuda.py`` and
-``ops/weighted_cuda.py``), and then, at ``chip_smoke.py``'s shapes and on
-its tiles, times old and new in turns (old, new, new, old) with
+``ops/weighted_cuda.py``, ``_merge_library(path)`` of
+``ops/algorithm_l_cuda.py``), and then, at ``chip_smoke.py``'s shapes and
+on its tiles, times old and new in turns (old, new, new, old) with
 ``chip_smoke.event_ms``:
 
 - ``algl_update`` (R = 65,536, k = 128, B = 2,048) on phase 7's tiles
   (``chip_smoke.uniform_timing_cases``): the fill tile from count 0 and the
   steady tiles from count 7 B and 24 B;
+- ``algl_update_gated`` (the same shape, gate tile 64) on phase 24's int32
+  candidate tiles (``chip_smoke.gated_timing_cases``): the steady state
+  (count 4 B) and the deep one (count 24 B), where an older build has it;
 - ``distinct_update`` (R = 4,096, k = 256, B = 1,024) on phase 15's tiles
   (``chip_smoke.distinct_timing_cases``): Zipf tiles from empty and after 8
   Zipf tiles, int32 and int64, and fresh random keys after 8 (int32);
 - ``weighted_update`` (R = 16,384, k = 64, B = 1,024) on phase 11's tiles
   (``chip_smoke.weighted_timing_cases``): the fill tile from empty, the
-  steady tile from count 7 B, and that tile with every weight 0.
+  steady tile from count 7 B, and that tile with every weight 0;
+- ``algl_merge_draws`` on phase 19's uniform pair
+  (``chip_smoke.merge_timing_case``, R = 65,536, k = 128).
 
-Each tile is first run once by both builds, and their states must be
+Each tile is first run once by both builds, and their results must be
 bit-identical, unless ``--unchecked`` says that the old build is a
 diagnosis variant that computes something else (a one-edit copy with the
 gathers or the writes taken out, say), which is then only timed.  Each
 build's registers, spills and static shared memory (``-Xptxas -v``) are
-printed, with its instructions by the pipe their opcodes issue to
-(``cuobjdump -sass``: the update kernel's, and its largest loop's), and
-for the checkout's build its ``kernel_info`` at the launch shape (shared memory and resident warps an
-SM), with the card's name and power limit and each tile's bound
-(``chip_smoke``'s bound functions); the whole goes to ``--out`` as JSON.
-It needs a CUDA card and nvcc.
+printed, with each kernel's instructions by the pipe their opcodes issue
+to (``cuobjdump -sass``: the kernel's, and its largest loop's), and for the
+checkout's build its ``kernel_info`` at the launch shape (shared memory and
+resident warps an SM), with the card's name and power limit and each
+tile's bound (``chip_smoke``'s bound functions); the whole goes to
+``--out`` as JSON.  It needs a CUDA card and nvcc.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
@@ -53,7 +61,10 @@ import sys
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("algorithm_l", "distinct", "weighted")
+KERNELS = ("algorithm_l", "distinct", "weighted", "algl_merge")
+#: the kernels of each source whose SASS is counted
+SASS_KERNELS = {"algorithm_l": ("update_kernel", "gated_kernel"), "distinct": ("update_kernel",),
+                "weighted": ("update_kernel",), "algl_merge": ("draws_kernel",)}
 
 
 def build(dirs: dict, out_dir: str, names=KERNELS) -> dict:
@@ -77,7 +88,7 @@ def build(dirs: dict, out_dir: str, names=KERNELS) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {dirs[tag]}/{name}.cu:\n{out}")
         built[tag][name] = (lib, [ln.strip() for ln in out.splitlines()
-                                  if "update_kernel" in ln or "registers" in ln or "spill" in ln])
+                                  if "entry function" in ln or "registers" in ln or "spill" in ln])
     return built
 
 
@@ -158,15 +169,18 @@ def main() -> None:
     dev = torch.device("cuda")
     built = build({"old": args.old, "new": os.path.join(HERE, "reservoir_tpu_torch", "csrc")},
                   os.path.join(HERE, "reservoir_tpu_torch", "_build", "ab"), names)
-    modules = {"algorithm_l": ukern, "distinct": dkern, "weighted": wkern}
+    loaders = {"algorithm_l": ukern._library, "distinct": dkern._library, "weighted": wkern._library,
+               "algl_merge": ukern._merge_library}
 
     def use(which: str, name: str) -> None:
         """Make ``which`` build the one the wrapper of ``name`` launches."""
-        modules[name]._library(built[which][name][0])
+        loaders[name](built[which][name][0])
 
     for name in names:
         use("new", name)
-    info = {"algorithm_l": lambda: {"algorithm_l": ukern.kernel_info()},
+    info = {"algorithm_l": lambda: {"algorithm_l": ukern.kernel_info(),
+                                    "algorithm_l_gated": ukern.gated_kernel_info()},
+            "algl_merge": lambda: {"algl_merge": ukern.merge_kernel_info()},
             "distinct": lambda: {"distinct": dkern.kernel_info(cs.DK, False),
                                  "distinct_wide": dkern.kernel_info(cs.DK, True)},
             "weighted": lambda: {"weighted": wkern.kernel_info(cs.WK)}}
@@ -180,26 +194,30 @@ def main() -> None:
                 print(f"[ab ptxas] {which} {n}: {ln}", flush=True)
     for n, info in results["kernel_info_new"].items():
         print(f"[ab build] new {n}: {cs.build_text(info)}", flush=True)
-    results["sass"] = {which: {n: sass_counts(lib) for n, (lib, _) in b.items()} for which, b in built.items()}
+    results["sass"] = {which: {f"{n} {kernel}": sass_counts(lib, kernel) for n, (lib, _) in b.items()
+                               for kernel in SASS_KERNELS[n]}
+                       for which, b in built.items()}
     for which, counts_of in results["sass"].items():
         for n, c in counts_of.items():
-            print(f"[ab sass] {which} {n}: {c['instructions']} instructions, largest loop "
+            print(f"[ab sass] {which} {n}: {c['instructions']} instructions ({c['by_pipe']}), largest loop "
                   f"{c['largest_loop']['instructions']} ({c['largest_loop']['by_pipe']})", flush=True)
 
-    def ab(name: str, label: str, state, step, bound: tuple, extra: dict) -> None:
+    def ab(name: str, label: str, state, step, bound: tuple, extra: dict, setup=None) -> None:
         """Check old and new agree on this tile, then time them in turns:
-        old, new, new, old."""
+        old, new, new, old.  ``step`` takes ``setup()`` (by default a clone
+        of ``state``)."""
+        setup = setup or (lambda: cs.clone(state))
         got = {}
         for which in ("old", "new"):
             use(which, name)
-            got[which] = step(cs.clone(state))
+            got[which] = step(setup())
         torch.cuda.synchronize()
         if not args.unchecked and not cs.same(got["old"], got["new"]):
             sys.exit(f"FAIL: old and new {name} differ on the {label}")
         times = {"old": [], "new": []}
         for which in ("old", "new", "new", "old"):
             use(which, name)
-            times[which].append(cs.event_ms(step, setup=lambda: cs.clone(state), batch=10))
+            times[which].append(cs.event_ms(step, setup=setup, batch=10))
         use("new", name)
         results["tiles"].append({"kernel": name, "tile": label, "old_ms": times["old"], "new_ms": times["new"],
                                  "bound_ms": bound[0], "bound_by": bound[1], **extra})
@@ -214,6 +232,25 @@ def main() -> None:
         step = ukern.update_cuda if fill else ukern.update_steady_cuda
         ab("algorithm_l", label, state, lambda s, t=tile, f=step: f(s, t),
            cs.bound_ms(accepts, cs.R * cs.K if fill else 0), {"accepts": accepts})
+
+    # algl_update_gated on phase 24's candidate tiles, where both builds have it
+    gated = "algorithm_l" in names and all(
+        hasattr(ctypes.CDLL(built[w]["algorithm_l"][0]), "algl_update_gated") for w in built)
+    for label, state, (gtile, nvalid, advance), fills, accepts in cs.gated_timing_cases(gen, dev) if gated else ():
+        ab("algorithm_l", f"gated {label}", state,
+           lambda s, g=gtile, n=nvalid, a=advance: ukern.update_gated_cuda(s, g, n, a),
+           cs.gated_bound_ms(fills, accepts, cs.R), {"fills": fills, "accepts": accepts,
+                                                     "candidates": int(nvalid.sum())})
+
+    # algl_merge_draws on phase 19's uniform pair
+    if "algl_merge" in names:
+        sa, ca, sb, cb, keys = cs.merge_timing_case(gen, dev)
+        j_a, draws = uplain.merge_scan(ca, cb, keys, cs.K)
+        steps = cs.merge_steps(ca, cb, cs.K)
+        ab("algl_merge", f"pair [{cs.R}, {cs.K}]", None, lambda _: ukern.merge_draws_cuda(ca, cb, keys, cs.K),
+           cs.merge_bound_ms(steps, draws, cs.R, cs.K), {"scan_steps": steps, "words_drawn": draws},
+           setup=lambda: None)
+        del sa, sb, j_a
 
     # distinct_update on phase 15's tiles
     for label, state, tile, wide in cs.distinct_timing_cases(gen, dev) if "distinct" in names else ():

@@ -1,0 +1,175 @@
+// The draws of the uniform merge for R rows, for Hopper (sm_90a).
+//
+// Replaces no TPU kernel: the reference computes these draws in XLA, as one
+// lax.scan (reservoir_tpu/ops/algorithm_l.py:567, its step :547-565, with
+// _randint_exact :631) and the uniforms of _masked_perm (:718), inside
+// merge_samples.  The port's plain version is
+// reservoir_tpu_torch/ops/algorithm_l.py:merge_draws, whose scan is k
+// lockstep steps of small launches with a host sync each; this kernel draws
+// the same words in one launch.  Per row r of a merge of [R, k] samples,
+// with the row's key (k1, k2) and counts c_a, c_b:
+// - the hypergeometric scan: m = min((c_a + c_b) mod 2^32, k) steps; step
+//   t hashes fold_in(key, t), draws an exact uniform integer x in
+//   [0, denom) with denom = max((rem_a + rem_b) mod 2^32, 1) by rejection
+//   (attempt a is b0 ^ b1 of Threefry block (1, a), accepted below the
+//   largest multiple of denom in the word space), and takes from A iff
+//   x < rem_a; j_a is the number taken from A.  All of it is uint32
+//   arithmetic, so a total past 2^32 wraps as the reference's does;
+// - the permutation keys: word j of bits(fold_in(key, k)) (A) and of
+//   bits(fold_in(key, k + 1)) (B), each mapped to (w >> 9) * 2^-23, +inf at
+//   or past the side's size min(count, k), the count read as int32 where
+//   the row's signed flag for the side is set (an int32 count past
+//   2^31 - 1 is negative and masks every slot), as uint32 elsewhere.
+// The stable argsort of the keys and the gather of the samples stay torch
+// (ops/algorithm_l.py:merge_from_draws), as the reference leaves them to
+// XLA's sort.
+//
+// Bound.  Operations: a Threefry block's 20 rounds each rotate and xor,
+// 40 operations that only the INT32 pipe issues (its ~32 adds may also
+// issue to the FMA pipe, as IMAD); per row, each active step hashes the
+// fold and one block an attempt (each rejected attempt counted), and each
+// of the 2k key words one block, with the side's fold.  At R = 65,536,
+// k = 128 that is ~1.4e9 such operations, ~0.08 ms at 64 INT32 lanes x 132
+// SMs x 1.98 GHz; the remainders and the adds are left out, so this is a
+// floor.  Bytes: the counts, flags and keys (17 a row) read, j_a and the 2 R k
+// keys (8 k a row) written: ~67 MB, ~0.02 ms.  chip_smoke.py reports the
+// measured time beside the bound it computes from the run's own draws.
+//
+// Design.  One launch, two kinds of block.  The first ceil(R / 128) blocks
+// scan, one thread a row, with the key and the remaining counts in
+// registers.  The other blocks write the 2 R k key words fully parallel: a
+// thread hashes one fold and 8 consecutive words of one row and side, and
+// stores them as two 16-byte words where k is a multiple of 4.  The scan
+// blocks come first in the grid, so the key blocks fill the SMs around the
+// longer scan threads.  Hashing each step's fold and first attempt a step
+// ahead, to overlap them with the remainders, moved the time by under 2%
+// either way on an H100 (kernel_ab.py; PERF.md, Findings), so a step
+// hashes its own.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
+// (see reservoir_tpu_torch/_build.py).  Plain C interface for ctypes.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "kinfo.cuh"
+#include "threefry.cuh"
+
+namespace algl_merge {
+
+constexpr int kThreads = 128;
+constexpr int kWords = 8;  // key words a thread of a key block writes
+
+// The exact uniform integer in [0, denom) of the folded key (f1, f2) (the
+// port of _randint_exact); denom >= 1.
+__device__ __forceinline__ uint32_t randint_exact(uint32_t f1, uint32_t f2, uint32_t denom) {
+  // 2^32 mod denom; 0 when denom divides 2^32, which accepts every word
+  const uint32_t space_mod = (0xFFFFFFFFu % denom + 1u) % denom;
+  const uint32_t thresh = 0u - space_mod;
+  uint32_t bits;
+  for (uint32_t a = 0;; ++a) {
+    uint32_t b0, b1;
+    algl::threefry2x32(f1, f2, 1u, a, b0, b1);
+    bits = b0 ^ b1;
+    if (space_mod == 0u || bits < thresh) break;
+  }
+  return bits % denom;
+}
+
+__global__ void __launch_bounds__(kThreads)
+draws_kernel(const uint32_t* __restrict__ count_a, const uint32_t* __restrict__ count_b,
+             const uint8_t* __restrict__ signed_rows, const uint32_t* __restrict__ key,
+             int32_t* __restrict__ j_a, float* __restrict__ u_a, float* __restrict__ u_b, int R, int k,
+             int scan_blocks, int vec) {
+  if (static_cast<int>(blockIdx.x) < scan_blocks) {
+    const int r = blockIdx.x * kThreads + threadIdx.x;
+    if (r >= R) return;
+    const uint32_t k1 = key[2 * r], k2 = key[2 * r + 1];
+    uint32_t rem_a = count_a[r], rem_b = count_b[r];
+    const uint32_t total = rem_a + rem_b;  // wraps as the reference's uint32 sum
+    const uint32_t m = total < static_cast<uint32_t>(k) ? total : static_cast<uint32_t>(k);
+    int32_t taken = 0;
+    for (uint32_t t = 0; t < m; ++t) {
+      uint32_t f1, f2;
+      algl::threefry2x32(k1, k2, 0u, t, f1, f2);  // fold_in(key, t)
+      const uint32_t sum = rem_a + rem_b;
+      if (randint_exact(f1, f2, sum == 0u ? 1u : sum) < rem_a) {
+        --rem_a;
+        ++taken;
+      } else {
+        --rem_b;
+      }
+    }
+    j_a[r] = taken;
+    return;
+  }
+  // a key block: thread i writes words c * kWords .. of row r, side s
+  const int chunks = (k + kWords - 1) / kWords;
+  const int64_t i = static_cast<int64_t>(blockIdx.x - scan_blocks) * kThreads + threadIdx.x;
+  if (i >= 2 * static_cast<int64_t>(R) * chunks) return;
+  const int side = static_cast<int>(i / (static_cast<int64_t>(R) * chunks));
+  const int64_t rc = i - static_cast<int64_t>(side) * R * chunks;
+  const int r = static_cast<int>(rc / chunks);
+  const int j0 = static_cast<int>(rc - static_cast<int64_t>(r) * chunks) * kWords;
+  const uint32_t c = (side == 0 ? count_a : count_b)[r];
+  // the side's size, its count read as the row's flag says: a negative
+  // int32 masks every slot
+  const int64_t size = ((signed_rows[r] >> side) & 1) ? static_cast<int64_t>(static_cast<int32_t>(c))
+                                                      : static_cast<int64_t>(c);
+  uint32_t f1, f2;
+  algl::threefry2x32(key[2 * r], key[2 * r + 1], 0u, static_cast<uint32_t>(k + side), f1, f2);
+  float u[kWords];
+#pragma unroll
+  for (int q = 0; q < kWords; ++q) {
+    const int j = j0 + q;
+    const uint32_t w = algl::bits_word(f1, f2, static_cast<uint32_t>(j));
+    u[q] = j < size ? __fmul_rn(static_cast<float>(w >> 9), 1.1920928955078125e-07f)
+                    : __int_as_float(0x7F800000);
+  }
+  float* out = (side == 0 ? u_a : u_b) + static_cast<size_t>(r) * k + j0;
+  if (vec && j0 + kWords <= k) {
+#pragma unroll
+    for (int q = 0; q < kWords; q += 4)
+      *reinterpret_cast<float4*>(out + q) = make_float4(u[q], u[q + 1], u[q + 2], u[q + 3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < kWords; ++q)
+      if (j0 + q < k) out[q] = u[q];
+  }
+}
+
+inline int n_scan_blocks(int R) { return (R + kThreads - 1) / kThreads; }
+
+inline int64_t key_blocks(int R, int k) {
+  const int64_t threads = 2 * static_cast<int64_t>(R) * ((k + kWords - 1) / kWords);
+  return (threads + kThreads - 1) / kThreads;
+}
+
+}  // namespace algl_merge
+
+extern "C" {
+
+// The draws of a merge of [R, k] samples: j_a [R] int32, u_a and u_b
+// [R, k] float32, from the counts [R] (uint32 words), the rows' signed
+// flags [R] (bit 0 reads count_a as int32, bit 1 count_b) and the row keys
+// [R, 2] (uint32 words).  Returns cudaGetLastError() after the launch.
+int algl_merge_draws(const uint32_t* count_a, const uint32_t* count_b, const uint8_t* signed_rows,
+                     const uint32_t* key, int32_t* j_a, float* u_a, float* u_b, int R, int k,
+                     cudaStream_t stream) {
+  if (R <= 0) return static_cast<int>(cudaSuccess);
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = algl_merge::n_scan_blocks(R) + algl_merge::key_blocks(R, k);
+  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; };
+  const int vec = k % 4 == 0 && aligned(u_a) && aligned(u_b);
+  algl_merge::draws_kernel<<<static_cast<unsigned>(blocks), algl_merge::kThreads, 0, stream>>>(
+      count_a, count_b, signed_rows, key, j_a, u_a, u_b, R, k, algl_merge::n_scan_blocks(R), vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// kinfo::query's five numbers of the draws kernel.
+int algl_merge_kernel_info(int* out) {
+  return kinfo::query(algl_merge::draws_kernel, algl_merge::kThreads, 0, out);
+}
+
+}  // extern "C"

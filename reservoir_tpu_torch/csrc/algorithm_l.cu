@@ -10,10 +10,13 @@
 //
 // Bound.  Per tile with A accepts over all rows: bytes R*28 of state, one
 // 32-byte sector gathered per accept (no more than the tile) and one written
-// (no more than the samples); integer work ~ A * (4 Threefry blocks * ~80
-// ops) and ~130 float ops per accept.  At R = 65,536, k = 128, B = 2,048 a
-// steady tile from count 14,336 has ~1.1 M accepts and a fill tile from
-// count 0 ~23 M, both bound by their operations (~22 us and ~0.46 ms).
+// (no more than the samples); per accept ~170 operations that only the
+// INT32 pipe issues (4 Threefry blocks' 40 rotations and xors each, and the
+// draw words' xors, shifts, compares and selects; the adds may issue as
+// IMAD on the FMA pipe) and ~130 float ops.  At R = 65,536, k = 128,
+// B = 2,048 a steady tile from count 14,336 has ~1.1 M accepts, bound by
+// its bytes (~21 us), and a fill tile from count 0 ~23 M, bound by its
+// operations (~0.23 ms).
 // What the byte count does not see: each steady gather is a random read of
 // HBM, which an H100 serves at ~20 G a second, not at its streaming rate,
 // so ~1.1 M of them take ~57 us on their own (PERF.md, Findings).
@@ -96,6 +99,13 @@ __device__ __forceinline__ uint64_t evict_last() {
   uint64_t p;
   asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
   return p;
+}
+
+// A 4-byte load of read-only data under an L2 policy.
+__device__ __forceinline__ uint32_t load4(const uint32_t* p, uint64_t policy) {
+  uint32_t v;
+  asm("ld.global.nc.L2::cache_hint.b32 %0, [%1], %2;" : "=r"(v) : "l"(p), "l"(policy));
+  return v;
 }
 
 // 4 bytes from global to shared memory without waiting (cp.async) under an
@@ -264,28 +274,76 @@ update_kernel(uint32_t* __restrict__ samples, int32_t* __restrict__ count,
 // read, and none is skipped: the gate proved that.  The reference is XLA
 // (reservoir_tpu/ops/algorithm_l.py:_update_gated_one), not Pallas.
 // Bound: the state (R*36 bytes with nvalid and advance), each candidate
-// read once and each written sample's sector; ~330 integer and ~134 float
-// operations an acceptance, as in the tile update.  A simple kernel: a
-// thread walks its row's candidates in order, so a later accept to a slot
-// wins by program order, and the candidates a thread reads sit in one
-// row (a few sectors at Bg = 64).
+// read once and each written sample's sector; ~170 INT32-pipe and ~134
+// float operations an acceptance, as in the tile update.
+//
+// What held the first design back (a thread walking its row's candidates
+// in order, the block's rows in row order; PERF.md, Findings), on the
+// skip gate's steady candidate tile (R = 65,536, k = 128, ~24 accepts a
+// row): the slot writes, random 4-byte writes into cold samples, 39% of
+// its time; unequal rows in a warp 11%; the strided candidate reads 3%.
+// With all memory taken out the chain took 58% of it: with ~16 warps an SM
+// (one thread a row), the chain waits on its own latency.
+//
+// Design.  A thread still walks one row's candidates in order, so a later
+// accept to a slot wins by program order.
+// - The block's 128 rows are ranked by their accept candidates, most
+//   first, and thread t walks the rank-t row: a warp's rows are of near
+//   length, so a warp waits less on its longest row.
+// - A row with many accepts ((nvalid - f) * 11 > k, the span rule of
+//   algl_update above) has its samples brought into L2 by one bulk prefetch
+//   under evict_last before its chain starts, so its scattered writes find
+//   their sectors in L2; every row reads its candidates evict_first and
+//   writes its slots evict_last, as algl_update does.  On the steady tile
+//   this cut the kernel's time by about a quarter; the deep tile (~5
+//   accepts a row) stayed within its noise (PERF.md, Findings).  Staging
+//   the rows' samples in shared memory does not fit: 512 bytes a row at
+//   k = 128 for ~16 resident warps an SM is more than an SM holds.
 __global__ void __launch_bounds__(kThreads)
 gated_kernel(uint32_t* __restrict__ samples, int32_t* __restrict__ count,
              int32_t* __restrict__ nxt, float* __restrict__ log_w,
              const uint32_t* __restrict__ key, const uint32_t* __restrict__ tile,
              const int32_t* __restrict__ nvalid, const int32_t* __restrict__ steps, int R,
              int k, int Bg, uint64_t kmod) {
-  const int r = blockIdx.x * kThreads + threadIdx.x;
+  __shared__ int32_t accepts[kThreads];
+  __shared__ int32_t order[kThreads];
+  const int t = threadIdx.x;
+  const int r0 = blockIdx.x * kThreads;
+  // clip(k - count, 0, advance), k - count wrapping in int32 as XLA's does
+  auto fill_of = [k](int32_t c, int32_t adv) {
+    int32_t f = static_cast<int32_t>(static_cast<uint32_t>(k) - static_cast<uint32_t>(c));
+    f = f < 0 ? 0 : f;
+    return f > adv ? adv : f;
+  };
+  {
+    int32_t mine = -1;  // rows past R rank last
+    if (r0 + t < R) {
+      const int32_t nv = nvalid[r0 + t], f = fill_of(count[r0 + t], steps[r0 + t]);
+      mine = nv > f ? nv - f : 0;
+    }
+    accepts[t] = mine;
+    __syncthreads();
+    int rank = 0;
+    for (int j = 0; j < kThreads; ++j) {
+      const int32_t other = accepts[j];
+      rank += other > mine || (other == mine && j < t);
+    }
+    order[rank] = t;
+    __syncthreads();
+  }
+  const int r = r0 + order[t];
   if (r >= R) return;
   const int32_t c = count[r];
   const int32_t adv = steps[r];
   const int32_t nv = nvalid[r];
-  // clip(k - count, 0, advance), k - count wrapping in int32 as XLA's does
-  int32_t f = static_cast<int32_t>(static_cast<uint32_t>(k) - static_cast<uint32_t>(c));
-  f = f < 0 ? 0 : f;
-  f = f > adv ? adv : f;
+  const int32_t f = fill_of(c, adv);
   const uint32_t* row = tile + static_cast<size_t>(r) * Bg;
   uint32_t* out = samples + static_cast<size_t>(r) * k;
+  const uint64_t bytes = 4ull * static_cast<uint32_t>(k);
+  const bool span = static_cast<int64_t>(nv - f) * 11 > k && bytes < (1ull << 31) &&
+                    ((reinterpret_cast<uintptr_t>(out) | bytes) & 15u) == 0;
+  const uint64_t once = evict_first(), kept = evict_last();
+  if (span) prefetch_l2(out, static_cast<uint32_t>(bytes), kept);
   const int nf = f < Bg ? f : Bg;
   for (int j = 0; j < nf; ++j) {
     const int64_t d = static_cast<int64_t>(c) + j;
@@ -296,8 +354,8 @@ gated_kernel(uint32_t* __restrict__ samples, int32_t* __restrict__ count,
   const uint32_t k1 = key[2 * r], k2 = key[2 * r + 1];
   const float inv_k = __fdiv_rn(1.0f, __int2float_rn(k));
   for (int j = f; j < nv; ++j) {
-    const uint32_t e = __ldg(row + j);
-    out[advance(lw, n, k1, k2, static_cast<uint32_t>(k), kmod, inv_k)] = e;
+    const uint32_t e = load4(row + j, once);
+    store4(out + advance(lw, n, k1, k2, static_cast<uint32_t>(k), kmod, inv_k), e, kept);
   }
   nxt[r] = n;
   log_w[r] = lw;

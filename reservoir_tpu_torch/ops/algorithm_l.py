@@ -23,8 +23,12 @@ tiles, from the shipped fill prefixes and acceptances alone.
 :func:`merge_samples` combines two sets of reservoirs over disjoint streams
 into one exact sample of their union (a hypergeometric draw, then uniform
 subsets of the two sides); :func:`merge_samples_keyed` is the same with one
-key per row, so that a whole level of a merge tree runs as one call.
-Narrow counts only: int32 or uint32 in, uint32 out.
+key per row, so that a whole level of a merge tree runs as one call.  Its
+draws (:func:`merge_draws`: the scan :func:`merge_scan` and the two
+permutations' keys) are the merge kernel's function: on the card
+:func:`merge_samples_keyed` draws them with that kernel, and
+:func:`merge_from_draws` over :func:`merge_draws` is the plain merge on any
+device.  Narrow counts only: int32 or uint32 in, uint32 out.
 """
 
 from __future__ import annotations
@@ -47,6 +51,11 @@ __all__ = [
     "update_accepts",
     "update_gated",
     "result",
+    "MergeDraws",
+    "merge_scan",
+    "merge_keys",
+    "merge_draws",
+    "merge_from_draws",
     "merge_samples",
     "merge_samples_keyed",
     "merge",
@@ -318,56 +327,183 @@ def result(state: ReservoirState) -> Tuple[torch.Tensor, torch.Tensor]:
 # ------------------------------------------------------------------- merge
 
 
+class MergeDraws(NamedTuple):
+    """What a uniform merge draws, row by row: the function the merge
+    kernel computes (``csrc/algl_merge.cu``).
+
+    Attributes:
+      j_a: ``[R]`` int32, how many of the merged samples come from A.
+      u_a: ``[R, k]`` float32, A's permutation keys: word ``j`` of
+           ``bits(fold_in(key, k))`` as ``(w >> 9) * 2^-23``, ``+inf`` at
+           or past A's size.
+      u_b: ``[R, k]`` float32, B's, from ``fold_in(key, k + 1)``.
+    """
+
+    j_a: torch.Tensor
+    u_a: torch.Tensor
+    u_b: torch.Tensor
+
+
+def _randint_tries(
+    f1: torch.Tensor, f2: torch.Tensor, denom: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_randint_exact` that also returns each lane's number of
+    Threefry draws up to the accepted one (1 where the first is
+    accepted)."""
+    if bool(((denom < 1) | (denom > MASK32)).any()):
+        raise ValueError("a draw's denominator must lie in [1, 2^32): the merge carries its "
+                         "counts modulo 2^32, as the reference's uint32 arithmetic does")
+    space_mod = ((MASK32 % denom) + 1) % denom
+    # 0 - space_mod wraps in uint32; 0 means denom divides 2^32: accept all
+    thresh = (-space_mod) & MASK32
+    bits = torch.zeros_like(f1)
+    tries = torch.zeros_like(f1)
+    lanes = torch.arange(f1.shape[0], device=f1.device)
+    a = 0
+    while lanes.numel():
+        b0, b1 = threefry2x32(f1[lanes], f2[lanes], 1, torch.full_like(lanes, a))
+        words_ = b0 ^ b1
+        ok = (space_mod[lanes] == 0) | (words_ < thresh[lanes])
+        bits[lanes[ok]] = words_[ok]
+        tries[lanes] += 1
+        lanes = lanes[~ok]
+        a += 1
+    return bits % denom, tries
+
+
 def _randint_exact(f1: torch.Tensor, f2: torch.Tensor, denom: torch.Tensor) -> torch.Tensor:
     """An exact uniform integer in ``[0, denom)`` for each lane's folded key
-    ``(f1, f2)``: every argument an int64 tensor of uint32 values,
-    ``denom >= 1``.
+    ``(f1, f2)``: every argument an int64 tensor of uint32 values.  Raises
+    ``ValueError`` on a ``denom`` outside ``[1, 2^32)``, where the draw
+    could never be accepted.
 
     Rejection over fresh 32-bit draws: attempt ``a`` is ``b0 ^ b1`` of the
     Threefry block ``(1, a)``, accepted when it lies below the largest
     multiple of ``denom`` in the word space, then reduced mod ``denom``.
     The lanes run in lockstep until every one has accepted (fewer than two
     attempts each on average)."""
-    space_mod = ((MASK32 % denom) + 1) % denom
-    # 0 - space_mod wraps in uint32; 0 means denom divides 2^32: accept all
-    thresh = (-space_mod) & MASK32
-    one = torch.ones_like(f1)
-    b0, b1 = threefry2x32(f1, f2, one, torch.zeros_like(f1))
-    bits = b0 ^ b1
-    lanes = torch.nonzero((space_mod != 0) & (bits >= thresh)).flatten()
-    a = 0
-    while lanes.numel():
-        a += 1
-        b0, b1 = threefry2x32(f1[lanes], f2[lanes], one[lanes], torch.full_like(lanes, a))
-        again = b0 ^ b1
-        bits[lanes] = again
-        lanes = lanes[again >= thresh[lanes]]
-    return bits % denom
+    return _randint_tries(f1, f2, denom)[0]
+
+
+def _merge_counts(count_a: torch.Tensor, count_b: torch.Tensor, k: int):
+    """The counts as uint32 values in int64, and ``m = min(total, k)`` of
+    their total, which wraps modulo 2^32 as the reference's uint32 sum."""
+    c_a, c_b = words(count_a), words(count_b)
+    total = (c_a + c_b) & MASK32
+    return c_a, c_b, total, torch.clamp(total, max=k)
+
+
+def _signed_rows(count_a: torch.Tensor, count_b: torch.Tensor) -> torch.Tensor:
+    """The merge's ``signed`` mask that the counts' dtypes give: bit 0 set
+    where ``count_a`` is int32, bit 1 where ``count_b`` is."""
+    flags = int(count_a.dtype == torch.int32) | int(count_b.dtype == torch.int32) << 1
+    return torch.full(count_a.shape, flags, dtype=torch.uint8, device=count_a.device)
+
+
+def _merge_size(count: torch.Tensor, is_signed: torch.Tensor, k: int) -> torch.Tensor:
+    """A side's size ``min(count, k)``, the count read per row as int32
+    where ``is_signed`` and as uint32 elsewhere, as the reference reads a
+    count in its own dtype: an int32 count past 2^31 - 1 is negative and
+    leaves every slot of its permutation at ``+inf``."""
+    c = words(count)
+    return torch.clamp(torch.where(is_signed & (c >= 2**31), c - 2**32, c), max=k)
+
+
+def merge_scan(
+    count_a: torch.Tensor, count_b: torch.Tensor, row_keys: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, int]:
+    """The merge's hypergeometric scan (the reference's ``lax.scan``, its
+    step at ``reservoir_tpu/ops/algorithm_l.py:547``): per row, ``j_a ~
+    Hypergeometric(total, count_a, m)`` by m draws without replacement,
+    step ``t`` keyed on ``fold_in(key, t)``.  Steps at or past a row's m
+    change nothing, so the scan stops there.
+
+    The remaining counts, their sum and the denominator are carried modulo
+    2^32, as the reference's uint32 arithmetic carries them: where the
+    total passes 2^32 the draws are the reference's, not a wider sum's.
+    Returns ``(j_a [R] int32, draws)``, ``draws`` the words the active
+    steps' rejection draws took, one Threefry block each, every rejected
+    attempt counted (the data-dependent work a kernel's bound is reckoned
+    from).  The plain version: a lockstep loop over t that syncs with the
+    host."""
+    c_a, c_b, _, m = _merge_counts(count_a, count_b, k)
+    R = c_a.shape[0]
+    dev = c_a.device
+    kw1, kw2 = row_keys[:, 0], row_keys[:, 1]
+    rem_a, rem_b = c_a.clone(), c_b.clone()
+    j_a = torch.zeros(R, dtype=torch.int64, device=dev)
+    draws = 0
+    steps = int(m.max().item()) if R else 0
+    for t in range(steps):
+        f1, f2 = fold_in_words(kw1, kw2, torch.full((R,), t, dtype=torch.int32, device=dev))
+        denom = torch.clamp((rem_a + rem_b) & MASK32, min=1)
+        r, tries = _randint_tries(f1, f2, denom)
+        active = t < m
+        draws += int(tries[active].sum().item())
+        pick_a = r < rem_a
+        take_a = (active & pick_a).to(torch.int64)
+        take_b = (active & ~pick_a).to(torch.int64)
+        rem_a, rem_b, j_a = (rem_a - take_a) & MASK32, (rem_b - take_b) & MASK32, j_a + take_a
+    return j_a.to(torch.int32), draws
+
+
+def _perm_keys(f1: torch.Tensor, f2: torch.Tensor, k: int, size: torch.Tensor) -> torch.Tensor:
+    """The k uniforms of ``jr.uniform(key, (k,))`` for each row's key
+    ``(f1, f2)`` (word ``j`` onto ``[0, 1)`` as ``(w >> 9) * 2^-23``), with
+    slots at or past ``size`` pushed to ``+inf``."""
+    w = torch.stack(bits_words(f1, f2, k), dim=1)
+    u = (w >> 9).to(torch.float32) * float(2.0**-23)
+    slot = torch.arange(k, device=u.device)
+    return torch.where(slot[None, :] < size[:, None], u, float("inf"))
 
 
 def _masked_perm(f1: torch.Tensor, f2: torch.Tensor, k: int, size: torch.Tensor) -> torch.Tensor:
     """Per row, a random permutation of ``[0, size)`` padded into k slots:
-    the k uniforms of ``jr.uniform(key, (k,))`` for the row's key ``(f1,
-    f2)`` (word ``j`` onto ``[0, 1)`` as ``(w >> 9) * 2^-23``), slots at or
-    past ``size`` pushed to ``+inf``, and a stable argsort."""
-    w = torch.stack(bits_words(f1, f2, k), dim=1)
-    u = (w >> 9).to(torch.float32) * float(2.0**-23)
-    slot = torch.arange(k, device=u.device)
-    u = torch.where(slot[None, :] < size[:, None], u, float("inf"))
-    return torch.argsort(u, dim=1, stable=True)
+    a stable argsort of :func:`_perm_keys`."""
+    return torch.argsort(_perm_keys(f1, f2, k, size), dim=1, stable=True)
 
 
-def merge_samples_keyed(
-    samples_a: torch.Tensor,
+def merge_keys(
     count_a: torch.Tensor,
-    samples_b: torch.Tensor,
     count_b: torch.Tensor,
     row_keys: torch.Tensor,
+    k: int,
+    signed: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`merge_samples` with row ``r`` drawing from its own key
-    ``row_keys[r]`` (``[R, 2]`` int64 key words).  The rows are independent,
-    so the pairs of one level of a merge tree, stacked along the rows with
-    their keys, merge in one call with the bits of one call a pair."""
+    """The two permutations' keys of a merge (the uniforms of the
+    reference's ``_masked_perm``, ``reservoir_tpu/ops/algorithm_l.py:718``):
+    A's from ``fold_in(key, k)``, B's from ``fold_in(key, k + 1)``, each
+    side masked at its size (``signed`` as :func:`merge_samples_keyed`
+    takes it).  The draw indices k and k + 1 are disjoint from the scan's
+    t < k."""
+    if signed is None:
+        signed = _signed_rows(count_a, count_b)
+    R = row_keys.shape[0]
+    dev = row_keys.device
+    kw1, kw2 = row_keys[:, 0], row_keys[:, 1]
+    at = lambda i: torch.full((R,), i, dtype=torch.int32, device=dev)  # noqa: E731
+    u_a = _perm_keys(*fold_in_words(kw1, kw2, at(k)), k, _merge_size(count_a, (signed & 1) != 0, k))
+    u_b = _perm_keys(*fold_in_words(kw1, kw2, at(k + 1)), k, _merge_size(count_b, (signed & 2) != 0, k))
+    return u_a, u_b
+
+
+def merge_draws(
+    count_a: torch.Tensor,
+    count_b: torch.Tensor,
+    row_keys: torch.Tensor,
+    k: int,
+    signed: Optional[torch.Tensor] = None,
+) -> MergeDraws:
+    """Every draw of a uniform merge (:class:`MergeDraws`): the scan's
+    ``j_a`` (:func:`merge_scan`) and the two permutations' keys
+    (:func:`merge_keys`).  The plain version of the merge kernel, on any
+    device; counts int32 or uint32 ``[R]``, ``row_keys`` int64 ``[R, 2]``
+    key words, ``signed`` as :func:`merge_samples_keyed` takes it."""
+    return MergeDraws(merge_scan(count_a, count_b, row_keys, k)[0],
+                      *merge_keys(count_a, count_b, row_keys, k, signed))
+
+
+def _check_merge(samples_a, count_a, samples_b, count_b, row_keys, signed) -> None:
     R, k = samples_a.shape
     if samples_b.shape != (R, k) or samples_a.dtype != samples_b.dtype:
         raise ValueError(
@@ -387,39 +523,68 @@ def merge_samples_keyed(
     if row_keys.shape != (R, 2) or row_keys.dtype != torch.int64:
         raise ValueError(f"row_keys must be int64 [R={R}, 2] key words, got {row_keys.dtype} "
                          f"{tuple(row_keys.shape)}")
-    dev = samples_a.device
-    c_a, c_b = words(count_a), words(count_b)  # widened to uint32, as the sum needs
-    sz_a, sz_b = torch.clamp(c_a, max=k), torch.clamp(c_b, max=k)
-    total = (c_a + c_b) & MASK32
-    m = torch.clamp(total, max=k)
-    kw1, kw2 = row_keys[:, 0], row_keys[:, 1]
+    if signed is not None and (signed.shape != (R,) or signed.dtype != torch.uint8):
+        raise ValueError(f"signed must be uint8 [R={R}], got {signed.dtype} {tuple(signed.shape)}")
 
-    # j_a ~ Hypergeometric(total, c_a, m): m draws without replacement, step
-    # t keyed on fold_in(key, t); steps at or past a row's m change nothing
-    rem_a, rem_b = c_a.clone(), c_b.clone()
-    j_a = torch.zeros(R, dtype=torch.int64, device=dev)
-    steps = int(m.max().item()) if R else 0
-    for t in range(steps):
-        f1, f2 = fold_in_words(kw1, kw2, torch.full((R,), t, dtype=torch.int32, device=dev))
-        r = _randint_exact(f1, f2, torch.clamp(rem_a + rem_b, min=1))
-        pick_a = r < rem_a
-        active = t < m
-        take_a = (active & pick_a).to(torch.int64)
-        take_b = (active & ~pick_a).to(torch.int64)
-        rem_a, rem_b, j_a = rem_a - take_a, rem_b - take_b, j_a + take_a
 
-    # a uniform j_a-subset of A, then an (m - j_a)-subset of B; the draw
-    # indices k and k + 1 are disjoint from the scan's t < k
-    at = lambda i: torch.full((R,), i, dtype=torch.int32, device=dev)  # noqa: E731
-    perm_a = _masked_perm(*fold_in_words(kw1, kw2, at(k)), k, sz_a)
-    perm_b = _masked_perm(*fold_in_words(kw1, kw2, at(k + 1)), k, sz_b)
-    pos = torch.arange(k, device=dev)[None, :].expand(R, k)
+def merge_from_draws(
+    samples_a: torch.Tensor,
+    count_a: torch.Tensor,
+    samples_b: torch.Tensor,
+    count_b: torch.Tensor,
+    draws: MergeDraws,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rest of a uniform merge once its :class:`MergeDraws` are drawn:
+    a uniform ``j_a``-subset of A (the first ``j_a`` of A's keys in a
+    stable argsort, ties by slot, as the reference's sort breaks them), then
+    an ``(m - j_a)``-subset of B, gathered as 32-bit words; entries at or
+    past m are zeros.  Returns ``(samples [R, k], count [R] uint32)``."""
+    R, k = samples_a.shape
+    _, _, total, m = _merge_counts(count_a, count_b, k)
+    j_a = draws.j_a.to(torch.int64)
+    perm_a = torch.argsort(draws.u_a, dim=1, stable=True)
+    perm_b = torch.argsort(draws.u_b, dim=1, stable=True)
+    pos = torch.arange(k, device=samples_a.device)[None, :].expand(R, k)
     from_a = pos < j_a[:, None]
     idx = torch.where(from_a, perm_a, perm_b.gather(1, torch.clamp(pos - j_a[:, None], min=0)))
     bits_a, bits_b = samples_a.view(torch.int32), samples_b.view(torch.int32)
     merged = torch.where(from_a, bits_a.gather(1, idx), bits_b.gather(1, idx))
     merged = torch.where(pos < m[:, None], merged, 0)
     return merged.view(samples_a.dtype), to_i32(total).view(torch.uint32)
+
+
+def merge_samples_keyed(
+    samples_a: torch.Tensor,
+    count_a: torch.Tensor,
+    samples_b: torch.Tensor,
+    count_b: torch.Tensor,
+    row_keys: torch.Tensor,
+    signed: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`merge_samples` with row ``r`` drawing from its own key
+    ``row_keys[r]`` (``[R, 2]`` int64 key words).  The rows are independent,
+    so the pairs of one level of a merge tree, stacked along the rows with
+    their keys, merge in one call with the bits of one call a pair.
+
+    ``signed`` (uint8 ``[R]``, default from the counts' dtypes) says per
+    row how the reference would read the counts: bit 0 set reads
+    ``count_a`` as int32, bit 1 ``count_b``, clear as uint32.  The reading
+    only decides a side's size, ``min(count, k)``: an int32 count past
+    2^31 - 1 is negative, and its side gives no sample.  A tree level whose
+    rows hold both an input's count and a merged one passes it.
+
+    The draws go through
+    :func:`~reservoir_tpu_torch.ops.algorithm_l_cuda.merge_draws_cuda`: on
+    CUDA tensors the merge kernel (one launch, no host sync), on CPU
+    tensors the plain :func:`merge_draws`."""
+    from .algorithm_l_cuda import merge_draws_cuda  # the wrapper imports this module
+
+    _check_merge(samples_a, count_a, samples_b, count_b, row_keys, signed)
+    if signed is not None:
+        signed = signed.contiguous()
+    draws = merge_draws_cuda(count_a.contiguous(), count_b.contiguous(), row_keys.contiguous(),
+                             samples_a.shape[1], signed)
+    return merge_from_draws(samples_a, count_a, samples_b, count_b, draws)
 
 
 def merge_samples(
@@ -437,8 +602,9 @@ def merge_samples(
     (entries past ``min(count, k)`` are ignored; counts int32, or the uint32
     of an earlier merge) and the merge key's ``[2]`` words, split into one
     key a row.  Returns ``(samples [R, k], count [R])``; the count is
-    ``torch.uint32``, exact for any combined total below 2^32, and the
-    merged size is ``min(count, k)``.  The merge is terminal: it yields a
+    ``torch.uint32``, exact for any combined total below 2^32 (past it the
+    count and the scan wrap modulo 2^32, as the reference's uint32
+    arithmetic does), and the merged size is ``min(count, k)``.  The merge is terminal: it yields a
     sample, not a resumable Algorithm-L state."""
     key_words = torch.as_tensor(key_words, device=samples_a.device)
     return merge_samples_keyed(

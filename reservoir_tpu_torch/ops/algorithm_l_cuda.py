@@ -18,6 +18,15 @@ is XLA, not Pallas (``reservoir_tpu/ops/algorithm_l.py:_update_gated_one``):
 the port gives it a kernel because a lockstep loop on the card would cost
 tens of launches and a host sync a step.
 
+:func:`merge_draws_cuda` draws what a uniform merge draws
+(:func:`~.algorithm_l.merge_draws`: the hypergeometric scan's ``j_a`` and
+the two permutations' keys) with the kernel of ``csrc/algl_merge.cu``, in
+one launch and without a host sync.  The JAX package computes them in XLA
+(its ``lax.scan`` and ``_masked_perm``), not Pallas: the port gives them a
+kernel because the plain version's scan is k lockstep steps of small
+launches, each with a host sync.  :func:`~.algorithm_l.merge_samples_keyed`
+draws through it.
+
 :func:`update_cuda` and :func:`update_steady_cuda` take the state and tile
 on one device:
 
@@ -27,8 +36,9 @@ on one device:
 - on CPU tensors they run the plain version (:func:`update` /
   :func:`update_steady` of :mod:`.algorithm_l`), which returns a new state.
 
-:data:`launches` counts ``algl_update`` launches and
-:data:`gated_launches` ``algl_update_gated`` launches, and nothing else.
+:data:`launches` counts ``algl_update`` launches, :data:`gated_launches`
+``algl_update_gated`` launches and :data:`merge_launches` ``algl_merge_draws``
+launches, and nothing else.
 """
 
 from __future__ import annotations
@@ -39,17 +49,21 @@ from typing import Optional
 import torch
 
 from ._cuda_common import build_info, check_tensors
-from .algorithm_l import ReservoirState, update, update_gated, update_steady
+from .algorithm_l import (MergeDraws, ReservoirState, _signed_rows, merge_draws, update, update_gated,
+                          update_steady)
 
 __all__ = [
     "launches",
     "gated_launches",
     "update_cuda",
+    "merge_launches",
     "update_gated_cuda",
     "update_steady_cuda",
+    "merge_draws_cuda",
     "fmath_cuda",
     "kernel_info",
     "gated_kernel_info",
+    "merge_kernel_info",
     "update",
     "update_steady",
 ]
@@ -58,10 +72,13 @@ __all__ = [
 launches = 0
 #: ``algl_update_gated`` launches so far (set it to 0 to count a run)
 gated_launches = 0
+#: ``algl_merge_draws`` launches so far (set it to 0 to count a run)
+merge_launches = 0
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _lib = None
+_merge_lib = None
 
 
 def _library(path: Optional[str] = None):
@@ -87,6 +104,21 @@ def _library(path: Optional[str] = None):
     return _lib
 
 
+def _merge_library(path: Optional[str] = None):
+    """The merge kernel's library, declared for ``ctypes``: the checkout's
+    build of ``csrc/algl_merge.cu``, or with ``path`` another build with the
+    same C entry points (as :func:`_library`)."""
+    global _merge_lib
+    if _merge_lib is None or path is not None:
+        from .._build import load
+
+        lib = load("algl_merge") if path is None else ctypes.CDLL(path)
+        lib.algl_merge_draws.argtypes = [_VP] * 7 + [_INT] * 2 + [_VP]
+        lib.algl_merge_draws.restype = _INT
+        _merge_lib = lib
+    return _merge_lib
+
+
 def _raise_on(code: int, what: str) -> None:
     if code != 0:
         msg = _library().algl_error_string(code).decode()
@@ -103,6 +135,12 @@ def gated_kernel_info() -> dict:
     """:func:`~._cuda_common.build_info` of ``algl_update_gated``'s kernel
     (needs a card)."""
     return build_info(_library().algl_gated_kernel_info)
+
+
+def merge_kernel_info() -> dict:
+    """:func:`~._cuda_common.build_info` of ``algl_merge_draws``' kernel
+    (needs a card)."""
+    return build_info(_merge_library().algl_merge_kernel_info)
 
 
 def _stream(device: torch.device) -> int:
@@ -201,6 +239,60 @@ def update_gated_cuda(
     _raise_on(code, "algl_update_gated launch")
     gated_launches += 1
     return state
+
+
+def merge_draws_cuda(
+    count_a: torch.Tensor,
+    count_b: torch.Tensor,
+    row_keys: torch.Tensor,
+    k: int,
+    signed: Optional[torch.Tensor] = None,
+) -> MergeDraws:
+    """What a uniform merge of ``[R, k]`` samples draws
+    (:class:`~.algorithm_l.MergeDraws`) for counts ``count_a``,
+    ``count_b`` (int32 or uint32 ``[R]``), ``row_keys`` (int64 ``[R, 2]``
+    key words) and ``signed`` (uint8 ``[R]``, as
+    :func:`~.algorithm_l.merge_samples_keyed` takes it).  On CUDA tensors
+    (contiguous) it launches ``algl_merge_draws`` once, into new tensors,
+    with no host sync; on CPU tensors it runs the plain
+    :func:`~.algorithm_l.merge_draws`."""
+    global merge_launches
+    R = row_keys.shape[0]
+    for name, c in (("count_a", count_a), ("count_b", count_b)):
+        if c.shape != (R,) or c.dtype not in (torch.int32, torch.uint32):
+            raise ValueError(f"{name} must be int32 or uint32 [R={R}], got {c.dtype} {tuple(c.shape)}")
+        if c.device != row_keys.device:
+            raise ValueError(f"{name} is on {c.device}, row_keys on {row_keys.device}")
+    if row_keys.shape != (R, 2) or row_keys.dtype != torch.int64:
+        raise ValueError(f"row_keys must be int64 [R={R}, 2] key words, got {row_keys.dtype} "
+                         f"{tuple(row_keys.shape)}")
+    if signed is not None and (signed.shape != (R,) or signed.dtype != torch.uint8
+                               or signed.device != row_keys.device):
+        raise ValueError(f"signed must be uint8 [R={R}] on {row_keys.device}, got {signed.dtype} "
+                         f"{tuple(signed.shape)} on {signed.device}")
+    if k < 1:
+        raise ValueError(f"k must be at least 1, got {k}")
+    dev = row_keys.device
+    if dev.type == "cpu":
+        return merge_draws(count_a, count_b, row_keys, k, signed)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if signed is None:
+        signed = _signed_rows(count_a, count_b)
+    if not all(t.is_contiguous() for t in (count_a, count_b, row_keys, signed)):
+        raise ValueError("count_a, count_b, row_keys and signed must be contiguous")
+    # the kernel reads the key as uint32 words: the low half of each int64
+    key32 = row_keys.to(torch.int32)
+    j_a = torch.empty(R, dtype=torch.int32, device=dev)
+    u_a = torch.empty((R, k), dtype=torch.float32, device=dev)
+    u_b = torch.empty((R, k), dtype=torch.float32, device=dev)
+    code = _merge_library().algl_merge_draws(
+        count_a.data_ptr(), count_b.data_ptr(), signed.data_ptr(), key32.data_ptr(), j_a.data_ptr(),
+        u_a.data_ptr(), u_b.data_ptr(), R, k, _stream(dev),
+    )
+    _raise_on(code, "algl_merge_draws launch")
+    merge_launches += 1
+    return MergeDraws(j_a, u_a, u_b)
 
 
 def fmath_cuda(x: torch.Tensor, which: str) -> torch.Tensor:

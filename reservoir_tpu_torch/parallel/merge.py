@@ -76,14 +76,20 @@ def _key_words(key, device) -> torch.Tensor:
 
 
 def _uniform_pairwise(key_words: torch.Tensor) -> Pairwise:
+    """The uniform pairwise merge of a level, over the leaves ``(samples,
+    count, signed)``: ``signed`` (bool) marks a count that the merge reads
+    as int32, as the JAX package's tree passes an input's int32 count (past
+    2^31 - 1 it is negative); a merged count is uint32."""
+
     def pairwise(a: Leaves, b: Leaves, first_node: int, pairs: int) -> Leaves:
         rows = a[0].shape[0] // pairs
         nodes = torch.arange(first_node, first_node + pairs, dtype=torch.int32, device=key_words.device)
         f1, f2 = fold_in_words(key_words[0], key_words[1], nodes)
         row_keys = split_keys(torch.stack([f1, f2], dim=1), rows).reshape(pairs * rows, 2)
-        samples, count = _algl.merge_samples_keyed(a[0], a[1], b[0], b[1], row_keys)
+        signed = a[2].to(torch.uint8) | (b[2].to(torch.uint8) << 1)
+        samples, count = _algl.merge_samples_keyed(a[0], a[1], b[0], b[1], row_keys, signed)
         # the tree carries the uint32 count as its int32 bits
-        return samples, count.view(torch.int32)
+        return samples, count.view(torch.int32), torch.zeros_like(a[2])
 
     return pairwise
 
@@ -124,7 +130,8 @@ def _tree_for(mode: str, items: Leaves, key_words: Optional[torch.Tensor]) -> Le
     dtypes = [x.dtype for x in items]
     items = tuple(x.view(torch.int32) if x.dtype == torch.uint32 else x for x in items)
     if mode == "uniform":
-        out = _merge_tree(items, _uniform_pairwise(key_words))
+        signed = torch.full(items[1].shape, dtypes[1] == torch.int32, device=items[1].device)
+        out = _merge_tree(items + (signed,), _uniform_pairwise(key_words))[:2]
         dtypes[1] = torch.uint32  # the merged count cannot wrap below 2^32
     else:
         out = _merge_tree(items, _weighted_pairwise if mode == "weighted" else _distinct_pairwise)

@@ -1055,3 +1055,158 @@ def test_gated_recovery_on_the_card(cuda_device, tmp_path):
         recovered.push(s, data[s, counts[s]:])
     for a, b in zip(recovered.complete(), want):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["zero beside full rows", "Bg 61 k 13", "across the fill's end",
+                                  "replica Bg 37 k 13"])
+def test_gated_kernel_stress_cases_equal_plain_version(cuda_device, case):
+    """``algl_update_gated`` against the plain ``update_gated`` where a
+    redesign could go wrong: rows with no candidate beside rows with all Bg,
+    a gate tile and a k that are not multiples of 4, a state across the
+    fill's end (the fill prefix and the acceptances in one row), and a
+    replica-built tile at such widths, which must also equal ``algl_update``
+    over the whole tile."""
+    R = 3001
+    k, Bg = {"zero beside full rows": (128, 64), "Bg 61 k 13": (13, 61),
+             "across the fill's end": (16, 48), "replica Bg 37 k 13": (13, 37)}[case]
+    gen = torch.Generator(device=cuda_device).manual_seed(Bg)
+    rng = np.random.default_rng(k)
+    s = T.init(key_from_seed(7), R, k, device=cuda_device)
+    start = {"zero beside full rows": 4 * k, "Bg 61 k 13": 9 * k, "across the fill's end": k - 5,
+             "replica Bg 37 k 13": 3 * k}[case]
+    s = TK.update_cuda(s, torch.randint(-(2**31), 2**31 - 1, (R, start), dtype=torch.int32,
+                                        device=cuda_device, generator=gen))
+    if case == "replica Bg 37 k 13":
+        B = 160
+        tile = torch.randint(-(2**31), 2**31 - 1, (R, B), dtype=torch.int32, device=cuda_device,
+                             generator=gen)
+        gtile, nvalid, advance = _gated_tiles(s, tile, rng.integers(0, B + 1, R).astype(np.int32), Bg)
+        full = TK.update_cuda(_clone(s), tile, advance)
+    else:
+        gtile = torch.randint(-(2**31), 2**31 - 1, (R, Bg), dtype=torch.int32, device=cuda_device,
+                              generator=gen)
+        nv = rng.choice([0, Bg], R) if case == "zero beside full rows" else rng.integers(0, Bg + 1, R)
+        nvalid = torch.from_numpy(nv.astype(np.int32)).to(cuda_device)
+        # the kernel and the plain version walk the chain over the candidates
+        # whatever the advance; past the fill, the advance only moves count
+        advance = nvalid + torch.from_numpy(rng.integers(0, 50, R).astype(np.int32)).to(cuda_device)
+        full = None
+    before = TK.gated_launches
+    ref = T.update_gated(_clone(s), gtile, nvalid, advance)
+    got = TK.update_gated_cuda(_clone(s), gtile, nvalid, advance)
+    torch.cuda.synchronize()
+    assert TK.gated_launches - before == 1
+    for f in _FIELDS:
+        assert torch.equal(_bits(getattr(got, f)), _bits(getattr(ref, f))), f
+        if full is not None:
+            assert torch.equal(_bits(getattr(got, f)), _bits(getattr(full, f))), f
+
+
+# ------------------------------------------------------------ merge kernel
+
+
+def _merge_counts(rng, R, k, case):
+    """uint32 counts ``[2, R]`` for one of the merge kernel's cases."""
+    if case == "partial":
+        return rng.integers(0, 2 * k, (2, R))
+    if case == "one side empty":
+        c = rng.integers(0, 4 * k, (2, R))
+        c[rng.integers(0, 2, R), np.arange(R)] = 0
+        return c
+    if case == "past 2^31":
+        return rng.integers(2**30, 2**31, (2, R))
+    if case == "wrapping past 2^32":
+        return rng.integers(2**31, 2**32, (2, R))
+    assert case == "rejecting"  # denominators just past 2^31
+    a = rng.integers(0, 2**31, R)
+    return np.stack([a, 2**31 + k + 1 + rng.integers(0, k + 1, R) - a])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["partial", "one side empty", "past 2^31", "wrapping past 2^32",
+                                  "rejecting"])
+@pytest.mark.parametrize("k", [1, 5, 128, 1000])
+def test_merge_kernel_equals_plain_version_on_the_card(cuda_device, k, case):
+    """``algl_merge_draws`` against the plain ``merge_draws`` on the card,
+    bit for bit (j_a and both sides' keys), for int32 and uint32 counts
+    (an int32 view of a count past 2^31 - 1 is negative, and masks its
+    side); the merge through it equals the plain merge for int32, uint32 and
+    float32 words with NaN payloads; one launch a merge and no host sync."""
+    R = 1000
+    rng = np.random.default_rng(k)
+    counts = torch.from_numpy(_merge_counts(rng, R, k, case).astype(np.uint32).view(np.int32)).to(cuda_device)
+    keys = torch.from_numpy(rng.integers(0, 2**32, (R, 2)).astype(np.int64)).to(cuda_device)
+    words = rng.integers(0, 2**32, (2, R, k), dtype=np.uint64).astype(np.uint32)
+    words[:, :, 0] = 0x7FC00001  # a NaN payload
+    words[:, ::3, -1] = 0x80000000  # -0.0
+    for dtypes in ((torch.int32, torch.uint32), (torch.uint32, torch.int32)):
+        ca, cb = (counts[i].contiguous().view(dt) for i, dt in enumerate(dtypes))
+        want = T.merge_draws(ca, cb, keys, k)
+        before = TK.merge_launches
+        got = TK.merge_draws_cuda(ca, cb, keys, k)
+        torch.cuda.synchronize()
+        assert TK.merge_launches - before == 1
+        for f in ("j_a", "u_a", "u_b"):
+            assert torch.equal(_bits(getattr(got, f)), _bits(getattr(want, f))), f
+        for dtype in (np.int32, np.uint32, np.float32):
+            sa, sb = (torch.from_numpy(w.view(dtype)).to(cuda_device) for w in words)
+            want_s, want_c = T.merge_from_draws(sa, ca, sb, cb, want)
+            torch.cuda.synchronize()
+            before = TK.merge_launches
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got_s, got_c = T.merge_samples_keyed(sa, ca, sb, cb, keys)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert TK.merge_launches - before == 1
+            assert torch.equal(_bits(got_s), _bits(want_s))
+            assert torch.equal(_bits(got_c), _bits(want_c))
+
+
+@pytest.mark.cuda
+def test_merge_kernel_rows_with_tied_keys_keep_the_stable_order(cuda_device):
+    """Keys of 23 bits tie in ~0.1% of rows at k = 128: the merge through
+    the kernel equals the plain merge on the card and on the CPU, on a set
+    of rows that holds ties."""
+    R, k = 8192, 128
+    rng = np.random.default_rng(3)
+    ca, cb = (torch.from_numpy(rng.integers(k, 4 * k, R).astype(np.int32)).to(cuda_device) for _ in range(2))
+    keys = torch.from_numpy(rng.integers(0, 2**32, (R, 2)).astype(np.int64)).to(cuda_device)
+    sa, sb = (torch.from_numpy(rng.integers(-(2**31), 2**31, (R, k)).astype(np.int32)).to(cuda_device)
+              for _ in range(2))
+    draws = TK.merge_draws_cuda(ca, cb, keys, k)
+    u = torch.sort(draws.u_a, dim=1).values
+    assert bool((u[:, 1:] == u[:, :-1]).any())
+    got = T.merge_samples_keyed(sa, ca, sb, cb, keys)
+    plain = T.merge_from_draws(sa, ca, sb, cb, T.merge_draws(ca, cb, keys, k))
+    host = T.merge_samples_keyed(*(t.cpu() for t in (sa, ca, sb, cb, keys)))
+    for g, p, h in zip(got, plain, host):
+        assert torch.equal(_bits(g), _bits(p))
+        assert torch.equal(_bits(g).cpu(), _bits(h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4, 5, 7])
+def test_uniform_stream_merger_launches_the_merge_kernel_once_a_level(cuda_device, shards):
+    """The stream merger on the card reaches the merge kernel: one launch a
+    tree level, the level's pairs batched (an input's count beside merged
+    ones too, each read in its own dtype by the row's signed flags), and its
+    result equals the merger on the CPU, counts past 2^31 - 1 (negative
+    int32) among the inputs."""
+    R, k = 300, 16
+    rng = np.random.default_rng(shards)
+    samples = [torch.from_numpy(rng.integers(0, 2**31, (R, k)).astype(np.int32)).to(cuda_device)
+               for _ in range(shards)]
+    counts = [torch.from_numpy(rng.integers(0, 2**32, R).astype(np.uint32).view(np.int32)).to(cuda_device)
+              for _ in range(shards)]
+    levels, n = 0, shards
+    while n > 1:
+        levels += 1
+        n = n // 2 + n % 2
+    before = TK.merge_launches
+    got = PM.uniform_stream_merger(samples, counts, 3)
+    assert TK.merge_launches - before == levels
+    want = PM.uniform_stream_merger([s.cpu() for s in samples], [c.cpu() for c in counts], 3)
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g).cpu(), _bits(w))

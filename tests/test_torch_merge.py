@@ -9,6 +9,10 @@ are compared as their bits."""
 
 from __future__ import annotations
 
+import os
+import subprocess
+import sys
+
 import jax
 import jax.numpy as jnp
 import jax.random as jr
@@ -31,6 +35,7 @@ from reservoir_tpu_torch.ops import weighted as TW
 from reservoir_tpu_torch.ops.rng import key_from_seed, split_keys
 from reservoir_tpu_torch.ops.threefry import MASK32, fold_in_words, threefry2x32
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _J_MERGE_SAMPLES = jax.jit(JA.merge_samples)
 _J_MERGE_PARTS = jax.jit(JW.merge_parts)
 _J_DISTINCT_MERGE = jax.jit(JD.merge)
@@ -202,6 +207,185 @@ def test_wide_counts_raise_naming_the_roadmap():
     with pytest.raises(ValueError, match="one dtype"):
         TA.merge_samples(s, torch.zeros(2, dtype=torch.int32), s.float(), torch.zeros(2, dtype=torch.int32),
                          key_from_seed(0))
+
+
+# ------------------------------- counts past 2^32, the scan, tied keys
+
+# a child process for each case whose totals wrap past 2^32: the port's
+# merge once spun forever there, so a regression must fail the test (the
+# child's time limit) rather than hang the suite
+_WRAP_CHILD = r"""
+import sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_threefry_partitionable", True)
+import jax.numpy as jnp
+import jax.random as jr
+import numpy as np
+import torch
+from jax.sharding import Mesh
+from reservoir_tpu.ops import algorithm_l as JA
+from reservoir_tpu.parallel import merge as JM
+from reservoir_tpu_torch.ops import algorithm_l as TA
+from reservoir_tpu_torch.ops.rng import key_from_seed
+from reservoir_tpu_torch.parallel import merge as TM
+
+def same(got, want):
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape, (got.dtype, want.dtype)
+    assert got.tobytes() == want.tobytes(), (got, want)
+
+case = sys.argv[1]
+rng = np.random.default_rng(2)
+if case in ("pair", "random pairs"):
+    R, k = (2, 4) if case == "pair" else (64, 8)
+    sa = rng.integers(0, 2**30, (R, k)).astype(np.int32)
+    sb = rng.integers(2**30, 2**31, (R, k)).astype(np.int32)
+    if case == "pair":
+        ca = cb = np.full(R, 2**31 + 1, np.uint32)
+    else:
+        ca = rng.integers(0, 2**32, R).astype(np.uint32)
+        cb = rng.integers(0, 2**32, R).astype(np.uint32).view(np.int32)  # negatives among them
+    ws, wc = jax.jit(JA.merge_samples)(jnp.asarray(sa), jnp.asarray(ca), jnp.asarray(sb), jnp.asarray(cb),
+                                       jr.key(5))
+    gs, gc = TA.merge_samples(*(torch.from_numpy(x) for x in (sa, ca, sb, cb)), key_from_seed(5))
+    same(gs, ws)
+    same(gc, wc)
+    if case == "pair":
+        assert int(np.asarray(wc)[0]) == 2 and (np.asarray(ws)[:, 2:] == 0).all()
+elif case == "host tree":
+    k = 6
+    parts = [(rng.integers(0, 2**31, k).astype(np.int32), 1_500_000_000 + p) for p in range(4)]
+    want, want_total = JM.merge_samples_host(parts, 7, max_sample_size=k)
+    got, got_total = TM.merge_samples_host(parts, 7, max_sample_size=k)
+    same(got, want)
+    assert got_total == want_total == (6_000_000_006 % 2**32)
+else:
+    n_shards = int(case.split()[0])
+    R, k = 6, 8
+    samples = rng.integers(0, 2**31, (n_shards, R, k)).astype(np.int32)
+    if n_shards == 4:  # 1.5e9 a shard: the second level's total wraps
+        count = np.full((n_shards, R), 1_500_000_000, np.int32) + rng.integers(0, 9, (n_shards, R)).astype(np.int32)
+    else:  # any uint32 count, as int32: the negatives mask their side
+        count = rng.integers(0, 2**32, (n_shards, R)).astype(np.uint32).view(np.int32)
+    mesh = Mesh(np.asarray(jax.devices()[:n_shards]), ("stream",))
+    want_s, want_c = JM.uniform_stream_merger(mesh)(jnp.asarray(samples), jnp.asarray(count), jr.key(99))
+    got_s, got_c = TM.uniform_stream_merger(torch.from_numpy(samples), torch.from_numpy(count), 99)
+    same(got_s, want_s)
+    same(got_c, want_c)
+print("ok")
+"""
+
+
+@pytest.mark.parametrize("case", ["pair", "random pairs", "host tree", "4 shards", "5 shards", "7 shards"])
+def test_merges_whose_counts_wrap_past_2_32_equal_the_jax_package(case):
+    """Fault C.2: totals past 2^32 (uint32 counts that a merge returns and a
+    tree's next level takes in) wrap as the reference's uint32 arithmetic
+    does, and the port returns the reference's samples and count instead of
+    spinning; int32 counts past 2^31 - 1 (negative) mask their side as the
+    reference's do.  Pairs, the host tree of four parts of 1.5e9 elements,
+    and stream mergers over 4, 5 and 7 shards."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8")
+    proc = subprocess.run([sys.executable, "-c", _WRAP_CHILD, case], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
+
+
+@pytest.mark.parametrize("case", ["mixed", "large", "wrapped"])
+@pytest.mark.parametrize("k", [1, 5, 64])
+def test_merge_scan_counts_the_samples_the_reference_takes_from_a(k, case):
+    """The factored plain scan: its ``j_a`` is the number of A's samples in
+    the reference's merged rows (A's and B's words are disjoint)."""
+    R = 40
+    rng = np.random.default_rng(k)
+    if case == "wrapped":
+        ca = rng.integers(0, 2**32, R).astype(np.uint32)
+        cb = rng.integers(0, 2**32, R).astype(np.uint32)
+    else:
+        ca, cb = _counts(rng, R, k, case)
+    sa = rng.integers(0, 2**30, (R, k)).astype(np.int32)
+    sb = rng.integers(2**30, 2**31, (R, k)).astype(np.int32)
+    key = jr.key(k + 11)
+    ws, wc = _J_MERGE_SAMPLES(jnp.asarray(sa), jnp.asarray(ca), jnp.asarray(sb), jnp.asarray(cb), key)
+    ws, size = np.asarray(ws), np.minimum(np.asarray(wc).astype(np.int64), k)
+    from_a = (ws < 2**30) & (np.arange(k)[None, :] < size[:, None])
+    row_keys = split_keys(key_from_seed(k + 11), R)
+    j_a, draws = TA.merge_scan(torch.from_numpy(ca), torch.from_numpy(cb), row_keys, k)
+    assert j_a.dtype == torch.int32
+    np.testing.assert_array_equal(j_a.numpy(), from_a.sum(axis=1))
+    assert draws >= int(size.sum())  # one word at least a step
+
+
+@pytest.mark.parametrize("dtype", ["int32", "float32"])
+def test_merge_with_tied_permutation_keys_equals_the_reference(dtype):
+    """Keys of 23 bits tie in about 0.1% of rows at k = 128: an R = 4,096
+    merge holds such rows, and the stable argsort breaks their ties by slot
+    as the reference's sort does."""
+    R, k = 4096, 128
+    rng = np.random.default_rng(12)
+    words = rng.integers(0, 2**32, (2, R, k), dtype=np.uint64).astype(np.uint32)
+    sa, sb = words.view(dtype)
+    ca, cb = (rng.integers(k, 4 * k, R).astype(np.int32) for _ in range(2))
+    key = jr.key(31)
+    u_a, u_b = TA.merge_keys(torch.from_numpy(ca), torch.from_numpy(cb), split_keys(key_from_seed(31), R), k)
+    tied = [int(((u[:, 1:] == u[:, :-1])).any(dim=1).sum()) for u in (u_a.sort(1).values, u_b.sort(1).values)]
+    assert min(tied) >= 1, tied
+    ws, wc = _J_MERGE_SAMPLES(jnp.asarray(sa), jnp.asarray(ca), jnp.asarray(sb), jnp.asarray(cb), key)
+    gs, gc = TA.merge_samples(*(torch.from_numpy(x) for x in (sa, ca, sb, cb)), key_from_seed(31))
+    _same(gs, ws)
+    _same(gc, wc)
+
+
+@pytest.mark.parametrize("denom", [0, 2**32, -1])
+def test_randint_exact_raises_on_a_denominator_outside_the_word_space(denom):
+    one = torch.ones(3, dtype=torch.int64)
+    with pytest.raises(ValueError, match=r"\[1, 2\^32\)"):
+        TA._randint_exact(one, one, torch.tensor([5, denom, 7], dtype=torch.int64))
+
+
+def test_the_kernel_path_and_the_plain_merge_agree_on_the_cpu():
+    """On CPU tensors ``merge_samples_keyed`` draws through the wrapper's
+    plain version: the same as ``merge_from_draws`` over ``merge_draws``,
+    and as the wrapper called on its own."""
+    R, k = 33, 7
+    rng = np.random.default_rng(1)
+    sa, sb = (torch.from_numpy(rng.integers(0, 2**31, (R, k)).astype(np.int32)) for _ in range(2))
+    ca = torch.from_numpy(rng.integers(0, 2**32, R).astype(np.uint32))
+    cb = torch.from_numpy(rng.integers(0, 3 * k, R).astype(np.int32))
+    keys = split_keys(key_from_seed(2), R)
+    from reservoir_tpu_torch.ops.algorithm_l_cuda import merge_draws_cuda
+
+    got = TA.merge_samples_keyed(sa, ca, sb, cb, keys)
+    want = TA.merge_from_draws(sa, ca, sb, cb, TA.merge_draws(ca, cb, keys, k))
+    again = TA.merge_from_draws(sa, ca, sb, cb, merge_draws_cuda(ca, cb, keys, k))
+    for g, w, a in zip(got, want, again):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        assert torch.equal(g.view(torch.int32), a.view(torch.int32))
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_a_per_row_signed_mask_reads_each_rows_counts_in_the_dtype_it_names(k):
+    """``signed`` reads row r's counts as int32 (bit set) or uint32: each
+    row merges as it does with its counts in those dtypes, counts past
+    2^31 - 1 among them (negative as int32: their side gives no sample)."""
+    R = 64
+    rng = np.random.default_rng(k)
+    sa, sb = (torch.from_numpy(rng.integers(0, 2**31, (R, k)).astype(np.int32)) for _ in range(2))
+    ca, cb = (torch.from_numpy(rng.integers(0, 2**32, R).astype(np.uint32)) for _ in range(2))
+    keys = split_keys(key_from_seed(4), R)
+    signed = torch.from_numpy(np.arange(R, dtype=np.uint8) % 4)
+    got = TA.merge_samples_keyed(sa, ca, sb, cb, keys, signed)
+    for flags in range(4):
+        rows = signed == flags
+        a = ca.view(torch.int32) if flags & 1 else ca
+        b = cb.view(torch.int32) if flags & 2 else cb
+        want = TA.merge_samples_keyed(sa[rows], a[rows], sb[rows], b[rows], keys[rows])
+        for g, w in zip(got, want):
+            assert torch.equal(g[rows].view(torch.int32), w.view(torch.int32))
+    with pytest.raises(ValueError, match="signed must be uint8"):
+        TA.merge_samples_keyed(sa, ca, sb, cb, keys, signed.bool())
 
 
 # ---------------------------------------------------------------- weighted
