@@ -9,7 +9,10 @@ distinct=True, element_dtype=...), key=0)`` with int32 and int64 keys, and
 the merge path, four shard engines of each of those configurations combined
 by ``parallel.merge``'s stream mergers through the all-gather kernel, and
 the stream bridge at the uniform configuration, with and without its skip
-gate — and holds each CUDA kernel against its plain torch version.  Phases, each of
+gate, and the reference's public surface: the pass-through operator
+``Sample.device`` and the interop ``SampleServer`` with card samplers, at
+BASELINE.md config 1's size — and holds each CUDA kernel against its plain
+torch version.  Phases, each of
 which fails the run with a non-zero exit:
 
 1. device: require a CUDA card; print its name and power limit;
@@ -189,6 +192,49 @@ which fails the run with a non-zero exit:
    ``evaluate_row``, native and torch; ``algl_update_gated`` a dispatch
    beside its bound and its plain version, with its build.
 
+27. the pass-through operator on the card at BASELINE.md config 1's size,
+   the launch counts set to 0 before each flow:
+   ``Sample.device(128, key=0, tile_size=1024)`` drained over a stream of
+   1,048,876 elements (``range``): 1,025 ``algl_update`` launches (1,024
+   full tiles and the ragged 300), the sample equal to the same flow with
+   ``device="cpu"`` and to a card ``DeviceSampler`` fed the stream as one
+   array, bit for bit; ``run_async`` over an async generator of the same
+   stream: the same launches and sample; ``Sample.device(256,
+   distinct=True, element_dtype="int64", key=0)`` over 1,048,576 Zipf keys
+   (``min(u^-10, 1e7)``, numpy seed 27): 1,024 ``distinct_update``
+   launches, the sample equal to phase 14's exact oracle under the
+   engine's salts; a graceful ``cancel()`` after 500,000 elements delivers
+   the sample of a ``DeviceSampler`` fed those, ``cancel(cause)`` fails
+   the future with the cause, a dropped operator with
+   ``AbruptStreamTermination``; the KS gate over the sampled positions of
+   512 materializations (keys 0-511) of an 8,192-element stream;
+28. ``SampleServer`` on 127.0.0.1 with a factory of card ``DeviceSampler``s
+   (``tile_size=1024``, key 0; int32 for mode 0, int64 distinct keys for
+   mode 1): 8 concurrent mode-0 connections (k = 128), each a different
+   stream of 1,048,576 int64 values below 2^31 in 16 ``B`` frames of
+   65,536, then ``C``: 8,192 ``algl_update`` launches, each reply equal to
+   a card ``DeviceSampler`` fed that stream; one mode-1 connection (k =
+   256, phase 27's Zipf keys): 1,024 ``distinct_update`` launches, the
+   reply equal to the exact oracle; an ``F`` connection answered ``A``,
+   the server serving after an abrupt disconnect, a frame over
+   ``MAX_FRAME_ELEMS`` refused;
+29. operator timings: on the host clock, elements/s of the host
+   ``Sample(128)`` drained over config 1's 1,048,576-element ``range``,
+   ``api.sampler(128).sample_all`` of the ``range`` and of an int64 array
+   (both through the C scan) and with ``native=False``,
+   ``api.distinct(256).sample_all`` of the Zipf keys (C scan and
+   ``native=False``), ``Sample.device(128)`` draining the stream (split
+   into the flushes' host time, their launches included, and the
+   per-element path), a card ``DeviceSampler.sample_all`` of one array,
+   a ``[1, 1024]`` host tile's ``engine.sample`` with and without
+   ``valid``, and the wire for 1 and 8 connections with the host and the
+   device factory, each with the client's Nagle algorithm on and off
+   (``TCP_NODELAY``), 7 runs of one connection and 3 of eight (median,
+   least, most); with CUDA events, ``algl_update`` and ``distinct_update`` on
+   this path's steady ``[1, 1024]`` tiles (after 8 tiles) beside their
+   bounds (both shorter than their wrappers' host time, so ``event_ms``
+   reads host time there).
+
 Depth cut for the time limit: feed (b) follows feed (a) on the same
 bridge, so its rows are past the early stream, where a row's 8,192
 elements have more candidates than the gate tile and go through the
@@ -200,8 +246,9 @@ whole 512 MiB tile four times).
 A phase's line ends with the seconds since the script started.
 
 The line before the last is ``{"kernels": [...]}``, before it
-``{"gate": {...}}`` (phases 24-26) and ``{"bridge": {...}}`` (phases
-20-23); the last line is ``{"ok": true, "device": {...}}``.  Without a card, or run outside a
+``{"operator": {...}}`` (phases 27-29), ``{"gate": {...}}`` (phases
+24-26) and ``{"bridge": {...}}`` (phases 20-23); the last line is
+``{"ok": true, "device": {...}}``.  Without a card, or run outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
 
@@ -395,11 +442,12 @@ def build_text(info: dict) -> str:
             f"{info['warps_per_sm']} resident warps an SM")
 
 
-def bound_ms(accepts: int, fill_elems: int) -> tuple:
-    """The uniform kernel's bound for a tile with ``accepts`` acceptances
-    and ``fill_elems`` elements copied by the fill over all R rows."""
+def bound_ms(accepts: int, fill_elems: int, rows: int = R, width: int = B, k: int = K) -> tuple:
+    """The uniform kernel's bound for a ``[rows, width]`` tile with
+    ``accepts`` acceptances and ``fill_elems`` elements copied by the fill
+    over all rows (the main path's shape unless given)."""
     moved = SECTOR_BYTES * accepts + 4 * fill_elems
-    nbytes = R * STATE_BYTES_PER_ROW + min(moved, 4 * R * B) + min(moved, 4 * R * K)
+    nbytes = rows * STATE_BYTES_PER_ROW + min(moved, 4 * rows * width) + min(moved, 4 * rows * k)
     t_bytes = nbytes / PEAK_BYTES
     t_ops = max(accepts * INT_OPS_PER_ACCEPT / PEAK_INT32, accepts * FLOPS_PER_ACCEPT / PEAK_F32)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -683,11 +731,14 @@ def main() -> None:
     bridge = bridge_phases(gen, dev, here, {"device_fed": dev_eps, "host_fed": host_eps,
                                             "host_fed_warm": warm_host_eps})
     gate, gated_entry = gate_phases(gen, dev, here)
+    operator, algl_extra, distinct_extra = operator_phases(dev)
+    distinct.update(distinct_extra)
 
     card = card_line()
     log(card)
     log(json.dumps({"bridge": bridge}))
     log(json.dumps({"gate": gate}))
+    log(json.dumps({"operator": operator}))
     log(json.dumps({"kernels": [{
         "name": "algl_update",
         "route": "cuda",
@@ -712,6 +763,7 @@ def main() -> None:
         "build": build,
         "bridge_ragged_flush": bridge["ragged_flush"],
         "gated_bridge_fallback_launches": gate["fallback_launches"],
+        **algl_extra,
     }, weighted, distinct, merge, gated_entry, merge_entry]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
@@ -934,14 +986,16 @@ def weighted_phases(gen, dev) -> dict:
     }
 
 
-def distinct_bound_ms(lanes: int, wide: bool, inserts: int, rows_inserting: int) -> tuple:
-    """The distinct kernel's bound for a tile of ``lanes`` keys over DR rows,
-    with ``inserts`` entries new to the state over ``rows_inserting`` rows
-    (the least inserts any order of candidates needs)."""
+def distinct_bound_ms(lanes: int, wide: bool, inserts: int, rows_inserting: int,
+                      rows: int = DR, k: int = DK) -> tuple:
+    """The distinct kernel's bound for a tile of ``lanes`` keys over
+    ``rows`` rows (DR unless given), with ``inserts`` entries new to the
+    state over ``rows_inserting`` rows (the least inserts any order of
+    candidates needs)."""
     planes = 4 if wide else 3
-    nbytes = (8 if wide else 4) * lanes + DR * D_STATE_BYTES_PER_ROW + rows_inserting * 2 * DK * 4 * planes
+    nbytes = (8 if wide else 4) * lanes + rows * D_STATE_BYTES_PER_ROW + rows_inserting * 2 * k * 4 * planes
     t_bytes = nbytes / PEAK_BYTES
-    per_insert = D_OPS_PER_SEARCH_STEP * (DK.bit_length() - 1) + planes * DK // 2
+    per_insert = D_OPS_PER_SEARCH_STEP * (k.bit_length() - 1) + planes * k // 2
     t_ops = (D_OPS_PER_LANE * lanes + per_insert * inserts) / PEAK_INT32
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -2638,6 +2692,435 @@ def gate_phases(gen, dev, here: str) -> tuple:
         "build": build,
     }
     return gate_line, entry
+
+
+
+# the operator's phases: BASELINE.md config 1 (k = 128 over a 1M-element
+# stream), its stream with a ragged tail, the distinct flow's Zipf keys, the
+# graceful cancel's prefix, the KS gate's runs, the wire's connections (the
+# distinct flow's k is phase 14's, whose oracle it reuses)
+OP_K, OP_DK, OP_B = 128, DK, 1024
+OP_N = 1_048_876  # 1,024 full tiles and a ragged 300
+OP_DN = 1 << 20
+OP_CANCEL = 500_000
+OP_KS_RUNS, OP_KS_N = 512, 8192
+WIRE_CONNS, WIRE_FRAME, WIRE_REPS = 8, 65_536, 7
+
+
+def op_zipf(seed: int, n: int) -> np.ndarray:
+    """bench.py's distinct keys (``min(u ** -10, 1e7)``) as int64, from a
+    numpy seed."""
+    u = np.random.default_rng(seed).random(n) * (1.0 - 1e-6) + 1e-6
+    return np.minimum(u ** -10.0, 1e7).astype(np.int64)
+
+
+def same_result(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and bool((a == b).all())
+
+
+def distinct_reply_ok(keys: np.ndarray, salts: np.ndarray, got: np.ndarray) -> tuple:
+    """Phase 14's exact oracle on one row of ``OP_DK`` keys: ``got`` (the
+    row's sample) padded to the oracle's ``[1, k]`` layout."""
+    samples = np.zeros((1, OP_DK), np.int64)
+    samples[0, : got.size] = got
+    ok, msg, _, _ = distinct_oracle([keys[None, :]], salts, samples, np.array([got.size]))
+    return ok, msg
+
+
+def wire_frames(values: np.ndarray) -> list:
+    """A stream as the shim stage sends it: ``B`` frames of WIRE_FRAME
+    big-endian int64 values."""
+    import struct
+
+    out = []
+    for off in range(0, values.size, WIRE_FRAME):
+        arr = values[off : off + WIRE_FRAME].astype(">i8")
+        out.append(b"B" + struct.pack(">I", arr.size) + arr.tobytes())
+    return out
+
+
+def wire_recv(sock, n: int) -> bytes:
+    buf = bytearray()
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        if not chunk:
+            raise ConnectionError("the server closed the connection")
+        buf += chunk
+    return bytes(buf)
+
+
+def wire_session(addr, mode: int, k: int, frames: list, nodelay: bool = False) -> np.ndarray:
+    """One materialization over the wire: handshake, the frames, ``C``;
+    returns the reply's values.  ``nodelay`` sets ``TCP_NODELAY`` on the
+    client's socket (Nagle's algorithm off)."""
+    import socket
+    import struct
+
+    with socket.create_connection(addr, timeout=300) as sock:
+        if nodelay:
+            sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        sock.sendall(b"RSV1" + bytes([mode]) + struct.pack(">I", k))
+        for f in frames:
+            sock.sendall(f)
+        sock.sendall(b"C")
+        head = wire_recv(sock, 5)
+        if head[:1] != b"R":
+            raise ConnectionError(f"reply tag {head[:1]!r}")
+        (size,) = struct.unpack(">I", head[1:])
+        return np.frombuffer(wire_recv(sock, 8 * size), ">i8").astype(np.int64)
+
+
+def wire_concurrent(addr, mode: int, k: int, streams: list, nodelay: bool = False) -> tuple:
+    """``len(streams)`` connections at once, one thread each; returns
+    ``(replies, seconds from the first connect to the last reply)``."""
+    import threading
+
+    replies, errors = [None] * len(streams), []
+
+    def client(i, frames):
+        try:
+            replies[i] = wire_session(addr, mode, k, frames, nodelay)
+        except BaseException as e:  # reported on the main thread
+            errors.append(f"connection {i}: {e!r}")
+
+    threads = [threading.Thread(target=client, args=(i, f)) for i, f in enumerate(streams)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    seconds = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"wire connections failed: {errors or 'a client did not finish'}")
+    return replies, seconds
+
+
+def operator_phases(dev) -> tuple:
+    """Phases 27-29, the pass-through operator and the interop server on
+    the card; returns the ``operator`` line and the phases' additions to
+    the ``algl_update`` and ``distinct_update`` entries."""
+    import asyncio
+    import socket
+    import struct
+
+    from reservoir_tpu_torch import DeviceSampler, Sample, SamplerConfig, api
+    from reservoir_tpu_torch.convert import distinct_state_to_numpy
+    from reservoir_tpu_torch.errors import AbruptStreamTermination
+    from reservoir_tpu_torch.ops import algorithm_l as plain
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.ops import distinct as dplain
+    from reservoir_tpu_torch.ops import distinct_cuda as dkern
+    from reservoir_tpu_torch.ops.rng import key_from_seed
+    from reservoir_tpu_torch.stream.interop import MAX_FRAME_ELEMS, SampleServer
+    from reservoir_tpu_torch.utils.stats import KS_GATE, ks_one_sample_uniform
+
+    from reservoir_tpu_torch import ReservoirEngine as rtt_engine
+
+    ucfg = SamplerConfig(OP_K, 1, tile_size=OP_B)
+    dcfg = SamplerConfig(OP_DK, 1, tile_size=OP_B, distinct=True, element_dtype="int64")
+    flow = Sample.device(OP_K, key=0, tile_size=OP_B)
+    line = {}
+
+    # 27. the operator on the card: the main path of this phase
+    torch.cuda.synchronize()
+    kern.launches = 0
+    dkern.launches = 0
+    t0 = time.perf_counter()
+    card = flow.run(range(OP_N)).drain()
+    op_s = time.perf_counter() - t0
+    u_launches, u_other = kern.launches, dkern.launches
+    if u_launches != OP_N // OP_B + 1 or u_other:
+        fail(f"Sample.device over {OP_N} elements launched algl_update {u_launches} times and "
+             f"distinct_update {u_other} times, not {OP_N // OP_B + 1} and 0")
+    if card.shape != (OP_K,) or np.unique(card).size != OP_K or card.min() < 0 or card.max() >= OP_N:
+        fail(f"Sample.device's sample is not {OP_K} distinct positions of the stream")
+    cpu = Sample.device(OP_K, key=0, tile_size=OP_B, device="cpu").run(range(OP_N)).drain()
+    if not same_result(card, cpu):
+        fail("Sample.device on the card != the same flow with device='cpu'")
+    direct = DeviceSampler(ucfg, key=0)
+    direct.sample_all(np.arange(OP_N, dtype=np.int32))
+    if not same_result(card, direct.result()):
+        fail("Sample.device on the card != a card DeviceSampler fed the stream as one array")
+
+    async def agen(n):
+        for i in range(n):
+            yield i
+
+    async def adrain():
+        return await flow.run_async(agen(OP_N)).drain()
+
+    kern.launches = 0
+    t0 = time.perf_counter()
+    acard = asyncio.run(adrain())
+    aop_s = time.perf_counter() - t0
+    a_launches = kern.launches
+    if a_launches != OP_N // OP_B + 1 or not same_result(acard, card):
+        fail(f"run_async on the card: {a_launches} launches, sample equal to the sync run: "
+             f"{same_result(acard, card)}")
+    log(f"[27 operator] uniform: Sample.device({OP_K}, tile_size={OP_B}) over {OP_N} elements: "
+        f"{u_launches} algl_update launches ({OP_N // OP_B} full tiles and a ragged {OP_N % OP_B}), "
+        f"sample == "
+        f"device='cpu' == a card DeviceSampler fed one array; run_async: {a_launches} launches, "
+        f"the same sample")
+
+    keys = op_zipf(27, OP_DN)
+    dflow = Sample.device(OP_DK, distinct=True, element_dtype="int64", key=0, tile_size=OP_B)
+    kern.launches = 0
+    dkern.launches = 0
+    dres = dflow.run(iter(keys)).drain()
+    d_launches, d_other = dkern.launches, kern.launches
+    if d_launches != OP_DN // OP_B or d_other:
+        fail(f"the distinct flow launched distinct_update {d_launches} times and algl_update "
+             f"{d_other} times, not {OP_DN // OP_B} and 0")
+    salts = distinct_state_to_numpy(DeviceSampler(dcfg, key=0).engine.state)["salts"]
+    ok, msg = distinct_reply_ok(keys, salts, np.asarray(dres))
+    if not ok:
+        fail(f"the distinct flow's sample != the exact oracle: {msg}")
+    log(f"[27 operator] distinct: Sample.device({OP_DK}, distinct=True, int64) over {OP_DN} Zipf "
+        f"keys: {d_launches} distinct_update launches, {dres.size} keys, equal to the exact oracle")
+
+    # the completion protocol on the card
+    kern.launches = 0
+    run = flow.run(range(OP_N))
+    for _ in range(OP_CANCEL):
+        next(run)
+    run.cancel()
+    partial = run.sample.result(timeout=120)
+    c_launches = kern.launches
+    ref = DeviceSampler(ucfg, key=0)
+    ref.sample_all(np.arange(OP_CANCEL, dtype=np.int32))
+    if not same_result(partial, ref.result()) or c_launches != -(-OP_CANCEL // OP_B):
+        fail(f"a graceful cancel after {OP_CANCEL} elements: {c_launches} launches, sample equal to "
+             f"a DeviceSampler fed them: {same_result(partial, ref.result())}")
+    cause = RuntimeError("downstream gave up")
+    run = flow.run(range(OP_N))
+    for _ in range(2 * OP_B + 10):
+        next(run)
+    run.cancel(cause)
+    if run.sample.exception(timeout=60) is not cause:
+        fail("cancel(cause) did not fail the future with the cause")
+    run = flow.run(range(OP_N))
+    for _ in range(OP_B + 7):
+        next(run)
+    fut = run.sample
+    del run
+    gc.collect()
+    if not isinstance(fut.exception(timeout=60), AbruptStreamTermination):
+        fail("a dropped operator did not fail its future with AbruptStreamTermination")
+    log(f"[27 operator] protocol: graceful cancel after {OP_CANCEL} elements ({c_launches} launches) "
+        f"== a DeviceSampler fed them; cancel(cause) fails the future with the cause; a dropped "
+        f"operator fails it with AbruptStreamTermination")
+
+    positions = []
+    for key in range(OP_KS_RUNS):
+        res = Sample.device(OP_K, key=key, tile_size=OP_B).run(range(OP_KS_N)).drain()
+        if np.unique(res).size != OP_K:
+            fail(f"materialization {key} sampled a position twice")
+        positions.append(res)
+    ks = ks_one_sample_uniform(np.concatenate(positions), OP_KS_N)
+    if not ks < KS_GATE:
+        fail(f"KS distance {ks} over {OP_KS_RUNS} materializations is not below {KS_GATE}")
+    log(f"[27 operator] KS over the sampled positions of {OP_KS_RUNS} materializations (keys "
+        f"0..{OP_KS_RUNS - 1}) of a {OP_KS_N}-element stream: {ks:.6f} < {KS_GATE}")
+    line["flow"] = {"uniform_launches": u_launches, "async_launches": a_launches,
+                    "distinct_launches": d_launches, "cancel_launches": c_launches, "ks": ks,
+                    "distinct_size": int(dres.size)}
+
+    # 28. SampleServer on the card
+    def factory(mode, k):
+        cfg = SamplerConfig(k, 1, tile_size=OP_B, distinct=mode == 1,
+                            element_dtype="int64" if mode == 1 else "int32")
+        return DeviceSampler(cfg, key=0)
+
+    streams = [np.random.default_rng(280 + i).integers(0, 2**31, OP_DN) for i in range(WIRE_CONNS)]
+    frames = [wire_frames(v) for v in streams]
+    with SampleServer(sampler_factory=factory) as srv:
+        torch.cuda.synchronize()
+        kern.launches = 0
+        dkern.launches = 0
+        replies, wire_s = wire_concurrent(srv.address, 0, OP_K, frames)
+        w_launches = kern.launches
+        if w_launches != WIRE_CONNS * (OP_DN // OP_B) or dkern.launches:
+            fail(f"{WIRE_CONNS} connections launched algl_update {w_launches} times, not "
+                 f"{WIRE_CONNS * (OP_DN // OP_B)}")
+        for i, (v, got) in enumerate(zip(streams, replies)):
+            ref = DeviceSampler(ucfg, key=0)
+            ref.sample_all(v)
+            if not same_result(got, ref.result().astype(np.int64)):
+                fail(f"connection {i}'s reply != a card DeviceSampler fed its stream")
+        dkern.launches = 0
+        (dreply,), _ = wire_concurrent(srv.address, 1, OP_DK, [wire_frames(keys)])
+        wd_launches = dkern.launches
+        ok, msg = distinct_reply_ok(keys, salts, dreply)
+        if not ok or wd_launches != OP_DN // OP_B:
+            fail(f"the mode-1 connection: {wd_launches} launches; reply: {msg or 'equal'}")
+        # failure paths
+        with socket.create_connection(srv.address, timeout=60) as sock:
+            sock.sendall(b"RSV1" + bytes([0]) + struct.pack(">I", OP_K))
+            sock.sendall(frames[0][0])
+            sock.sendall(b"F")
+            if wire_recv(sock, 1) != b"A":
+                fail("an F connection was not answered A")
+        sock = socket.create_connection(srv.address, timeout=60)
+        sock.sendall(b"RSV1" + bytes([0]) + struct.pack(">I", OP_K))
+        sock.sendall(frames[0][0])
+        sock.close()
+        if wire_session(srv.address, 0, 4, [wire_frames(np.arange(3))[0]]).tolist() != [0, 1, 2]:
+            fail("the server did not serve after an abrupt disconnect")
+        with socket.create_connection(srv.address, timeout=60) as sock:
+            sock.sendall(b"RSV1" + bytes([0]) + struct.pack(">I", OP_K))
+            sock.sendall(b"B" + struct.pack(">I", MAX_FRAME_ELEMS + 1))
+            sock.sendall(b"C")
+            try:
+                refused = sock.recv(1) == b""
+            except OSError:
+                refused = True
+            if not refused:
+                fail("a frame over MAX_FRAME_ELEMS was not refused")
+    log(f"[28 server] {WIRE_CONNS} concurrent mode-0 connections of {OP_DN} values in "
+        f"{OP_DN // WIRE_FRAME} frames: {w_launches} algl_update launches, every reply == a card "
+        f"DeviceSampler fed its stream; mode 1 (k {OP_DK}, Zipf int64): {wd_launches} "
+        f"distinct_update launches, reply == the exact oracle; F answered A, served after an "
+        f"abrupt disconnect, a frame over MAX_FRAME_ELEMS refused")
+    line["server"] = {"connections": WIRE_CONNS, "launches": w_launches,
+                      "distinct_launches": wd_launches}
+
+    # 29. timings
+    n = OP_DN
+    rng_arr = np.arange(n, dtype=np.int64)
+    host = {}
+
+    def host_rate(fn, reps=5) -> float:
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return n / statistics.median(times)
+
+    host["Sample_drain_range"] = host_rate(lambda: Sample(OP_K, rng=0).run(range(n)).drain(), reps=3)
+    host["sampler_range_c_scan"] = host_rate(lambda: api.sampler(OP_K, rng=0).sample_all(range(n)))
+    host["sampler_int64_c_scan"] = host_rate(lambda: api.sampler(OP_K, rng=0).sample_all(rng_arr))
+    host["sampler_int64_native_false"] = host_rate(
+        lambda: api.sampler(OP_K, rng=0, native=False).sample_all(rng_arr))
+    host["sampler_range_native_false"] = host_rate(
+        lambda: api.sampler(OP_K, rng=0, native=False).sample_all(range(n)))
+    host["distinct_zipf_c_scan"] = host_rate(lambda: api.distinct(OP_DK, rng=0).sample_all(keys))
+    host["distinct_zipf_native_false"] = host_rate(
+        lambda: api.distinct(OP_DK, rng=0, native=False).sample_all(keys), reps=3)
+
+    flush_s = [0.0]
+
+    def timed_factory():
+        s = DeviceSampler(ucfg, key=0)
+        sample = s.engine.sample
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            sample(*a, **kw)
+            flush_s[0] += time.perf_counter() - t
+
+        s.engine.sample = timed
+        return s
+
+    tflow = Sample.from_factory(timed_factory)
+    tflow.run(range(OP_B * 4)).drain()  # warm: pinned buffers, the library
+    flush_s[0] = 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tflow.run(range(n)).drain()
+    drain_s = time.perf_counter() - t0
+    device = {"Sample_device_drain": n / drain_s, "drain_s": drain_s, "flush_s": flush_s[0],
+              "host_s": drain_s - flush_s[0], "launches": n // OP_B}
+    arr32 = np.arange(n, dtype=np.int32)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = DeviceSampler(ucfg, key=0)
+        s.sample_all(arr32)
+        s.result()
+        times.append(time.perf_counter() - t0)
+    device["DeviceSampler_sample_all"] = n / statistics.median(times)
+
+    # where a flush's host time goes: the engine fed [1, 1024] host tiles
+    # as DeviceSampler feeds it (with valid) and without valid
+    eng = rtt_engine(ucfg)
+    tile = np.arange(OP_B, dtype=np.int32)[None, :]
+    full = np.array([OP_B], np.int32)
+    for _ in range(OP_K // OP_B + 8):
+        eng.sample(tile, valid=full)  # warm, and past the fill
+    for label, kw in (("flush_with_valid", {"valid": full}), ("flush_without_valid", {})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OP_B):
+            eng.sample(tile, **kw)
+        torch.cuda.synchronize()
+        device[f"{label}_ms"] = 1e3 * (time.perf_counter() - t0) / OP_B
+    del eng
+
+    # the wire's rate varies from run to run by more than 10x, so each
+    # case runs WIRE_REPS times (one connection) or 3 times (8 at once)
+    wire = {}
+    for name, kw in (("host", {}), ("device", {"sampler_factory": factory})):
+        with SampleServer(**kw) as srv:
+            wire_concurrent(srv.address, 0, OP_K, frames[:1])  # warm
+            for nodelay in (False, True):
+                for conns in (1, WIRE_CONNS):
+                    rates = [conns * n / wire_concurrent(srv.address, 0, OP_K, frames[:conns], nodelay)[1]
+                             for _ in range(WIRE_REPS if conns == 1 else 3)]
+                    wire[f"{name}_{conns}{'_nodelay' if nodelay else ''}"] = {
+                        "median": statistics.median(rates), "min": min(rates), "max": max(rates),
+                        "runs": rates}
+
+    # CUDA events: the kernels on this path's [1, 1024] tiles, steady
+    tiles = [torch.from_numpy(np.arange(t * OP_B, (t + 1) * OP_B, dtype=np.int32)[None, :]).to(dev)
+             for t in range(9)]
+    ustate = plain.init(key_from_seed(0), 1, OP_K, device=dev)
+    for t in tiles[:8]:
+        ustate = kern.update_cuda(ustate, t)
+    u_ms = event_ms(lambda st: kern.update_steady_cuda(st, tiles[8]), setup=lambda: clone(ustate), batch=10)
+    _, u_acc = plain.update_accepts(clone(ustate), tiles[8], fill=False)
+    u_bound, u_by = bound_ms(u_acc, 0, rows=1, width=OP_B, k=OP_K)
+    dtiles = [dplain.split_values(keys[t * OP_B : (t + 1) * OP_B][None, :], device=dev) for t in range(9)]
+    dstate = dplain.init(key_from_seed(0), 1, OP_DK, sample_dtype=torch.int64, device=dev)
+    for t in dtiles[:8]:
+        dstate = dkern.update_cuda(dstate, t)
+    d_ms = event_ms(lambda st: dkern.update_cuda(st, dtiles[8]), setup=lambda: clone(dstate), batch=10)
+    d_ins, d_rows = net_inserts(dstate, dplain.update(clone(dstate), dtiles[8]))
+    d_bound, d_by = distinct_bound_ms(OP_B, True, d_ins, d_rows, rows=1, k=OP_DK)
+    card = card_line()
+    for name, rate in host.items():
+        log(f"[29 operator timings] {card} | host {name}: {rate:.6e} elem/s")
+    log(f"[29 operator timings] {card} | Sample.device({OP_K}) drain of {n}: {device['Sample_device_drain']:.6e} "
+        f"elem/s ({drain_s:.3f} s: flushes {flush_s[0]:.3f} s over {n // OP_B} launches, the per-element "
+        f"host path {device['host_s']:.3f} s); card DeviceSampler.sample_all of one array "
+        f"{device['DeviceSampler_sample_all']:.6e} elem/s")
+    log(f"[29 operator timings] {card} | a [1, {OP_B}] host tile's engine.sample (host clock, "
+        f"{OP_B} back to back): {device['flush_with_valid_ms']:.4f} ms with valid (as DeviceSampler "
+        f"flushes), {device['flush_without_valid_ms']:.4f} ms without")
+    for name, rate in wire.items():
+        factory_name, conns, *nodelay = name.split("_")
+        log(f"[29 operator timings] {card} | wire, {factory_name} factory, {conns} connection(s)"
+            f"{', client TCP_NODELAY' if nodelay else ''}: median {rate['median']:.6e} elem/s over "
+            f"{len(rate['runs'])} runs ({rate['min']:.6e} to {rate['max']:.6e})")
+    log(f"[29 operator timings] {card} | algl_update on a steady [1, {OP_B}] tile (count {8 * OP_B}): "
+        f"{u_ms:.4f} ms, bound {u_bound:.3e} ms ({u_by}), accepts {u_acc}; distinct_update on a steady "
+        f"[1, {OP_B}] int64 Zipf tile (after 8): {d_ms:.4f} ms, bound {d_bound:.3e} ms ({d_by}), net "
+        f"inserts {d_ins}; both shorter than their wrappers' host time, so event_ms reads host time")
+    line["elem_per_s"] = {"host": host, "device": device, "wire": wire}
+    line["tile_1x1024"] = {
+        "algl_update": {"ms": u_ms, "bound_ms": u_bound, "bound_by": u_by, "accepts": u_acc},
+        "distinct_update": {"ms": d_ms, "bound_ms": d_bound, "bound_by": d_by, "net_inserts": d_ins},
+        "note": "event_ms reads host time for a call shorter than its wrapper's",
+    }
+    line["card"] = card
+    algl_extra = {"operator_launches": u_launches, "server_launches": w_launches,
+                  "operator_tile_1x1024": line["tile_1x1024"]["algl_update"]}
+    distinct_extra = {"operator_launches": d_launches, "server_launches": wd_launches,
+                      "operator_tile_1x1024": line["tile_1x1024"]["distinct_update"]}
+    return line, algl_extra, distinct_extra
 
 
 if __name__ == "__main__":

@@ -25,27 +25,63 @@ of several shards of one stream into one exact sample:
   the C++ demux of :mod:`.native` into pinned host tiles, ragged flushes,
   the flush journal and recovery, in the JAX package's formats;
 - :mod:`reservoir_tpu_torch.parallel.merge` — the merge tree over parts
-  spread over ranks, and the stream mergers.
+  spread over ranks, and the stream mergers;
+- :mod:`reservoir_tpu_torch.api` — the reference's public surface: the
+  ``Sampler`` trait, the factories :func:`sampler` and :func:`distinct`
+  with the single-use / reusable lifecycle, ``SampleView`` snapshots, and
+  the host ``weighted`` sampler;
+- :mod:`reservoir_tpu_torch.oracle` — the host samplers' CPU oracles
+  (``AlgorithmLOracle``, ``BottomKOracle``, ``AExpJOracle``,
+  ``NaiveWeightedOracle``), with the C scans of ``_native/algl_scan.cc``
+  and ``_native/bottom_k.cc`` built with g++ at first use;
+- :mod:`reservoir_tpu_torch.stream.operator` — the pass-through operator
+  :class:`Sample` (``run``, ``run_async``, the completion protocol), whose
+  ``Sample.device`` samples on the card through the engine's kernels;
+- :mod:`reservoir_tpu_torch.stream.interop` — ``SampleServer``, the socket
+  server behind the JVM shim stage, on the host samplers or, with a
+  ``DeviceSampler`` factory, on the card.
 
 The package imports torch and numpy, never jax and nothing of
 ``reservoir_tpu``.  Its entry points run on the card (``device=None`` means
-``"cuda"``); ``device="cpu"`` runs the plain version.
+``"cuda"``); ``device="cpu"`` runs the plain version.  The host samplers
+(:func:`sampler`, :func:`distinct`, ``Sample(k)``) are host samplers, the
+semantic baseline, on the CPU by design.
 """
 
 from .config import MAX_SIZE, SamplerConfig
 from .engine import ReservoirEngine
-from .errors import CheckpointCorrupt, CheckpointMismatch, SamplerClosedError
-from .stream import DeviceSampler, DeviceStreamBridge
+from .errors import (
+    AbruptStreamTermination,
+    CheckpointCorrupt,
+    CheckpointMismatch,
+    SamplerClosedError,
+)
+from .stream import DeviceSampler, DeviceStreamBridge, Sample
 
 __version__ = "0.1.0"
 
+
+def __getattr__(name):
+    # the host API is loaded when first asked for, as the JAX package does
+    if name in ("sampler", "distinct", "Sampler"):
+        from . import api
+
+        return getattr(api, name)
+    raise AttributeError(f"module 'reservoir_tpu_torch' has no attribute {name!r}")
+
+
 __all__ = [
     "MAX_SIZE",
+    "AbruptStreamTermination",
     "CheckpointCorrupt",
     "CheckpointMismatch",
     "DeviceSampler",
     "DeviceStreamBridge",
     "ReservoirEngine",
+    "Sample",
+    "Sampler",
     "SamplerClosedError",
     "SamplerConfig",
+    "distinct",
+    "sampler",
 ]

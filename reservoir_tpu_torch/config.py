@@ -3,15 +3,27 @@
 The port keeps its own copy of the JAX package's ``SamplerConfig`` with the
 same fields and the same checks, so a checkpoint's recorded config restores
 in either package.  Which of its options the port's engine runs is the
-engine's business (:mod:`reservoir_tpu_torch.engine`).
+engine's business (:mod:`reservoir_tpu_torch.engine`).  The checks of the
+sampler factories' parameters, which :mod:`~reservoir_tpu_torch.api` and
+:mod:`~reservoir_tpu_torch.stream.operator` make when a sampler or a flow
+is built, are copies of the JAX package's too.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
-__all__ = ["MAX_SIZE", "SamplerConfig", "validate_max_sample_size"]
+__all__ = [
+    "MAX_SIZE",
+    "SamplerConfig",
+    "validate_distinct_params",
+    "validate_hash",
+    "validate_map",
+    "validate_max_sample_size",
+    "validate_non_distinct_params",
+    "validate_shared_params",
+]
 
 #: Maximum sample size (``Int.MaxValue - 2``, the reference's ``MaxSize``).
 MAX_SIZE: int = 2**31 - 3
@@ -30,6 +42,38 @@ def validate_max_sample_size(max_sample_size: Any) -> int:
             f"max_sample_size must be <= {MAX_SIZE}, got {max_sample_size}"
         )
     return max_sample_size
+
+
+def validate_map(map_fn: Any) -> Callable:
+    """A callable ``map``, else ``TypeError`` (the reference's null check)."""
+    if map_fn is None or not callable(map_fn):
+        raise TypeError("map function must be callable (got %r)" % (map_fn,))
+    return map_fn
+
+
+def validate_hash(hash_fn: Any) -> Callable:
+    """A callable ``hash``, else ``TypeError``."""
+    if hash_fn is None or not callable(hash_fn):
+        raise TypeError("hash function must be callable (got %r)" % (hash_fn,))
+    return hash_fn
+
+
+def validate_shared_params(max_sample_size: Any, map_fn: Any) -> None:
+    """What every sampler factory checks: the size and the ``map``."""
+    validate_max_sample_size(max_sample_size)
+    validate_map(map_fn)
+
+
+def validate_non_distinct_params(max_sample_size: Any, map_fn: Any) -> None:
+    """What the uniform factories check (the shared checks)."""
+    validate_shared_params(max_sample_size, map_fn)
+
+
+def validate_distinct_params(max_sample_size: Any, map_fn: Any, hash_fn: Any) -> None:
+    """What the distinct factories check: the shared checks and the
+    ``hash``."""
+    validate_shared_params(max_sample_size, map_fn)
+    validate_hash(hash_fn)
 
 
 @dataclasses.dataclass(frozen=True)

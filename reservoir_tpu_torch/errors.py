@@ -33,9 +33,9 @@ class SamplerClosedError(RuntimeError):
 
 
 class AbruptStreamTermination(RuntimeError):
-    """A stream bridge was dropped without completing, failing or
-    cancelling: its ``__del__`` backstop fails the materialized future with
-    this."""
+    """A stream operator or bridge was dropped without completing, failing
+    or cancelling: its ``__del__`` backstop fails the materialized future
+    with this."""
 
 
 class StreamCancelled(RuntimeError):

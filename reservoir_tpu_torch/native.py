@@ -1,8 +1,11 @@
-"""The stream bridge's host libraries, loaded with ``ctypes``: the C++
-demux of ``_native/staging_buffer.cc`` (a copy of the JAX package's), with
-a numpy staging of the same semantics, and the skip gate's replica of the
-Algorithm-L chain, ``_native/skip_gate.cc`` (:func:`load_gate_library`,
-used by :mod:`reservoir_tpu_torch.stream.gate`).
+"""The port's host libraries, loaded with ``ctypes``: the C++ demux of
+``_native/staging_buffer.cc`` (a copy of the JAX package's), with a numpy
+staging of the same semantics; the skip gate's replica of the Algorithm-L
+chain, ``_native/skip_gate.cc`` (:func:`load_gate_library`, used by
+:mod:`reservoir_tpu_torch.stream.gate`); and the host oracles' bulk scans,
+``_native/algl_scan.cc`` (:func:`algl_scan`) and ``_native/bottom_k.cc``
+(:func:`load_bottomk_library`), copies of the JAX package's, used by
+:mod:`reservoir_tpu_torch.oracle`.
 
 The bridge's costly host step is the demux: an interleaved feed of
 ``(stream_id, element)`` pairs is scattered into per-stream rows of an
@@ -16,6 +19,7 @@ The library is built with ``g++`` at first use into
 There is no silent fallback: :class:`NativeStaging` raises if the library
 fails to build or load, and uses the numpy staging only when the caller
 passes ``native=False``; so does the skip gate, whose torch replica runs
+only on ``native=False``, and so do the oracles, whose Python loops run
 only on ``native=False``.
 """
 
@@ -24,26 +28,38 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
 from .utils import faults as _faults
 
-__all__ = ["NativeStaging", "load_gate_library", "load_library"]
+__all__ = [
+    "NativeStaging",
+    "algl_scan",
+    "load_algl_scan_library",
+    "load_bottomk_library",
+    "load_gate_library",
+    "load_library",
+]
 
 _SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_native", "staging_buffer.cc")
 _GATE_SOURCE = os.path.join(os.path.dirname(_SOURCE), "skip_gate.cc")
+_ALGL_SCAN_SOURCE = os.path.join(os.path.dirname(_SOURCE), "algl_scan.cc")
+_BOTTOMK_SOURCE = os.path.join(os.path.dirname(_SOURCE), "bottom_k.cc")
 #: the ``csrc/`` headers the gate's library compiles for the CPU
 GATE_HEADERS = ("algl_chain.cuh", "fmath.cuh", "threefry.cuh")
 
 _lib: Optional[ctypes.CDLL] = None
 _gate_lib: Optional[ctypes.CDLL] = None
+_scan_libs: dict = {}
 _lock = threading.Lock()
 
 _VP = ctypes.c_void_p
 _I32 = ctypes.c_int32
 _I64 = ctypes.c_int64
+_U64 = ctypes.c_uint64
+_F64 = ctypes.c_double
 
 
 def load_library() -> ctypes.CDLL:
@@ -97,6 +113,69 @@ def load_gate_library() -> ctypes.CDLL:
             lib.rsv_gate_threads.argtypes = []
             _gate_lib = lib
         return _gate_lib
+
+
+def _load_scan(source: str, name: str, restype, argtypes) -> ctypes.CDLL:
+    """The one-function library built from ``source``, with ``name``
+    declared; built on first use, raises if it cannot be built or loaded."""
+    with _lock:
+        lib = _scan_libs.get(source)
+        if lib is None:
+            from ._build import build_host
+
+            lib = ctypes.CDLL(build_host(source))
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+            _scan_libs[source] = lib
+        return lib
+
+
+def load_algl_scan_library() -> ctypes.CDLL:
+    """The uniform oracle's skip-jump scan (``_native/algl_scan.cc``,
+    ``reservoir_algl_scan``), built on first use; raises if it cannot be
+    built or loaded."""
+    return _load_scan(_ALGL_SCAN_SOURCE, "reservoir_algl_scan", _I64, [
+        _VP,  # next_double function pointer
+        _VP,  # bit-generator state
+        _VP,  # elems
+        _I64,  # n
+        _I64,  # k
+        _VP,  # samples (in/out)
+        _I64,  # count
+        _I64,  # next acceptance (absolute, 1-based)
+        _F64,  # log_w
+        ctypes.POINTER(_F64),  # log_w out
+        ctypes.POINTER(_I64),  # next out
+    ])
+
+
+def load_bottomk_library() -> ctypes.CDLL:
+    """The distinct oracle's scan (``_native/bottom_k.cc``,
+    ``rsv_bottomk_scan``), built on first use; raises if it cannot be
+    built or loaded."""
+    return _load_scan(_BOTTOMK_SOURCE, "rsv_bottomk_scan", _I64, [
+        _VP, _I64, _U64, _U64, _VP, _VP, ctypes.POINTER(_I32), _I32,
+    ])
+
+
+def algl_scan(rng: np.random.Generator, elems: np.ndarray, k: int, samples: np.ndarray,
+              count: int, next_acc: int, log_w: float) -> Tuple[int, int, float]:
+    """The uniform oracle's steady skip-jump loop over ``elems`` (int64,
+    contiguous) in C, drawing from ``rng``'s own bit stream through numpy's
+    BitGenerator ctypes interface, so the draws and the generator's final
+    state are those of the Python loop.  Mutates ``samples`` (int64
+    ``[k]``) in place; returns ``(count, next_acc, log_w)``."""
+    lib = load_algl_scan_library()
+    iface = rng.bit_generator.ctypes
+    log_w_out = _F64()
+    next_out = _I64()
+    new_count = lib.reservoir_algl_scan(
+        ctypes.cast(iface.next_double, _VP), _VP(iface.state_address), _ptr(elems),
+        elems.size, k, _ptr(samples), count, next_acc, log_w,
+        ctypes.byref(log_w_out), ctypes.byref(next_out),
+    )
+    return int(new_count), int(next_out.value), float(log_w_out.value)
 
 
 def _ptr(a: Optional[np.ndarray]):

@@ -1,13 +1,20 @@
 """What the kernel wrappers share: the checks made before a pointer crosses
-to CUDA, and the query of what the build made of a kernel."""
+to CUDA, the query of what the build made of a kernel, and the lock their
+launch counts are taken under."""
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 from .algorithm_l import SAMPLE_DTYPES
 
-__all__ = ["BUILD_INFO_FIELDS", "build_info", "check_tensors"]
+__all__ = ["BUILD_INFO_FIELDS", "COUNT_LOCK", "build_info", "check_tensors"]
+
+#: held while a wrapper adds a launch to its count: the interop server
+#: launches from a thread a connection, and ``count += 1`` on a module
+#: global is not atomic across threads
+COUNT_LOCK = threading.Lock()
 
 #: what :func:`build_info` reports of a kernel, in its order
 BUILD_INFO_FIELDS = ("registers", "local_bytes", "static_smem", "dynamic_smem", "warps_per_sm")

@@ -38,7 +38,9 @@ on one device:
 
 :data:`launches` counts ``algl_update`` launches, :data:`gated_launches`
 ``algl_update_gated`` launches and :data:`merge_launches` ``algl_merge_draws``
-launches, and nothing else.
+launches, and nothing else; ``launches`` is added to under
+:data:`~._cuda_common.COUNT_LOCK`, since the interop server launches from
+several threads.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from typing import Optional
 
 import torch
 
-from ._cuda_common import build_info, check_tensors
+from ._cuda_common import COUNT_LOCK, build_info, check_tensors
 from .algorithm_l import (MergeDraws, ReservoirState, _signed_rows, merge_draws, update, update_gated,
                           update_steady)
 
@@ -182,7 +184,8 @@ def _launch(state: ReservoirState, batch: torch.Tensor, valid, fill: bool) -> Re
         R, k, B, int(fill), _stream(state.samples.device),
     )
     _raise_on(code, "algl_update launch")
-    launches += 1
+    with COUNT_LOCK:
+        launches += 1
     return state
 
 

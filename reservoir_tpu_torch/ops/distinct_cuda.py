@@ -26,7 +26,9 @@ an ``(hi, lo)`` pair of 32-bit ``[R, B]`` planes:
 - on CPU tensors it runs the plain version (:func:`.distinct.update`), which
   returns a new state.
 
-:data:`launches` counts kernel launches, and nothing else.
+:data:`launches` counts kernel launches, and nothing else; it is added to
+under :data:`~._cuda_common.COUNT_LOCK`, since the interop server launches
+from several threads.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from ._cuda_common import build_info, check_tensors
+from ._cuda_common import COUNT_LOCK, build_info, check_tensors
 from .distinct import NARROW_DTYPES, WIDE_DTYPES, Batch, DistinctState, update
 
 __all__ = ["launches", "update_cuda", "update", "kernel_info"]
@@ -155,5 +157,6 @@ def update_cuda(
     if code != 0:
         msg = lib.distinct_error_string(code).decode()
         raise RuntimeError(f"distinct_update launch failed: CUDA error {code} ({msg})")
-    launches += 1
+    with COUNT_LOCK:
+        launches += 1
     return state

@@ -14,16 +14,19 @@ The functions take either backend:
 - torch tensors carrying uint32 words in int64 (``[0, 2^32)``), because
   torch on the CPU has no uint32 add or shift (see :mod:`.threefry`);
   multiplications are split into 16-bit halves so no product leaves int64;
-- numpy ``uint32`` arrays, whose arithmetic wraps by itself (the form a
-  host oracle uses).
+- numpy ``uint32`` arrays, whose arithmetic wraps by itself.
 
-Every operation is modular, so both give the JAX package's words bit for
-bit, and so does ``csrc/hashing.cuh``.
+The host oracle (:class:`~reservoir_tpu_torch.oracle.BottomKOracle`) takes
+the 64-bit forms: :func:`scramble64_int` on Python ints for one element,
+:func:`scramble64_array` on an int64/uint64 array, and
+:func:`draw_salts` for its salts; :func:`as_scalar_hash` turns a tile hash
+into the oracle's scalar one.  Every operation is modular, so all of them
+give the JAX package's words bit for bit, and so does ``csrc/hashing.cuh``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Tuple
 
 import numpy as np
 import torch
@@ -31,9 +34,13 @@ import torch
 from .threefry import MASK32
 
 __all__ = [
+    "as_scalar_hash",
+    "default_hash64",
+    "draw_salts",
     "fmix32",
     "scramble64",
-    "default_hash64",
+    "scramble64_array",
+    "scramble64_int",
     "salt_for_target",
     "words",
     "to_i32",
@@ -118,3 +125,75 @@ def salt_for_target(
             # the inverse of (hi, lo) -> (lo, hi ^ f(lo + c))
             t_hi, t_lo = t_lo ^ fmix32((t_hi + c) & MASK32), t_hi
     return int(hi ^ t_hi), int(lo ^ t_lo)
+
+
+def _split_u64(x: int) -> Tuple[int, int]:
+    x &= (1 << 64) - 1
+    return (x >> 32) & MASK32, x & MASK32
+
+
+def _fmix32_int(x: int) -> int:
+    x ^= x >> 16
+    x = (x * _M1) & MASK32
+    x ^= x >> 13
+    x = (x * _M2) & MASK32
+    x ^= x >> 16
+    return x
+
+
+def scramble64_int(value: int, salts: Tuple[int, int]) -> int:
+    """:func:`scramble64` of one 64-bit pattern ``value`` (a Python int,
+    taken modulo 2^64) under the salts ``(r0, r1)``, in Python ints; returns
+    the hash in ``[0, 2^64)``.  Far cheaper a call than numpy scalars, which
+    the oracle's per-element path would otherwise pay."""
+    hi, lo = _split_u64(int(value))
+    r0_hi, r0_lo = _split_u64(salts[0])
+    r1_hi, r1_lo = _split_u64(salts[1])
+    hi ^= r0_hi
+    lo ^= r0_lo
+    for c in _ROUND_CONSTS[:3]:
+        hi, lo = lo, hi ^ _fmix32_int((lo + c) & MASK32)
+    hi ^= r1_hi
+    lo ^= r1_lo
+    for c in _ROUND_CONSTS[3:]:
+        hi, lo = lo, hi ^ _fmix32_int((lo + c) & MASK32)
+    return (hi << 32) | lo
+
+
+def scramble64_array(values: np.ndarray, salts: Tuple[int, int]) -> np.ndarray:
+    """:func:`scramble64_int` over an integer array: each value's 64-bit
+    pattern (sign-extended from a signed dtype) to its uint64 hash."""
+    v = np.asarray(values)
+    if v.dtype.kind not in "iu":
+        raise ValueError(f"expected an integer array, got {v.dtype}")
+    u = v.astype(np.int64, copy=False).view(np.uint64)
+    hi = (u >> np.uint64(32)).astype(np.uint32)
+    lo = (u & np.uint64(MASK32)).astype(np.uint32)
+    r0_hi, r0_lo = _split_u64(salts[0])
+    r1_hi, r1_lo = _split_u64(salts[1])
+    with np.errstate(over="ignore"):
+        shi, slo = scramble64(
+            hi, lo, np.uint32(r0_hi), np.uint32(r0_lo), np.uint32(r1_hi), np.uint32(r1_lo)
+        )
+    return (shi.astype(np.uint64) << np.uint64(32)) | slo.astype(np.uint64)
+
+
+def draw_salts(rng: np.random.Generator) -> Tuple[int, int]:
+    """A host sampler's two 64-bit salts, drawn once at construction."""
+    return int(rng.integers(0, 1 << 64, dtype=np.uint64)), int(
+        rng.integers(0, 1 << 64, dtype=np.uint64)
+    )
+
+
+def as_scalar_hash(tile_hash_fn: Any):
+    """The oracle's scalar hash (``value -> 64-bit int``) of a tile hash
+    ``tile_hash_fn(values) -> (hi, lo)`` uint32 arrays, by feeding it a
+    one-element numpy array: one definition for the host sampler and a
+    tile engine."""
+
+    def scalar_hash(value) -> int:
+        arr = np.asarray([value])
+        hi, lo = tile_hash_fn(arr)
+        return (int(np.uint32(hi[0])) << 32) | int(np.uint32(lo[0]))
+
+    return scalar_hash

@@ -1210,3 +1210,120 @@ def test_uniform_stream_merger_launches_the_merge_kernel_once_a_level(cuda_devic
     want = PM.uniform_stream_merger([s.cpu() for s in samples], [c.cpu() for c in counts], 3)
     for g, w in zip(got, want):
         assert torch.equal(_bits(g).cpu(), _bits(w))
+
+
+# ---------------------------------------------- the operator and the server
+
+
+_OPERATOR_FLOWS = {
+    "uniform": dict(max_sample_size=128, key=0, tile_size=1024),
+    "distinct32": dict(max_sample_size=256, key=1, tile_size=1024, distinct=True),
+    "distinct64": dict(max_sample_size=256, key=2, tile_size=1024, distinct=True,
+                       element_dtype="int64"),
+}
+
+
+def _operator_stream(flow, n):
+    rng = np.random.default_rng(7)
+    if flow == "uniform":
+        return rng.integers(-(2**31), 2**31, n).astype(np.int32)
+    keys = np.minimum(rng.random(n) ** -10.0, 1e7).astype(np.int64)
+    return keys if flow == "distinct64" else keys.astype(np.int32)
+
+
+def _flow_launches():
+    return np.array([TK.launches, TDK.launches])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sync", "async", "cancel"])
+@pytest.mark.parametrize("flow", sorted(_OPERATOR_FLOWS))
+def test_sample_device_on_the_card_equals_the_cpu(cuda_device, flow, mode):
+    """``Sample.device`` on the card against the same flow with
+    ``device="cpu"``, bit for bit: one kernel launch a full tile and one for
+    the ragged remainder (at completion, or at a graceful cancel)."""
+    import asyncio
+
+    from reservoir_tpu_torch import Sample
+
+    n = 1024 * 5 + 37
+    stream = _operator_stream(flow, n)
+    stop = 1024 * 3 + 500 if mode == "cancel" else n
+    out, launched = [], []
+    for device in (cuda_device, "cpu"):
+        f = Sample.device(**_OPERATOR_FLOWS[flow], device=device)
+        before = _flow_launches()
+        if mode == "sync":
+            res = f.run(iter(stream)).drain()
+        elif mode == "async":
+            async def go(f=f):
+                async def source():
+                    for x in stream:
+                        yield x
+
+                return await f.run_async(source()).drain()
+
+            res = asyncio.run(go())
+        else:
+            run = f.run(iter(stream))
+            for _ in range(stop):
+                next(run)
+            run.cancel()
+            res = run.sample.result(timeout=60)
+        launched.append((_flow_launches() - before).tolist())
+        out.append(np.asarray(res))
+    np.testing.assert_array_equal(out[0], out[1])
+    assert out[0].dtype == out[1].dtype
+    tiles = -(-stop // 1024)
+    assert launched == [[0, tiles] if flow.startswith("distinct") else [tiles, 0], [0, 0]]
+
+
+@pytest.mark.cuda
+def test_two_connection_sample_server_on_the_card_equals_the_cpu(cuda_device):
+    """A ``SampleServer`` whose factory makes card ``DeviceSampler``s: two
+    connections at once, each reply equal to a CPU ``DeviceSampler`` fed
+    that connection's stream, with 16 launches a connection's 16 full tiles
+    and one for its ragged remainder (the counts are taken under a lock)."""
+    import socket
+    import struct
+    import threading
+
+    from reservoir_tpu_torch.stream.interop import SampleServer
+
+    def factory(mode, k):
+        return DeviceSampler(SamplerConfig(k, 1, tile_size=1024), key=0, device=cuda_device)
+
+    streams = [np.random.default_rng(i).integers(0, 2**31, 1024 * 16 + 300 + i) for i in range(2)]
+    replies = [None, None]
+
+    def recv(sock, n):
+        buf = b""
+        while len(buf) < n:
+            chunk = sock.recv(n - len(buf))
+            assert chunk
+            buf += chunk
+        return buf
+
+    def client(i):
+        with socket.create_connection(srv.address, timeout=60) as s:
+            s.sendall(b"RSV1" + bytes([0]) + struct.pack(">I", 128))
+            for chunk in np.array_split(streams[i], 4):
+                arr = chunk.astype(">i8")
+                s.sendall(b"B" + struct.pack(">I", arr.size) + arr.tobytes())
+            s.sendall(b"C")
+            head = recv(s, 5)
+            (size,) = struct.unpack(">I", head[1:])
+            replies[i] = np.frombuffer(recv(s, 8 * size), ">i8").astype(np.int64)
+
+    before = TK.launches
+    with SampleServer(sampler_factory=factory) as srv:
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+    assert TK.launches - before == 2 * 17
+    for data, got in zip(streams, replies):
+        ref = DeviceSampler(SamplerConfig(128, 1, tile_size=1024), key=0, device="cpu")
+        ref.sample_all(data)
+        np.testing.assert_array_equal(got, ref.result().astype(np.int64))
