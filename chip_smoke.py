@@ -11,8 +11,9 @@ by ``parallel.merge``'s stream mergers through the all-gather kernel, and
 the stream bridge at the uniform configuration, with and without its skip
 gate, and the reference's public surface: the pass-through operator
 ``Sample.device`` and the interop ``SampleServer`` with card samplers, at
-BASELINE.md config 1's size — and holds each CUDA kernel against its plain
-torch version.  Phases, each of
+BASELINE.md config 1's size, and the serving plane: the engine's row
+operations and ``ReservoirService`` at bench.py's serve and traffic
+shapes — and holds each CUDA kernel against its plain torch version.  Phases, each of
 which fails the run with a non-zero exit:
 
 1. device: require a CUDA card; print its name and power limit;
@@ -233,7 +234,44 @@ which fails the run with a non-zero exit:
    least, most); with CUDA events, ``algl_update`` and ``distinct_update`` on
    this path's steady ``[1, 1024]`` tiles (after 8 tiles) beside their
    bounds (both shorter than their wrappers' host time, so ``event_ms``
-   reads host time there).
+   reads host time there);
+30. row operations on the card, in each mode at its configuration above,
+   the update kernel's launch count set to 0 first: three engines (key 0)
+   take 4 tiles; one resets 4,096 rows (R / 4 for the weighted and
+   distinct configurations) of a permuted set with one row twice, whose
+   rows must equal the compiled plain ``init`` on the CPU (the last
+   occurrence of the repeated row winning); 1,024 rows of it are exported
+   and adopted by the second; 4 more tiles, the second engine's adopted
+   rows fed what the first's source rows are fed: the rows no operation
+   touched equal the third engine's (which never reset), 1,024 reset rows
+   (1,023 at the distinct configuration: all it resets) equal a
+   ``device="cpu"`` engine given the same calls, the adopted rows
+   equal their source rows, and the update kernel ran once a tile (24)
+   and never for a row operation; then a uniform engine at k = 6 resets
+   4,096 rows, whose ``log_w`` must equal the compiled plain ``init`` (the
+   eager one would differ in some);
+31. ``ReservoirService`` on the card, each launch count set to 0 before
+   each part: (a) bench.py's serve shape (2,048 sessions, k = 32, four
+   rounds of 256 int32 elements a session, ``coalesce_bytes`` 1 MiB) in
+   the plain, weighted and distinct modes, one update launch a flush;
+   (d) the plain feed through ``gated=True``: every snapshot equals the
+   ungated service's, one ``algl_update_gated`` a gated dispatch;
+   (b) bench.py's traffic shape: 10,240 sessions opened in a seeded order
+   on 8,192 rows (k = 8, a tile of 4 x 64), so 2,048 evictions recycle
+   rows through ``reset_rows``; (c) a service with ``checkpoint_dir``
+   killed after round 3, with 64 sessions recycled since its last
+   checkpoint, brought back by ``ReservoirService.recover`` and fed round
+   4: every snapshot equals a live service's; the snapshots and counters
+   of (a) and (b) must equal the same services with ``device="cpu"``,
+   which run in a child process on the CPU while the card works;
+32. serving timings (host clock after ``torch.cuda.synchronize()``):
+   sessions/s through bench.py's serve lifecycle (open, four rounds,
+   sync, a snapshot each, close; best of 3 after a warm pass) with the
+   registry's ``serve.snapshot_s`` and ``serve.ingest_s`` p50 and p99, the
+   service's flushes' host time beside their ``engine.sample`` time, and
+   ``reset_rows`` of 1, 64 and 4,096 rows, ``export_rows`` and
+   ``adopt_rows`` of 1,024 rows at the uniform configuration (median of
+   7).
 
 Depth cut for the time limit: feed (b) follows feed (a) on the same
 bridge, so its rows are past the early stream, where a row's 8,192
@@ -246,7 +284,7 @@ whole 512 MiB tile four times).
 A phase's line ends with the seconds since the script started.
 
 The line before the last is ``{"kernels": [...]}``, before it
-``{"operator": {...}}`` (phases 27-29), ``{"gate": {...}}`` (phases
+``{"serve": {...}}`` (phases 30-32), ``{"operator": {...}}`` (phases 27-29), ``{"gate": {...}}`` (phases
 24-26) and ``{"bridge": {...}}`` (phases 20-23); the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or run outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -733,12 +771,18 @@ def main() -> None:
     gate, gated_entry = gate_phases(gen, dev, here)
     operator, algl_extra, distinct_extra = operator_phases(dev)
     distinct.update(distinct_extra)
+    serve, serve_launches = serve_phases(gen, dev, here)
+    algl_extra["serve_launches"] = serve_launches["algl_update"]
+    weighted["serve_launches"] = serve_launches["weighted_update"]
+    distinct["serve_launches"] = serve_launches["distinct_update"]
+    gated_entry["serve_launches"] = serve_launches["algl_update_gated"]
 
     card = card_line()
     log(card)
     log(json.dumps({"bridge": bridge}))
     log(json.dumps({"gate": gate}))
     log(json.dumps({"operator": operator}))
+    log(json.dumps({"serve": serve}))
     log(json.dumps({"kernels": [{
         "name": "algl_update",
         "route": "cuda",
@@ -3121,6 +3165,528 @@ def operator_phases(dev) -> tuple:
     distinct_extra = {"operator_launches": d_launches, "server_launches": wd_launches,
                       "operator_tile_1x1024": line["tile_1x1024"]["distinct_update"]}
     return line, algl_extra, distinct_extra
+
+
+# the serving phases: bench.py's serve shape (2,048 sessions, k = 32, four
+# rounds of B = 256 int32 elements a session, coalesce_bytes 1 MiB) and its
+# traffic shape (a table of 8,192 rows, k = 8, chunks of 64 in a tile of
+# 4 x 64, 10,240 sessions, so 2,048 evictions recycle rows)
+SV_S, SV_K, SV_B, SV_ROUNDS = 2048, 32, 256, 4
+SV_COALESCE = 1 << 20
+TR_R, TR_K, TR_B = 8192, 8, 64
+TR_SESSIONS = TR_R + TR_R // 4
+# phase 31 (c): sessions closed and reopened between rounds 1 and 2
+SV_CHURN = 64
+SERVE_MODES = ("plain", "weighted", "distinct")
+KERNEL_OF = {"plain": "algl_update", "weighted": "weighted_update", "distinct": "distinct_update"}
+
+
+def serve_config(mode: str):
+    from reservoir_tpu_torch import SamplerConfig
+
+    return SamplerConfig(max_sample_size=SV_K, num_reservoirs=SV_S, tile_size=SV_B,
+                         weighted=mode == "weighted", distinct=mode == "distinct")
+
+
+def serve_feed(mode: str) -> tuple:
+    """Phase 31 (a)'s chunks ``[round, session, B]`` (and weights) for one
+    mode, from numpy seed 31; distinct keys are taken mod 4096, so rows see
+    repeats."""
+    rng = np.random.default_rng(31 + SERVE_MODES.index(mode))
+    chunks = rng.integers(0, 1 << 31, (SV_ROUNDS, SV_S, SV_B), dtype=np.int64).astype(np.int32)
+    if mode == "distinct":
+        chunks %= 4096
+    weights = (rng.uniform(0.1, 2.0, (SV_ROUNDS, SV_S, SV_B)).astype(np.float32)
+               if mode == "weighted" else None)
+    return chunks, weights
+
+
+def serve_round(svc, feed, r: int, keys) -> None:
+    """Round ``r``: chunk ``j`` of the round to session ``keys[j]``."""
+    chunks, weights = feed
+    for j, key in enumerate(keys):
+        svc.ingest(key, chunks[r, j], None if weights is None else weights[r, j])
+
+
+def serve_flow(mode: str, device, **kw):
+    """Phase 31 (a) for one mode: open 2,048 sessions, four rounds, sync;
+    returns the service and every session's snapshot."""
+    from reservoir_tpu_torch import ReservoirService
+
+    feed = serve_feed(mode)
+    svc = ReservoirService(serve_config(mode), key=1, coalesce_bytes=SV_COALESCE, device=device, **kw)
+    keys = [f"u{i}" for i in range(SV_S)]
+    for key in keys:
+        svc.open_session(key)
+    for r in range(SV_ROUNDS):
+        serve_round(svc, feed, r, keys)
+    svc.sync()
+    return svc, [svc.snapshot(key, sync=False) for key in keys]
+
+
+def traffic_flow(device):
+    """Phase 31 (b): 10,240 sessions opened in a seeded order on a table of
+    8,192 rows: 8,192 sessions open and take a chunk each, then 2,048 more
+    open, each evicting the least recently used and recycling its row
+    through ``reset_rows``, then every live session takes another chunk.
+    Returns the service and each live session's snapshot."""
+    from reservoir_tpu_torch import ReservoirService, SamplerConfig
+
+    cfg = SamplerConfig(max_sample_size=TR_K, num_reservoirs=TR_R, tile_size=4 * TR_B)
+    rng = np.random.default_rng(32)
+    order = rng.permutation(TR_SESSIONS)
+    data = rng.integers(0, 1 << 31, (2, TR_SESSIONS, TR_B), dtype=np.int64).astype(np.int32)
+    svc = ReservoirService(cfg, key=2, coalesce_bytes=SV_COALESCE, device=device)
+    for i in order[:TR_R]:
+        svc.open_session(f"u{i}")
+    for i in order[:TR_R]:
+        svc.ingest(f"u{i}", data[0, i])
+    for i in order[TR_R:]:
+        svc.open_session(f"u{i}")
+    for s in svc.table.sessions():
+        svc.ingest(s.key, data[1, int(s.key[1:])])
+    svc.sync()
+    return svc, {s.key: svc.snapshot(s.key, sync=False) for s in svc.table.sessions()}
+
+
+def serve_cpu_references() -> dict:
+    """Phase 31's plain versions: (a) in each mode and (b), with
+    ``device="cpu"``.  Run in a child process while the card works."""
+    torch.set_num_threads(4)
+    out = {}
+    for mode in SERVE_MODES:
+        svc, snaps = serve_flow(mode, "cpu")
+        out[mode] = (snaps, svc.metrics.snapshot())
+    svc, snaps = traffic_flow("cpu")
+    out["traffic"] = (snaps, svc.metrics.snapshot(), svc.bridge.engine.reset_epochs)
+    return out
+
+
+def same_snapshots(a, b) -> bool:
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and np.array_equal(x.view(np.uint8), y.view(np.uint8))
+        for x, y in zip(a, b))
+
+
+def same_all(a, b) -> bool:
+    """Every field of two states (keys included) bit for bit."""
+    for x, y in zip(a, b):
+        if (x is None) != (y is None):
+            return False
+        if x is not None and not torch.equal(x.contiguous().view(torch.uint8), y.contiguous().view(torch.uint8)):
+            return False
+    return True
+
+
+def state_rows(state, rows: torch.Tensor):
+    return type(state)(*(None if t is None else t.index_select(0, rows) for t in state))
+
+
+def last_positions(rows: np.ndarray) -> tuple:
+    """``(unique rows, the position of each one's last occurrence)``."""
+    uniq, first_rev = np.unique(rows[::-1], return_index=True)
+    return uniq, rows.size - 1 - first_rev
+
+
+def row_ops_mode(mode: str, gen, dev) -> dict:
+    """Phase 30 for one mode at its configuration: the row operations on
+    the card against an engine that never reset and a ``device="cpu"``
+    engine."""
+    import reservoir_tpu_torch as rtt
+    from reservoir_tpu_torch.ops import algorithm_l as plain
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.ops import distinct as dplain
+    from reservoir_tpu_torch.ops import distinct_cuda as dkern
+    from reservoir_tpu_torch.ops import weighted as wplain
+    from reservoir_tpu_torch.ops import weighted_cuda as wkern
+    from reservoir_tpu_torch.ops.rng import key_from_seed
+
+    rows_n, k, width = {"plain": (R, K, B), "weighted": (WR, WK, WB), "distinct": (DR, DK, DB)}[mode]
+    n_reset = 4096 if mode == "plain" else rows_n // 4
+    cfg = rtt.SamplerConfig(max_sample_size=k, num_reservoirs=rows_n, tile_size=width,
+                            weighted=mode == "weighted", distinct=mode == "distinct")
+    counter = {"plain": kern, "weighted": wkern, "distinct": dkern}[mode]
+    ops = {"plain": plain, "weighted": wplain, "distinct": dplain}[mode]
+
+    def tile_pair():
+        if mode == "distinct":
+            return zipf_keys(gen, rows_n, width, torch.int32, dev), None
+        t = torch.randint(-(2**31), 2**31 - 1, (rows_n, width), dtype=torch.int32, device=dev, generator=gen)
+        return t, (weight_tile(gen, rows_n, width, "lognormal", dev) if mode == "weighted" else None)
+
+    def feed(eng, t, w):
+        if w is None:
+            eng.sample(t)
+        else:
+            eng.sample(t, weights=w)
+
+    torch.cuda.synchronize()
+    counter.launches = 0
+    eng1, eng2, ref = (rtt.ReservoirEngine(cfg, key=0, reusable=True) for _ in range(3))
+    for _ in range(4):
+        t, w = tile_pair()
+        for eng in (eng1, eng2, ref):
+            feed(eng, t, w)
+    rng = np.random.default_rng(30 + SERVE_MODES.index(mode))
+    perm = rng.permutation(rows_n)
+    reset = perm[: n_reset - 1].astype(np.int32)
+    reset = np.insert(reset, n_reset // 2, reset[7])  # row reset[7] twice: its last occurrence wins
+    src, dst = perm[:1024], rng.permutation(rows_n)[:1024]
+    before = counter.launches
+    eng1.reset_rows(reset, 123)
+    part = eng1.export_rows(src)
+    eng2.adopt_rows(dst, part)
+    torch.cuda.synchronize()
+    if counter.launches != before:
+        fail(f"[30 rows] {mode}: a row operation launched the update kernel")
+    if (eng1.reset_epochs, eng2.reset_epochs, eng1._min_count, eng2._min_count) != (1, 1, 0, 0):
+        fail(f"[30 rows] {mode}: reset_epochs or the fill bound were not updated")
+    # the reset rows equal the plain init on the CPU (compiled, as the
+    # reference's reset), the last occurrence of the repeated row winning
+    uniq, last = last_positions(reset)
+    extra = {"compiled": True} if mode == "plain" else {}
+    want = ops.init(key_from_seed(123), reset.size, k, sample_dtype=eng1._dtype, device="cpu", **extra)
+    want = state_rows(want, torch.from_numpy(last))
+    uniq_d = torch.from_numpy(uniq.astype(np.int64)).to(dev)
+    if not same_all(state_rows(eng1._state, uniq_d), type(want)(*(None if t is None else t.to(dev)
+                                                                   for t in want))):
+        fail(f"[30 rows] {mode}: the reset rows differ from the plain init on the CPU")
+    # 4 more tiles; eng2's rows dst take what eng1's rows src take
+    n_cpu = min(ROWS_CPU, uniq.size)
+    sub = torch.from_numpy(uniq[:n_cpu].astype(np.int64))
+    cpu_cfg = rtt.SamplerConfig(max_sample_size=k, num_reservoirs=n_cpu, tile_size=width,
+                                weighted=mode == "weighted", distinct=mode == "distinct")
+    cpu = rtt.ReservoirEngine(cpu_cfg, reusable=True, device="cpu",
+                              _initial_state=state_rows(want, torch.arange(n_cpu)))
+    src_d = torch.from_numpy(src.astype(np.int64)).to(dev)
+    dst_d = torch.from_numpy(dst.astype(np.int64)).to(dev)
+    for _ in range(4):
+        t, w = tile_pair()
+        feed(eng1, t, w)
+        feed(ref, t, w)
+        t2 = t.clone()
+        t2[dst_d] = t[src_d]
+        w2 = None
+        if w is not None:
+            w2 = w.clone()
+            w2[dst_d] = w[src_d]
+        feed(eng2, t2, w2)
+        feed(cpu, t[sub.to(dev)].cpu(), None if w is None else w[sub.to(dev)].cpu())
+    torch.cuda.synchronize()
+    launches = counter.launches
+    if launches != 3 * 8:
+        fail(f"[30 rows] {mode}: {launches} update launches for 24 tiles")
+    keep1 = torch.ones(rows_n, dtype=torch.bool, device=dev)
+    keep1[uniq_d] = False
+    keep2 = torch.ones(rows_n, dtype=torch.bool, device=dev)
+    keep2[dst_d] = False
+    idx1, idx2 = keep1.nonzero().squeeze(1), keep2.nonzero().squeeze(1)
+    if not same_all(state_rows(eng1._state, idx1), state_rows(ref._state, idx1)):
+        fail(f"[30 rows] {mode}: rows the reset did not touch differ from an engine that never reset")
+    if not same_all(state_rows(eng2._state, idx2), state_rows(ref._state, idx2)):
+        fail(f"[30 rows] {mode}: rows the adoption did not touch differ from an engine that never adopted")
+    if not same_all(state_rows(eng2._state, dst_d), state_rows(eng1._state, src_d)):
+        fail(f"[30 rows] {mode}: the adopted rows did not continue as their source rows")
+    got_cpu = type(cpu._state)(*(None if t is None else t.cpu() for t in state_rows(eng1._state, sub.to(dev))))
+    if not same_all(got_cpu, cpu._state):
+        fail(f"[30 rows] {mode}: {n_cpu} reset rows differ from the CPU engine")
+    log(f"[30 rows] {mode} R={rows_n} k={k} B={width}: reset_rows of {reset.size} rows (one twice) equals the "
+        f"compiled plain init; 8 tiles, 3 engines: {launches} update launches (none for a row operation); "
+        f"untouched rows == an engine that never reset, {n_cpu} reset rows == device='cpu' over 4 tiles, "
+        f"export_rows/adopt_rows of 1024 rows continue as the source")
+    return {"rows_reset": int(reset.size), "rows_adopted": 1024, "launches": launches}
+
+
+def compiled_init_case(gen, dev) -> dict:
+    """Phase 30's uniform case at k = 6: the reset rows' log_w equal the
+    compiled plain init (fma with 1/k), and the eager init would differ."""
+    import reservoir_tpu_torch as rtt
+    from reservoir_tpu_torch.ops import algorithm_l as plain
+    from reservoir_tpu_torch.ops.rng import key_from_seed
+
+    k = 6
+    eng = rtt.ReservoirEngine(rtt.SamplerConfig(max_sample_size=k, num_reservoirs=R, tile_size=B), key=0,
+                              reusable=True)
+    eng.sample(torch.randint(0, 2**31 - 1, (R, B), dtype=torch.int32, device=dev, generator=gen))
+    rng = np.random.default_rng(36)
+    reset = rng.permutation(R)[:4096].astype(np.int32)
+    reset[-1] = reset[0]
+    eng.reset_rows(reset, 123)
+    uniq, last = last_positions(reset)
+    got = eng._state.log_w[torch.from_numpy(uniq.astype(np.int64)).to(dev)].cpu()
+    lastt = torch.from_numpy(last)
+    compiled = plain.init(key_from_seed(123), reset.size, k, compiled=True).log_w[lastt]
+    eager = plain.init(key_from_seed(123), reset.size, k).log_w[lastt]
+    if not torch.equal(bits(got), bits(compiled)):
+        fail("[30 rows] k=6: the reset's log_w differs from the compiled plain init")
+    differ = int((bits(eager) != bits(compiled)).sum())
+    log(f"[30 rows] plain k={k}: the reset's log_w of {uniq.size} rows equals the compiled init "
+        f"(fma with 1/k); the eager init would differ in {differ} of them")
+    return {"k": k, "rows": int(uniq.size), "eager_init_would_differ": differ}
+
+
+def serve_phases(gen, dev, here: str) -> tuple:
+    """Phases 30-32, row operations and the serving plane; returns the
+    ``serve`` line and each update kernel's launches on the serving path."""
+    import concurrent.futures
+    import multiprocessing
+
+    from reservoir_tpu_torch import ReservoirService
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.ops import distinct_cuda as dkern
+    from reservoir_tpu_torch.ops import weighted_cuda as wkern
+
+    line = {"rows": {}, "service": {}}
+    counters = {"plain": kern, "weighted": wkern, "distinct": dkern}
+    # the plain versions of phase 31 run in a child process on the CPU
+    # while the card works
+    pool = concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu_future = pool.submit(serve_cpu_references)
+
+        # 30. row operations on the card
+        for mode in SERVE_MODES:
+            line["rows"][mode] = row_ops_mode(mode, gen, dev)
+        line["rows"]["plain_k6"] = compiled_init_case(gen, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 31. the service on the card: (a) bench.py's serve shape
+        card = {}
+        serve_launches = {}
+        for mode in SERVE_MODES:
+            torch.cuda.synchronize()
+            kern.launches = wkern.launches = dkern.launches = kern.gated_launches = 0
+            svc, snaps = serve_flow(mode, None)
+            torch.cuda.synchronize()
+            n = counters[mode].launches
+            others = sum(c.launches for m, c in counters.items() if m != mode) + kern.gated_launches
+            flushes = svc.bridge.metrics.flushes
+            if n != flushes or others:
+                fail(f"[31 service] (a) {mode}: {n} update launches for {flushes} flushes ({others} others)")
+            card[mode] = (svc, snaps)
+            serve_launches[mode] = n
+            log(f"[31 service] (a) {mode}: {SV_S} sessions x {SV_ROUNDS} rounds of {SV_B}: {flushes} flushes, "
+                f"{n} {KERNEL_OF[mode]} launches")
+        # (d) the same feed through the gate
+        torch.cuda.synchronize()
+        kern.launches = kern.gated_launches = 0
+        gsvc, gsnaps = serve_flow("plain", None, gated=True)
+        torch.cuda.synchronize()
+        m = gsvc.bridge.metrics
+        if not gsvc.bridge.gate_active or not same_snapshots(gsnaps, card["plain"][1]):
+            fail("[31 service] (d) the gated service's snapshots differ from the ungated one's")
+        if kern.gated_launches != m.gated_dispatches or kern.launches != m.flushes - m.gated_dispatches:
+            fail(f"[31 service] (d) {kern.gated_launches} gated and {kern.launches} ungated launches for "
+                 f"{m.gated_dispatches} gated dispatches in {m.flushes} flushes")
+        gated_launches = (kern.gated_launches, kern.launches)
+        log(f"[31 service] (d) gated: every snapshot equals the ungated service's; {kern.gated_launches} "
+            f"algl_update_gated and {kern.launches} algl_update launches ({m.flushes} flushes)")
+        del gsvc, gsnaps
+        # (b) recycling at bench.py's traffic shape
+        torch.cuda.synchronize()
+        kern.launches = 0
+        t0 = time.perf_counter()
+        tsvc, tsnaps = traffic_flow(None)
+        torch.cuda.synchronize()
+        traffic_s = time.perf_counter() - t0
+        tm = tsvc.metrics
+        if tm.recycles != TR_SESSIONS - TR_R or tsvc.bridge.engine.reset_epochs != tm.recycles:
+            fail(f"[31 service] (b) {tm.recycles} recycles, {tsvc.bridge.engine.reset_epochs} resets")
+        if kern.launches != tsvc.bridge.metrics.flushes:
+            fail(f"[31 service] (b) {kern.launches} launches for {tsvc.bridge.metrics.flushes} flushes")
+        traffic_launches = kern.launches
+        log(f"[31 service] (b) traffic: {TR_SESSIONS} sessions on {TR_R} rows, {tm.recycles} recycles through "
+            f"reset_rows, {tsvc.bridge.metrics.flushes} flushes, {kern.launches} algl_update launches, "
+            f"{traffic_s:.1f} s")
+        # (c) a checkpointing service killed after round 3, recovered
+        work = os.path.join(here, "build", "chip_smoke", "serve")
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        feed = serve_feed("plain")
+        keys0 = [f"u{i}" for i in range(SV_S)]
+        keys1 = keys0[SV_CHURN:] + [f"w{i}" for i in range(SV_CHURN)]
+        services = [ReservoirService(serve_config("plain"), key=1, coalesce_bytes=SV_COALESCE, **kw)
+                    for kw in ({}, {"checkpoint_dir": work})]
+        for svc in services:
+            for key in keys0:
+                svc.open_session(key)
+            serve_round(svc, feed, 0, keys0)
+            serve_round(svc, feed, 1, keys0)
+            for key in keys0[:SV_CHURN]:
+                svc.close_session(key)
+            for key in keys1[-SV_CHURN:]:
+                svc.open_session(key)  # recycles: resets between journaled flushes
+            serve_round(svc, feed, 2, keys1)
+            svc.sync()
+        live, dead = services
+        seq = dead.flushed_seq
+        del services, dead, svc
+        gc.collect()
+        torch.cuda.synchronize()
+        kern.launches = 0
+        t0 = time.perf_counter()
+        rec = ReservoirService.recover(work)
+        torch.cuda.synchronize()
+        recover_s = time.perf_counter() - t0
+        replay_launches = kern.launches
+        if rec.flushed_seq != seq or rec.bridge.engine.reset_epochs != SV_CHURN:
+            fail(f"[31 service] (c) recovered at seq {rec.flushed_seq} (want {seq}) with "
+                 f"{rec.bridge.engine.reset_epochs} resets replayed")
+        for svc in (live, rec):
+            serve_round(svc, feed, 3, keys1)
+            svc.sync()
+        if not same_snapshots([rec.snapshot(key) for key in keys1], [live.snapshot(key) for key in keys1]):
+            fail("[31 service] (c) the recovered service's snapshots differ from the live service's")
+        log(f"[31 service] (c) recovery: killed at seq {seq} after round 3 ({SV_CHURN} recycles since the "
+            f"checkpoint), recovered in {recover_s:.2f} s ({replay_launches} algl_update launches replayed, "
+            f"{SV_CHURN} resets re-applied between them); after round 4 every snapshot equals the live service's")
+        shutil.rmtree(work, ignore_errors=True)
+        del live, rec
+
+        # the plain versions on the CPU
+        t0 = time.perf_counter()
+        refs = cpu_future.result(timeout=900)
+        wait_s = time.perf_counter() - t0
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    for mode in SERVE_MODES:
+        svc, snaps = card[mode]
+        want, metrics = refs[mode]
+        if not same_snapshots(snaps, want) or metrics != svc.metrics.snapshot():
+            fail(f"[31 service] (a) {mode}: the card's snapshots or metrics differ from device='cpu'")
+    want, metrics, resets = refs["traffic"]
+    if (sorted(want) != sorted(tsnaps) or not same_snapshots([tsnaps[k] for k in sorted(want)],
+                                                            [want[k] for k in sorted(want)])
+            or metrics != tsvc.metrics.snapshot() or resets != tsvc.bridge.engine.reset_epochs):
+        fail("[31 service] (b) the card's snapshots or metrics differ from device='cpu'")
+    log(f"[31 service] (a), (b): every snapshot ({3 * SV_S} + {TR_R}) and every counter equal the "
+        f"device='cpu' services' (the CPU references ran beside the card; {wait_s:.1f} s waited for them)")
+    line["service"] = {
+        "serve_shape": {"sessions": SV_S, "k": SV_K, "B": SV_B, "rounds": SV_ROUNDS,
+                        "coalesce_bytes": SV_COALESCE, "launches": serve_launches,
+                        "flushes": {m: card[m][0].bridge.metrics.flushes for m in SERVE_MODES},
+                        "gated_launches": {"algl_update_gated": gated_launches[0],
+                                           "algl_update": gated_launches[1]}},
+        "traffic_shape": {"rows": TR_R, "k": TR_K, "tile": 4 * TR_B, "sessions": TR_SESSIONS,
+                          "recycles": tm.recycles, "launches": traffic_launches, "seconds": traffic_s},
+        "recovery": {"seq": seq, "replay_launches": replay_launches, "seconds": recover_s},
+    }
+    del card, tsvc, tsnaps, refs
+    gc.collect()
+
+    # 32. timings
+    line["timings"] = serve_timings(dev)
+    line["card"] = card_line()
+    launches = {
+        "algl_update": serve_launches["plain"] + traffic_launches + replay_launches + gated_launches[1],
+        "weighted_update": serve_launches["weighted"],
+        "distinct_update": serve_launches["distinct"],
+        "algl_update_gated": gated_launches[0],
+    }
+    return line, launches
+
+
+def serve_timings(dev) -> dict:
+    """Phase 32: the service's lifecycle at bench.py's serve shape, its
+    latency quantiles from the registry, its flushes beside their
+    ``engine.sample``, and the row operations, on the host clock after
+    ``torch.cuda.synchronize()``."""
+    import reservoir_tpu_torch as rtt
+    from reservoir_tpu_torch import ReservoirService
+    from reservoir_tpu_torch.obs import registry as obs
+
+    cfg = serve_config("plain")
+    chunks = serve_feed("plain")[0]
+    keys = [f"u{i}" for i in range(SV_S)]
+    sample_s = [0.0, 0]
+
+    def one_pass(r: int, timed: bool):
+        svc = ReservoirService(cfg, key=r, coalesce_bytes=SV_COALESCE)
+        if timed:
+            eng = svc.bridge.engine
+            inner = eng.sample
+
+            def sample(*a, **kw):
+                t0 = time.perf_counter()
+                inner(*a, **kw)
+                sample_s[0] += time.perf_counter() - t0
+                sample_s[1] += 1
+
+            eng.sample = sample
+        for key in keys:
+            svc.open_session(key)
+        for s in range(SV_ROUNDS):
+            for i, key in enumerate(keys):
+                svc.ingest(key, chunks[s][i])
+        svc.sync()
+        for key in keys:
+            svc.snapshot(key, sync=False)
+        for key in keys:
+            svc.close_session(key)
+        torch.cuda.synchronize()
+        return svc
+
+    one_pass(0, False)  # warm
+    reg = obs.enable(obs.Registry())
+    try:
+        times, flush_s, flushes = [], 0.0, 0
+        for r in range(1, 4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            svc = one_pass(r, True)
+            times.append(time.perf_counter() - t0)
+            flush_s += svc.bridge.metrics.dispatch_s
+            flushes += svc.bridge.metrics.flushes
+        snap = reg.histogram("serve.snapshot_s").percentiles()
+        ingest = reg.histogram("serve.ingest_s").percentiles()
+    finally:
+        obs.disable()
+    out = {
+        "sessions_per_s": SV_S / min(times),
+        "lifecycle_s": times,
+        "snapshot_p50_ms": snap[0] * 1e3, "snapshot_p99_ms": snap[1] * 1e3,
+        "ingest_p50_ms": ingest[0] * 1e3, "ingest_p99_ms": ingest[1] * 1e3,
+        "flush_host_ms": 1e3 * flush_s / flushes, "flush_engine_sample_ms": 1e3 * sample_s[0] / sample_s[1],
+        "flushes": flushes,
+    }
+    card = card_line()
+    log(f"[32 serve timings] {card} | lifecycle of {SV_S} sessions (open, {SV_ROUNDS} rounds of {SV_B}, sync, "
+        f"snapshot, close), best of 3: {out['sessions_per_s']:.6e} sessions/s; snapshot p50 "
+        f"{out['snapshot_p50_ms']:.4f} ms p99 {out['snapshot_p99_ms']:.4f} ms; ingest p50 "
+        f"{out['ingest_p50_ms']:.4f} ms p99 {out['ingest_p99_ms']:.4f} ms (registry histograms)")
+    log(f"[32 serve timings] {card} | a flush of the service ([{SV_S}, {SV_B}] tile): {out['flush_host_ms']:.4f} ms "
+        f"host (dispatch) over {flushes} flushes, of which engine.sample {out['flush_engine_sample_ms']:.4f} ms")
+    # the row operations at the uniform configuration
+    eng = rtt.ReservoirEngine(rtt.SamplerConfig(max_sample_size=K, num_reservoirs=R, tile_size=B), key=0,
+                              reusable=True)
+    eng.sample(torch.randint(0, 2**31 - 1, (R, B), dtype=torch.int32, device=dev))
+    rng = np.random.default_rng(37)
+    rows_ms = {}
+
+    def host_ms(fn, reps: int = 7) -> float:
+        ts = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(ts[1:])
+
+    for n in (1, 64, 4096):
+        rows = rng.permutation(R)[:n]
+        rows_ms[f"reset_rows_{n}"] = host_ms(lambda: eng.reset_rows(rows, 5))
+    rows, dst = rng.permutation(R)[:1024], rng.permutation(R)[:1024]
+    part = eng.export_rows(rows)
+    rows_ms["export_rows_1024"] = host_ms(lambda: eng.export_rows(rows))
+    rows_ms["adopt_rows_1024"] = host_ms(lambda: eng.adopt_rows(dst, part))
+    out["rows_ms"] = rows_ms
+    log(f"[32 serve timings] {card} | R={R} k={K}: reset_rows of 1 / 64 / 4096 rows "
+        f"{rows_ms['reset_rows_1']:.4f} / {rows_ms['reset_rows_64']:.4f} / {rows_ms['reset_rows_4096']:.4f} ms; "
+        f"export_rows of 1024 {rows_ms['export_rows_1024']:.4f} ms, adopt_rows of 1024 "
+        f"{rows_ms['adopt_rows_1024']:.4f} ms (host clock, synchronized, median of 7)")
+    return out
 
 
 if __name__ == "__main__":

@@ -39,7 +39,11 @@ of several shards of one stream into one exact sample:
   ``Sample.device`` samples on the card through the engine's kernels;
 - :mod:`reservoir_tpu_torch.stream.interop` — ``SampleServer``, the socket
   server behind the JVM shim stage, on the host samplers or, with a
-  ``DeviceSampler`` factory, on the card.
+  ``DeviceSampler`` factory, on the card;
+- :mod:`reservoir_tpu_torch.serve` — the serving plane:
+  :class:`ReservoirService` multiplexes tenant sessions onto the rows of one
+  bridge, recycling rows through the engine's ``reset_rows`` and migrating
+  them through ``export_rows`` / ``adopt_rows``.
 
 The package imports torch and numpy, never jax and nothing of
 ``reservoir_tpu``.  Its entry points run on the card (``device=None`` means
@@ -67,6 +71,11 @@ def __getattr__(name):
         from . import api
 
         return getattr(api, name)
+    # so is the serving plane
+    if name in ("ReservoirService", "SessionTable", "Session"):
+        from . import serve
+
+        return getattr(serve, name)
     raise AttributeError(f"module 'reservoir_tpu_torch' has no attribute {name!r}")
 
 
@@ -78,10 +87,13 @@ __all__ = [
     "DeviceSampler",
     "DeviceStreamBridge",
     "ReservoirEngine",
+    "ReservoirService",
     "Sample",
     "Sampler",
     "SamplerClosedError",
     "SamplerConfig",
+    "Session",
+    "SessionTable",
     "distinct",
     "sampler",
 ]

@@ -144,14 +144,13 @@ class ReservoirEngine:
         self._device = resolve_device(device)
         self._ops = _dist if config.distinct else (_wtd if config.weighted else _algl)
         if _initial_state is not None:
-            self._state = type(_initial_state)(*_on(_initial_state, lambda t: t.to(self._device)))
+            # a copy: row operations and the kernels write the state in place
+            self._state = type(_initial_state)(
+                *_on(_initial_state, lambda t: t.to(self._device, copy=True))
+            )
         else:
-            if key is None or isinstance(key, int):
-                words = key_from_seed(0 if key is None else key)
-            else:
-                words = torch.as_tensor(np.asarray(key, np.uint32).astype(np.int64))
             self._state = self._ops.init(
-                words, config.num_reservoirs, config.max_sample_size,
+                _key_words(key), config.num_reservoirs, config.max_sample_size,
                 sample_dtype=self._dtype, device=self._device,
             )
         # host-side lower bound on every reservoir's count: exact under
@@ -159,8 +158,8 @@ class ReservoirEngine:
         self._min_count = 0
         # (pinned buffer, copy event) pairs not yet known to be complete
         self._staging: deque = deque()
-        #: row resets applied so far.  The skip gate keys its replica's
-        #: staleness on it; it stays 0 until row operations (L8) land.
+        #: row resets and adoptions applied so far.  The skip gate keys its
+        #: replica's staleness on it.
         self.reset_epochs = 0
 
     # ------------------------------------------------------------ properties
@@ -445,14 +444,103 @@ class ReservoirEngine:
         self._state = _kernel.update_gated_cuda(self._state, batch, nv_dev, adv_dev)
         self._min_count += min_advance
 
+    # ------------------------------------------------------------ row leasing
+
+    def _validate_rows(self, rows: Any) -> np.ndarray:
+        """``rows`` as a non-empty 1-D int32 index array within ``[0, R)``,
+        with the reference's ``ValueError``s."""
+        if isinstance(rows, torch.Tensor):
+            rows = rows.cpu()
+        rows = np.asarray(rows, np.int32)
+        if rows.ndim != 1 or rows.size == 0:
+            raise ValueError(f"rows must be a non-empty 1-D index array, got shape {rows.shape}")
+        R = self._config.num_reservoirs
+        if int(rows.min()) < 0 or int(rows.max()) >= R:
+            bad = int(rows[np.argmax((rows < 0) | (rows >= R))])
+            raise ValueError(f"row {bad} out of range [0, {R})")
+        return rows
+
+    def _scatter(self, rows: np.ndarray, part: State) -> None:
+        """Write row ``i`` of ``part`` over row ``rows[i]`` of every state
+        field, in place.  Where a row repeats, its last occurrence wins (as
+        the reference's scatter gives on XLA): only that one is written, so
+        the result does not depend on the order of the card's writes."""
+        last = rows.size - 1 - np.unique(rows[::-1], return_index=True)[1]
+        pos = None
+        if last.size < rows.size:
+            pos = torch.from_numpy(last).to(self._device)
+            rows = rows[last]
+        idx = torch.from_numpy(rows.astype(np.int64)).to(self._device)
+        for full, one in zip(self._state, part):
+            if full is not None:
+                full.index_copy_(0, idx, one if pos is None else one.index_select(0, pos))
+        self._min_count = 0
+        self.reset_epochs += 1
+
     def reset_rows(self, rows: Any, key: Any) -> None:
-        raise _not_in_slice("reset_rows", "L8")
+        """Re-initialize the given rows to empty reservoirs with fresh
+        randomness from ``key`` (an int seed, or ``[2]`` uint32 key words,
+        as :meth:`SessionTable.sub_key <reservoir_tpu_torch.serve.sessions.SessionTable.sub_key>`
+        derives them): the serving plane's session recycling.
 
-    def export_rows(self, rows: Any):
-        raise _not_in_slice("export_rows", "L8")
+        ``init(key, len(rows), k)`` is scattered over ``rows``; every other
+        row's stream continues bit-identically.  The uniform ``init`` rounds
+        as the reference's compiled reset does (``compiled=True``).  The
+        fill lower bound drops to 0 and :attr:`reset_epochs` counts the
+        reset.  Single writer, as :meth:`sample`: a caller with a pipelined
+        bridge drains it first.
+        """
+        self._check_open()
+        rows = self._validate_rows(rows)
+        extra = {"compiled": True} if self._ops is _algl else {}
+        part = self._ops.init(
+            _key_words(key), int(rows.size), self._config.max_sample_size,
+            sample_dtype=self._dtype, device=self._device, **extra,
+        )
+        self._scatter(rows, part)
 
-    def adopt_rows(self, rows: Any, sub_state: Any) -> None:
-        raise _not_in_slice("adopt_rows", "L8")
+    def export_rows(self, rows: Any) -> State:
+        """The whole state of ``rows`` (samples, counters and per-row keys)
+        as the mode's state class with leading axis ``len(rows)``, in fresh
+        tensors on the engine's device: the source half of a live
+        migration.  :meth:`adopt_rows` on an engine of the same config
+        continues the rows bit-identically."""
+        self._check_open()
+        idx = torch.from_numpy(self._validate_rows(rows).astype(np.int64)).to(self._device)
+        return type(self._state)(*_on(self._state, lambda t: t.index_select(0, idx)))
+
+    def adopt_rows(self, rows: Any, sub_state: State) -> None:
+        """Scatter an :meth:`export_rows` sub-state (of this or another
+        engine of the same config, on any device, or one ``convert.py``
+        made from the JAX package's export) over ``rows``.  Like a reset,
+        it drops the fill lower bound and counts in :attr:`reset_epochs`,
+        so a skip gate re-pulls its replica."""
+        self._check_open()
+        rows = self._validate_adopt(rows, sub_state)
+        self._scatter(rows, type(sub_state)(*_on(sub_state, lambda t: t.to(self._device))))
+
+    def _validate_adopt(self, rows: Any, sub_state: State) -> np.ndarray:
+        """The checks of :meth:`adopt_rows` (the rows, and the sub-state's
+        class, leading axis, dtypes and row shapes); returns the rows."""
+        rows = self._validate_rows(rows)
+        if type(sub_state) is not type(self._state):
+            raise ValueError(
+                f"sub_state is a {type(sub_state).__name__}; this engine holds a "
+                f"{type(self._state).__name__}"
+            )
+        lead = {int(t.shape[0]) for t in sub_state if t is not None}
+        if lead != {int(rows.size)}:
+            raise ValueError(f"sub_state leading axis {sorted(lead)} does not match {rows.size} rows")
+        for name, full, one in zip(self._state._fields, self._state, sub_state):
+            if (full is None) != (one is None) or (
+                full is not None and (one.dtype != full.dtype or one.shape[1:] != full.shape[1:])
+            ):
+                raise ValueError(
+                    f"sub_state field {name!r} does not match the engine's: "
+                    f"{None if one is None else (one.dtype, tuple(one.shape[1:]))} vs "
+                    f"{None if full is None else (full.dtype, tuple(full.shape[1:]))}"
+                )
+        return rows
 
     # ----------------------------------------------------------- checkpoints
 
@@ -502,6 +590,20 @@ class ReservoirEngine:
         """Per-reservoir samples, truncated to their fill level."""
         samples, sizes = self.result_arrays()
         return [samples[r, : sizes[r]] for r in range(samples.shape[0])]
+
+
+def _key_words(key: Any) -> torch.Tensor:
+    """An int seed (``None`` means 0: the key words of ``jr.key(seed)``) or
+    ``[2]`` uint32 key words (a list, an array or a tensor) as the ``[2]``
+    int64 key words the ops take."""
+    if key is None or isinstance(key, (int, np.integer)):
+        return key_from_seed(0 if key is None else key if isinstance(key, int) else int(key))
+    if isinstance(key, torch.Tensor):
+        key = key.cpu().numpy()
+    words = np.asarray(key)
+    if words.shape != (2,):
+        raise ValueError(f"key must be an int seed or [2] uint32 key words, got shape {words.shape}")
+    return torch.from_numpy(words.astype(np.uint32).astype(np.int64))
 
 
 def _on(state: State, fn) -> list:

@@ -24,6 +24,11 @@ __all__ = [
     "CheckpointCorrupt",
     "CheckpointMismatch",
     "FencedError",
+    "UnknownSessionError",
+    "StaleSessionError",
+    "SessionIngestError",
+    "ServiceSaturated",
+    "ShardUnavailable",
     "RetryPolicy",
 ]
 
@@ -78,6 +83,55 @@ class FencedError(RuntimeError):
         super().__init__(message)
         self.observed_epoch = observed_epoch
         self.own_epoch = own_epoch
+
+
+class UnknownSessionError(KeyError):
+    """A session key is not (or no longer) leased in the serving plane's
+    :class:`~reservoir_tpu_torch.serve.sessions.SessionTable`: never opened,
+    closed, or evicted (TTL/LRU).  A ``KeyError``: the table is a
+    mapping."""
+
+
+class StaleSessionError(RuntimeError):
+    """A session handle names a recycled reservoir row: the row's generation
+    moved past the handle's lease.  Raised instead of serving another
+    tenant's data."""
+
+
+class SessionIngestError(RuntimeError):
+    """An ingest for one session failed (a dispatch error, an injected
+    ``serve.ingest`` fault, a bad payload).  Scoped to the failing call: the
+    service and every other session stay live.  ``session`` names the
+    key."""
+
+    def __init__(self, session, message: str) -> None:
+        super().__init__(f"session {session!r}: {message}")
+        self.session = session
+
+
+class ServiceSaturated(RuntimeError):
+    """Admission control's verdict: the serving plane's in-flight byte bound
+    is exceeded and the flush pipeline cannot take more now.  The request
+    was rejected, not queued; retry after ``retry_after_s``."""
+
+    def __init__(self, message: str, retry_after_s: float) -> None:
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
+
+
+class ShardUnavailable(ServiceSaturated):
+    """The shard a session routes to cannot serve now (its primary is
+    fenced, killed or not yet recovered).  To a client the same verdict as
+    :class:`ServiceSaturated` (retry the same key after ``retry_after_s``),
+    scoped to one shard: ``shard`` names it, ``reason`` says why."""
+
+    def __init__(
+        self, message: str, retry_after_s: float, shard: int,
+        reason: str = "unavailable",
+    ) -> None:
+        super().__init__(message, retry_after_s)
+        self.shard = int(shard)
+        self.reason = reason
 
 
 @dataclasses.dataclass(frozen=True)

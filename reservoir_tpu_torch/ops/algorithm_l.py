@@ -148,17 +148,24 @@ def init(
     k: int,
     sample_dtype: torch.dtype = torch.int32,
     device=None,
+    compiled: bool = False,
 ) -> ReservoirState:
     """R empty reservoirs: the seed key ``[2]`` is split into R keys (the
     partitionable ``jr.split`` layout) and each draws its first ``nxt`` and
-    ``log_w`` from accept index 0."""
+    ``log_w`` from accept index 0.
+
+    ``compiled`` rounds that first draw as the reference's compiled code
+    does (see :func:`_advance_words`): ``False`` for the engine's
+    construction, whose reference ``init`` runs op by op; ``True`` for a
+    row reset, whose reference ``init`` runs inside ``jax.jit``.  The two
+    differ in ``log_w`` for a k that is not a power of two."""
     if sample_dtype not in SAMPLE_DTYPES:
         raise ValueError(f"sample dtype must be one of {SAMPLE_DTYPES}, got {sample_dtype}")
     keys = split_keys(torch.as_tensor(key_words, device=device), num_reservoirs)
     log_w0 = torch.zeros(num_reservoirs, dtype=torch.float32, device=device)
     nxt0 = torch.full((num_reservoirs,), k, dtype=torch.int32, device=device)
     zero = torch.zeros(num_reservoirs, dtype=torch.int32, device=device)
-    _, log_w, nxt = _advance_words(log_w0, nxt0, keys[:, 0], keys[:, 1], zero, k, compiled=False)
+    _, log_w, nxt = _advance_words(log_w0, nxt0, keys[:, 0], keys[:, 1], zero, k, compiled=compiled)
     return ReservoirState(
         samples=torch.zeros((num_reservoirs, k), dtype=sample_dtype, device=device),
         count=torch.zeros(num_reservoirs, dtype=torch.int32, device=device),

@@ -1,5 +1,5 @@
 """Host-to-device stream bridge: per-stream buffers, tile-granular flushes
-(the port of the JAX package's ``stream/bridge.py``, without row adoption).
+(the port of the JAX package's ``stream/bridge.py``).
 
 S logical streams buffer on the host into an ``[S, B]`` tile, which is
 dispatched to a :class:`~reservoir_tpu_torch.engine.ReservoirEngine`
@@ -33,8 +33,10 @@ Recovery: the flush worker retries
 per-attempt watchdog that fails the future with
 :class:`~reservoir_tpu_torch.errors.FlushTimeout`; ``checkpoint_dir``
 checkpoints the engine every ``checkpoint_every`` flushes and journals
-every flushed tile, and :meth:`DeviceStreamBridge.recover` rebuilds the
-bridge bit-identically.  The journal (``journal.bin``), the checkpoint
+every flushed tile and every row adoption
+(:meth:`DeviceStreamBridge.adopt_rows`), and
+:meth:`DeviceStreamBridge.recover` rebuilds the bridge bit-identically.
+The journal (``journal.bin``), the checkpoint
 (``engine.npz`` with its ``"bridge"`` metadata) and the epoch file are the
 JAX package's formats, byte for byte: a checkpoint directory written by
 either package's bridge recovers in the other.
@@ -45,6 +47,8 @@ One writer: wrap pushes in your own queue for multi-producer feeds.
 from __future__ import annotations
 
 import contextlib
+import io
+import json
 import os
 import queue
 import struct
@@ -73,7 +77,7 @@ from ..obs import flight as _flight
 from ..obs import registry as _obs
 from ..obs import trace as _ctrace
 from ..utils import faults as _faults
-from ..utils.checkpoint import load_engine, read_epoch, save_engine
+from ..utils.checkpoint import load_engine, pack_rows, read_epoch, save_engine, unpack_rows
 from ..utils.log import warn_once
 from ..utils.metrics import BridgeMetrics
 from ..utils.tracing import trace_span
@@ -278,8 +282,12 @@ class _FlushPipeline:
             with self._cv:
                 self._submitted += 1  # the sentinel is counted when drained
                 wedged = self._wedged
-            # a wedged worker may never reach the sentinel
-            self._thread.join(timeout=1.0 if wedged else 30)
+            # a wedged worker may never reach the sentinel; and the owner's
+            # last reference may drop on the worker itself (its __del__
+            # then closes from there): the sentinel ends the loop, and a
+            # thread cannot join itself
+            if threading.current_thread() is not self._thread:
+                self._thread.join(timeout=1.0 if wedged else 30)
         # a completion barrier: an error of the final flush is re-raised
         # here (the bridge's __del__ routes it through fail() instead)
         self._check()
@@ -301,9 +309,10 @@ class _FlushJournal:
 
     A gated bridge writes gated frames (``RTJG``: candidate counts,
     per-row advance, a compacted ``[S, Bg]`` tile), which recovery
-    replays through ``sample_gated``.  The JAX package also writes adopt
-    frames (``RTJA``: a packed row adoption); they are read here as the
-    JAX package reads them, so recovery can name what it cannot replay.
+    replays through ``sample_gated``.  A row adoption writes an adopt
+    frame (``RTJA``: the rows and their sub-state as an npz blob,
+    :func:`_pack_adopt_payload`), which recovery replays through
+    ``adopt_rows`` at its place between the flushes.
 
     ``fsync=True`` also fsyncs every frame (and the file and directory on
     truncation), closing the OS-crash window, at one fsync a flush counted
@@ -368,6 +377,11 @@ class _FlushJournal:
         the compacted ``[S, Bg]`` candidate tile."""
         parts = [nvalid, advance, tile]
         self._append_frame(self._MAGIC_GATED, seq, [np.ascontiguousarray(p) for p in parts])
+
+    def append_adopt(self, seq: int, payload: bytes) -> None:
+        """One adopt frame: the packed row adoption of
+        :func:`_pack_adopt_payload`."""
+        self._append_frame(self._MAGIC_ADOPT, seq, [np.frombuffer(payload, np.uint8)])
 
     def _append_frame(self, magic: bytes, seq: int, parts: List[np.ndarray]) -> None:
         """One frame, its payload written part by part from the arrays'
@@ -481,6 +495,32 @@ class _FlushJournal:
             path, num_streams, tile_width, dtype, weighted
         ):
             yield seq, tile, valid, wtile, advance
+
+
+def _pack_adopt_payload(rows: Any, sub_state: Any) -> bytes:
+    """One row adoption (the row indices and the packed sub-state) as the
+    self-describing npz blob of an ``RTJA`` frame, in the JAX package's
+    form: its reader unpacks what the port writes, and the other way
+    round."""
+    arrays, manifest = pack_rows(sub_state)
+    bio = io.BytesIO()
+    np.savez(
+        bio,
+        __rows__=np.ascontiguousarray(rows, np.int32),
+        __manifest__=np.frombuffer(json.dumps(manifest).encode(), np.uint8),
+        **arrays,
+    )
+    return bio.getvalue()
+
+
+def _unpack_adopt_payload(payload: bytes) -> Tuple[np.ndarray, Any]:
+    """Inverse of :func:`_pack_adopt_payload`: ``(rows, sub_state)``, the
+    sub-state on the CPU."""
+    with np.load(io.BytesIO(payload)) as data:
+        manifest = json.loads(bytes(data["__manifest__"]).decode())
+        rows = np.ascontiguousarray(data["__rows__"], np.int32)
+        arrays = {k: data[k] for k in data.files if k not in ("__rows__", "__manifest__")}
+    return rows, unpack_rows(arrays, manifest)
 
 
 class DeviceStreamBridge:
@@ -884,7 +924,41 @@ class DeviceStreamBridge:
         self._maybe_checkpoint()
 
     def adopt_rows(self, rows: Any, sub_state: Any) -> None:
-        raise _not_in_slice("adopt_rows", "L8")
+        """Adopt exported rows into this bridge's engine: the destination
+        half of a live migration.
+
+        ``sub_state`` is what a source engine's
+        :meth:`~reservoir_tpu_torch.engine.ReservoirEngine.export_rows`
+        returned, on any device.  The adopt is fence-checked, runs in the
+        single-writer slot (a gated bridge's buffered candidates dispatch
+        first, the flush in flight drains), takes one flush sequence number
+        and, on a journaling bridge, is journaled as one ``RTJA`` frame
+        before the engine is touched, so :meth:`recover` replays it at its
+        place between the flushes.  Rows and the sub-state's shape are
+        checked before any of that, so a refused adopt leaves no frame (the
+        JAX package journals first and fails at the engine).
+        """
+        self._check_open()
+        self._engine._validate_adopt(rows, sub_state)
+        self._check_fence()
+        if self._gate is not None:
+            # stream order: the gate's buffered candidates precede the
+            # adopt, and its replica re-pulls the adopted rows
+            self._dispatch_gated_pending()
+            self._gate.mark_dirty()
+        self.drain_barrier()
+        self._flush_seq += 1
+        if self._journal is not None:
+            reg = _obs.get()
+            t0 = time.perf_counter() if reg is not None else 0.0
+            with trace_span("reservoir_journal_append"):
+                self._journal.append_adopt(self._flush_seq, _pack_adopt_payload(rows, sub_state))
+            if reg is not None:
+                reg.histogram("bridge.journal_append_s").observe(time.perf_counter() - t0)
+        with trace_span("reservoir_bridge_adopt"), self._on_stream():
+            self._engine.adopt_rows(rows, sub_state)
+        self._metrics.flushes += 1
+        self._maybe_checkpoint()
 
     def _dispatch_flush(self, i: Optional[int], gated: Optional[tuple] = None) -> None:
         """The device half of the flush of host tile ``i`` (the worker
@@ -1360,8 +1434,8 @@ class DeviceStreamBridge:
         default to the crashed bridge's settings, ``gated`` and
         ``gate_tile`` too.  A gated frame (``RTJG``) replays through
         :meth:`~reservoir_tpu_torch.engine.ReservoirEngine.sample_gated`,
-        as the live path applied it.  A frame of a row adoption (``RTJA``)
-        raises ``NotImplementedError`` (L8): it is not skipped.
+        as the live path applied it, and a row adoption's frame (``RTJA``)
+        through :meth:`~reservoir_tpu_torch.engine.ReservoirEngine.adopt_rows`.
 
         ``replay_hook(bridge, watermark)`` is called once when the state
         reaches the checkpoint's watermark and again after each replayed
@@ -1427,10 +1501,13 @@ class DeviceStreamBridge:
         ):
             if seq <= covered:
                 continue
-            if advance is _FlushJournal.ADOPT:
-                raise _not_in_slice(f"replay of a row adoption (journal frame RTJA, seq {seq})", "L8")
             with bridge._on_stream():
-                if advance is not None:
+                if advance is _FlushJournal.ADOPT:
+                    # the rows migrated in at this place between flushes;
+                    # ``tile`` holds the frame's payload
+                    engine.adopt_rows(*_unpack_adopt_payload(tile))
+                    total = 0
+                elif advance is not None:
                     # a gated frame: candidates and per-row advance, through
                     # the gated apply the live path used
                     engine.sample_gated(tile, valid, advance)

@@ -20,9 +20,12 @@ a checkpoint of a mode this port does not run raises
 :class:`~reservoir_tpu_torch.errors.CheckpointMismatch`.
 
 A bare state (:func:`save_state`) has the same manifest without the
-``engine`` block.  A checkpoint directory's ``epoch.json`` (:func:`read_epoch`,
-:func:`write_epoch`, :func:`advance_epoch`) is the JAX package's too, so an
-epoch advanced by either package fences the other's bridges.
+``engine`` block; a row sub-state (:func:`pack_rows`, :func:`unpack_rows`:
+the payload of a row adoption's journal frame) has only its
+``state_class`` and ``fields``.  A checkpoint directory's ``epoch.json``
+(:func:`read_epoch`, :func:`write_epoch`, :func:`advance_epoch`) is the JAX
+package's too, so an epoch advanced by either package fences the other's
+bridges.
 """
 
 from __future__ import annotations
@@ -53,6 +56,8 @@ from .tracing import trace_span
 __all__ = [
     "save_state",
     "load_state",
+    "pack_rows",
+    "unpack_rows",
     "save_engine",
     "load_engine",
     "read_engine_metadata",
@@ -205,6 +210,20 @@ def _unpack_state(path: str, arrays: dict, manifest: dict, device: Any = "cpu"):
             )
         values.append(arrays[name])
     return from_numpy(*values, device=device)
+
+
+def pack_rows(state) -> Tuple[dict, dict]:
+    """A row sub-state's arrays and manifest in the form of the JAX
+    package's bare ``_pack_state`` (``state_class`` and ``fields`` only):
+    what a row adoption's journal frame carries."""
+    arrays, manifest = _pack_state(state, None)
+    return arrays, {"state_class": manifest["state_class"], "fields": manifest["fields"]}
+
+
+def unpack_rows(arrays: dict, manifest: dict, device: Any = "cpu"):
+    """The sub-state :func:`pack_rows` (or the JAX package's packer)
+    described, on ``device``."""
+    return _unpack_state("a packed row sub-state", arrays, manifest, device)
 
 
 def save_state(path: str, state, metadata: Optional[dict] = None) -> None:

@@ -1,5 +1,6 @@
-"""The stream bridge's counter block (the port's copy of the JAX package's
-``BridgeMetrics``, with the same ``snapshot()`` keys).
+"""The counter blocks of the stream bridge and the serving plane (the
+port's copies of the JAX package's ``BridgeMetrics`` and ``ServiceMetrics``,
+with the same ``snapshot()`` keys).
 
 The counters say whether the host feed or the device sets the pace:
 elements consumed, flushes dispatched, wall-clock throughput, and the busy
@@ -17,7 +18,7 @@ from typing import Dict, Optional
 
 from ..obs import registry as _obs
 
-__all__ = ["BridgeMetrics"]
+__all__ = ["BridgeMetrics", "ServiceMetrics"]
 
 
 @dataclasses.dataclass
@@ -121,3 +122,36 @@ class BridgeMetrics:
                 ),
             },
         }
+
+
+@dataclasses.dataclass
+class ServiceMetrics:
+    """Counter block of one
+    :class:`~reservoir_tpu_torch.serve.service.ReservoirService` (single
+    writer; the bridge underneath keeps its own).
+
+    ``sessions_open`` is the live lease count; ``evictions`` counts TTL/LRU
+    removals (``closes`` are explicit); ``recycles`` counts rows re-leased
+    to a new tenant (each one a row reset); ``snapshot_hits`` /
+    ``snapshot_misses`` split snapshot reads by whether the
+    ``flushed_seq``-keyed host cache served them; ``rejections`` counts
+    admission control's :class:`~reservoir_tpu_torch.errors.ServiceSaturated`.
+    """
+
+    sessions_open: int = 0
+    sessions_opened: int = 0
+    closes: int = 0
+    evictions: int = 0
+    recycles: int = 0
+    snapshot_hits: int = 0
+    snapshot_misses: int = 0
+    rejections: int = 0
+    ingested_elements: int = 0
+    recoveries: int = 0
+
+    def __post_init__(self) -> None:
+        _obs.register_block("serve", self)
+
+    def snapshot(self) -> Dict[str, float]:
+        """Point-in-time dict view."""
+        return dataclasses.asdict(self)

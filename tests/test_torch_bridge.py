@@ -303,10 +303,9 @@ def test_pipelined_thread_stress():
         (lambda cfg: DeviceStreamBridge(cfg, mesh=object(), device="cpu"), "L4"),
         (lambda cfg: DeviceStreamBridge(cfg, map_fn=abs, device="cpu"), "L5"),
         (lambda cfg: DeviceStreamBridge(cfg, hash_fn=hash, device="cpu"), "L5"),
-        (lambda cfg: DeviceStreamBridge(cfg, device="cpu").adopt_rows([0], None), "L8"),
         (lambda cfg: DeviceStreamBridge.recover("unused", map_fn=abs), "L5"),
     ],
-    ids=["mesh", "map_fn", "hash_fn", "adopt_rows", "recover_map_fn"],
+    ids=["mesh", "map_fn", "hash_fn", "recover_map_fn"],
 )
 def test_what_the_slice_leaves_out_raises(make, label):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{label}"):

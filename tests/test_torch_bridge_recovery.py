@@ -12,6 +12,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from reservoir_tpu.config import SamplerConfig as JConfig
 from reservoir_tpu.stream.bridge import DeviceStreamBridge as JBridge
@@ -176,21 +177,121 @@ def test_fenced_by_either_packages_advance_epoch(tmp_path, fencer):
         DeviceStreamBridge.recover(ckdir, device="cpu")
 
 
-@pytest.mark.parametrize("frame", ["adopt"])
-def test_recover_raises_on_gated_and_adopt_frames(tmp_path, frame):
+def _adopt_midstream(bridge, feed, crash):
+    """Rounds 0-1, an adoption of rows 0 and 2 into rows 2 and 1 (the
+    bridge's own exported rows: a live migration within one engine), then
+    rounds 2 .. crash - 1."""
+    for r in range(2):
+        _round(bridge, feed, r)
+    bridge.drain_barrier()
+    bridge.adopt_rows([2, 1], bridge.engine.export_rows([0, 2]))
+    for r in range(2, crash):
+        _round(bridge, feed, r)
+    bridge.drain_barrier()
+
+
+def _engine_words(state):
+    """A state of either package as numpy words, keys as key data."""
+    import jax.random as jr
+
+    out = []
+    for v in state:
+        if v is None:
+            out.append(None)
+            continue
+        if isinstance(v, torch.Tensor):
+            v = v.cpu().numpy()
+            out.append(v.astype(np.uint32) if v.dtype == np.int64 else v)
+            continue
+        try:
+            v = jr.key_data(v)
+        except TypeError:
+            pass
+        out.append(np.asarray(v))
+    return out
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+@pytest.mark.parametrize("mode", ["uniform", "weighted", "distinct"])
+def test_recover_replays_adopt_frames_across_packages(tmp_path, mode, writer):
+    """A row adoption journaled as an ``RTJA`` frame by either package's
+    bridge replays in both packages' recovery at its place between the
+    flushes, to the JAX package's recovered state and the live writer's,
+    bit for bit; each package's reader unpacks the other's frame."""
+    from reservoir_tpu.stream.bridge import _unpack_adopt_payload as j_unpack
+    from reservoir_tpu_torch.stream.bridge import _unpack_adopt_payload as t_unpack
+
+    rounds, crash = 6, 4
+    feed = _feed(mode, rounds)
+    ckdir = str(tmp_path / "ck")
+    live = (_jax if writer == "jax" else _port)(mode, checkpoint_dir=ckdir, checkpoint_every=100)
+    _adopt_midstream(live, feed, crash)
+    want = _engine_words(live.engine.state)
+    del live
+    gc.collect()
+    path = os.path.join(ckdir, "journal.bin")
+    subs = []
+    for reader, unpack in ((JJournal, j_unpack), (_FlushJournal, t_unpack)):
+        recs = list(reader.replay(path, S, B, np.int32, mode == "weighted"))
+        adopts = [r for r in recs if r[4] is reader.ADOPT]
+        assert [r[0] for r in adopts] == [2 * S + 1]
+        rows, sub = unpack(adopts[0][1])
+        assert rows.tolist() == [2, 1]
+        subs.append(_engine_words(sub))
+    for a, b in zip(*subs):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.shape[0] == 2
+            np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+    port = DeviceStreamBridge.recover(ckdir, device="cpu")
+    assert port.flushed_seq == crash * S + 1
+    assert port.engine.reset_epochs == 1 and port.metrics.flushes == crash * S + 1
+    for got in (_engine_words(port.engine.state), _engine_words(JBridge.recover(ckdir).engine.state)):
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if g is not None:
+                np.testing.assert_array_equal(g.view(np.uint8), w.view(np.uint8))
+    # and the recovered bridge goes on: the rest of the stream equals an
+    # uninterrupted run that adopted at the same place
+    ref = _port(mode)
+    _adopt_midstream(ref, feed, rounds)
+    for r in range(crash, rounds):
+        _round(port, feed, r)
+    _same(ref.complete(), port.complete())
+
+
+def test_an_adopt_is_fenced_and_checked_before_it_is_journaled(tmp_path):
     ckdir = str(tmp_path / "ck")
     bridge = _port("uniform", checkpoint_dir=ckdir, checkpoint_every=100)
     _round(bridge, _feed("uniform", 1), 0)
     bridge.drain_barrier()
-    seq = bridge.flushed_seq + 1
+    seq = bridge.flushed_seq
+    part = bridge.engine.export_rows([0])
+    with pytest.raises(ValueError, match="out of range"):
+        bridge.adopt_rows([S], part)
+    with pytest.raises(ValueError, match="leading axis"):
+        bridge.adopt_rows([0, 1], part)
+    checkpoint.advance_epoch(ckdir)
+    with pytest.raises(FencedError):
+        bridge.adopt_rows([1], part)
+    assert bridge.flushed_seq == seq and bridge.engine.reset_epochs == 0
+    path = os.path.join(ckdir, "journal.bin")
+    assert all(r[4] is None for r in _FlushJournal.replay(path, S, B, np.int32, False))
+
+
+def test_a_checkpoint_after_an_adopt_covers_it(tmp_path):
+    """An adopt takes a flush sequence number and may trigger the
+    auto-checkpoint; recovery from that checkpoint equals the live state."""
+    ckdir = str(tmp_path / "ck")
+    bridge = _port("uniform", checkpoint_dir=ckdir, checkpoint_every=2 * S + 1)
+    _adopt_midstream(bridge, _feed("uniform", 4), 2)
+    assert bridge.metrics.checkpoints == 2  # the seq-0 anchor and the adopt's
+    want = _engine_words(bridge.engine.state)
     del bridge
     gc.collect()
-    journal = JJournal(os.path.join(ckdir, "journal.bin"), S, B, np.int32, False)
-    journal.append_adopt(seq, b"a packed row adoption")
-    journal.close()
-    # a gated frame replays (test_gated_recovery_across_packages_is_bit_identical)
-    with pytest.raises(NotImplementedError, match="RTJA.*L8"):
-        DeviceStreamBridge.recover(ckdir, device="cpu")
+    got = _engine_words(DeviceStreamBridge.recover(ckdir, device="cpu").engine.state)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_recover_rejects_a_plain_engine_checkpoint(tmp_path):

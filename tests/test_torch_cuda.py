@@ -1327,3 +1327,71 @@ def test_two_connection_sample_server_on_the_card_equals_the_cpu(cuda_device):
         ref = DeviceSampler(SamplerConfig(128, 1, tile_size=1024), key=0, device="cpu")
         ref.sample_all(data)
         np.testing.assert_array_equal(got, ref.result().astype(np.int64))
+
+
+def _state_bytes(state):
+    return [None if t is None else t.detach().cpu().contiguous().view(torch.uint8) for t in state]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["uniform", "weighted", "distinct"])
+def test_row_operations_on_the_card_equal_the_cpu(cuda_device, mode):
+    """reset_rows (a repeated row, k = 13, not a power of two), export_rows
+    and adopt_rows on the card equal the same calls with device="cpu", and
+    no row operation launches an update kernel."""
+    R, k, B = 512, 13, 64
+    cfg = SamplerConfig(k, R, tile_size=B, weighted=mode == "weighted", distinct=mode == "distinct")
+    counter = {"uniform": TK, "weighted": TWK, "distinct": TDK}[mode]
+    engines = {d: [ReservoirEngine(cfg, key=s, reusable=True, device=d) for s in (0, 1)]
+               for d in (cuda_device, "cpu")}
+    rng = np.random.default_rng(3)
+
+    def feed():
+        tile = rng.integers(0, 1 << 30, (R, B)).astype(np.int32) % (97 if mode == "distinct" else 1 << 30)
+        kw = {"weights": rng.uniform(0.1, 2.0, (R, B)).astype(np.float32)} if mode == "weighted" else {}
+        for engs in engines.values():
+            for eng in engs:
+                eng.sample(tile, **kw)
+
+    feed()
+    feed()
+    rows = rng.permutation(R)[:100]
+    rows = np.concatenate([rows, rows[:3]])
+    before = counter.launches
+    for engs in engines.values():
+        engs[0].reset_rows(rows, 123)
+        engs[1].adopt_rows(rows[:50], engs[0].export_rows(rows[50:100]))
+    torch.cuda.synchronize()
+    assert counter.launches == before
+    feed()
+    feed()
+    assert counter.launches - before == 2 * 2
+    for card, cpu in zip(engines[cuda_device], engines["cpu"]):
+        assert card.reset_epochs == cpu.reset_epochs == 1
+        for a, b in zip(_state_bytes(card.state), _state_bytes(cpu.state)):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain", "distinct"])
+def test_service_on_the_card_equals_the_cpu(cuda_device, mode):
+    """A ReservoirService on the card (sessions recycled through reset_rows)
+    gives every snapshot of the same service with device="cpu"."""
+    from reservoir_tpu_torch import ReservoirService
+
+    cfg = SamplerConfig(8, 64, tile_size=128, distinct=mode == "distinct")
+    services = [ReservoirService(cfg, key=5, coalesce_bytes=4096, device=d) for d in (cuda_device, "cpu")]
+    rng = np.random.default_rng(8)
+    for i in range(96):  # 32 evictions
+        chunk = rng.integers(0, 1 << 20, 50).astype(np.int32) % (500 if mode == "distinct" else 1 << 20)
+        for svc in services:
+            svc.open_session(f"s{i}")
+            svc.ingest(f"s{i}", chunk)
+    for svc in services:
+        svc.sync()
+    assert services[0].metrics.snapshot() == services[1].metrics.snapshot()
+    assert services[0].metrics.recycles == 32
+    for s in services[1].table.sessions():
+        np.testing.assert_array_equal(services[0].snapshot(s.key), services[1].snapshot(s.key))

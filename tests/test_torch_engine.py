@@ -279,7 +279,8 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "bad = [n for n in sys.modules if n in ('jax', 'reservoir_tpu')\n"
         "       or n.startswith(('jax.', 'reservoir_tpu.'))]\n"
         "new = ('api', 'oracle.algorithm_l', 'oracle.bottom_k', 'oracle.weighted',\n"
-        "       'stream.operator', 'stream.interop')\n"
+        "       'stream.operator', 'stream.interop', 'serve.sessions', 'serve.service',\n"
+        "       'serve.autotune', 'ops.autotune')\n"
         "bad += [n for n in new if 'reservoir_tpu_torch.' + n not in sys.modules]\n"
         "print(len([n for n in sys.modules if n.startswith('reservoir_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -287,7 +288,7 @@ def test_package_imports_neither_jax_nor_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 45
+    assert int(proc.stdout.split()[0]) >= 50
 
 
 @pytest.mark.parametrize(
@@ -304,12 +305,8 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         lambda: ReservoirEngine(SamplerConfig(4, 2), hash_fn=hash, device="cpu"),
         lambda: ReservoirEngine(SamplerConfig(4, 2), device="cpu").sample_stream(
             np.zeros((2, 8), np.int32), fused=True),
-        lambda: ReservoirEngine(SamplerConfig(4, 2), device="cpu").reset_rows([0], 0),
-        lambda: ReservoirEngine(SamplerConfig(4, 2), device="cpu").export_rows([0]),
-        lambda: ReservoirEngine(SamplerConfig(4, 2), device="cpu").adopt_rows([0], None),
     ],
-    ids=["weighted", "distinct", "wide", "int64_counts", "mesh_axis", "map_fn", "hash_fn", "fused",
-         "reset_rows", "export_rows", "adopt_rows"],
+    ids=["weighted", "distinct", "wide", "int64_counts", "mesh_axis", "map_fn", "hash_fn", "fused"],
 )
 def test_what_the_slice_leaves_out_raises_naming_the_roadmap(make):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
