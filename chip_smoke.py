@@ -13,7 +13,9 @@ gate, and the reference's public surface: the pass-through operator
 ``Sample.device`` and the interop ``SampleServer`` with card samplers, at
 BASELINE.md config 1's size, and the serving plane: the engine's row
 operations and ``ReservoirService`` at bench.py's serve and traffic
-shapes — and holds each CUDA kernel against its plain torch version.  Phases, each of
+shapes, the hot standby and its failover at the ha shape, and the sharded
+cluster at the shards / merge shape — and holds each CUDA kernel against
+its plain torch version.  Phases, each of
 which fails the run with a non-zero exit:
 
 1. device: require a CUDA card; print its name and power limit;
@@ -256,8 +258,8 @@ which fails the run with a non-zero exit:
    the plain, weighted and distinct modes, one update launch a flush;
    (d) the plain feed through ``gated=True``: every snapshot equals the
    ungated service's, one ``algl_update_gated`` a gated dispatch;
-   (b) bench.py's traffic shape: 10,240 sessions opened in a seeded order
-   on 8,192 rows (k = 8, a tile of 4 x 64), so 2,048 evictions recycle
+   (b) bench.py's traffic shape: 8,704 sessions opened in a seeded order
+   on 8,192 rows (k = 8, a tile of 4 x 64), so 512 evictions recycle
    rows through ``reset_rows``; (c) a service with ``checkpoint_dir``
    killed after round 3, with 64 sessions recycled since its last
    checkpoint, brought back by ``ReservoirService.recover`` and fed round
@@ -273,18 +275,58 @@ which fails the run with a non-zero exit:
    ``adopt_rows`` of 1,024 rows at the uniform configuration (median of
    7).
 
+33. hot standby and failover on the card at bench.py's ha shape (1,024
+   sessions, k = 32, B = 256, four rounds, ``coalesce_bytes`` 1 MiB,
+   ``checkpoint_every`` 2^30), in the plain, weighted and distinct modes
+   and plain with ``gated=True``, every launch count set to 0 first: a
+   checkpointing ``ReservoirService`` and a ``StandbyReplica`` on the card
+   polling after every round, the standby's state equal to its primary's
+   bit for bit after each poll and its update launches (counted around
+   each poll) equal to the primary's flushes (gated dispatches and
+   fallbacks apart); the primary shut down, a ``FailoverController`` under
+   an injected clock promotes on the stale heartbeat, the old primary's
+   flush and checkpoint raise ``FencedError`` with the journal unchanged,
+   and the promoted primary takes a fifth round;
+34. the cluster on the card at bench.py's shards / merge shape: a
+   ``ShardedReservoirService`` of 4 shards of 512 rows, all on the one
+   card, a standby a shard, 1,024 sessions, four rounds: one
+   ``algl_update`` a primary flush and a standby tile; 8
+   ``merged_snapshot`` groups of 8 keys, the default (over the shards'
+   devices) and ``device="cuda"`` each equal to ``device="host"``, one
+   ``merge_ring_gather`` launch and one ``algl_merge_draws`` launch a tree
+   level (3) a card merge; 24
+   migrations, the synced snapshot before each move equal to the first
+   read after it; ``kill_shard(3)``, shards 0-2 taking a round meanwhile,
+   ``promote_shard(3)``: shard 3's sessions read as before; a sixth round;
+   ``ShardedReservoirService.recover`` of the directory gives the same
+   snapshots; phases 33 and 34 must equal the same calls with
+   ``device="cpu"``, which run in three child processes on the CPU after
+   the card's work (so phase 35's host timings do not share the cores);
+35. HA timings, from the registry enabled over phases 33-34: failover time
+   (``ha.promote_s``, best and median of the 5 promotions), replication lag
+   at each of phase 33's polls (the flushes not yet applied when the poll
+   starts, and the poll's time to apply them), beside the replica's own
+   ``replica.lag_seq_dist`` max and ``replica.lag_s_dist`` p50 (0 by
+   construction in that lockstep loop, as they are read after the poll),
+   each shard's ingest elem/s timed alone over phase 34's rounds and the
+   cluster's rate, ``cluster.merge_s`` (the host tree) and
+   ``cluster.merge_device_s`` (the default and ``"cuda"`` merges) p50/p99,
+   ``cluster.migrate_s`` p50/p99.
+
 Depth cut for the time limit: feed (b) follows feed (a) on the same
 bridge, so its rows are past the early stream, where a row's 8,192
 elements have more candidates than the gate tile and go through the
 staging, one whole-tile flush per 2,048; the windows of (a) are its tiles
 5-12 and of (b) its rounds 2-8; the ungated bridge's (b) window is 64
 pushes of round 1 (each push of 8,192 elements to one row flushes the
-whole 512 MiB tile four times).
+whole 512 MiB tile four times); phase 31 (b) opens 8,704 sessions, so 512
+rows recycle, not bench.py's 2,048 (each recycle is a row reset of ~30 ms
+on the card).
 
 A phase's line ends with the seconds since the script started.
 
 The line before the last is ``{"kernels": [...]}``, before it
-``{"serve": {...}}`` (phases 30-32), ``{"operator": {...}}`` (phases 27-29), ``{"gate": {...}}`` (phases
+``{"ha": {...}}`` (phases 33-35), ``{"serve": {...}}`` (phases 30-32), ``{"operator": {...}}`` (phases 27-29), ``{"gate": {...}}`` (phases
 24-26) and ``{"bridge": {...}}`` (phases 20-23); the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or run outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -776,6 +818,13 @@ def main() -> None:
     weighted["serve_launches"] = serve_launches["weighted_update"]
     distinct["serve_launches"] = serve_launches["distinct_update"]
     gated_entry["serve_launches"] = serve_launches["algl_update_gated"]
+    ha, ha_launches = ha_phases(here)
+    algl_extra["ha_launches"] = ha_launches["algl_update"]
+    weighted["ha_launches"] = ha_launches["weighted_update"]
+    distinct["ha_launches"] = ha_launches["distinct_update"]
+    gated_entry["ha_launches"] = ha_launches["algl_update_gated"]
+    merge["ha_launches"] = ha_launches["merge_ring_gather"]
+    merge_entry["ha_launches"] = ha_launches["algl_merge_draws"]
 
     card = card_line()
     log(card)
@@ -783,6 +832,7 @@ def main() -> None:
     log(json.dumps({"gate": gate}))
     log(json.dumps({"operator": operator}))
     log(json.dumps({"serve": serve}))
+    log(json.dumps({"ha": ha}))
     log(json.dumps({"kernels": [{
         "name": "algl_update",
         "route": "cuda",
@@ -3170,11 +3220,12 @@ def operator_phases(dev) -> tuple:
 # the serving phases: bench.py's serve shape (2,048 sessions, k = 32, four
 # rounds of B = 256 int32 elements a session, coalesce_bytes 1 MiB) and its
 # traffic shape (a table of 8,192 rows, k = 8, chunks of 64 in a tile of
-# 4 x 64, 10,240 sessions, so 2,048 evictions recycle rows)
+# 4 x 64; 8,704 sessions, so 512 evictions recycle rows: a depth cut, see
+# the docstring)
 SV_S, SV_K, SV_B, SV_ROUNDS = 2048, 32, 256, 4
 SV_COALESCE = 1 << 20
 TR_R, TR_K, TR_B = 8192, 8, 64
-TR_SESSIONS = TR_R + TR_R // 4
+TR_SESSIONS = TR_R + TR_R // 16
 # phase 31 (c): sessions closed and reopened between rounds 1 and 2
 SV_CHURN = 64
 SERVE_MODES = ("plain", "weighted", "distinct")
@@ -3225,8 +3276,8 @@ def serve_flow(mode: str, device, **kw):
 
 
 def traffic_flow(device):
-    """Phase 31 (b): 10,240 sessions opened in a seeded order on a table of
-    8,192 rows: 8,192 sessions open and take a chunk each, then 2,048 more
+    """Phase 31 (b): 8,704 sessions opened in a seeded order on a table of
+    8,192 rows: 8,192 sessions open and take a chunk each, then 512 more
     open, each evicting the least recently used and recycling its row
     through ``reset_rows``, then every live session takes another chunk.
     Returns the service and each live session's snapshot."""
@@ -3688,6 +3739,429 @@ def serve_timings(dev) -> dict:
         f"{rows_ms['adopt_rows_1024']:.4f} ms (host clock, synchronized, median of 7)")
     return out
 
+
+
+# the HA and cluster phases: bench.py's ha shape (1,024 sessions, k = 32,
+# B = 256, four rounds, coalesce_bytes 1 MiB, checkpoint_every 2^30) and its
+# shards / merge shape (4 shards of 512 rows each on the one card, k = 32,
+# B = 256, 1,024 sessions, four rounds, a standby a shard)
+HA_S, HA_K, HA_B, HA_ROUNDS = 1024, 32, 256, 4
+HA_MODES = ("plain", "weighted", "distinct", "gated")
+HA_CKPT_EVERY = 1 << 30
+CL_SHARDS, CL_R, CL_SESSIONS = 4, 512, 1024
+CL_GROUPS, CL_GROUP, CL_MIGRATIONS, CL_VICTIM = 8, 8, 24, 3
+UPDATE_KERNELS = ("algl_update", "algl_update_gated", "weighted_update", "distinct_update")
+
+
+def update_launches() -> dict:
+    """The update kernels' launch counts (all 0 for the plain versions)."""
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.ops import distinct_cuda as dkern
+    from reservoir_tpu_torch.ops import weighted_cuda as wkern
+
+    return {"algl_update": kern.launches, "algl_update_gated": kern.gated_launches,
+            "weighted_update": wkern.launches, "distinct_update": dkern.launches}
+
+
+def launch_delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in before}
+
+
+def tree_levels(n: int) -> int:
+    """The levels of the merge tree over ``n`` parts (a batched pairwise
+    merge each, so one ``algl_merge_draws`` launch each)."""
+    levels = 0
+    while n > 1:
+        n = n // 2 + n % 2
+        levels += 1
+    return levels
+
+
+def ha_feed(mode: str) -> tuple:
+    """Phase 33's chunks ``[round, session, B]`` (and weights), five rounds
+    (the fifth for the promoted primary), from numpy seed 33; distinct keys
+    mod 4096."""
+    rng = np.random.default_rng(33 + HA_MODES.index(mode))
+    chunks = rng.integers(0, 1 << 31, (HA_ROUNDS + 1, HA_S, HA_B), dtype=np.int64).astype(np.int32)
+    if mode == "distinct":
+        chunks %= 4096
+    weights = (rng.uniform(0.1, 2.0, (HA_ROUNDS + 1, HA_S, HA_B)).astype(np.float32)
+               if mode == "weighted" else None)
+    return chunks, weights
+
+
+def ha_flow(mode: str, device, work: str) -> dict:
+    """Phase 33 for one mode: a checkpointing primary at bench.py's ha
+    shape and a ``StandbyReplica`` polling after every round, bit for bit
+    equal to it after each poll, with one update launch a flush; then the
+    primary is shut down, a ``FailoverController`` under an injected clock
+    promotes on the stale heartbeat, the old primary's durable writes raise
+    ``FencedError`` with its journal unchanged, and the promoted primary
+    takes a fifth round.  Returns the primary's state after each round and
+    every session's snapshot after the fifth."""
+    from reservoir_tpu_torch import SamplerConfig
+    from reservoir_tpu_torch.errors import FencedError
+    from reservoir_tpu_torch.serve import FailoverController, HeartbeatWriter, ReservoirService, StandbyReplica
+
+    cfg = SamplerConfig(max_sample_size=HA_K, num_reservoirs=HA_S, tile_size=HA_B,
+                        weighted=mode == "weighted", distinct=mode == "distinct")
+    feed = ha_feed(mode)
+    ck = os.path.join(work, mode)
+    shutil.rmtree(ck, ignore_errors=True)
+    svc = ReservoirService(cfg, key=3, checkpoint_dir=ck, checkpoint_every=HA_CKPT_EVERY,
+                           coalesce_bytes=SV_COALESCE, gated=mode == "gated", device=device)
+    keys = [f"u{i}" for i in range(HA_S)]
+    for key in keys:
+        svc.open_session(key)
+    svc.sync()
+    standby = StandbyReplica(ck, device=device)
+    clock = [1000.0]
+    beacon = HeartbeatWriter(ck, service=svc, clock=lambda: clock[0])
+    ctl = FailoverController(standby, heartbeat_timeout_s=5.0, clock=lambda: clock[0])
+    out = {"rounds": [], "standby_launches": dict.fromkeys(UPDATE_KERNELS, 0), "backlog_seq": [],
+           "catch_up_s": []}
+    for r in range(HA_ROUNDS):
+        serve_round(svc, feed, r, keys)
+        svc.sync()
+        beacon.beat()
+        # the lag this lockstep loop can show: the flushes the standby has
+        # yet to apply when its poll starts, and how long the poll takes to
+        # apply them (its launches synchronised)
+        out["backlog_seq"].append(svc.flushed_seq - standby.applied_seq)
+        before = update_launches()
+        t0 = time.perf_counter()
+        standby.poll()
+        if device is None:
+            torch.cuda.synchronize()
+        out["catch_up_s"].append(time.perf_counter() - t0)
+        for k, n in launch_delta(before, update_launches()).items():
+            out["standby_launches"][k] += n
+        standby.lag()  # 0 here by construction: it counts records seen but not applied
+        prim = svc.bridge.engine.peek_arrays()
+        stb = standby.service.bridge.engine.peek_arrays()
+        if standby.applied_seq != svc.flushed_seq or not same_snapshots(prim, stb):
+            fail(f"[33 ha] {mode}: after round {r + 1} the standby (seq {standby.applied_seq}) differs from "
+                 f"its primary (seq {svc.flushed_seq})")
+        out["rounds"].append(prim)
+    m = svc.bridge.metrics
+    out["flushes"], out["gated_dispatches"] = m.flushes, m.gated_dispatches
+    if not ctl.health().healthy:
+        fail(f"[33 ha] {mode}: the controller judged a beating primary unhealthy")
+    svc.shutdown()
+    clock[0] += 10.0
+    report = ctl.health()
+    if not report.should_promote or report.triggers != ["staleness"]:
+        fail(f"[33 ha] {mode}: a stale heartbeat gave {report}")
+    promoted = ctl.maybe_promote()
+    if promoted is None or standby.metrics.promotions != 1:
+        fail(f"[33 ha] {mode}: the controller did not promote")
+    journal = os.path.join(ck, "journal.bin")
+    journal_before = open(journal, "rb").read()
+    if mode != "gated":  # (a gated zombie may elide the chunk: nothing to write)
+        try:
+            svc.ingest(keys[0], feed[0][0, 0], None if feed[1] is None else feed[1][0, 0])
+            svc.sync()
+            fail(f"[33 ha] {mode}: the old primary's flush was not fenced")
+        except FencedError:
+            pass
+    try:
+        svc.bridge._save_snapshot()
+        fail(f"[33 ha] {mode}: the old primary's checkpoint was not fenced")
+    except FencedError:
+        pass
+    if open(journal, "rb").read() != journal_before:
+        fail(f"[33 ha] {mode}: the fenced primary changed the journal")
+    serve_round(promoted, feed, HA_ROUNDS, keys)
+    promoted.sync()
+    out["final"] = [promoted.snapshot(key, sync=False) for key in keys]
+    out["promoted_seq"] = promoted.flushed_seq
+    promoted.shutdown()
+    shutil.rmtree(ck, ignore_errors=True)
+    return out
+
+
+def cluster_flow(device, work: str, card: bool = False) -> dict:
+    """Phase 34: a ``ShardedReservoirService`` at bench.py's shards / merge
+    shape with a standby a shard: four rounds (each shard's ingest timed
+    alone), the merged snapshots of eight groups of eight keys (the host
+    tree against the default, and on the card ``"cuda"``, with their
+    launch counts), 24 migrations with no stale read, ``kill_shard(3)`` and
+    ``promote_shard(3)`` with shards 0-2 serving throughout, a sixth round,
+    and ``ShardedReservoirService.recover`` of the directory.  Returns what
+    the ``device="cpu"`` run must equal."""
+    from reservoir_tpu_torch import SamplerConfig
+    from reservoir_tpu_torch.errors import FencedError, ShardUnavailable
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.ops import merge_cuda as mkern
+    from reservoir_tpu_torch.serve import ShardedReservoirService
+
+    cfg = SamplerConfig(max_sample_size=HA_K, num_reservoirs=CL_R, tile_size=HA_B)
+    devices = None if device is None else [device] * CL_SHARDS
+    rng = np.random.default_rng(34)
+    keys = [f"u{i}" for i in range(CL_SESSIONS)]
+    chunks = rng.integers(0, 1 << 31, (HA_ROUNDS + 2, CL_SESSIONS, HA_B), dtype=np.int64).astype(np.int32)
+    groups = [[keys[int(j)] for j in rng.integers(0, CL_SESSIONS, CL_GROUP)] for _ in range(CL_GROUPS)]
+    movers = [keys[int(j)] for j in rng.permutation(CL_SESSIONS)[:CL_MIGRATIONS]]
+    cl_dir = os.path.join(work, "cluster")
+    shutil.rmtree(cl_dir, ignore_errors=True)
+    cl = ShardedReservoirService(cfg, CL_SHARDS, cl_dir, key=5, checkpoint_every=HA_CKPT_EVERY,
+                                 coalesce_bytes=SV_COALESCE, devices=devices)
+    out = {}
+    for key in keys:
+        cl.open_session(key)
+    cl.sync()
+    # each shard's own ingest (its keys in order, then its sync) timed
+    # alone; the standbys poll after every round
+    own = {u.shard_id: [(i, key) for i, key in enumerate(keys) if cl.shard_of(key) == u.shard_id]
+           for u in cl.units}
+    shard_s = dict.fromkeys(own, 0.0)
+    before = update_launches()
+    t0 = time.perf_counter()
+    for r in range(HA_ROUNDS):
+        for u in cl.units:
+            ts = time.perf_counter()
+            for i, key in own[u.shard_id]:
+                cl.ingest(key, chunks[r, i])
+            u.service.sync()
+            if card:
+                torch.cuda.synchronize()
+            shard_s[u.shard_id] += time.perf_counter() - ts
+        cl.sync()
+        cl.poll()
+    wall = time.perf_counter() - t0
+    flushes = sum(u.service.bridge.metrics.flushes for u in cl.units)
+    applied = sum(u.standby.metrics.applied_tiles for u in cl.units)
+    launched = launch_delta(before, update_launches())
+    if card and (launched["algl_update"] != flushes + applied or sum(launched.values()) != launched["algl_update"]):
+        fail(f"[34 cluster] {launched} update launches for {flushes} primary flushes and {applied} standby tiles")
+    out["round_launches"] = {"algl_update": launched["algl_update"], "primary_flushes": flushes,
+                             "standby_tiles": applied}
+    out["per_shard_elem_per_s"] = {str(u.shard_id): u.service.metrics.ingested_elements / shard_s[u.shard_id]
+                                   for u in cl.units}
+    out["cluster_elem_per_s"] = sum(u.service.metrics.ingested_elements for u in cl.units) / wall
+    out["shard_sessions"] = {str(u.shard_id): len(u.table) for u in cl.units}
+    # merged snapshots: the default over the shards' devices as ranks (the
+    # kernels on the card), "cuda" (the same, card ranks only) and the
+    # plain "host" tree, all equal
+    merged = []
+    ring0, draws0 = mkern.launches, kern.merge_launches
+    for g in groups:
+        host = cl.merged_snapshot(g, merge_key=7, device="host")
+        for impl in (None, "cuda") if card else (None,):
+            if not same_snapshots([host], [cl.merged_snapshot(g, merge_key=7, device=impl)]):
+                fail(f"[34 cluster] merged_snapshot(device={impl!r}) differs from the host merge for {g}")
+        merged.append(host)
+    out["merged"] = merged
+    out["merge_launches"] = {"merge_ring_gather": mkern.launches - ring0,
+                             "algl_merge_draws": kern.merge_launches - draws0}
+    want = {"merge_ring_gather": 2 * CL_GROUPS, "algl_merge_draws": 2 * CL_GROUPS * tree_levels(CL_GROUP)}
+    if card and out["merge_launches"] != want:
+        fail(f"[34 cluster] merge launches {out['merge_launches']}, want {want}")
+    # live migrations: the synced snapshot before a move is the first read
+    # after it, the destination holds the lease, the source refuses it
+    moved = {}
+    for i, key in enumerate(movers):
+        before_move = cl.snapshot(key)
+        src = cl.shard_of(key)
+        dst = (src + 1 + i % (CL_SHARDS - 1)) % CL_SHARDS
+        cl.migrate(key, dst)
+        after = cl.snapshot(key)
+        if cl.shard_of(key) != dst or key in cl.unit(src).table or not same_snapshots([before_move], [after]):
+            fail(f"[34 cluster] a stale read or a lost lease migrating {key} from shard {src} to {dst}")
+        moved[key] = after
+    out["moved"] = moved
+    # kill shard 3: the others keep serving; its standby takes over
+    cl.sync()
+    cl.poll()
+    snaps = {key: cl.snapshot(key) for key in keys}
+    zombie = cl.kill_shard(CL_VICTIM)
+    victims = [k for k in keys if cl.shard_of(k) == CL_VICTIM]
+    others = [k for k in keys if cl.shard_of(k) != CL_VICTIM]
+    for key in victims[:8]:
+        try:
+            cl.ingest(key, chunks[HA_ROUNDS, 0])
+            fail(f"[34 cluster] {key} on the killed shard took an ingest")
+        except ShardUnavailable:
+            pass
+    for key in others:
+        cl.ingest(key, chunks[HA_ROUNDS, keys.index(key)])
+    if sorted(cl.sync()) != [u for u in range(CL_SHARDS) if u != CL_VICTIM]:
+        fail("[34 cluster] the live shards did not all sync while shard 3 was down")
+    during = {key: cl.snapshot(key) for key in others}
+    cl.promote_shard(CL_VICTIM, reason="chip smoke kill")
+    try:
+        zombie.bridge._save_snapshot()
+        fail("[34 cluster] the killed primary's checkpoint was not fenced")
+    except FencedError:
+        pass
+    if not same_snapshots([cl.snapshot(k) for k in victims], [snaps[k] for k in victims]):
+        fail("[34 cluster] shard 3's sessions read differently after the promotion")
+    out["during_kill"] = during
+    for i, key in enumerate(keys):
+        cl.ingest(key, chunks[HA_ROUNDS + 1, i])
+    cl.sync()
+    cl.poll()
+    final = {key: cl.snapshot(key) for key in keys}
+    out["final"] = final
+    out["victims"] = len(victims)
+    cl.shutdown()
+    del zombie
+    rec = ShardedReservoirService.recover(cl_dir, devices=devices)
+    if not same_snapshots([rec.snapshot(k) for k in keys], [final[k] for k in keys]):
+        fail("[34 cluster] the recovered cluster's snapshots differ")
+    rec.shutdown()
+    del rec, cl
+    shutil.rmtree(cl_dir, ignore_errors=True)
+    return out
+
+
+def ha_cpu_reference(part: str, work: str) -> dict:
+    """One part of phases 33 and 34 with ``device="cpu"``: a mode of phase
+    33, or ``"cluster"``.  Run in child processes while the card works."""
+    torch.set_num_threads(2)
+    return cluster_flow("cpu", work) if part == "cluster" else ha_flow(part, "cpu", work)
+
+
+def ha_phases(here: str) -> tuple:
+    """Phases 33-35, hot standby, failover and the cluster on the card;
+    returns the ``ha`` line and each kernel's launches on this path."""
+    import concurrent.futures
+    import multiprocessing
+
+    from reservoir_tpu_torch.obs import registry as obs
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.ops import distinct_cuda as dkern
+    from reservoir_tpu_torch.ops import merge_cuda as mkern
+    from reservoir_tpu_torch.ops import weighted_cuda as wkern
+
+    work = os.path.join(here, "build", "chip_smoke", "ha")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    line = {"ha": {}, "cluster": {}}
+    reg = obs.enable(obs.Registry())
+    try:
+        torch.cuda.synchronize()
+        kern.launches = kern.gated_launches = kern.merge_launches = 0
+        wkern.launches = dkern.launches = mkern.launches = 0
+        # 33. hot standby and failover on the card
+        card = {}
+        for mode in HA_MODES:
+            t0 = time.perf_counter()
+            res = ha_flow(mode, None, os.path.join(work, "card"))
+            torch.cuda.synchronize()
+            sl = res["standby_launches"]
+            kernel = "algl_update" if mode == "gated" else KERNEL_OF[mode]
+            want = {k: 0 for k in UPDATE_KERNELS}
+            if mode == "gated":
+                want["algl_update_gated"] = res["gated_dispatches"]
+                want["algl_update"] = res["flushes"] - res["gated_dispatches"]
+            else:
+                want[kernel] = res["flushes"]
+            if sl != want or sum(sl.values()) != res["flushes"]:
+                fail(f"[33 ha] {mode}: the standby launched {sl} for the primary's {res['flushes']} "
+                     f"flushes ({res['gated_dispatches']} gated)")
+            card[mode] = res
+            log(f"[33 ha] {mode}: {HA_S} sessions x {HA_ROUNDS} rounds of {HA_B}, the standby equal to "
+                f"its primary after every poll; standby launches {sl} = the primary's {res['flushes']} "
+                f"flushes; stale heartbeat -> promoted, the old primary fenced (journal unchanged), "
+                f"a fifth round on the promoted primary (seq {res['promoted_seq']}); "
+                f"{time.perf_counter() - t0:.1f} s")
+        ha_counts = update_launches()
+        # 34. the cluster on the card
+        t0 = time.perf_counter()
+        cres = cluster_flow(None, os.path.join(work, "card"), card=True)
+        torch.cuda.synchronize()
+        launches = update_launches()
+        launches["merge_ring_gather"] = mkern.launches
+        launches["algl_merge_draws"] = kern.merge_launches
+        log(f"[34 cluster] {CL_SHARDS} shards x {CL_R} rows on the card, {CL_SESSIONS} sessions "
+            f"({cres['shard_sessions']}), {HA_ROUNDS} rounds: {cres['round_launches']['algl_update']} "
+            f"algl_update launches = {cres['round_launches']['primary_flushes']} primary flushes + "
+            f"{cres['round_launches']['standby_tiles']} standby tiles; {CL_GROUPS} merged snapshots of "
+            f"{CL_GROUP} keys, the default and 'cuda' merges equal the host tree, {cres['merge_launches']}; {CL_MIGRATIONS} migrations, "
+            f"no stale read; shard {CL_VICTIM} killed ({cres['victims']} sessions) and promoted, shards "
+            f"0-2 serving throughout; recover() equal; {time.perf_counter() - t0:.1f} s")
+        # 35. timings, from the registry
+        promote = reg.histogram("ha.promote_s")
+        timings = {
+            "failover_ms_best": promote.min * 1e3,
+            "failover_ms_median": promote.quantile(0.5) * 1e3,
+            "promotions": promote.count,
+            "lag_seq_max": reg.histogram("replica.lag_seq_dist").max,
+            "lag_s_p50": reg.histogram("replica.lag_s_dist").quantile(0.5),
+            "poll_backlog_seq_max": max(max(card[m]["backlog_seq"]) for m in HA_MODES),
+            "poll_catch_up_ms_p50": float(np.median([t for m in HA_MODES for t in card[m]["catch_up_s"]])) * 1e3,
+            "poll_catch_up_ms_max": max(t for m in HA_MODES for t in card[m]["catch_up_s"]) * 1e3,
+            "per_shard_elem_per_s": cres["per_shard_elem_per_s"],
+            "cluster_elem_per_s": cres["cluster_elem_per_s"],
+        }
+        for name in ("cluster.merge_s", "cluster.merge_device_s", "cluster.migrate_s"):
+            h = reg.histogram(name)
+            timings[name.split(".")[1] + "_p50_ms"] = h.quantile(0.5) * 1e3
+            timings[name.split(".")[1] + "_p99_ms"] = h.quantile(0.99) * 1e3
+            timings[name.split(".")[1] + "_count"] = h.count
+    finally:
+        obs.disable()
+    # the device="cpu" references: three child processes (the cluster in
+    # one, two modes each in the others), started after the card's work so
+    # that phase 35's host-clock timings had the cores to themselves
+    t0 = time.perf_counter()
+    pool = concurrent.futures.ProcessPoolExecutor(3, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu_futures = {part: pool.submit(ha_cpu_reference, part, os.path.join(work, "cpu"))
+                       for part in ("cluster",) + HA_MODES}
+        refs = {part: f.result(timeout=900) for part, f in cpu_futures.items()}
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    cpu_s = time.perf_counter() - t0
+    for mode in HA_MODES:
+        got, want = card[mode], refs[mode]
+        if (len(got["rounds"]) != len(want["rounds"])
+                or not all(same_snapshots(a, b) for a, b in zip(got["rounds"], want["rounds"]))
+                or not same_snapshots(got["final"], want["final"])):
+            fail(f"[33 ha] {mode}: the card's states or snapshots differ from device='cpu'")
+    want = refs["cluster"]
+    if not same_snapshots(cres["merged"], want["merged"]):
+        fail("[34 cluster] the card's merged snapshots differ from device='cpu'")
+    for part in ("moved", "during_kill", "final"):
+        if sorted(cres[part]) != sorted(want[part]) or not same_snapshots(
+                [cres[part][k] for k in sorted(want[part])], [want[part][k] for k in sorted(want[part])]):
+            fail(f"[34 cluster] the card's {part} snapshots differ from device='cpu'")
+    log(f"[33-34] every state and snapshot equals the device='cpu' runs' (the CPU references ran after the "
+        f"card's work, in three child processes, in {cpu_s:.1f} s)")
+    card_name = card_line()
+    log(f"[35 ha timings] {card_name} | failover (ha.promote_s over {timings['promotions']} promotions): best "
+        f"{timings['failover_ms_best']:.4f} ms, median {timings['failover_ms_median']:.4f} ms; replication lag at "
+        f"each poll over {HA_ROUNDS * len(HA_MODES)} polls: backlog max {timings['poll_backlog_seq_max']} flushes, "
+        f"catch-up p50 {timings['poll_catch_up_ms_p50']:.4f} ms max {timings['poll_catch_up_ms_max']:.4f} ms; "
+        f"the replica's own lag_seq max {timings['lag_seq_max']:g}, lag_s p50 {timings['lag_s_p50']:.6f} s "
+        f"(0 by construction in this lockstep loop: read after the poll)")
+    log(f"[35 ha timings] {card_name} | ingest elem/s, each shard timed alone (its ingests and sync): "
+        + ", ".join(f"{k}: {v:.6e}" for k, v in timings["per_shard_elem_per_s"].items())
+        + f"; the cluster, rounds and standby polls included: {timings['cluster_elem_per_s']:.6e}"
+        + f"; cluster.merge_s p50 {timings['merge_s_p50_ms']:.4f} ms p99 {timings['merge_s_p99_ms']:.4f} ms; "
+        f"cluster.merge_device_s p50 {timings['merge_device_s_p50_ms']:.4f} ms p99 "
+        f"{timings['merge_device_s_p99_ms']:.4f} ms; cluster.migrate_s p50 {timings['migrate_s_p50_ms']:.4f} ms "
+        f"p99 {timings['migrate_s_p99_ms']:.4f} ms (registry histograms)")
+    line["ha"] = {
+        "shape": {"sessions": HA_S, "k": HA_K, "B": HA_B, "rounds": HA_ROUNDS, "coalesce_bytes": SV_COALESCE,
+                  "checkpoint_every": HA_CKPT_EVERY},
+        "flushes": {m: card[m]["flushes"] for m in HA_MODES},
+        "standby_launches": {m: card[m]["standby_launches"] for m in HA_MODES},
+        "launches": ha_counts,
+    }
+    line["cluster"] = {
+        "shape": {"shards": CL_SHARDS, "rows": CL_R, "sessions": CL_SESSIONS, "k": HA_K, "B": HA_B,
+                  "rounds": HA_ROUNDS, "merge_groups": CL_GROUPS, "group": CL_GROUP,
+                  "migrations": CL_MIGRATIONS, "victim": CL_VICTIM},
+        "round_launches": cres["round_launches"],
+        "merge_launches": cres["merge_launches"],
+        "shard_sessions": cres["shard_sessions"],
+    }
+    line["timings"] = timings
+    line["card"] = card_name
+    shutil.rmtree(work, ignore_errors=True)
+    return line, launches
 
 if __name__ == "__main__":
     main()

@@ -42,8 +42,10 @@ of several shards of one stream into one exact sample:
   ``DeviceSampler`` factory, on the card;
 - :mod:`reservoir_tpu_torch.serve` — the serving plane:
   :class:`ReservoirService` multiplexes tenant sessions onto the rows of one
-  bridge, recycling rows through the engine's ``reset_rows`` and migrating
-  them through ``export_rows`` / ``adopt_rows``.
+  bridge, recycling rows through the engine's ``reset_rows``;
+  ``StandbyReplica`` and ``FailoverController`` keep a hot standby and fail
+  over to it; ``ShardedReservoirService`` routes sessions over shard units
+  and migrates them through ``export_rows`` / ``adopt_rows``.
 
 The package imports torch and numpy, never jax and nothing of
 ``reservoir_tpu``.  Its entry points run on the card (``device=None`` means
@@ -72,7 +74,15 @@ def __getattr__(name):
 
         return getattr(api, name)
     # so is the serving plane
-    if name in ("ReservoirService", "SessionTable", "Session"):
+    if name in (
+        "ReservoirService",
+        "SessionTable",
+        "Session",
+        "StandbyReplica",
+        "JournalFollower",
+        "FailoverController",
+        "HeartbeatWriter",
+    ):
         from . import serve
 
         return getattr(serve, name)
@@ -86,6 +96,9 @@ __all__ = [
     "CheckpointMismatch",
     "DeviceSampler",
     "DeviceStreamBridge",
+    "FailoverController",
+    "HeartbeatWriter",
+    "JournalFollower",
     "ReservoirEngine",
     "ReservoirService",
     "Sample",
@@ -94,6 +107,7 @@ __all__ = [
     "SamplerConfig",
     "Session",
     "SessionTable",
+    "StandbyReplica",
     "distinct",
     "sampler",
 ]

@@ -1,7 +1,8 @@
-"""Telemetry of the port (copies of the JAX package's ``obs`` modules that
-the stream bridge writes to): the metrics registry with its latency
-histograms (:mod:`.registry`), the structured event log (:mod:`.events`),
-causal spans (:mod:`.trace`) and the flight recorder (:mod:`.flight`).
+"""Telemetry of the port (copies of the JAX package's ``obs`` modules): the
+metrics registry with its latency histograms (:mod:`.registry`), the
+structured event log (:mod:`.events`), causal spans (:mod:`.trace`), the
+flight recorder (:mod:`.flight`), the Prometheus and JSON exporters
+(:mod:`.export`) and the burn-rate SLO plane (:mod:`.slo`).
 
 Telemetry is off by default: every instrumented hot path costs one
 module-global load and an ``is None`` test until :func:`enable` is called::
@@ -16,6 +17,7 @@ module-global load and an ``is None`` test until :func:`enable` is called::
 
 from . import flight, trace
 from .events import EventLog, read_events
+from .export import json_snapshot, prometheus_text, write_json_snapshot
 from .flight import FlightRecorder, read_bundle
 from .registry import (
     Counter,
@@ -30,6 +32,7 @@ from .registry import (
     register_block,
 )
 from .registry import get as get_registry
+from .slo import SLOPlane, SLOSpec, SLOVerdict, default_slos
 from .trace import Span, Tracer, attribution
 
 __all__ = [
@@ -39,18 +42,25 @@ __all__ = [
     "Gauge",
     "Histogram",
     "Registry",
+    "SLOPlane",
+    "SLOSpec",
+    "SLOVerdict",
     "Span",
     "Tracer",
     "active",
     "attribution",
     "blocks",
+    "default_slos",
     "disable",
     "emit",
     "enable",
     "flight",
     "get_registry",
+    "json_snapshot",
+    "prometheus_text",
     "read_bundle",
     "read_events",
     "register_block",
     "trace",
+    "write_json_snapshot",
 ]

@@ -46,6 +46,7 @@ One writer: wrap pushes in your own queue for multi-producer feeds.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import io
 import json
@@ -84,6 +85,28 @@ from ..utils.tracing import trace_span
 from .gate import SkipGate, gate_ineligible_reason
 
 __all__ = ["DeviceStreamBridge", "DeviceSampler"]
+
+#: Every pipeline whose worker may still run: the interpreter's exit waits
+#: for them (weakly held: a worker's own reference keeps its pipeline here
+#: while it runs, and a collected pipeline has no worker left).
+_LIVE_PIPELINES: "weakref.WeakSet[_FlushPipeline]" = weakref.WeakSet()
+
+
+@atexit.register
+def _join_pipelines_at_exit() -> None:
+    """Let every flush worker finish before the interpreter finalizes.
+
+    A worker is a daemon thread.  One that is still inside a flush's torch
+    or C++ frames when the interpreter tears down is unwound by the
+    runtime's forced thread exit, which aborts the process ("terminate
+    called without an active exception") after its last line ran.  The
+    hook runs before that teardown: it ends each worker's loop after the
+    work already queued and joins it, bounded as :meth:`_FlushPipeline.close`
+    is.  It settles no future: a stream that was not completed stays
+    unfinished, and its bridge's backstop still fails it if collected.
+    """
+    for pipe in list(_LIVE_PIPELINES):
+        pipe._stop()
 
 
 class _FlushPipeline:
@@ -136,6 +159,7 @@ class _FlushPipeline:
         self._done = 0
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
+        _LIVE_PIPELINES.add(self)
 
     def _run(self) -> None:
         while True:
@@ -276,7 +300,8 @@ class _FlushPipeline:
                 self._cv.wait()
         self._check()
 
-    def close(self) -> None:
+    def _stop(self) -> None:
+        """End the worker's loop after the work queued so far and join it."""
         if self._thread.is_alive():
             self._q.put(None)
             with self._cv:
@@ -288,6 +313,11 @@ class _FlushPipeline:
             # thread cannot join itself
             if threading.current_thread() is not self._thread:
                 self._thread.join(timeout=1.0 if wedged else 30)
+        if not self._thread.is_alive():
+            _LIVE_PIPELINES.discard(self)
+
+    def close(self) -> None:
+        self._stop()
         # a completion barrier: an error of the final flush is re-raised
         # here (the bridge's __del__ routes it through fail() instead)
         self._check()
@@ -698,33 +728,25 @@ class DeviceStreamBridge:
             else None
         )
         # ------------------------------------------- crash recovery plane
-        self._ckpt_dir = checkpoint_dir
-        self._ckpt_every = max(1, int(checkpoint_every))
         self._flush_seq = 0  # flushes journaled/checkpointed so far
         self._journal: Optional[_FlushJournal] = None
         self._ckpt_failed_logged = False
-        self._durability = durability
         # fencing: the bridge is admitted at the epoch persisted in the
         # checkpoint dir at construction; a later bump (a promotion
         # elsewhere) fences every later flush and checkpoint
-        self._epoch = 0
         self._fence_cache: Tuple[Optional[Tuple[int, int]], int] = (None, 0)
         if checkpoint_dir is not None:
-            os.makedirs(checkpoint_dir, exist_ok=True)
-            self._epoch = read_epoch(checkpoint_dir)
-            self._journal = _FlushJournal(
-                os.path.join(checkpoint_dir, "journal.bin"),
-                S,
-                B,
-                dtype,
-                config.weighted,
-                fsync=durability == "fsync",
-                sync_cb=self._count_journal_sync,
-            )
+            self._attach_journal(checkpoint_dir, checkpoint_every=checkpoint_every,
+                                 durability=durability)
             if _engine is None:
                 # seq-0 anchor: recovery is possible from the first flush,
                 # even if every later checkpoint write fails
                 self._save_snapshot()
+        else:
+            self._ckpt_dir: Optional[str] = None
+            self._ckpt_every = max(1, int(checkpoint_every))
+            self._durability = durability
+            self._epoch = 0
 
     # ------------------------------------------------------------ properties
 
@@ -1353,6 +1375,37 @@ class DeviceStreamBridge:
                 observed_epoch=current,
                 own_epoch=self._epoch,
             )
+
+    def _attach_journal(
+        self,
+        checkpoint_dir: str,
+        *,
+        checkpoint_every: int = 64,
+        durability: str = "buffered",
+        epoch: Optional[int] = None,
+    ) -> None:
+        """Adopt ``checkpoint_dir`` as this bridge's durability plane (a
+        standby's promotion, :meth:`StandbyReplica.promote`): open the
+        journal for append without a fresh bridge's seq-0 anchor (the
+        checkpoint and journal there already cover ``flushed_seq``) and
+        admit the bridge at ``epoch`` (default: the persisted one)."""
+        if self._journal is not None:
+            raise ValueError("this bridge already journals")
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        self._ckpt_dir = checkpoint_dir
+        self._ckpt_every = max(1, int(checkpoint_every))
+        self._durability = durability
+        self._epoch = read_epoch(checkpoint_dir) if epoch is None else epoch
+        self._fence_cache = (None, 0)
+        self._journal = _FlushJournal(
+            os.path.join(checkpoint_dir, "journal.bin"),
+            self._config.num_reservoirs,
+            self._config.tile_size,
+            np.dtype(self._config.element_dtype),
+            self._config.weighted,
+            fsync=durability == "fsync",
+            sync_cb=self._count_journal_sync,
+        )
 
     def _save_snapshot(self) -> None:
         """Checkpoint the engine, covering every flush ``<= _flush_seq``

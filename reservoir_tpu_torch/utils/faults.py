@@ -57,14 +57,28 @@ __all__ = [
 #: The injection sites the port fires: ``bridge.demux`` on the stream
 #: bridge's push paths (producer thread), ``bridge.dispatch`` before each
 #: device flush (worker thread when pipelined), ``native.staging`` on the
-#: staging buffer's push and take paths, and ``checkpoint.write`` inside
-#: the atomic checkpoint writer.  A rule may name any site; one the port
-#: never fires simply never fires.
+#: staging buffer's push and take paths, ``checkpoint.write`` inside the
+#: atomic checkpoint writer, and ``serve.ingest`` on the service's
+#: per-session ingest.  The HA plane adds ``replica.ship`` (the journal
+#: follower's read path), ``replica.apply`` (one shipped tile onto the
+#: standby's engine; its state advances only on success, so the next poll
+#: retries the same tile) and ``ha.heartbeat`` (the primary's beat and the
+#: controller's read: a failing writer goes stale and is promoted past).
+#: The sharded plane adds ``shard.route`` (a cluster's session-to-shard
+#: resolution, surfaced as a typed per-call error) and ``shard.promote``
+#: (a shard unit's promotion: a failure leaves the standby re-promotable).
+#: A rule may name any site; one the port never fires simply never fires.
 SITES: Tuple[str, ...] = (
     "bridge.dispatch",
     "bridge.demux",
     "checkpoint.write",
     "native.staging",
+    "serve.ingest",
+    "replica.ship",
+    "replica.apply",
+    "ha.heartbeat",
+    "shard.route",
+    "shard.promote",
 )
 
 

@@ -1,6 +1,6 @@
-"""The counter blocks of the stream bridge and the serving plane (the
-port's copies of the JAX package's ``BridgeMetrics`` and ``ServiceMetrics``,
-with the same ``snapshot()`` keys).
+"""The counter blocks of the stream bridge, the serving plane and its HA
+plane (the port's copies of the JAX package's ``BridgeMetrics``,
+``ServiceMetrics`` and ``HAMetrics``, with the same ``snapshot()`` keys).
 
 The counters say whether the host feed or the device sets the pace:
 elements consumed, flushes dispatched, wall-clock throughput, and the busy
@@ -18,7 +18,7 @@ from typing import Dict, Optional
 
 from ..obs import registry as _obs
 
-__all__ = ["BridgeMetrics", "ServiceMetrics"]
+__all__ = ["BridgeMetrics", "HAMetrics", "ServiceMetrics"]
 
 
 @dataclasses.dataclass
@@ -151,6 +151,43 @@ class ServiceMetrics:
 
     def __post_init__(self) -> None:
         _obs.register_block("serve", self)
+
+    def snapshot(self) -> Dict[str, float]:
+        """Point-in-time dict view."""
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class HAMetrics:
+    """Counter block of the HA plane: one for a
+    :class:`~reservoir_tpu_torch.serve.replica.StandbyReplica` and its
+    :class:`~reservoir_tpu_torch.serve.ha.FailoverController`, which share
+    it; the primary's ``HeartbeatWriter`` keeps its own.
+
+    ``lag_seq``/``lag_s`` are the replication lag at the last poll: flush
+    sequences the standby has not applied yet, and seconds since it was
+    last provably caught up.  ``promotions`` counts failovers;
+    ``fenced_writes`` writes refused because a newer epoch was persisted;
+    ``ship_errors``/``apply_errors`` split replication failures into
+    reading the journal and applying a tile (both retried on the next poll,
+    so they mean lag, never a wrong state); ``bootstraps`` counts
+    checkpoint-shipping bootstraps (1 at construction, one more whenever a
+    journal rotation outran the tail).
+    """
+
+    lag_seq: int = 0
+    lag_s: float = 0.0
+    promotions: int = 0
+    fenced_writes: int = 0
+    ship_errors: int = 0
+    apply_errors: int = 0
+    applied_tiles: int = 0
+    applied_ops: int = 0
+    bootstraps: int = 0
+    heartbeats: int = 0
+
+    def __post_init__(self) -> None:
+        _obs.register_block("ha", self)
 
     def snapshot(self) -> Dict[str, float]:
         """Point-in-time dict view."""

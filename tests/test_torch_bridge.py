@@ -7,6 +7,8 @@ protocol; the pipeline under contention; and what the slice leaves out."""
 from __future__ import annotations
 
 import gc
+import os
+import subprocess
 import sys
 import threading
 
@@ -19,6 +21,8 @@ from reservoir_tpu.stream.bridge import DeviceSampler as JSampler
 from reservoir_tpu.stream.bridge import DeviceStreamBridge as JBridge
 from reservoir_tpu_torch import DeviceSampler, DeviceStreamBridge, SamplerConfig
 from reservoir_tpu_torch.errors import AbruptStreamTermination, SamplerClosedError
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 S, B, K = 6, 8, 4
 MODES = {
@@ -196,6 +200,38 @@ def test_abrupt_termination_backstop(pipelined):
     del bridge
     gc.collect()
     assert isinstance(fut.exception(timeout=2), AbruptStreamTermination)
+
+
+_EXIT_CHILD = """
+import numpy as np
+from reservoir_tpu_torch.config import SamplerConfig
+from reservoir_tpu_torch.stream.bridge import DeviceStreamBridge
+
+bridge = DeviceStreamBridge(SamplerConfig(8, 4096, tile_size=64), key=0, gated=True, device="cpu")
+rng = np.random.default_rng(0)
+for _ in range(200):
+    bridge.push(int(rng.integers(0, 4096)), rng.integers(0, 1 << 30, 64).astype(np.int32))
+bridge.flush()
+print("last line", flush=True)
+"""
+
+
+def test_exit_with_a_gated_flush_in_flight_does_not_abort():
+    """Fault C.5: a process that ends while a gated, pipelined bridge still
+    has its flush in flight (no ``complete()``) exits with 0 after its last
+    line, six runs out of six.  Before the fix the flush worker, a daemon
+    thread, was torn down inside the flush's C++ frames and the process
+    aborted ("terminate called without an active exception") in about five
+    runs out of six."""
+    procs = [
+        subprocess.Popen([sys.executable, "-c", _EXIT_CHILD], cwd=REPO, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True)
+        for _ in range(6)
+    ]
+    for proc in procs:
+        out, err = proc.communicate(timeout=120)
+        assert proc.returncode == 0, (proc.returncode, err[-2000:])
+        assert out.strip().splitlines()[-1] == "last line"
 
 
 def test_worker_error_surfaces_and_reaches_the_future():

@@ -1395,3 +1395,96 @@ def test_service_on_the_card_equals_the_cpu(cuda_device, mode):
     assert services[0].metrics.recycles == 32
     for s in services[1].table.sessions():
         np.testing.assert_array_equal(services[0].snapshot(s.key), services[1].snapshot(s.key))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain", "weighted", "distinct", "gated"])
+def test_standby_on_the_card_equals_one_on_the_cpu(cuda_device, mode, tmp_path):
+    """A primary and its StandbyReplica on the card, and the same on the
+    CPU, given the same calls (a recycled row among them): after every poll
+    the card standby equals its primary and the CPU standby, it launches
+    one update kernel a shipped tile, and after the promotion the card's
+    promoted primary equals the CPU's."""
+    from reservoir_tpu_torch.serve import ReservoirService, StandbyReplica
+
+    cfg = SamplerConfig(8, 48, tile_size=64, weighted=mode == "weighted", distinct=mode == "distinct")
+    pairs = {}
+    for d in (cuda_device, "cpu"):
+        ck = str(tmp_path / str(d))
+        svc = ReservoirService(cfg, key=4, checkpoint_dir=ck, checkpoint_every=1 << 30, coalesce_bytes=4096,
+                               gated=mode == "gated", device=d)
+        pairs[d] = [svc, StandbyReplica(ck, device=d)]
+    rng = np.random.default_rng(12)
+    kernels = (TK, TWK, TDK)
+    for r in range(4):
+        keys = [f"s{i}" for i in range(40 + 2 * r)]
+        chunks = rng.integers(0, 1 << 30, (len(keys), 70)).astype(np.int32) % (300 if mode == "distinct" else 1 << 30)
+        w = rng.uniform(0.1, 2.0, chunks.shape).astype(np.float32) if mode == "weighted" else None
+        for svc, _ in pairs.values():
+            if r == 2:
+                svc.close_session("s0")  # its row recycles at the next open
+            for i, key in enumerate(keys):
+                if key not in svc.table:
+                    svc.open_session(key)
+                svc.ingest(key, chunks[i], None if w is None else w[i])
+            svc.sync()
+        before = sum(k.launches for k in kernels) + TK.gated_launches
+        standby = pairs[cuda_device][1]
+        seq0 = standby.applied_seq
+        standby.poll()
+        torch.cuda.synchronize()
+        applied = standby.applied_seq - seq0
+        assert sum(k.launches for k in kernels) + TK.gated_launches - before == applied > 0
+        pairs["cpu"][1].poll()
+        states = [h.bridge.engine.peek_arrays() for p in pairs.values() for h in (p[0], p[1].service)]
+        for s in states[1:]:
+            np.testing.assert_array_equal(s[0], states[0][0])
+            np.testing.assert_array_equal(s[1], states[0][1])
+    promoted = [p[1].promote() for p in pairs.values()]
+    for key in [s.key for s in promoted[1].table.sessions()]:
+        np.testing.assert_array_equal(promoted[0].snapshot(key), promoted[1].snapshot(key))
+
+
+@pytest.mark.cuda
+def test_two_shard_cluster_merges_on_the_card_as_on_the_host(cuda_device, tmp_path):
+    """Two shards on the card: merged_snapshot() and device="cuda" equal the
+    device="host" merge for groups of 1 to 8 keys, with one
+    merge_ring_gather launch and one algl_merge_draws launch a tree level
+    a card call; a migration reads the same before and after; everything
+    equals a CPU cluster's."""
+    from reservoir_tpu_torch.serve import ShardedReservoirService
+
+    cfg = SamplerConfig(8, 32, tile_size=64)
+    clusters = [ShardedReservoirService(cfg, 2, str(tmp_path / name), key=6, coalesce_bytes=4096, devices=devs)
+                for name, devs in (("card", None), ("cpu", ["cpu", "cpu"]))]
+    rng = np.random.default_rng(2)
+    keys = [f"k{i}" for i in range(24)]
+    for cl in clusters:
+        for key in keys:
+            cl.open_session(key)
+    for _ in range(3):
+        chunks = rng.integers(0, 1 << 30, (len(keys), 50)).astype(np.int32)
+        for cl in clusters:
+            for key, chunk in zip(keys, chunks):
+                cl.ingest(key, chunk)
+            cl.sync()
+    assert clusters[0].unit(0).service.device.type == "cuda"
+    for n in (1, 2, 3, 5, 8):
+        group = [keys[int(j)] for j in rng.integers(0, len(keys), n)]
+        ring, draws = TM.launches, TK.merge_launches
+        host = clusters[0].merged_snapshot(group, merge_key=n, device="host")
+        assert (TM.launches, TK.merge_launches) == (ring, draws)
+        default = clusters[0].merged_snapshot(group, merge_key=n)
+        card = clusters[0].merged_snapshot(group, merge_key=n, device="cuda")
+        levels = 0
+        while n > 1:
+            n, levels = n // 2 + n % 2, levels + 1
+        assert (TM.launches - ring, TK.merge_launches - draws) == (2 if levels else 0, 2 * levels)
+        np.testing.assert_array_equal(default, host)
+        np.testing.assert_array_equal(card, host)
+        np.testing.assert_array_equal(host, clusters[1].merged_snapshot(group, merge_key=len(group)))
+    before = clusters[0].snapshot("k3")
+    for cl in clusters:
+        cl.migrate("k3", 1 - cl.shard_of("k3"))
+    np.testing.assert_array_equal(clusters[0].snapshot("k3"), before)
+    np.testing.assert_array_equal(clusters[1].snapshot("k3"), before)

@@ -8,20 +8,15 @@
 - the tuner's control law: driven by the same scripted verdicts, the
   port's ``ServiceTuner`` takes the JAX tuner's decisions and leaves the
   same knobs; driven by measured ingest latency (a delay fault against a
-  latency objective, judged from the port's ``serve.ingest_s`` histogram),
-  it backs off within one window, re-probes after a healthy dwell and
-  stays inside its bounds;
+  latency objective, judged by the port's ``SLOPlane`` from its
+  ``serve.ingest_s`` histogram), it backs off within one window,
+  re-probes after a healthy dwell and stays inside its bounds;
 - a tuner at its optimum leaves the journals byte-identical.
-
-The JAX package judges latency with its SLO plane, which the port does not
-have yet; the tests judge it with :class:`_BurnPlane`, the same burn-rate
-rule over the port's registry.
 """
 
 from __future__ import annotations
 
 import json
-import math
 import os
 
 import numpy as np
@@ -34,6 +29,7 @@ from reservoir_tpu.serve import ServiceTuner as JTuner
 from reservoir_tpu.serve import autotune as jtune
 from reservoir_tpu_torch import ReservoirService, SamplerConfig
 from reservoir_tpu_torch.obs import registry as obs
+from reservoir_tpu_torch.obs.slo import SLOPlane, SLOSpec
 from reservoir_tpu_torch.ops import autotune as store
 from reservoir_tpu_torch.serve import ServiceTuner
 from reservoir_tpu_torch.serve.autotune import (
@@ -84,52 +80,18 @@ def registry():
     obs.disable()
 
 
-class _BurnPlane:
-    """The JAX SLO plane's burn-rate rule for one latency objective over the
-    port's registry: observations of ``serve.ingest_s`` whose bucket's
-    representative exceeds ``threshold`` are bad; the budget is
-    ``1 - quantile``; a window's burn is its bad fraction over the budget,
-    from the newest frame at least ``window_s`` old (else the oldest); warn
-    at 3.0, page at 14.4."""
-
-    def __init__(self, clock, threshold=1e-4, quantile=0.9, window_s=1.0):
-        self._clock, self._threshold, self._window = clock, threshold, window_s
-        self._budget = 1.0 - quantile
-        self._frames = []
-        self._last = "ok"
-
-    def _capture(self):
-        reg = obs.get()
-        h = reg.peek("serve.ingest_s") if reg is not None else None
-        if h is None:
-            return 0.0, 0.0
-        counts, bounds = h.bucket_counts(), h.bounds()
-        bad = counts[-1]
-        for i, c in enumerate(counts[:-1]):
-            lower = bounds[i - 1] if i else 0.0
-            rep = math.sqrt(lower * bounds[i]) if lower else bounds[i]
-            if c and rep > self._threshold:
-                bad += c
-        return float(bad), float(sum(counts))
-
-    def evaluate(self, now=None):
-        if obs.get() is None:
-            return
-        now = self._clock() if now is None else now
-        bad, total = self._capture()
-        base = self._frames[0][1] if self._frames else (0.0, 0.0)
-        for ts, frame in self._frames:
-            if ts <= now - self._window:
-                base = frame
-            else:
-                break
-        d_bad, d_total = max(0.0, bad - base[0]), max(0.0, total - base[1])
-        burn = (d_bad / d_total if d_total else 0.0) / self._budget
-        self._last = "page" if burn >= 14.4 else "warn" if burn >= 3.0 else "ok"
-        self._frames.append((now, (bad, total)))
-
-    def worst(self):
-        return self._last
+def _burn_spec():
+    """The JAX package's test objective: ``serve.ingest_s`` over 0.1 ms at
+    p90, one-second windows."""
+    return SLOSpec(
+        name="ingest_latency_p99",
+        kind="latency_quantile",
+        instrument="serve.ingest_s",
+        threshold=1e-4,
+        quantile=0.9,
+        short_window_s=1.0,
+        long_window_s=1.0,
+    )
 
 
 class _ScriptedPlane:
@@ -339,7 +301,7 @@ def _tuned_service(fake, *, fault_times=30, dwell=2, probe_step=0.25, ttl_s=None
     svc = _service(ttl_s=ttl_s, faults=fp, coalesce_bytes=DEFAULT_KNOBS.coalesce_bytes,
                    max_inflight_bytes=DEFAULT_KNOBS.max_inflight_bytes,
                    checkpoint_every=DEFAULT_KNOBS.checkpoint_every)
-    tuner = ServiceTuner(svc, _BurnPlane(clock), interval_s=1.0, healthy_dwell=dwell,
+    tuner = ServiceTuner(svc, SLOPlane([_burn_spec()], clock=clock), interval_s=1.0, healthy_dwell=dwell,
                          probe_step=probe_step, clock=clock)
     svc.open_session("s")
     return svc, tuner
@@ -460,7 +422,7 @@ def _drive(ckdir, with_tuner):
                            max_inflight_bytes=DEFAULT_KNOBS.max_inflight_bytes, device="cpu")
     if with_tuner:
         fake = [0.0]
-        tuner = ServiceTuner(svc, _BurnPlane(lambda: fake[0]), interval_s=0.0, clock=lambda: fake[0])
+        tuner = ServiceTuner(svc, SLOPlane([_burn_spec()], clock=lambda: fake[0]), interval_s=0.0, clock=lambda: fake[0])
     for i in range(4):
         svc.open_session(f"s{i}")
     rng = np.random.default_rng(7)
