@@ -313,6 +313,49 @@ which fails the run with a non-zero exit:
    ``cluster.merge_device_s`` (the default and ``"cuda"`` merges) p50/p99,
    ``cluster.migrate_s`` p50/p99.
 
+36. the WIDE kernel ``algl_update_wide`` (``count_dtype="wide"``: ``[R, 2]``
+   uint32 count and nxt) against its plain version on the card at R=65536,
+   B=2048 for k in {128, 100, 6}: fill tiles of 64 and 128 from empty, six
+   steady tiles (the last checked), all with a zero high word and equal to
+   the int32 kernel on the same tiles; then the state lifted to 2^31 - 300,
+   2^32 - 300 and 2^33 + 12,345 with imminent accepts (nxt = count + 1 +
+   U[0, 3B)), three steady tiles each, the last ragged, every row passing
+   its boundary — samples, count, nxt and log_w bit-identical; rows
+   0..1023 of every run equal to the plain version on the CPU;
+37. the WIDE path end to end, every launch count set to 0 before each part:
+   (a) ``ReservoirEngine(SamplerConfig(k=128, R=65536, tile_size=2048,
+   count_dtype="wide"), key=0)`` fed one tile, its rows moved up to
+   2^32 - 5B + (r mod 9) B, saved and restored (the checkpoint's counts
+   straddle 2^32), then 8 device tiles and 2 host tiles: 10
+   ``algl_update_wide`` launches and none of the int32 kernels, every
+   count past 2^32, every size k, every sample in its row's stream with no
+   repeats, the KS gate, rows 0..1023 equal to a ``device="cpu"`` engine
+   given the same rows and tiles; (b) a ``DeviceStreamBridge`` (R=4096,
+   B=1024) that adopts rows lifted just below 2^32 (a WIDE ``RTJA`` frame)
+   and takes 8 tiles, one launch a tile; dropped halfway and
+   ``recover()``-ed from its journal, then the rest: the uninterrupted
+   run's samples; with ``gated=True`` inert with the reference's reason and
+   the same samples; rows 0..1023 equal to ``device="cpu"``; (c) a WIDE
+   ``ReservoirService`` at bench.py's serve shape (2,048 sessions, k = 32,
+   B = 256, four rounds), then 64 more sessions, each recycling a row
+   through ``reset_rows``: one launch a flush, every snapshot and the state
+   equal to ``device="cpu"``;
+38. WIDE merges: (a) ``merge_samples_keyed`` of two WIDE ``[65536, 128]``
+   states with counts up to 2^40, straddling 2^32 and 2^63: one
+   ``algl_merge_draws_wide`` launch, the draws and the merge equal to the
+   plain version on the card and, rows 0..1023, on the CPU, the counts the
+   exact 64-bit totals; (b) ``uniform_stream_merger`` of 4 WIDE shards
+   (counts 2^31..2^38): one ``merge_ring_gather`` and two
+   ``algl_merge_draws_wide`` launches, exact totals, rows 0..1023 equal to
+   the plain merger on CPU ranks; then timings as in 7:
+   ``algl_update_wide`` on phase 7's fill, steady and deep tiles (a zero
+   high word, and on the steady tiles the same chain past 2^32) beside the
+   int32 kernel and
+   the bound with 8-byte counters, ``algl_merge_draws_wide`` on phase 19's
+   counts beside the narrow kernel and on (a)'s counts beside its bound
+   and plain version, each with its build, and the WIDE engine's elem/s
+   fed from the device.
+
 Depth cut for the time limit: feed (b) follows feed (a) on the same
 bridge, so its rows are past the early stream, where a row's 8,192
 elements have more candidates than the gate tile and go through the
@@ -326,7 +369,7 @@ on the card).
 A phase's line ends with the seconds since the script started.
 
 The line before the last is ``{"kernels": [...]}``, before it
-``{"ha": {...}}`` (phases 33-35), ``{"serve": {...}}`` (phases 30-32), ``{"operator": {...}}`` (phases 27-29), ``{"gate": {...}}`` (phases
+``{"wide": {...}}`` (phases 36-38), ``{"ha": {...}}`` (phases 33-35), ``{"serve": {...}}`` (phases 30-32), ``{"operator": {...}}`` (phases 27-29), ``{"gate": {...}}`` (phases
 24-26) and ``{"bridge": {...}}`` (phases 20-23); the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or run outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -522,12 +565,14 @@ def build_text(info: dict) -> str:
             f"{info['warps_per_sm']} resident warps an SM")
 
 
-def bound_ms(accepts: int, fill_elems: int, rows: int = R, width: int = B, k: int = K) -> tuple:
+def bound_ms(accepts: int, fill_elems: int, rows: int = R, width: int = B, k: int = K,
+             state_bytes: int = STATE_BYTES_PER_ROW) -> tuple:
     """The uniform kernel's bound for a ``[rows, width]`` tile with
     ``accepts`` acceptances and ``fill_elems`` elements copied by the fill
-    over all rows (the main path's shape unless given)."""
+    over all rows (the main path's shape unless given), with
+    ``state_bytes`` of state a row (a WIDE row's are more)."""
     moved = SECTOR_BYTES * accepts + 4 * fill_elems
-    nbytes = rows * STATE_BYTES_PER_ROW + min(moved, 4 * rows * width) + min(moved, 4 * rows * k)
+    nbytes = rows * state_bytes + min(moved, 4 * rows * width) + min(moved, 4 * rows * k)
     t_bytes = nbytes / PEAK_BYTES
     t_ops = max(accepts * INT_OPS_PER_ACCEPT / PEAK_INT32, accepts * FLOPS_PER_ACCEPT / PEAK_F32)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -825,6 +870,8 @@ def main() -> None:
     gated_entry["ha_launches"] = ha_launches["algl_update_gated"]
     merge["ha_launches"] = ha_launches["merge_ring_gather"]
     merge_entry["ha_launches"] = ha_launches["algl_merge_draws"]
+    wide, wide_entry, wide_merge_entry = wide_phases(
+        gen, dev, here, {"fill_tile": fill_accepts, "steady_tile": steady_accepts, "deep_steady_tile": deep_accepts})
 
     card = card_line()
     log(card)
@@ -833,6 +880,7 @@ def main() -> None:
     log(json.dumps({"operator": operator}))
     log(json.dumps({"serve": serve}))
     log(json.dumps({"ha": ha}))
+    log(json.dumps({"wide": wide}))
     log(json.dumps({"kernels": [{
         "name": "algl_update",
         "route": "cuda",
@@ -858,7 +906,7 @@ def main() -> None:
         "bridge_ragged_flush": bridge["ragged_flush"],
         "gated_bridge_fallback_launches": gate["fallback_launches"],
         **algl_extra,
-    }, weighted, distinct, merge, gated_entry, merge_entry]}))
+    }, weighted, distinct, merge, gated_entry, merge_entry, wide_entry, wide_merge_entry]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
 
@@ -1439,17 +1487,18 @@ def words_err(got, want) -> float:
     return err
 
 
-def merge_bound_ms(steps: int, draws: int, rows: int, k: int) -> tuple:
+def merge_bound_ms(steps: int, draws: int, rows: int, k: int, row_bytes: int = 21) -> tuple:
     """The merge kernel's bound for ``rows`` rows of sample size ``k``
     whose scans ran ``steps`` steps and drew ``draws`` words in all (each
     rejected attempt counted): per step a fold and each word drawn one
     Threefry block; per row two folds and 2k key words; each block's
     INT32-pipe operations over that pipe's rate (the scan's remainders
     left out); bytes the counts, flags and keys read (17 a row), j_a and the
-    keys written (4 + 8k a row)."""
+    keys written (4 + 8k a row): ``row_bytes`` + 8k a row (WIDE counts,
+    8 bytes each and no flags: 28)."""
     blocks = steps + draws + 2 * rows * (k + 1)
     t_ops = THREEFRY_INT32_OPS * blocks / PEAK_INT32
-    t_bytes = rows * (21 + 8 * k) / PEAK_BYTES
+    t_bytes = rows * (row_bytes + 8 * k) / PEAK_BYTES
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -4162,6 +4211,555 @@ def ha_phases(here: str) -> tuple:
     line["card"] = card_name
     shutil.rmtree(work, ignore_errors=True)
     return line, launches
+
+# ------------------------------------------------------- WIDE counters (L3)
+
+# phase 36: the shifts WIDE states are lifted by, the sample sizes, and the
+# kernel-only steady tiles that take a state deeper before it is lifted
+WIDE_SHIFTS = ((1 << 31) - 300, (1 << 32) - 300, (1 << 33) + 12345)
+WIDE_KS = (K, 100, 6)
+WIDE_DEEPEN = 6
+# a WIDE row's state bytes: those of an int32 row (STATE_BYTES_PER_ROW) and
+# 4 more for each of count and nxt, read and written
+WIDE_STATE_BYTES_PER_ROW = 44
+# phase 37: tiles before the engine's checkpoint and after it, the
+# checkpoint's offset below 2^32 (rows spread over 9 tiles above it), the
+# bridge's tiles and the service's recycles
+WIDE_SHIFT = (1 << 32) - 5 * B
+WIDE_BRIDGE_TILES = 8
+WIDE_RECYCLES = 64
+
+
+def wide_lift(state, target: int, gen, width: int):
+    """A copy of a WIDE ``state`` lifted as ``tests/test_wide_count.py``
+    lifts one: every row's count set to ``target`` with an imminent accept
+    at nxt = count + 1 + U[0, 3 width); samples, log_w and keys as they
+    are (copies: the kernel updates a state in place)."""
+    from reservoir_tpu_torch.ops import u64e
+
+    rows = state.count.shape[0]
+    count = u64e.from_int(target, (rows,), state.count.device)
+    off = 1 + torch.randint(0, 3 * width, (rows,), dtype=torch.int64, device=count.device, generator=gen)
+    return clone(state)._replace(count=u64e.to_u32(count), nxt=u64e.to_u32(u64e.add_u32(count, off)))
+
+
+def wide_rebase(state, shift: torch.Tensor):
+    """A WIDE state with each row's count and nxt moved up by its
+    ``shift`` (int64 ``[R]``, below 2^63): its chain as it was, at other
+    absolute indices."""
+    from reservoir_tpu_torch.ops import u64e
+
+    up = u64e.make(shift & 0xFFFFFFFF, shift >> 32)
+    return state._replace(count=u64e.to_u32(u64e.add64(state.count, up)),
+                          nxt=u64e.to_u32(u64e.add64(state.nxt, up)))
+
+
+def to_wide(state):
+    """An int32-counter state (counts below 2^31) as a WIDE one, hi = 0."""
+    from reservoir_tpu_torch.ops import u64e
+
+    zero = torch.zeros_like(state.count, dtype=torch.int64)
+    return state._replace(count=u64e.to_u32(u64e.make(state.count.long(), zero)),
+                          nxt=u64e.to_u32(u64e.make(state.nxt.long(), zero)))
+
+
+def u64_host(words) -> np.ndarray:
+    """``[..., 2]`` WIDE words as host uint64 values."""
+    from reservoir_tpu_torch.ops import u64e
+
+    w = u64e.words(words.cpu()).numpy().astype(np.uint64)
+    return (w[..., 1] << np.uint64(32)) | w[..., 0]
+
+
+def same_hi0(wide, narrow) -> bool:
+    """A WIDE state with a zero high word equals an int32 one."""
+    from reservoir_tpu_torch.ops import u64e
+
+    c, n = u64e.words(wide.count), u64e.words(wide.nxt)
+    return (torch.equal(bits(wide.samples), bits(narrow.samples)) and torch.equal(bits(wide.log_w), bits(narrow.log_w))
+            and not bool(c[:, 1].any()) and not bool(n[:, 1].any())
+            and torch.equal(c[:, 0], narrow.count.long()) and torch.equal(n[:, 0], narrow.nxt.long()))
+
+
+def wide_kernel_phase(gen, dev) -> tuple:
+    """Phase 36: ``algl_update_wide`` against its plain version; returns
+    ``(worst error, tiles checked)``."""
+    from reservoir_tpu_torch.ops import algorithm_l as plain
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.ops.rng import key_from_seed
+
+    worst, checked, cpu_checks = 0.0, 0, []
+
+    def step(state, tile, valid, fill, what):
+        nonlocal worst, checked
+        ref = (plain.update if fill else plain.update_steady)(clone(state), tile, valid)
+        state = (kern.update_cuda if fill else kern.update_steady_cuda)(state, tile, valid)
+        torch.cuda.synchronize()
+        worst = max(worst, max_abs_err(state, ref))
+        if not same(state, ref):
+            fail(f"[36 wide kernel] {what}: algl_update_wide != its plain version")
+        checked += 1
+        return state
+
+    for k in WIDE_KS:
+        gen.manual_seed(36)
+        s = plain.init(key_from_seed(7), R, k, device=dev, count_dtype="wide")
+        s32 = plain.init(key_from_seed(7), R, k, device=dev)
+        start_cpu, fed = clone(s, ROWS_CPU, "cpu"), []
+        # a fill tile from empty and a tile across the fill's end (k <= 192),
+        # each against the plain version and, hi = 0, the int32 kernel
+        for width in (64, 128):
+            tile = random_tile(gen, width, torch.int32, dev)
+            s = step(s, tile, None, True, f"k {k}, fill tile of width {width}")
+            s32 = kern.update_cuda(s32, tile)
+            if not same_hi0(s, s32):
+                fail(f"[36 wide kernel] k {k}, fill tile of width {width}: hi = 0 != the int32 kernel")
+            fed.append((tile[:ROWS_CPU].cpu(), None, True))
+        cpu_checks.append((f"k {k} from empty", start_cpu, fed, clone(s, ROWS_CPU, "cpu")))
+        # deeper by steady tiles, the last against the plain version
+        for j in range(WIDE_DEEPEN):
+            tile = random_tile(gen, B, torch.int32, dev)
+            s = (step(s, tile, None, False, f"k {k}, steady tile") if j == WIDE_DEEPEN - 1
+                 else kern.update_steady_cuda(s, tile))
+            s32 = kern.update_steady_cuda(s32, tile)
+        torch.cuda.synchronize()
+        if not same_hi0(s, s32):
+            fail(f"[36 wide kernel] k {k}: after {WIDE_DEEPEN} steady tiles, hi = 0 != the int32 kernel")
+        # lifted across each boundary: three steady tiles, the last ragged
+        for target in WIDE_SHIFTS:
+            t = wide_lift(s, target, gen, B)
+            lifted_cpu, fed_l = clone(t, ROWS_CPU, "cpu"), []
+            for j in range(3):
+                tile = random_tile(gen, B, torch.int32, dev)
+                valid = (torch.randint(0, B + 1, (R,), dtype=torch.int32, device=dev, generator=gen)
+                         if j == 2 else None)
+                t = step(t, tile, valid, False, f"k {k}, lifted to {target}, tile {j}")
+                fed_l.append((tile[:ROWS_CPU].cpu(), None if valid is None else valid[:ROWS_CPU].cpu(), False))
+            # every row passed its boundary (2^31, 2^32) and took an accept there
+            if int(u64_host(t.count).min()) < target + 2 * B or torch.equal(t.samples, s.samples):
+                fail(f"[36 wide kernel] k {k}, lifted to {target}: the rows did not stream past it")
+            cpu_checks.append((f"k {k} lifted to {target}", lifted_cpu, fed_l, clone(t, ROWS_CPU, "cpu")))
+        log(f"[36 wide kernel] k {k}: fill tiles of 64 and 128 from empty and {WIDE_DEEPEN} steady tiles "
+            f"(hi = 0, equal to the int32 kernel), then lifted to {', '.join(map(str, WIDE_SHIFTS))} with "
+            "imminent accepts, three steady tiles each (the last ragged): bit-identical to the plain version")
+        del s, s32
+    for case, state_c, fed, want in cpu_checks:
+        for tile, valid, fill in fed:
+            state_c = (plain.update if fill else plain.update_steady)(state_c, tile, valid)
+        if not same(state_c, want):
+            fail(f"[36 wide kernel] CPU plain version != the kernel on rows 0..{ROWS_CPU - 1} ({case})")
+    log(f"[36 wide kernel] the plain version on the CPU: rows 0..{ROWS_CPU - 1} of {len(cpu_checks)} runs "
+        "(each k's fill tiles, and each lifted run) bit-identical")
+    return worst, checked
+
+
+def wide_serve_flow(device):
+    """Phase 37 (c): a WIDE service at bench.py's serve shape: 2,048
+    sessions, four rounds, a snapshot each; then 64 more sessions open,
+    each evicting one and recycling its row through ``reset_rows``, and
+    take a chunk.  Returns the service and every live session's snapshot."""
+    from reservoir_tpu_torch import ReservoirService, SamplerConfig
+
+    cfg = SamplerConfig(max_sample_size=SV_K, num_reservoirs=SV_S, tile_size=SV_B, count_dtype="wide")
+    feed = serve_feed("plain")
+    svc = ReservoirService(cfg, key=1, coalesce_bytes=SV_COALESCE, device=device)
+    keys = [f"u{i}" for i in range(SV_S)]
+    for key in keys:
+        svc.open_session(key)
+    for r in range(SV_ROUNDS):
+        serve_round(svc, feed, r, keys)
+    for j in range(WIDE_RECYCLES):
+        svc.open_session(f"w{j}")
+        svc.ingest(f"w{j}", feed[0][0, j])
+    svc.sync()
+    return svc, {s.key: svc.snapshot(s.key, sync=False) for s in svc.table.sessions()}
+
+
+def wide_serve_cpu_reference() -> tuple:
+    """Phase 37 (c) with ``device="cpu"``: every live session's snapshot and
+    the engine's state as numpy.  Run in a child process while the card
+    works."""
+    from reservoir_tpu_torch import convert
+
+    torch.set_num_threads(4)
+    svc, snaps = wide_serve_flow("cpu")
+    return snaps, convert.state_to_numpy(svc.bridge.engine.state)
+
+
+def wide_merge_steps(count_a: torch.Tensor, count_b: torch.Tensor) -> int:
+    """A WIDE merge's scan steps: min(total, k) summed over rows."""
+    from reservoir_tpu_torch.ops import u64e
+
+    total = u64e.add64(count_a, count_b)
+    return int(torch.where((total[:, 1] > 0) | (total[:, 0] >= K), K, total[:, 0]).sum().item())
+
+
+def wide_phases(gen, dev, here: str, accepts: dict) -> tuple:
+    """Phases 36-38: WIDE counters on the card.  ``accepts`` holds phase
+    7's accept counts of its fill, steady and deep tiles, which the WIDE
+    kernel's timings take again with a zero high word (the same chain, bit
+    for bit, as phase 36 holds).  Returns the ``wide`` line and the kernels
+    line's entries of ``algl_update_wide`` and ``algl_merge_draws_wide``."""
+    import concurrent.futures
+    import multiprocessing
+
+    # the plain version of phase 37 (c) runs in a child process on the CPU
+    # while the card works
+    pool = concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return _wide_phases(gen, dev, here, accepts, pool.submit(wide_serve_cpu_reference))
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def _wide_phases(gen, dev, here: str, accepts: dict, cpu_future) -> tuple:
+    import reservoir_tpu_torch as rtt
+    from reservoir_tpu_torch import convert
+    from reservoir_tpu_torch.ops import algorithm_l as plain
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.ops import merge_cuda as mkern
+    from reservoir_tpu_torch.ops import u64e
+    from reservoir_tpu_torch.ops.rng import key_from_seed, split_keys
+    from reservoir_tpu_torch.parallel.merge import uniform_stream_merger
+    from reservoir_tpu_torch.utils.stats import KS_GATE, ks_one_sample_uniform
+
+    # 36. the kernel against its plain version
+    worst, checked = wide_kernel_phase(gen, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 37. the WIDE path end to end: (a) the engine, restored from a
+    # checkpoint whose counts straddle 2^32
+    work = os.path.join(here, "build", "chip_smoke", "wide")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = rtt.SamplerConfig(max_sample_size=K, num_reservoirs=R, tile_size=B, count_dtype="wide")
+    N = 11 * B  # one tile before the checkpoint, ten after
+    rows_d = torch.arange(R, dtype=torch.int32, device=dev)[:, None] * N
+    cols_d = torch.arange(B, dtype=torch.int32, device=dev)[None, :]
+    eng = rtt.ReservoirEngine(cfg, key=0, reusable=True, device=dev)
+    eng.sample(rows_d + cols_d)
+    # row r moves up by 2^32 - 5B + (r mod 9) B: at the checkpoint rows with
+    # r mod 9 >= 4 are past 2^32, the others cross it within the ten tiles
+    shift = WIDE_SHIFT + (torch.arange(R, dtype=torch.int64, device=dev) % 9) * B
+    lifted = wide_rebase(eng.state, shift)
+    eng.adopt_rows(np.arange(R), lifted)
+    path = os.path.join(work, "engine.npz")
+    eng.save(path)
+    del eng
+    restored = rtt.ReservoirEngine.restore(path, device=dev)
+    counts0 = u64_host(restored.state.count)
+    if not (counts0.min() < 2**32 <= counts0.max()):
+        fail(f"[37 wide path] the checkpoint's counts {counts0.min()}..{counts0.max()} do not straddle 2^32")
+    dev_tiles = [rows_d + t * B + cols_d for t in range(1, 9)]
+    host_tiles = [np.arange(R, dtype=np.int32)[:, None] * N + t * B + np.arange(B, dtype=np.int32)[None, :]
+                  for t in (9, 10)]
+    torch.cuda.synchronize()
+    kern.launches = kern.wide_launches = kern.gated_launches = 0
+    t0 = time.perf_counter()
+    for tile in dev_tiles:
+        restored.sample(tile)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    for tile in host_tiles:
+        restored.sample(tile)
+    torch.cuda.synchronize()
+    engine_launches = (kern.wide_launches, kern.launches + kern.gated_launches)
+    if engine_launches != (10, 0):
+        fail(f"[37 wide path] the engine launched algl_update_wide {engine_launches[0]} times and the int32 "
+             f"kernels {engine_launches[1]} times for 10 WIDE tiles")
+    wide_dev_eps = 8 * R * B / t_dev
+    counts1 = u64_host(restored.state.count)
+    if not (counts1 == counts0 + np.uint64(10 * B)).all() or counts1.min() <= 2**32:
+        fail("[37 wide path] the engine's counts did not all stream past 2^32")
+    samples, sizes = restored.result_arrays()
+    if not (sizes == K).all():
+        fail("[37 wide path] not every reservoir holds k samples")
+    row_of, pos = samples // N, samples % N
+    srt = np.sort(pos, axis=1)
+    if not (row_of == np.arange(R)[:, None]).all() or (srt[:, 1:] == srt[:, :-1]).any():
+        fail("[37 wide path] a sample lies outside its row's stream, or a row sampled one position twice")
+    ks = ks_one_sample_uniform(pos.ravel(), N)
+    if not ks < KS_GATE:
+        fail(f"[37 wide path] KS distance {ks} of the sampled positions is not below {KS_GATE}")
+    # device="cpu": the same config on rows 0..1023 (a row's key does not
+    # depend on R), the same lifted rows adopted, the same tiles
+    cpu_cfg = rtt.SamplerConfig(max_sample_size=K, num_reservoirs=ROWS_CPU, tile_size=B, count_dtype="wide")
+    cpu = rtt.ReservoirEngine(cpu_cfg, key=0, reusable=True, device="cpu")
+    cpu.adopt_rows(np.arange(ROWS_CPU), clone(lifted, ROWS_CPU, "cpu"))
+    for tile in dev_tiles + host_tiles:
+        cpu.sample(tile[:ROWS_CPU].cpu() if isinstance(tile, torch.Tensor) else tile[:ROWS_CPU])
+    if not same(cpu.state, clone(restored.state, ROWS_CPU, "cpu")):
+        fail(f"[37 wide path] device=\"cpu\" != the card engine on rows 0..{ROWS_CPU - 1}")
+    log(f"[37 wide path] (a) engine R {R}, k {K}, B {B}, count_dtype wide, restored from a checkpoint with "
+        f"counts {counts0.min()}..{counts0.max()}: 10 tiles (8 device, 2 host), {engine_launches[0]} "
+        f"algl_update_wide launches, counts now {counts1.min()}..{counts1.max()}, sizes all {K}, KS {ks:.6f} "
+        f"< {KS_GATE}; rows 0..{ROWS_CPU - 1} == device=\"cpu\"; {wide_dev_eps:.6e} elem/s fed from the device")
+    del restored, cpu, dev_tiles, host_tiles, samples
+    gc.collect()
+
+    # (b) the bridge over it: an adopt of lifted rows (its RTJA frame holds
+    # WIDE counts), tiles across 2^32, a drop and recover() from the journal
+    rr, rb = RR, RB
+    bcfg = rtt.SamplerConfig(max_sample_size=K, num_reservoirs=rr, tile_size=rb, count_dtype="wide")
+    btiles = torch.randint(-(2**31), 2**31 - 1, (WIDE_BRIDGE_TILES + 1, rr, rb), generator=gen, device=dev,
+                           dtype=torch.int32).cpu().numpy()
+    seed_eng = rtt.ReservoirEngine(bcfg, key=3, reusable=True, device=dev)
+    seed_eng.sample(btiles[0])
+    blifted = wide_rebase(seed_eng.state, torch.full((rr,), (1 << 32) - 3 * rb, dtype=torch.int64, device=dev))
+    del seed_eng
+
+    def b_run(bridge, tiles):
+        for t in tiles:
+            bridge.push_tile(btiles[t])
+
+    kern.wide_launches = kern.launches = kern.gated_launches = 0
+    whole = rtt.DeviceStreamBridge(bcfg, key=3, device=dev)
+    whole.adopt_rows(np.arange(rr), blifted)
+    b_run(whole, range(1, WIDE_BRIDGE_TILES + 1))
+    want = whole.complete()
+    bridge_launches = (kern.wide_launches, kern.launches + kern.gated_launches)
+    if bridge_launches != (WIDE_BRIDGE_TILES, 0):
+        fail(f"[37 wide path] (b) the bridge launched algl_update_wide {bridge_launches[0]} times and the int32 "
+             f"kernels {bridge_launches[1]} times for {WIDE_BRIDGE_TILES} tiles")
+    del whole
+    ckdir = os.path.join(work, "bridge")
+    dropped = rtt.DeviceStreamBridge(bcfg, key=3, device=dev, checkpoint_dir=ckdir, checkpoint_every=2)
+    dropped.adopt_rows(np.arange(rr), blifted)
+    b_run(dropped, range(1, WIDE_BRIDGE_TILES // 2 + 2))
+    dropped.drain_barrier()
+    seq = dropped.flushed_seq
+    del dropped  # the crash
+    gc.collect()
+    recovered = rtt.DeviceStreamBridge.recover(ckdir, device=dev)
+    done = int(u64_host(recovered.engine.state.count)[0] - u64_host(blifted.count)[0])
+    if recovered.flushed_seq != seq or done % rb or done // rb < 1:
+        fail(f"[37 wide path] (b) recover() came back at flush {recovered.flushed_seq} of {seq}, {done} elements")
+    b_run(recovered, range(1 + done // rb, WIDE_BRIDGE_TILES + 1))
+    got = recovered.complete()
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        fail("[37 wide path] (b) the recovered WIDE bridge's samples != the uninterrupted run's")
+    del recovered
+    # gated=True is inert for WIDE counters, with the reference's reason
+    kern.wide_launches = kern.launches = kern.gated_launches = 0
+    gated = rtt.DeviceStreamBridge(bcfg, key=3, device=dev, gated=True)
+    reason = gated.gate_inert_reason
+    gated.adopt_rows(np.arange(rr), blifted)
+    b_run(gated, range(1, WIDE_BRIDGE_TILES + 1))
+    ggot = gated.complete()
+    if gated.gate_active or reason != "WIDE counters (gate replica is int32-narrow)" or not all(
+            np.array_equal(a, b) for a, b in zip(ggot, want)):
+        fail(f"[37 wide path] (b) gated=True: active {gated.gate_active}, reason {reason!r}, or its samples "
+             "differ from the ungated bridge's")
+    if (kern.wide_launches, kern.gated_launches) != (WIDE_BRIDGE_TILES, 0):
+        fail(f"[37 wide path] (b) the inert gated bridge launched algl_update_wide {kern.wide_launches} and "
+             f"algl_update_gated {kern.gated_launches} times")
+    del gated
+    cpu_b = rtt.DeviceStreamBridge(rtt.SamplerConfig(max_sample_size=K, num_reservoirs=ROWS_CPU, tile_size=rb,
+                                                     count_dtype="wide"), key=3, device="cpu")
+    cpu_b.adopt_rows(np.arange(ROWS_CPU), clone(blifted, ROWS_CPU, "cpu"))
+    for t in range(1, WIDE_BRIDGE_TILES + 1):
+        cpu_b.push_tile(btiles[t][:ROWS_CPU])
+    if not all(np.array_equal(a, b) for a, b in zip(cpu_b.complete(), want[:ROWS_CPU])):
+        fail(f"[37 wide path] (b) device=\"cpu\" != the card bridge on rows 0..{ROWS_CPU - 1}")
+    log(f"[37 wide path] (b) bridge R {rr}, B {rb}: an adopt of rows lifted below 2^32, {WIDE_BRIDGE_TILES} "
+        f"tiles, {bridge_launches[0]} algl_update_wide launches; dropped after flush {seq}, recover() from the "
+        f"journal, then the rest: == the uninterrupted run; gated=True inert ({reason}) with the same samples; "
+        f"rows 0..{ROWS_CPU - 1} == device=\"cpu\"")
+    del cpu_b, btiles
+
+    # (c) the service at bench.py's serve shape, with recycles
+    torch.cuda.synchronize()
+    kern.wide_launches = kern.launches = kern.gated_launches = 0
+    svc, snaps = wide_serve_flow(dev)
+    torch.cuda.synchronize()
+    flushes, recycles = svc.bridge.metrics.flushes, svc.metrics.recycles
+    serve_launches = kern.wide_launches
+    if (serve_launches, kern.launches + kern.gated_launches) != (flushes, 0) or recycles != WIDE_RECYCLES:
+        fail(f"[37 wide path] (c) {serve_launches} algl_update_wide launches for {flushes} flushes, "
+             f"{kern.launches + kern.gated_launches} int32 ones, {recycles} recycles")
+    t0 = time.perf_counter()
+    csnaps, cstate = cpu_future.result()
+    waited = time.perf_counter() - t0
+    if snaps.keys() != csnaps.keys() or not all(same_snapshots([snaps[x]], [csnaps[x]]) for x in snaps):
+        fail("[37 wide path] (c) the WIDE service's snapshots differ from device=\"cpu\"'s")
+    state_host = convert.state_to_numpy(svc.bridge.engine.state)
+    if not all(np.array_equal(v, cstate[name]) for name, v in state_host.items()):
+        fail("[37 wide path] (c) the WIDE service's engine state differs from device=\"cpu\"'s")
+    log(f"[37 wide path] (c) service: {SV_S} sessions x {SV_ROUNDS} rounds of {SV_B}, then {recycles} recycles "
+        f"through reset_rows: {flushes} flushes, {serve_launches} algl_update_wide launches; every snapshot "
+        f"and the state == device=\"cpu\" (run beside the card; {waited:.1f} s waited for it)")
+    del svc, snaps, csnaps, cstate
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 38. WIDE merges: (a) a pairwise merge at the main path's shape
+    rng = np.random.default_rng(38)
+    ca_h = rng.integers(2**32, 2**40, R).astype(np.uint64)
+    cb_h = rng.integers(0, 2**40, R).astype(np.uint64)
+    ca_h[:6] = [2**32 - 1, 2**32 + 1, 2**33 + 12345, 0, 2**63, 5]
+    cb_h[:6] = [1, 2**32 - 3, 7, 0, 2**63 - 1, 2**31]
+
+    def planes(x):
+        return u64e.to_u32(u64e.make(torch.from_numpy((x & np.uint64(0xFFFFFFFF)).astype(np.int64)),
+                                     torch.from_numpy((x >> np.uint64(32)).astype(np.int64)))).to(dev)
+
+    ca, cb = planes(ca_h), planes(cb_h)
+    sa, sb = random_tile(gen, K, torch.int32, dev), random_tile(gen, K, torch.int32, dev)
+    row_keys = split_keys(key_from_seed(38, device=dev), R)
+    torch.cuda.synchronize()
+    kern.wide_merge_launches = kern.merge_launches = 0
+    m_s, m_c = plain.merge_samples_keyed(sa, ca, sb, cb, row_keys)
+    torch.cuda.synchronize()
+    if (kern.wide_merge_launches, kern.merge_launches) != (1, 0):
+        fail(f"[38 wide merge] (a) {kern.wide_merge_launches} algl_merge_draws_wide and {kern.merge_launches} "
+             "algl_merge_draws launches for one WIDE merge")
+    t0 = time.perf_counter()
+    j_a, draws_past = plain.merge_scan(ca, cb, row_keys, K)
+    want_draws = plain.MergeDraws(j_a, *plain.merge_keys(ca, cb, row_keys, K))
+    torch.cuda.synchronize()
+    merge_plain_ms = 1e3 * (time.perf_counter() - t0)
+    got_draws = kern.merge_draws_cuda(ca, cb, row_keys, K)
+    merge_err = draws_err(got_draws, want_draws)
+    w_s, w_c = plain.merge_from_draws(sa, ca, sb, cb, want_draws)
+    if not same(got_draws, want_draws) or not torch.equal(m_s, w_s) or not torch.equal(bits(m_c), bits(w_c)):
+        fail("[38 wide merge] (a) the merge through algl_merge_draws_wide != its plain version")
+    if not (u64_host(m_c) == ca_h + cb_h).all():
+        fail("[38 wide merge] (a) the merged counts are not the exact 64-bit totals")
+    c_s, c_c = plain.merge_samples_keyed(sa[:ROWS_CPU].cpu(), ca[:ROWS_CPU].cpu(), sb[:ROWS_CPU].cpu(),
+                                         cb[:ROWS_CPU].cpu(), row_keys[:ROWS_CPU].cpu())
+    if not torch.equal(c_s, m_s[:ROWS_CPU].cpu()) or not torch.equal(bits(c_c), bits(m_c[:ROWS_CPU].cpu())):
+        fail(f"[38 wide merge] (a) the plain merge on the CPU != the card on rows 0..{ROWS_CPU - 1}")
+    log(f"[38 wide merge] (a) merge_samples_keyed of two WIDE [{R}, {K}] states, counts up to 2^40 and "
+        "straddling 2^32 and 2^63: one algl_merge_draws_wide launch, == the plain version on the card "
+        f"(j_a and both sides' keys) and on the CPU (rows 0..{ROWS_CPU - 1}); totals exact")
+    # (b) a 4-shard WIDE stream merger
+    shards = 4
+    s_st = torch.randint(-(2**31), 2**31 - 1, (shards, R, K), dtype=torch.int32, device=dev, generator=gen)
+    c_host = rng.integers(2**31, 2**38, (shards, R)).astype(np.uint64)
+    c_st = torch.stack([planes(c) for c in c_host])
+    torch.cuda.synchronize()
+    kern.wide_merge_launches = kern.merge_launches = mkern.launches = 0
+    t0 = time.perf_counter()
+    ms, mc = uniform_stream_merger(s_st, c_st, 38)
+    torch.cuda.synchronize()
+    merger_ms = 1e3 * (time.perf_counter() - t0)
+    merger_launches = (mkern.launches, kern.wide_merge_launches, kern.merge_launches)
+    if merger_launches != (1, 2, 0):
+        fail(f"[38 wide merge] (b) {merger_launches} merge_ring_gather / algl_merge_draws_wide / "
+             "algl_merge_draws launches for a 4-shard WIDE merger (want 1, 2, 0)")
+    if not (u64_host(mc) == c_host.sum(axis=0)).all() or mc.shape != (R, 2):
+        fail("[38 wide merge] (b) the merged counts are not the exact 64-bit totals")
+    ps, pc = uniform_stream_merger([s[:ROWS_CPU].cpu() for s in s_st], [c[:ROWS_CPU].cpu() for c in c_st], 38)
+    if not torch.equal(ps, ms[:ROWS_CPU].cpu()) or not torch.equal(bits(pc), bits(mc[:ROWS_CPU].cpu())):
+        fail(f"[38 wide merge] (b) the plain merger on CPU ranks != the card's on rows 0..{ROWS_CPU - 1}")
+    log(f"[38 wide merge] (b) uniform_stream_merger of {shards} WIDE shards [{R}, {K}] (counts 2^31..2^38): "
+        f"1 merge_ring_gather and 2 algl_merge_draws_wide launches, exact totals, rows 0..{ROWS_CPU - 1} == "
+        f"the plain merger on CPU ranks; {merger_ms:.2f} ms")
+    del s_st, c_st, ms, mc
+
+    # timings: algl_update_wide beside the int32 kernel on phase 7's tiles
+    card = card_line()
+    (_, s0, fill_tile, _), (_, state, steady_tile, _), (deep_label, deep, deep_tile, _) = \
+        uniform_timing_cases(gen, dev)
+    timing = {}
+    for name, st, tile, fill in (("fill_tile", s0, fill_tile, True), ("steady_tile", state, steady_tile, False),
+                                 ("deep_steady_tile", deep, deep_tile, False)):
+        fn = kern.update_cuda if fill else kern.update_steady_cuda
+        wst = to_wide(st)
+        wide_ms = event_ms(lambda x: fn(x, tile), setup=lambda: clone(wst), batch=10)
+        int32_ms = event_ms(lambda x: fn(x, tile), setup=lambda: clone(st), batch=10)
+        bound, by = bound_ms(accepts[name], R * K if fill else 0, state_bytes=WIDE_STATE_BYTES_PER_ROW)
+        timing[name] = {"ms": wide_ms, "int32_ms": int32_ms, "bound_ms": bound, "bound_by": by,
+                        "accepts": accepts[name]}
+        past = ""
+        if not fill:
+            # the same chain moved past 2^32 (a fill needs a count below k):
+            # its count now says the row expects few accepts, so the
+            # kernel's L2 prefetch of a row's samples no longer runs
+            moved = wide_rebase(wst, torch.full((R,), 1 << 32, dtype=torch.int64, device=dev))
+            timing[name]["past_2_32_ms"] = event_ms(lambda x: fn(x, tile), setup=lambda: clone(moved), batch=10)
+            past = f" (the same chain past 2^32 {timing[name]['past_2_32_ms']:.4f} ms)"
+        if name == "steady_tile":
+            t0 = time.perf_counter()
+            plain.update_steady(clone(wst), tile)
+            torch.cuda.synchronize()
+            timing[name]["plain_ms"] = 1e3 * (time.perf_counter() - t0)
+        log(f"[38 wide timings] {card} | algl_update_wide, {name.replace('_', ' ')}: {wide_ms:.4f} ms{past}, "
+            f"the int32 kernel {int32_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+            f"accepts {accepts[name]}" + (f", plain {timing[name]['plain_ms']:.1f} ms"
+                                          if "plain_ms" in timing[name] else ""))
+    del s0, fill_tile, state, steady_tile, deep, deep_tile
+    # algl_merge_draws_wide beside the narrow kernel: phase 19's pair, its
+    # counts as WIDE words too, and (a)'s counts past 2^32
+    na, nca, nb, ncb, nkeys = merge_timing_case(gen, dev)
+    wca, wcb = (u64e.to_u32(u64e.make(c.long(), torch.zeros_like(c, dtype=torch.int64))) for c in (nca, ncb))
+    narrow_ms = event_ms(lambda _: kern.merge_draws_cuda(nca, ncb, nkeys, K), batch=10)
+    same_ms = event_ms(lambda _: kern.merge_draws_cuda(wca, wcb, nkeys, K), batch=10)
+    past_ms = event_ms(lambda _: kern.merge_draws_cuda(ca, cb, row_keys, K), batch=10)
+    draws_same = plain.merge_scan(wca, wcb, nkeys, K)[1]
+    same_bound, same_by = merge_bound_ms(wide_merge_steps(wca, wcb), draws_same, R, K, row_bytes=28)
+    past_bound, past_by = merge_bound_ms(wide_merge_steps(ca, cb), draws_past, R, K, row_bytes=28)
+    log(f"[38 wide timings] {card} | algl_merge_draws_wide at [{R}, {K}]: phase 19's counts {same_ms:.4f} ms "
+        f"(the narrow kernel {narrow_ms:.4f} ms), bound {same_bound:.4f} ms ({same_by}), {draws_same} words drawn; "
+        f"counts past 2^32 {past_ms:.4f} ms, bound {past_bound:.4f} ms ({past_by}), {draws_past} words drawn; "
+        f"plain {merge_plain_ms:.1f} ms; build {build_text(kern.merge_kernel_info(wide=True))}")
+    log(f"[38 wide timings] {card} | the WIDE engine: {wide_dev_eps:.6e} elem/s fed from the device; "
+        f"algl_update_wide build {build_text(kern.kernel_info(wide=True))}")
+    line = {
+        "card": card,
+        "kernel_cases": checked,
+        "engine": {"launches": engine_launches[0], "device_fed_elem_per_s": wide_dev_eps, "ks": ks,
+                   "counts_before": [int(counts0.min()), int(counts0.max())],
+                   "counts_after": [int(counts1.min()), int(counts1.max())]},
+        "bridge": {"launches": bridge_launches[0], "flushes_before_drop": seq, "gate_inert_reason": reason},
+        "service": {"flushes": flushes, "launches": serve_launches, "recycles": recycles},
+        "merge": {"pairwise_launches": 1, "stream_merger_launches": list(merger_launches),
+                  "stream_merger_ms": merger_ms},
+    }
+    update_entry = {
+        "name": "algl_update_wide",
+        "route": "cuda",
+        "source": "reservoir_tpu_torch/csrc/algorithm_l.cu",
+        "replaces": "reservoir_tpu/ops/algorithm_l.py:211",
+        "replaces_note": "no TPU kernel: the reference's WIDE _accept_loop is XLA "
+                         "(algorithm_l_pallas.supports() declines WIDE states, :103)",
+        "launches": engine_launches[0],
+        "bridge_launches": bridge_launches[0],
+        "serve_launches": serve_launches,
+        "max_abs_err": worst,
+        "ms": timing["steady_tile"]["ms"],
+        "plain_ms": timing["steady_tile"]["plain_ms"],
+        "bound_ms": timing["steady_tile"]["bound_ms"],
+        "bound_by": timing["steady_tile"]["bound_by"],
+        "library_ms": None,
+        **timing,
+        "engine_elem_per_s": {"device_fed": wide_dev_eps},
+        "build": kern.kernel_info(wide=True),
+    }
+    merge_entry = {
+        "name": "algl_merge_draws_wide",
+        "route": "cuda",
+        "source": "reservoir_tpu_torch/csrc/algl_merge.cu",
+        "replaces": "reservoir_tpu/ops/algorithm_l.py:573",
+        "replaces_note": "no TPU kernel: the reference's WIDE merge scan (one_wide, :573-603, with "
+                         "_randint_exact_u64e :680) is XLA",
+        "launches": merger_launches[1],
+        "max_abs_err": merge_err,
+        "ms": past_ms,
+        "plain_ms": merge_plain_ms,
+        "bound_ms": past_bound,
+        "bound_by": past_by,
+        "library_ms": None,
+        "words_drawn": draws_past,
+        "phase_19_counts": {"ms": same_ms, "narrow_kernel_ms": narrow_ms, "bound_ms": same_bound,
+                            "bound_by": same_by, "words_drawn": draws_same},
+        "pairwise_launches": 1,
+        "build": kern.merge_kernel_info(wide=True),
+    }
+    return line, update_entry, merge_entry
+
 
 if __name__ == "__main__":
     main()

@@ -1,12 +1,13 @@
 """Reservoir state to and from numpy, in the JAX package's field layout.
 
 The layout is that of the JAX package's states and of its checkpoints:
-``ReservoirState`` has ``samples [R, k]``, ``count``/``nxt [R]`` int32 and
-``log_w [R]`` float32; ``WeightedState`` has ``samples [R, k]``,
-``lkeys [R, k]`` float32, ``count [R]`` int32 and ``xw [R]`` float32; both
-hold the keys as ``[R, 2]`` uint32 words (what ``jax.random.key_data``
-returns).  ``DistinctState`` has ``values [R, k]`` (the sample dtype, or
-uint32 low words for 8-byte keys), ``hash_hi``/``hash_lo [R, k]`` uint32,
+``ReservoirState`` has ``samples [R, k]``, ``count``/``nxt [R]`` int32 (or,
+WIDE, ``[R, 2]`` uint32 (lo, hi) words) and ``log_w [R]`` float32;
+``WeightedState`` has ``samples [R, k]``, ``lkeys [R, k]`` float32,
+``count [R]`` int32 and ``xw [R]`` float32; both hold the keys as
+``[R, 2]`` uint32 words (what ``jax.random.key_data`` returns).
+``DistinctState`` has ``values [R, k]`` (the sample dtype, or uint32 low
+words for 8-byte keys), ``hash_hi``/``hash_lo [R, k]`` uint32,
 ``size``/``count [R]`` int32, ``salts [R, 4]`` uint32 and, for 8-byte keys,
 ``value_hi [R, k]`` uint32.  Two packages given the same arrays start from
 the same state.
@@ -82,18 +83,26 @@ def _check_shapes(state, shapes: Dict[str, tuple]) -> None:
 def state_from_numpy(
     samples, count, nxt, log_w, key_words, device: Optional[object] = None
 ) -> ReservoirState:
-    """A :class:`ReservoirState` on ``device`` from numpy arrays."""
+    """A :class:`ReservoirState` on ``device`` from numpy arrays: int32
+    ``[R]`` counters, or WIDE ``[R, 2]`` uint32 words (as ``torch.uint32``)."""
     dev = resolve_device(device)
     samples_t, key_t = _samples_and_keys(samples, key_words)
     R = samples_t.shape[0]
+    wide = np.ndim(count) == 2
+    if wide:
+        counters = [_words(a, name, (R, 2)).view(torch.uint32)
+                    for a, name in ((count, "count"), (nxt, "nxt"))]
+    else:
+        counters = [torch.from_numpy(np.array(a, np.int32)) for a in (count, nxt)]
     out = ReservoirState(
         samples=samples_t,
-        count=torch.from_numpy(np.array(count, np.int32)),
-        nxt=torch.from_numpy(np.array(nxt, np.int32)),
+        count=counters[0],
+        nxt=counters[1],
         log_w=torch.from_numpy(np.array(log_w, np.float32)),
         key=key_t,
     )
-    _check_shapes(out, {"count": (R,), "nxt": (R,), "log_w": (R,)})
+    shape = (R, 2) if wide else (R,)
+    _check_shapes(out, {"count": shape, "nxt": shape, "log_w": (R,)})
     return ReservoirState(*(t.to(dev) for t in out))
 
 
@@ -191,14 +200,17 @@ def weighted_state_to_numpy(state: WeightedState) -> Dict[str, np.ndarray]:
 def state_parts(state, rows: Optional[Sequence[int]] = None) -> List[tuple]:
     """One part tuple a row (default: every row) of a state, as
     ``parallel.merge.merge_samples_device`` takes them: uniform ``(sample
-    cut to its fill, count)``; weighted ``(samples [k], lkeys [k], count)``;
-    distinct (narrow keys) ``(values [k], hash_hi [k], hash_lo [k], size,
+    cut to its fill, count)``, a WIDE count as a Python int; weighted
+    ``(samples [k], lkeys [k], count)``; distinct (narrow keys) ``(values [k], hash_hi [k], hash_lo [k], size,
     count, salts [4])``."""
     host = state_to_numpy(state)
     rows = range(len(host["count"])) if rows is None else rows
     if isinstance(state, ReservoirState):
         k = state.k
-        return [(host["samples"][r, : min(int(host["count"][r]), k)], int(host["count"][r])) for r in rows]
+        counts = host["count"].astype(np.int64)
+        if state.wide:
+            counts = counts[:, 1] << 32 | counts[:, 0]
+        return [(host["samples"][r, : min(int(counts[r]), k)], int(counts[r])) for r in rows]
     if isinstance(state, WeightedState):
         return [(host["samples"][r], host["lkeys"][r], int(host["count"][r])) for r in rows]
     if state.wide:

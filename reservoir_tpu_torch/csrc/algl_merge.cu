@@ -46,11 +46,27 @@
 // either way on an H100 (kernel_ab.py; PERF.md, Findings), so a step
 // hashes its own.
 //
+// WIDE counts (algl_merge_draws_wide).  The same kernel instantiated for
+// 64-bit counts (ops/u64e.py's [R, 2] uint32 (lo, hi) words, read in place
+// as little-endian uint64), the port of the reference's one_wide step
+// (reservoir_tpu/ops/algorithm_l.py:573-603) with _randint_exact_u64e
+// (:680-715), which the reference also computes in XLA: the remainders,
+// their sum and the denominator are uint64 (wrapping mod 2^64), m =
+// min(total, k) unsigned; an attempt draws the 64-bit word (b0 << 32) | b1
+// of block (1, a) (u64e.make(b1, b0)), accepted below 2^64 - (2^64 mod
+// denom), and both remainders are the native 64-bit %, which equals
+// u64e.mod64's restoring division; a side's size is min(count, k),
+// unsigned (no signed flags).  The permutation keys are the narrow ones.
+// Bound: as the narrow kernel's, with 8-byte counts (R(28 + 8k) bytes);
+// the 64-bit remainders are left out of the operations, as the 32-bit
+// ones are.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // (see reservoir_tpu_torch/_build.py).  Plain C interface for ctypes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "kinfo.cuh"
 #include "threefry.cuh"
@@ -76,24 +92,46 @@ __device__ __forceinline__ uint32_t randint_exact(uint32_t f1, uint32_t f2, uint
   return bits % denom;
 }
 
+// The exact uniform integer in [0, denom) for a 64-bit denom >= 1 (the port
+// of _randint_exact_u64e): attempt a is the word (b0 << 32) | b1.
+__device__ __forceinline__ uint64_t randint_exact(uint32_t f1, uint32_t f2, uint64_t denom) {
+  // 2^64 mod denom, as (2^64 - denom) mod denom
+  const uint64_t space_mod = (0ull - denom) % denom;
+  const uint64_t thresh = 0ull - space_mod;
+  uint64_t bits;
+  for (uint32_t a = 0;; ++a) {
+    uint32_t b0, b1;
+    algl::threefry2x32(f1, f2, 1u, a, b0, b1);
+    bits = (static_cast<uint64_t>(b0) << 32) | b1;
+    if (space_mod == 0u || bits < thresh) break;
+  }
+  return bits % denom;
+}
+
+// A row's counts: uint32 words, or uint64 for WIDE counts.
+template <bool kWide>
+using Count = typename std::conditional<kWide, uint64_t, uint32_t>::type;
+
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
-draws_kernel(const uint32_t* __restrict__ count_a, const uint32_t* __restrict__ count_b,
+draws_kernel(const Count<kWide>* __restrict__ count_a, const Count<kWide>* __restrict__ count_b,
              const uint8_t* __restrict__ signed_rows, const uint32_t* __restrict__ key,
              int32_t* __restrict__ j_a, float* __restrict__ u_a, float* __restrict__ u_b, int R, int k,
              int scan_blocks, int vec) {
+  using C = Count<kWide>;
   if (static_cast<int>(blockIdx.x) < scan_blocks) {
     const int r = blockIdx.x * kThreads + threadIdx.x;
     if (r >= R) return;
     const uint32_t k1 = key[2 * r], k2 = key[2 * r + 1];
-    uint32_t rem_a = count_a[r], rem_b = count_b[r];
-    const uint32_t total = rem_a + rem_b;  // wraps as the reference's uint32 sum
-    const uint32_t m = total < static_cast<uint32_t>(k) ? total : static_cast<uint32_t>(k);
+    C rem_a = count_a[r], rem_b = count_b[r];
+    const C total = rem_a + rem_b;  // wraps as the reference's uint32 (or u64e) sum
+    const uint32_t m = total < static_cast<C>(k) ? static_cast<uint32_t>(total) : static_cast<uint32_t>(k);
     int32_t taken = 0;
     for (uint32_t t = 0; t < m; ++t) {
       uint32_t f1, f2;
       algl::threefry2x32(k1, k2, 0u, t, f1, f2);  // fold_in(key, t)
-      const uint32_t sum = rem_a + rem_b;
-      if (randint_exact(f1, f2, sum == 0u ? 1u : sum) < rem_a) {
+      const C sum = rem_a + rem_b;
+      if (randint_exact(f1, f2, sum == 0u ? C{1} : sum) < rem_a) {
         --rem_a;
         ++taken;
       } else {
@@ -111,11 +149,15 @@ draws_kernel(const uint32_t* __restrict__ count_a, const uint32_t* __restrict__ 
   const int64_t rc = i - static_cast<int64_t>(side) * R * chunks;
   const int r = static_cast<int>(rc / chunks);
   const int j0 = static_cast<int>(rc - static_cast<int64_t>(r) * chunks) * kWords;
-  const uint32_t c = (side == 0 ? count_a : count_b)[r];
+  const C c = (side == 0 ? count_a : count_b)[r];
   // the side's size, its count read as the row's flag says: a negative
-  // int32 masks every slot
-  const int64_t size = ((signed_rows[r] >> side) & 1) ? static_cast<int64_t>(static_cast<int32_t>(c))
-                                                      : static_cast<int64_t>(c);
+  // int32 masks every slot; a WIDE count is unsigned
+  int64_t size;
+  if constexpr (kWide)
+    size = c < static_cast<C>(k) ? static_cast<int64_t>(c) : k;
+  else
+    size = ((signed_rows[r] >> side) & 1) ? static_cast<int64_t>(static_cast<int32_t>(c))
+                                          : static_cast<int64_t>(c);
   uint32_t f1, f2;
   algl::threefry2x32(key[2 * r], key[2 * r + 1], 0u, static_cast<uint32_t>(k + side), f1, f2);
   float u[kWords];
@@ -145,6 +187,23 @@ inline int64_t key_blocks(int R, int k) {
   return (threads + kThreads - 1) / kThreads;
 }
 
+template <bool kWide>
+int launch_draws(const Count<kWide>* count_a, const Count<kWide>* count_b,
+                 const uint8_t* signed_rows, const uint32_t* key, int32_t* j_a, float* u_a,
+                 float* u_b, int R, int k, cudaStream_t stream) {
+  if (R <= 0) return static_cast<int>(cudaSuccess);
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t blocks = n_scan_blocks(R) + key_blocks(R, k);
+  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  auto aligned = [](const void* p, uintptr_t n) { return (reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0; };
+  if (kWide && !(aligned(count_a, 8) && aligned(count_b, 8)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const int vec = k % 4 == 0 && aligned(u_a, 16) && aligned(u_b, 16);
+  draws_kernel<kWide><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      count_a, count_b, signed_rows, key, j_a, u_a, u_b, R, k, n_scan_blocks(R), vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace algl_merge
 
 extern "C" {
@@ -156,20 +215,25 @@ extern "C" {
 int algl_merge_draws(const uint32_t* count_a, const uint32_t* count_b, const uint8_t* signed_rows,
                      const uint32_t* key, int32_t* j_a, float* u_a, float* u_b, int R, int k,
                      cudaStream_t stream) {
-  if (R <= 0) return static_cast<int>(cudaSuccess);
-  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks = algl_merge::n_scan_blocks(R) + algl_merge::key_blocks(R, k);
-  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
-  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; };
-  const int vec = k % 4 == 0 && aligned(u_a) && aligned(u_b);
-  algl_merge::draws_kernel<<<static_cast<unsigned>(blocks), algl_merge::kThreads, 0, stream>>>(
-      count_a, count_b, signed_rows, key, j_a, u_a, u_b, R, k, algl_merge::n_scan_blocks(R), vec);
-  return static_cast<int>(cudaGetLastError());
+  return algl_merge::launch_draws<false>(count_a, count_b, signed_rows, key, j_a, u_a, u_b, R, k,
+                                         stream);
+}
+
+// algl_merge_draws for WIDE counts: count_a and count_b are [R] uint64 (the
+// [R, 2] uint32 (lo, hi) words in place, 8-byte aligned); no signed flags.
+int algl_merge_draws_wide(const uint64_t* count_a, const uint64_t* count_b, const uint32_t* key,
+                          int32_t* j_a, float* u_a, float* u_b, int R, int k, cudaStream_t stream) {
+  return algl_merge::launch_draws<true>(count_a, count_b, nullptr, key, j_a, u_a, u_b, R, k, stream);
 }
 
 // kinfo::query's five numbers of the draws kernel.
 int algl_merge_kernel_info(int* out) {
-  return kinfo::query(algl_merge::draws_kernel, algl_merge::kThreads, 0, out);
+  return kinfo::query(algl_merge::draws_kernel<false>, algl_merge::kThreads, 0, out);
+}
+
+// kinfo::query's five numbers of the WIDE draws kernel.
+int algl_merge_wide_kernel_info(int* out) {
+  return kinfo::query(algl_merge::draws_kernel<true>, algl_merge::kThreads, 0, out);
 }
 
 }  // extern "C"

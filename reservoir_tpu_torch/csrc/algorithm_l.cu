@@ -67,6 +67,19 @@
 // The gated update of the skip gate (algl_update_gated, below) walks the
 // same chain (algl_chain.cuh) over the candidates the gate shipped.
 //
+// WIDE counters (algl_update_wide).  The same kernel, instantiated for a
+// 64-bit count and nxt (ops/u64e.py's [R, 2] uint32 (lo, hi) words, read in
+// place as little-endian uint64).  The reference has no TPU kernel for
+// them: algorithm_l_pallas.supports() declines WIDE states
+// (reservoir_tpu/ops/algorithm_l_pallas.py:103), so its WIDE updates run
+// XLA's _accept_loop (reservoir_tpu/ops/algorithm_l.py:211-256).  The port
+// gives them this kernel rather than a lockstep loop of small launches on
+// the card.  The chain is advance_wide (algl_chain.cuh): the draws keyed on
+// the index block (hi, lo), the skip added exactly, no saturation.  A fill
+// exists only while count < k; the tile-local position is the low words'
+// difference.  Bound: as the int32 kernel's, with 8-byte count and nxt
+// (R*44 bytes of state); a zero high word walks the int32 chain bit for bit.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // (see reservoir_tpu_torch/_build.py).  Plain C interface for ctypes.
 
@@ -172,12 +185,18 @@ __device__ __forceinline__ void fill_rows(uint32_t* __restrict__ samples,
   }
 }
 
+// A row's count and nxt: int32, or uint64 for WIDE counters.
+template <bool kWide>
+using Counter = typename std::conditional<kWide, uint64_t, int32_t>::type;
+
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
-update_kernel(uint32_t* __restrict__ samples, int32_t* __restrict__ count,
-              int32_t* __restrict__ nxt, float* __restrict__ log_w,
+update_kernel(uint32_t* __restrict__ samples, Counter<kWide>* __restrict__ count,
+              Counter<kWide>* __restrict__ nxt, float* __restrict__ log_w,
               const uint32_t* __restrict__ key, const uint32_t* __restrict__ batch,
               const int32_t* __restrict__ valid, int R, int k, int B, int fill, int vec,
               uint64_t kmod) {
+  using C = Counter<kWide>;
   // the thread's recorded accepts: the gathered element (copied in by
   // cp.async while the chain goes on) and the slot, entry d of thread t at
   // [d][t], so a warp's lanes touch 32 banks whatever their d
@@ -187,7 +206,8 @@ update_kernel(uint32_t* __restrict__ samples, int32_t* __restrict__ count,
   const int lane = t & 31;
   const int r = blockIdx.x * kThreads + t;
   const bool live = r < R;  // rows past R ride along, whole warps only
-  int32_t c = 0, v = 0, n = 1;
+  C c = 0, n = 1;
+  int32_t v = 0;
   float lw = 0.0f;
   uint32_t k1 = 0u, k2 = 0u;
   if (live) {
@@ -203,9 +223,13 @@ update_kernel(uint32_t* __restrict__ samples, int32_t* __restrict__ count,
 
   if (fill) {
     // elements j < min(v, k - c) go to slot c + j; as the Pallas kernel,
-    // a slot below 0 (a count past int32 max) takes nothing
-    const int64_t lo = c < 0 ? -static_cast<int64_t>(c) : 0;
-    const int64_t hi = live && c < k ? min(static_cast<int64_t>(v), static_cast<int64_t>(k) - c) : 0;
+    // a slot below 0 (an int32 count past int32 max) takes nothing
+    int64_t lo = 0, hi = 0;
+    if (live && c < static_cast<C>(k)) {
+      const int64_t c64 = static_cast<int64_t>(c);  // in [0, k) when WIDE
+      lo = c64 < 0 ? -c64 : 0;
+      hi = min(static_cast<int64_t>(v), static_cast<int64_t>(k) - c64);
+    }
     const int m = hi > lo ? static_cast<int>(hi - lo) : 0;
     const int s = m > 0 ? static_cast<int>(lo) : 0;
     const int d = m > 0 ? static_cast<int>(c + lo) : 0;
@@ -221,14 +245,16 @@ update_kernel(uint32_t* __restrict__ samples, int32_t* __restrict__ count,
     __syncwarp();  // the copy's writes, by any lane, before the accepts' below
   }
 
-  // int32 wraparound as in the reference's count + valid
-  const int32_t end = static_cast<int32_t>(static_cast<uint32_t>(c) + static_cast<uint32_t>(v));
+  // int32 wraparound as in the reference's count + valid (WIDE: mod 2^64)
+  const C end = kWide ? static_cast<C>(static_cast<uint64_t>(c) + static_cast<uint32_t>(v))
+                      : static_cast<C>(static_cast<uint32_t>(c) + static_cast<uint32_t>(v));
   const float inv_k = __fdiv_rn(1.0f, __int2float_rn(k));
   const uint64_t once = evict_first(), kept = evict_last();
   // a full row expecting about k * v / c accepts: when that many random
   // 32-byte writes cost more than streaming its 4k bytes of samples, the
   // row is brought into L2 now, while the chain runs (see the note above)
-  if (live && n <= end && c >= k && static_cast<int64_t>(c) <= kPrefetchSpan * static_cast<int64_t>(v)) {
+  if (live && n <= end && c >= static_cast<C>(k) &&
+      static_cast<uint64_t>(c) <= kPrefetchSpan * static_cast<uint64_t>(v)) {
     const uint64_t bytes = 4ull * static_cast<uint32_t>(k);
     if (((reinterpret_cast<uintptr_t>(out) | bytes) & 15u) == 0 && bytes < (1ull << 31))
       prefetch_l2(out, static_cast<uint32_t>(bytes), kept);
@@ -246,12 +272,18 @@ update_kernel(uint32_t* __restrict__ samples, int32_t* __restrict__ count,
       for (; tail != head - kLag; ++tail)
         store4(out + lslot[tail % kList][t], lelem[tail % kList][t], kept);
     }
-    // the reference's gather index rule: wrap a negative index, then clamp
-    int64_t pos = static_cast<int64_t>(n) - c - 1;
+    // the reference's gather index rule: wrap a negative index, then clamp;
+    // WIDE: the low words' difference less 1, in int32 (u64e.diff_small)
+    int64_t pos = kWide ? static_cast<int64_t>(static_cast<int32_t>(
+                              static_cast<uint32_t>(n) - 1u - static_cast<uint32_t>(c)))
+                        : static_cast<int64_t>(n) - static_cast<int64_t>(c) - 1;
     if (pos < 0) pos += B;
     pos = pos < 0 ? 0 : (pos >= B ? B - 1 : pos);
     copy4_async(&lelem[head % kList][t], row + pos, once);
-    lslot[head % kList][t] = advance(lw, n, k1, k2, static_cast<uint32_t>(k), kmod, inv_k);
+    if constexpr (kWide)
+      lslot[head % kList][t] = advance_wide(lw, n, k1, k2, static_cast<uint32_t>(k), kmod, inv_k);
+    else
+      lslot[head % kList][t] = advance(lw, n, k1, k2, static_cast<uint32_t>(k), kmod, inv_k);
     ++head;
     more = n <= end;
   }
@@ -371,6 +403,27 @@ __global__ void fmath_kernel(const float* __restrict__ x, float* __restrict__ y,
 
 }  // namespace algl
 
+namespace algl {
+
+// One tile update of either counter width, in place.
+template <bool kWide>
+int launch_update(uint32_t* samples, Counter<kWide>* count, Counter<kWide>* nxt, float* log_w,
+                  const uint32_t* key, const uint32_t* batch, const int32_t* valid, int R, int k,
+                  int B, int fill, cudaStream_t stream) {
+  if (R <= 0 || B <= 0) return static_cast<int>(cudaSuccess);  // an empty tile changes nothing
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (R + kThreads - 1) / kThreads;
+  auto aligned = [](const void* p, uintptr_t n) { return (reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0; };
+  if (kWide && !(aligned(count, 8) && aligned(nxt, 8))) return static_cast<int>(cudaErrorMisalignedAddress);
+  const int vec = B % 4 == 0 && k % 4 == 0 && aligned(samples, 16) && aligned(batch, 16);
+  const uint64_t kmod = fastmod_multiplier(static_cast<uint32_t>(k));
+  update_kernel<kWide><<<blocks, kThreads, 0, stream>>>(samples, count, nxt, log_w, key, batch,
+                                                         valid, R, k, B, fill, vec, kmod);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace algl
+
 extern "C" {
 
 // One tile update, in place.  valid may be null (every row takes B).
@@ -378,15 +431,17 @@ extern "C" {
 int algl_update(uint32_t* samples, int32_t* count, int32_t* nxt, float* log_w,
                 const uint32_t* key, const uint32_t* batch, const int32_t* valid, int R,
                 int k, int B, int fill, cudaStream_t stream) {
-  if (R <= 0 || B <= 0) return static_cast<int>(cudaSuccess);  // an empty tile changes nothing
-  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (R + algl::kThreads - 1) / algl::kThreads;
-  auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; };
-  const int vec = B % 4 == 0 && k % 4 == 0 && aligned(samples) && aligned(batch);
-  const uint64_t kmod = algl::fastmod_multiplier(static_cast<uint32_t>(k));
-  algl::update_kernel<<<blocks, algl::kThreads, 0, stream>>>(
-      samples, count, nxt, log_w, key, batch, valid, R, k, B, fill, vec, kmod);
-  return static_cast<int>(cudaGetLastError());
+  return algl::launch_update<false>(samples, count, nxt, log_w, key, batch, valid, R, k, B, fill,
+                                    stream);
+}
+
+// algl_update for WIDE counters: count and nxt are [R] uint64 (the [R, 2]
+// uint32 (lo, hi) words in place, 8-byte aligned).
+int algl_update_wide(uint32_t* samples, uint64_t* count, uint64_t* nxt, float* log_w,
+                     const uint32_t* key, const uint32_t* batch, const int32_t* valid, int R,
+                     int k, int B, int fill, cudaStream_t stream) {
+  return algl::launch_update<true>(samples, count, nxt, log_w, key, batch, valid, R, k, B, fill,
+                                   stream);
 }
 
 // One gated update, in place: tile is [R, Bg], nvalid and advance [R]
@@ -416,7 +471,12 @@ int algl_fmath(const float* x, float* y, int n, int which, cudaStream_t stream) 
 // The build's registers, spills, shared memory and resident warps an SM of
 // the update kernel (kinfo::query's five numbers in out).
 int algl_kernel_info(int* out) {
-  return kinfo::query(algl::update_kernel, algl::kThreads, 0, out);
+  return kinfo::query(algl::update_kernel<false>, algl::kThreads, 0, out);
+}
+
+// kinfo::query's five numbers of the WIDE update kernel.
+int algl_wide_kernel_info(int* out) {
+  return kinfo::query(algl::update_kernel<true>, algl::kThreads, 0, out);
 }
 
 // kinfo::query's five numbers of the gated kernel.

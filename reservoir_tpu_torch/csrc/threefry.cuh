@@ -39,14 +39,21 @@ __device__ __forceinline__ uint32_t bits_word(uint32_t f1, uint32_t f2, uint32_t
   return b0 ^ b1;
 }
 
-// The three words drawn for the acceptance at absolute index idx (< 2^32):
-// key' = threefry(key, (0, idx)), then word j = xor of threefry(key', (0, j)).
-__device__ __forceinline__ void accept_words(uint32_t k1, uint32_t k2,
-                                             uint32_t idx, uint32_t w[3]) {
+// The three words drawn for the acceptance at the absolute 64-bit index
+// (idx_hi, idx_lo): key' = threefry(key, (idx_hi, idx_lo)), then word j =
+// xor of threefry(key', (0, j)).
+__device__ __forceinline__ void accept_words_pair(uint32_t k1, uint32_t k2, uint32_t idx_hi,
+                                                  uint32_t idx_lo, uint32_t w[3]) {
   uint32_t f1, f2;
-  threefry2x32(k1, k2, 0u, idx, f1, f2);
+  threefry2x32(k1, k2, idx_hi, idx_lo, f1, f2);
 #pragma unroll
   for (uint32_t j = 0; j < 3; ++j) w[j] = bits_word(f1, f2, j);
+}
+
+// The three words drawn for the acceptance at absolute index idx (< 2^32).
+__device__ __forceinline__ void accept_words(uint32_t k1, uint32_t k2,
+                                             uint32_t idx, uint32_t w[3]) {
+  accept_words_pair(k1, k2, 0u, idx, w);
 }
 
 // (0, 1] uniform of a word, exactly as rng.uniform_from_bits: (w >> 8 + 1) * 2^-24.

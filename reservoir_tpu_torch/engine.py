@@ -20,6 +20,13 @@ read) decides between the fill-capable and the steady update, as in the JAX
 engine; a weighted tile always takes the fill-capable kernel, because a
 zero-weight item is counted without taking a slot.
 
+Uniform mode takes ``count_dtype="int32"`` or ``"wide"``: WIDE counters are
+``[R, 2]`` uint32 (lo, hi) words, so a row's stream can pass 2^31 (where
+int32 counters saturate and sampling stops) and 2^32; their tiles go
+through ``algl_update_wide``.  ``"uint32"`` and ``"int64"`` raise
+``ValueError``: the JAX package's engine cannot build the first, and gives
+the second int32 counters unless x64 is on globally.
+
 Distinct mode takes 4-byte integer keys (int32, uint32) or 8-byte ones
 (int64, uint64).  An 8-byte host tile is split into its ``(hi, lo)`` word
 planes on the host (:func:`~.ops.distinct.split_values_host`) before its
@@ -77,7 +84,7 @@ def _not_in_slice(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md, 'Left out of the first slice', "
         f"{item}); the torch port runs uniform, weighted and distinct modes with "
-        "int32 counters on one device"
+        "int32 or WIDE counters on one device"
     )
 
 
@@ -110,8 +117,13 @@ class ReservoirEngine:
         validate_max_sample_size(config.max_sample_size)
         if config.weighted and config.distinct:
             raise ValueError("weighted and distinct modes are mutually exclusive")
-        if config.count_dtype == "wide" or np.dtype(config.count_dtype) != np.int32:
-            raise _not_in_slice(f"count_dtype={config.count_dtype!r}", "L3")
+        wide_counts = _check_count_dtype(config.count_dtype)
+        if config.impl == "pallas" and wide_counts:
+            raise ValueError(
+                "impl='pallas' requires int32 counters (the kernel's "
+                "supports() contract); count_dtype='wide' dispatches "
+                "XLA — use impl='auto'"
+            )
         if config.mesh_axis is not None:
             raise _not_in_slice("mesh_axis", "L4")
         if map_fn is not None or hash_fn is not None:
@@ -151,7 +163,7 @@ class ReservoirEngine:
         else:
             self._state = self._ops.init(
                 _key_words(key), config.num_reservoirs, config.max_sample_size,
-                sample_dtype=self._dtype, device=self._device,
+                sample_dtype=self._dtype, device=self._device, **self._count_arg(),
             )
         # host-side lower bound on every reservoir's count: exact under
         # full tiles, conservative under ragged ones
@@ -185,6 +197,11 @@ class ReservoirEngine:
         mode, else a ``ReservoirState``."""
         self._check_open()
         return type(self._state)(*_on(self._state, torch.clone))
+
+    def _count_arg(self) -> dict:
+        """The uniform ``init``'s ``count_dtype`` argument (none for the
+        other modes, whose counters are int32)."""
+        return {"count_dtype": self._config.count_dtype} if self._ops is _algl else {}
 
     def _check_open(self) -> None:
         if not self._reusable and not self._open:
@@ -473,7 +490,8 @@ class ReservoirEngine:
         idx = torch.from_numpy(rows.astype(np.int64)).to(self._device)
         for full, one in zip(self._state, part):
             if full is not None:
-                full.index_copy_(0, idx, one if pos is None else one.index_select(0, pos))
+                one = _signed(one)
+                _signed(full).index_copy_(0, idx, one if pos is None else one.index_select(0, pos))
         self._min_count = 0
         self.reset_epochs += 1
 
@@ -492,7 +510,7 @@ class ReservoirEngine:
         """
         self._check_open()
         rows = self._validate_rows(rows)
-        extra = {"compiled": True} if self._ops is _algl else {}
+        extra = {"compiled": True, **self._count_arg()} if self._ops is _algl else {}
         part = self._ops.init(
             _key_words(key), int(rows.size), self._config.max_sample_size,
             sample_dtype=self._dtype, device=self._device, **extra,
@@ -507,7 +525,7 @@ class ReservoirEngine:
         continues the rows bit-identically."""
         self._check_open()
         idx = torch.from_numpy(self._validate_rows(rows).astype(np.int64)).to(self._device)
-        return type(self._state)(*_on(self._state, lambda t: t.index_select(0, idx)))
+        return type(self._state)(*_on(self._state, lambda t: _signed(t).index_select(0, idx).view(t.dtype)))
 
     def adopt_rows(self, rows: Any, sub_state: State) -> None:
         """Scatter an :meth:`export_rows` sub-state (of this or another
@@ -592,6 +610,27 @@ class ReservoirEngine:
         return [samples[r, : sizes[r]] for r in range(samples.shape[0])]
 
 
+def _check_count_dtype(count_dtype: Any) -> bool:
+    """Whether ``count_dtype`` is WIDE; int32 passes, and anything else
+    raises ``ValueError``, ``"uint32"`` and ``"int64"`` with the reason."""
+    if isinstance(count_dtype, str) and count_dtype == _algl.WIDE:
+        return True
+    name = np.dtype(count_dtype).name
+    if name == "int32":
+        return False
+    if name == "uint32":
+        raise ValueError(
+            "count_dtype='uint32' is not a usable count dtype: the JAX package's engine "
+            "cannot build that state (its init overflows); use 'int32' or 'wide'"
+        )
+    if name == "int64":
+        raise ValueError(
+            "count_dtype='int64' needs global x64 in the JAX package (without it the "
+            "counters are silently int32); use count_dtype='wide' for 64-bit counters"
+        )
+    raise ValueError(f"count_dtype must be 'int32' or 'wide', got {count_dtype!r}")
+
+
 def _key_words(key: Any) -> torch.Tensor:
     """An int seed (``None`` means 0: the key words of ``jr.key(seed)``) or
     ``[2]`` uint32 key words (a list, an array or a tensor) as the ``[2]``
@@ -604,6 +643,12 @@ def _key_words(key: Any) -> torch.Tensor:
     if words.shape != (2,):
         raise ValueError(f"key must be an int seed or [2] uint32 key words, got shape {words.shape}")
     return torch.from_numpy(words.astype(np.uint32).astype(np.int64))
+
+
+def _signed(t: torch.Tensor) -> torch.Tensor:
+    """A uint32 tensor (WIDE counters, uint32 samples) as its int32 view,
+    which torch's index kernels take; any other tensor as it is."""
+    return t.view(torch.int32) if t.dtype == torch.uint32 else t
 
 
 def _on(state: State, fn) -> list:

@@ -28,7 +28,15 @@ draws (:func:`merge_draws`: the scan :func:`merge_scan` and the two
 permutations' keys) are the merge kernel's function: on the card
 :func:`merge_samples_keyed` draws them with that kernel, and
 :func:`merge_from_draws` over :func:`merge_draws` is the plain merge on any
-device.  Narrow counts only: int32 or uint32 in, uint32 out.
+device.  Narrow counts are int32 or uint32 in, uint32 out.
+
+WIDE counters (``count_dtype=WIDE``) carry ``count`` and ``nxt`` as
+``[R, 2]`` uint32 (lo, hi) words (:mod:`.u64e`), so a row's stream can pass
+2^31 and 2^32: the draws are keyed on the 64-bit index's Threefry block
+``(hi, lo)`` (:func:`_advance_pair`), the skip is added exactly through a
+float32 hi/lo split, and a WIDE state with a zero high word evolves as the
+int32 one.  WIDE merges draw with 64-bit rejection and return WIDE
+counts.
 """
 
 from __future__ import annotations
@@ -37,14 +45,15 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from . import fmath
+from . import fmath, u64e
 from .hashing import to_i32, words
-from .rng import accept_draws_words, split_keys
+from .rng import accept_draws_pair, accept_draws_words, split_keys
 from .threefry import MASK32, bits_words, fold_in_words, threefry2x32
 
 __all__ = [
     "ReservoirState",
     "SAMPLE_DTYPES",
+    "WIDE",
     "init",
     "update",
     "update_steady",
@@ -64,8 +73,13 @@ __all__ = [
 _INT32_MAX = 2**31 - 1
 #: ``float(INT32_MAX // 2)`` rounded to float32 (2^30): the skip clamp
 _SKIP_CLAMP = 1073741824.0
+#: the skip clamp of WIDE counters (2^62: headroom for the 64-bit adds)
+_SKIP_CLAMP_WIDE = float(2.0**62)
 #: sample dtypes the engine and the kernel take (all 4-byte words)
 SAMPLE_DTYPES = (torch.int32, torch.float32, torch.uint32)
+#: ``count_dtype`` of emulated 64-bit counters: ``count`` and ``nxt`` as
+#: ``[R, 2]`` uint32 (lo, hi) words
+WIDE = "wide"
 
 
 class ReservoirState(NamedTuple):
@@ -73,9 +87,11 @@ class ReservoirState(NamedTuple):
 
     Attributes:
       samples: ``[R, k]`` stored samples (int32, float32 or uint32).
-      count:   ``[R]`` int32, elements consumed per reservoir.
+      count:   ``[R]`` int32, elements consumed per reservoir; or, with
+               WIDE counters, ``[R, 2]`` uint32 (lo, hi) words.
       nxt:     ``[R]`` int32, absolute 1-based index of the next
-               acceptance; saturates at ``2^31 - 1``.
+               acceptance, saturating at ``2^31 - 1``; or ``[R, 2]``
+               uint32 words (WIDE), which never saturate.
       log_w:   ``[R]`` float32, log of Algorithm L's ``W``.
       key:     ``[R, 2]`` int64, each reservoir's Threefry key words.
     """
@@ -94,6 +110,11 @@ class ReservoirState(NamedTuple):
     def k(self) -> int:
         return self.samples.shape[1]
 
+    @property
+    def wide(self) -> bool:
+        """Whether the counters are WIDE ``[R, 2]`` words."""
+        return self.count.ndim == 2
+
 
 def _to_int32_sat(x: torch.Tensor) -> torch.Tensor:
     """float32 -> int32 as XLA converts: NaN to 0 (inputs here are finite
@@ -106,6 +127,19 @@ def reciprocal_f32(k: int) -> float:
     float32 first (what XLA folds ``x / k`` into)."""
     one = torch.tensor(1.0, dtype=torch.float32)
     return (one / torch.tensor(float(k), dtype=torch.float32)).item()
+
+
+def _skip_draw(log_w, u1, u2, k: int, compiled: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One acceptance's ``W *= u1^(1/k)`` in log space (rounded as
+    :func:`_advance_words` says) and its unclamped float skip
+    ``floor(log(u2) / log(1 - W))``; returns ``(log_w, skip_f)``."""
+    if compiled:
+        log_w = fmath.fma(fmath.log(u1), reciprocal_f32(k), log_w)
+    else:
+        log_w = log_w + fmath.log(u1) / torch.full_like(u1, float(k))
+    w = fmath.exp(log_w)
+    # w rounding to exactly 1.0 gives log1p(-1) = -inf -> skip 0
+    return log_w, torch.floor(fmath.log(u2) / fmath.log1p(-w))
 
 
 def _advance_words(
@@ -128,18 +162,43 @@ def _advance_words(
     float32 reciprocal and contracts that with the add into one FMA.  The
     reference's ``init`` runs op by op and divides."""
     slot, u1, u2 = accept_draws_words(k1, k2, idx, k)
-    if compiled:
-        log_w = fmath.fma(fmath.log(u1), reciprocal_f32(k), log_w)
-    else:
-        log_w = log_w + fmath.log(u1) / torch.full_like(u1, float(k))
-    w = fmath.exp(log_w)
-    # w rounding to exactly 1.0 gives log1p(-1) = -inf -> skip 0
-    skip_f = torch.floor(fmath.log(u2) / fmath.log1p(-w))
+    log_w, skip_f = _skip_draw(log_w, u1, u2, k, compiled)
     skip_f = torch.minimum(skip_f, torch.full_like(skip_f, _SKIP_CLAMP))
     skip = _to_int32_sat(skip_f)
     headroom = _INT32_MAX - skip - 1
     nxt = torch.where(nxt > headroom, torch.full_like(nxt, _INT32_MAX), nxt + skip + 1)
     return slot, log_w, nxt
+
+
+def _advance_pair(
+    log_w: torch.Tensor,
+    nxt: torch.Tensor,
+    k1: torch.Tensor,
+    k2: torch.Tensor,
+    idx_hi: torch.Tensor,
+    idx_lo: torch.Tensor,
+    k: int,
+    compiled: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`_advance_words` for WIDE counters: ``nxt`` is a ``[..., 2]``
+    logical uint64 (:mod:`.u64e` words) and the draws are keyed on the
+    index ``(idx_hi, idx_lo)``.  The skip is clamped at 2^62 and added
+    through :func:`.u64e.add_f32`, which is exact, so ``nxt`` never
+    saturates.  ``compiled`` rounds ``log_w`` as :func:`_advance_words`
+    does.  Returns ``(slot, log_w, nxt)``, ``nxt`` as int64 words."""
+    slot, u1, u2 = accept_draws_pair(k1, k2, idx_hi, idx_lo, k)
+    log_w, skip_f = _skip_draw(log_w, u1, u2, k, compiled)
+    skip_f = torch.minimum(skip_f, torch.full_like(skip_f, _SKIP_CLAMP_WIDE))
+    return slot, log_w, u64e.add_f32(u64e.add_u32(nxt, 1), skip_f)
+
+
+def _is_wide(count_dtype) -> bool:
+    """``count_dtype`` as :func:`init` takes it: ``WIDE``, or int32."""
+    if isinstance(count_dtype, str) and count_dtype == WIDE:
+        return True
+    if count_dtype in (torch.int32, "int32"):
+        return False
+    raise ValueError(f"count_dtype must be 'int32' or {WIDE!r}, got {count_dtype!r}")
 
 
 def init(
@@ -149,6 +208,7 @@ def init(
     sample_dtype: torch.dtype = torch.int32,
     device=None,
     compiled: bool = False,
+    count_dtype="int32",
 ) -> ReservoirState:
     """R empty reservoirs: the seed key ``[2]`` is split into R keys (the
     partitionable ``jr.split`` layout) and each draws its first ``nxt`` and
@@ -158,11 +218,26 @@ def init(
     does (see :func:`_advance_words`): ``False`` for the engine's
     construction, whose reference ``init`` runs op by op; ``True`` for a
     row reset, whose reference ``init`` runs inside ``jax.jit``.  The two
-    differ in ``log_w`` for a k that is not a power of two."""
+    differ in ``log_w`` for a k that is not a power of two.
+
+    ``count_dtype`` is ``"int32"`` or :data:`WIDE` (``[R, 2]`` uint32
+    counters whose first draw is keyed on the index pair ``(0, 0)``)."""
     if sample_dtype not in SAMPLE_DTYPES:
         raise ValueError(f"sample dtype must be one of {SAMPLE_DTYPES}, got {sample_dtype}")
+    wide = _is_wide(count_dtype)
     keys = split_keys(torch.as_tensor(key_words, device=device), num_reservoirs)
     log_w0 = torch.zeros(num_reservoirs, dtype=torch.float32, device=device)
+    if wide:
+        zero = torch.zeros(num_reservoirs, dtype=torch.int64, device=device)
+        _, log_w, nxt = _advance_pair(log_w0, u64e.from_int(k, (num_reservoirs,), device),
+                                      keys[:, 0], keys[:, 1], zero, zero, k, compiled=compiled)
+        return ReservoirState(
+            samples=torch.zeros((num_reservoirs, k), dtype=sample_dtype, device=device),
+            count=u64e.to_u32(u64e.from_int(0, (num_reservoirs,), device)),
+            nxt=u64e.to_u32(nxt),
+            log_w=log_w,
+            key=keys,
+        )
     nxt0 = torch.full((num_reservoirs,), k, dtype=torch.int32, device=device)
     zero = torch.zeros(num_reservoirs, dtype=torch.int32, device=device)
     _, log_w, nxt = _advance_words(log_w0, nxt0, keys[:, 0], keys[:, 1], zero, k, compiled=compiled)
@@ -187,6 +262,52 @@ def _check(state: ReservoirState, batch: torch.Tensor, valid) -> None:
         raise ValueError(f"valid must be an int32 [R={R}] tensor, got {valid.dtype} {tuple(valid.shape)}")
 
 
+def _update_wide(
+    state: ReservoirState,
+    batch: torch.Tensor,
+    valid: Optional[torch.Tensor],
+    fill: bool,
+) -> Tuple[ReservoirState, int]:
+    """:func:`_update` for WIDE counters (the reference's ``_update_one``
+    with 64-bit pair arithmetic)."""
+    R, k = state.samples.shape
+    B = batch.shape[1]
+    dev = batch.device
+    bits = batch.view(torch.int32)
+    samples = state.samples.clone()
+    out = samples.view(torch.int32)
+    count = u64e.words(state.count)
+    v = valid.to(torch.int64) if valid is not None else torch.full((R,), B, dtype=torch.int64, device=dev)
+    end = u64e.add_u32(count, v)
+    if fill:
+        # a fill exists only while count < k, so the low word decides
+        c_lo = count[:, 0]
+        lane = torch.arange(B, dtype=torch.int64, device=dev)
+        dest = c_lo[:, None] + lane[None, :]
+        take = (((count[:, 1] == 0) & (c_lo < k))[:, None] & (dest < k)
+                & (lane[None, :] < v[:, None]))
+        rows = torch.arange(R, device=dev)[:, None].expand(R, B)
+        out[rows[take], dest[take]] = bits[take]
+    nxt = u64e.words(state.nxt)
+    log_w = state.log_w.clone()
+    k1, k2 = state.key[:, 0], state.key[:, 1]
+    rows = torch.nonzero(u64e.le(nxt, end)).flatten()
+    accepts = 0
+    while rows.numel():
+        accepts += rows.numel()
+        n = nxt[rows]
+        # the tile-local position: the low words' difference in int32, less 1
+        # (wrapping), then the reference's gather index rule
+        pos = u64e.diff_small(u64e.sub_u32(n, 1), count[rows]).to(torch.int64)
+        pos = torch.where(pos < 0, pos + B, pos).clamp(0, B - 1)
+        slot, lw, n_new = _advance_pair(log_w[rows], n, k1[rows], k2[rows], n[:, 1], n[:, 0], k)
+        out[rows, slot.to(torch.int64)] = bits[rows, pos]
+        nxt[rows] = n_new
+        log_w[rows] = lw
+        rows = rows[u64e.le(n_new, end[rows])]
+    return ReservoirState(samples, u64e.to_u32(end), u64e.to_u32(nxt), log_w, state.key), accepts
+
+
 def _update(
     state: ReservoirState,
     batch: torch.Tensor,
@@ -194,6 +315,8 @@ def _update(
     fill: bool,
 ) -> Tuple[ReservoirState, int]:
     _check(state, batch, valid)
+    if state.wide:
+        return _update_wide(state, batch, valid, fill)
     R, k = state.samples.shape
     B = batch.shape[1]
     dev = batch.device
@@ -287,6 +410,8 @@ def update_gated(
     lockstep loop over the candidates: the plain version, for the CPU and
     as the kernel's reference.  Returns a new state."""
     R, k = state.samples.shape
+    if state.wide:
+        raise ValueError("update_gated requires narrow (non-WIDE) counters")
     _check(state, batch, None)
     for name, t in (("nvalid", nvalid), ("advance", advance)):
         if t.shape != (R,) or t.dtype != torch.int32:
@@ -322,10 +447,16 @@ def update_gated(
     return ReservoirState(samples, count + advance, nxt, log_w, state.key)
 
 
+def _wide_size(count, k: int) -> torch.Tensor:
+    """``min(count, k)`` as int32 for WIDE ``[..., 2]`` counts."""
+    c = u64e.words(count)
+    return torch.where((c[..., 1] > 0) | (c[..., 0] >= k), k, c[..., 0]).to(torch.int32)
+
+
 def result(state: ReservoirState) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(samples [R, k], size [R])`` with ``size = min(count, k)``; entries
-    at or past ``size`` are zeros."""
-    size = torch.clamp(state.count, max=state.k)
+    at or past ``size`` are zeros.  ``size`` is int32 for WIDE states too."""
+    size = _wide_size(state.count, state.k) if state.wide else torch.clamp(state.count, max=state.k)
     mask = torch.arange(state.k, device=state.samples.device)[None, :] < size[:, None]
     bits = torch.where(mask, state.samples.view(torch.int32), 0)
     return bits.view(state.samples.dtype), size
@@ -392,9 +523,43 @@ def _randint_exact(f1: torch.Tensor, f2: torch.Tensor, denom: torch.Tensor) -> t
     return _randint_tries(f1, f2, denom)[0]
 
 
+def _randint_tries_u64e(
+    f1: torch.Tensor, f2: torch.Tensor, denom: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_randint_tries` on WIDE ``[L, 2]`` denominators (>= 1), the
+    reference's ``_randint_exact_u64e``: attempt ``a`` is the 64-bit word
+    ``(b0 << 32) | b1`` of the Threefry block ``(1, a)``, accepted below
+    ``2^64 - (2^64 mod denom)``, then reduced mod ``denom``; both
+    remainders are :func:`.u64e.mod64`'s.  Returns ``(x [L, 2] words,
+    tries [L])``."""
+    zero = torch.zeros_like(denom)
+    space_mod = u64e.mod64(u64e.sub64(zero, denom), denom)
+    accept_all = u64e.is_zero(space_mod)
+    thresh = u64e.sub64(zero, space_mod)
+    bits = torch.zeros_like(denom)
+    tries = torch.zeros_like(f1)
+    lanes = torch.arange(f1.shape[0], device=f1.device)
+    a = 0
+    while lanes.numel():
+        b0, b1 = threefry2x32(f1[lanes], f2[lanes], 1, torch.full_like(lanes, a))
+        drawn = u64e.make(b1, b0)
+        ok = accept_all[lanes] | u64e.lt(drawn, thresh[lanes])
+        bits[lanes[ok]] = drawn[ok]
+        tries[lanes] += 1
+        lanes = lanes[~ok]
+        a += 1
+    return u64e.mod64(bits, denom), tries
+
+
 def _merge_counts(count_a: torch.Tensor, count_b: torch.Tensor, k: int):
     """The counts as uint32 values in int64, and ``m = min(total, k)`` of
-    their total, which wraps modulo 2^32 as the reference's uint32 sum."""
+    their total, which wraps modulo 2^32 as the reference's uint32 sum.
+    WIDE ``[R, 2]`` counts give their int64 words, a 64-bit total (wrapping
+    modulo 2^64) and ``m`` in int32."""
+    if count_a.ndim == 2:
+        c_a, c_b = u64e.words(count_a), u64e.words(count_b)
+        total = u64e.add64(c_a, c_b)
+        return c_a, c_b, total, _wide_size(total, k)
     c_a, c_b = words(count_a), words(count_b)
     total = (c_a + c_b) & MASK32
     return c_a, c_b, total, torch.clamp(total, max=k)
@@ -432,7 +597,12 @@ def merge_scan(
     steps' rejection draws took, one Threefry block each, every rejected
     attempt counted (the data-dependent work a kernel's bound is reckoned
     from).  The plain version: a lockstep loop over t that syncs with the
-    host."""
+    host.
+
+    WIDE ``[R, 2]`` counts take the reference's ``one_wide`` step: the
+    remainders, their sum and the denominator are 64-bit (wrapping modulo
+    2^64), and each draw is 64-bit (:func:`_randint_tries_u64e`)."""
+    wide = count_a.ndim == 2
     c_a, c_b, _, m = _merge_counts(count_a, count_b, k)
     R = c_a.shape[0]
     dev = c_a.device
@@ -441,16 +611,27 @@ def merge_scan(
     j_a = torch.zeros(R, dtype=torch.int64, device=dev)
     draws = 0
     steps = int(m.max().item()) if R else 0
+    one = u64e.from_int(1, (R,), dev)
     for t in range(steps):
         f1, f2 = fold_in_words(kw1, kw2, torch.full((R,), t, dtype=torch.int32, device=dev))
-        denom = torch.clamp((rem_a + rem_b) & MASK32, min=1)
-        r, tries = _randint_tries(f1, f2, denom)
         active = t < m
+        if wide:
+            denom = u64e.add64(rem_a, rem_b)
+            denom = torch.where(u64e.is_zero(denom)[:, None], one, denom)
+            r, tries = _randint_tries_u64e(f1, f2, denom)
+            pick_a = u64e.lt(r, rem_a)
+        else:
+            denom = torch.clamp((rem_a + rem_b) & MASK32, min=1)
+            r, tries = _randint_tries(f1, f2, denom)
+            pick_a = r < rem_a
         draws += int(tries[active].sum().item())
-        pick_a = r < rem_a
         take_a = (active & pick_a).to(torch.int64)
         take_b = (active & ~pick_a).to(torch.int64)
-        rem_a, rem_b, j_a = (rem_a - take_a) & MASK32, (rem_b - take_b) & MASK32, j_a + take_a
+        if wide:
+            rem_a, rem_b = u64e.sub_u32(rem_a, take_a), u64e.sub_u32(rem_b, take_b)
+        else:
+            rem_a, rem_b = (rem_a - take_a) & MASK32, (rem_b - take_b) & MASK32
+        j_a = j_a + take_a
     return j_a.to(torch.int32), draws
 
 
@@ -482,15 +663,21 @@ def merge_keys(
     A's from ``fold_in(key, k)``, B's from ``fold_in(key, k + 1)``, each
     side masked at its size (``signed`` as :func:`merge_samples_keyed`
     takes it).  The draw indices k and k + 1 are disjoint from the scan's
-    t < k."""
-    if signed is None:
-        signed = _signed_rows(count_a, count_b)
+    t < k.  A WIDE side's size is :func:`_wide_size` of its count, and
+    ``signed`` is not read."""
     R = row_keys.shape[0]
     dev = row_keys.device
+    if count_a.ndim == 2:
+        size_a, size_b = _wide_size(count_a, k), _wide_size(count_b, k)
+    else:
+        if signed is None:
+            signed = _signed_rows(count_a, count_b)
+        size_a = _merge_size(count_a, (signed & 1) != 0, k)
+        size_b = _merge_size(count_b, (signed & 2) != 0, k)
     kw1, kw2 = row_keys[:, 0], row_keys[:, 1]
     at = lambda i: torch.full((R,), i, dtype=torch.int32, device=dev)  # noqa: E731
-    u_a = _perm_keys(*fold_in_words(kw1, kw2, at(k)), k, _merge_size(count_a, (signed & 1) != 0, k))
-    u_b = _perm_keys(*fold_in_words(kw1, kw2, at(k + 1)), k, _merge_size(count_b, (signed & 2) != 0, k))
+    u_a = _perm_keys(*fold_in_words(kw1, kw2, at(k)), k, size_a)
+    u_b = _perm_keys(*fold_in_words(kw1, kw2, at(k + 1)), k, size_b)
     return u_a, u_b
 
 
@@ -504,10 +691,27 @@ def merge_draws(
     """Every draw of a uniform merge (:class:`MergeDraws`): the scan's
     ``j_a`` (:func:`merge_scan`) and the two permutations' keys
     (:func:`merge_keys`).  The plain version of the merge kernel, on any
-    device; counts int32 or uint32 ``[R]``, ``row_keys`` int64 ``[R, 2]``
-    key words, ``signed`` as :func:`merge_samples_keyed` takes it."""
+    device; counts int32 or uint32 ``[R]`` (or both WIDE ``[R, 2]``
+    words), ``row_keys`` int64 ``[R, 2]`` key words, ``signed`` as
+    :func:`merge_samples_keyed` takes it."""
     return MergeDraws(merge_scan(count_a, count_b, row_keys, k)[0],
                       *merge_keys(count_a, count_b, row_keys, k, signed))
+
+
+def _check_counts(count_a: torch.Tensor, count_b: torch.Tensor, R: int) -> None:
+    """Both counts narrow (int32 or uint32 ``[R]``) or both WIDE (``[R, 2]``
+    32-bit words); a mixed pair raises the reference's ``ValueError``."""
+    if (count_a.ndim == 2) != (count_b.ndim == 2):
+        raise ValueError(
+            "merge_samples: both counts must be WIDE [R, 2] planes or both "
+            "narrow [R] — mixed-width merges are ambiguous; promote the "
+            "narrow side with u64e.make(count, 0) first"
+        )
+    shape = (R, 2) if count_a.ndim == 2 else (R,)
+    for name, c in (("count_a", count_a), ("count_b", count_b)):
+        if tuple(c.shape) != shape or c.dtype not in (torch.int32, torch.uint32):
+            raise ValueError(f"{name} must be int32 or uint32 {list(shape)}, got {c.dtype} "
+                             f"{tuple(c.shape)}")
 
 
 def _check_merge(samples_a, count_a, samples_b, count_b, row_keys, signed) -> None:
@@ -519,14 +723,7 @@ def _check_merge(samples_a, count_a, samples_b, count_b, row_keys, signed) -> No
         )
     if samples_a.dtype not in SAMPLE_DTYPES:
         raise ValueError(f"sample dtype must be one of {SAMPLE_DTYPES}, got {samples_a.dtype}")
-    for name, c in (("count_a", count_a), ("count_b", count_b)):
-        if c.ndim == 2:
-            raise NotImplementedError(
-                "merging WIDE [R, 2] counts is not ported yet (ROADMAP.md, 'Left out of "
-                "the first slice', L3)"
-            )
-        if c.shape != (R,) or c.dtype not in (torch.int32, torch.uint32):
-            raise ValueError(f"{name} must be int32 or uint32 [R={R}], got {c.dtype} {tuple(c.shape)}")
+    _check_counts(count_a, count_b, R)
     if row_keys.shape != (R, 2) or row_keys.dtype != torch.int64:
         raise ValueError(f"row_keys must be int64 [R={R}, 2] key words, got {row_keys.dtype} "
                          f"{tuple(row_keys.shape)}")
@@ -545,7 +742,8 @@ def merge_from_draws(
     a uniform ``j_a``-subset of A (the first ``j_a`` of A's keys in a
     stable argsort, ties by slot, as the reference's sort breaks them), then
     an ``(m - j_a)``-subset of B, gathered as 32-bit words; entries at or
-    past m are zeros.  Returns ``(samples [R, k], count [R] uint32)``."""
+    past m are zeros.  Returns ``(samples [R, k], count [R] uint32)``, or
+    for WIDE counts the 64-bit totals as ``[R, 2]`` uint32 words."""
     R, k = samples_a.shape
     _, _, total, m = _merge_counts(count_a, count_b, k)
     j_a = draws.j_a.to(torch.int64)
@@ -557,7 +755,8 @@ def merge_from_draws(
     bits_a, bits_b = samples_a.view(torch.int32), samples_b.view(torch.int32)
     merged = torch.where(from_a, bits_a.gather(1, idx), bits_b.gather(1, idx))
     merged = torch.where(pos < m[:, None], merged, 0)
-    return merged.view(samples_a.dtype), to_i32(total).view(torch.uint32)
+    count = u64e.to_u32(total) if count_a.ndim == 2 else to_i32(total).view(torch.uint32)
+    return merged.view(samples_a.dtype), count
 
 
 def merge_samples_keyed(
@@ -611,7 +810,9 @@ def merge_samples(
     key a row.  Returns ``(samples [R, k], count [R])``; the count is
     ``torch.uint32``, exact for any combined total below 2^32 (past it the
     count and the scan wrap modulo 2^32, as the reference's uint32
-    arithmetic does), and the merged size is ``min(count, k)``.  The merge is terminal: it yields a
+    arithmetic does), and the merged size is ``min(count, k)``.  Two WIDE
+    ``[R, 2]`` counts merge exactly at any magnitude and give WIDE totals;
+    a narrow and a WIDE count raise ``ValueError``.  The merge is terminal: it yields a
     sample, not a resumable Algorithm-L state."""
     key_words = torch.as_tensor(key_words, device=samples_a.device)
     return merge_samples_keyed(
@@ -623,9 +824,11 @@ def merge(
     state_a: ReservoirState, state_b: ReservoirState, key_words: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`merge_samples` on two states: ``(samples [R, k], size [R]
-    int32, count [R] uint32)``."""
+    int32, count [R] uint32)``; WIDE states give ``[R, 2]`` counts."""
     samples, count = merge_samples(
         state_a.samples, state_a.count, state_b.samples, state_b.count, key_words
     )
+    if count.ndim == 2:
+        return samples, _wide_size(count, state_a.k), count
     size = torch.clamp(words(count), max=state_a.k).to(torch.int32)
     return samples, size, count

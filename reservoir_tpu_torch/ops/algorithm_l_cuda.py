@@ -27,6 +27,14 @@ kernel because the plain version's scan is k lockstep steps of small
 launches, each with a host sync.  :func:`~.algorithm_l.merge_samples_keyed`
 draws through it.
 
+WIDE counters (``[R, 2]`` uint32 ``count`` and ``nxt``) take the WIDE
+instantiations of both kernels: ``algl_update_wide`` for a tile update and
+``algl_merge_draws_wide`` for a merge's draws (the reference runs both on
+XLA: its Pallas kernel declines WIDE states).  The kernels read the words
+in place as uint64, so a counter tensor that is not 8-byte aligned is
+first copied into one that is.  The gated update takes int32 counters only
+and raises for WIDE ones, as the reference does.
+
 :func:`update_cuda` and :func:`update_steady_cuda` take the state and tile
 on one device:
 
@@ -36,9 +44,11 @@ on one device:
 - on CPU tensors they run the plain version (:func:`update` /
   :func:`update_steady` of :mod:`.algorithm_l`), which returns a new state.
 
-:data:`launches` counts ``algl_update`` launches, :data:`gated_launches`
-``algl_update_gated`` launches and :data:`merge_launches` ``algl_merge_draws``
-launches, and nothing else; ``launches`` is added to under
+:data:`launches` counts ``algl_update`` launches, :data:`wide_launches`
+``algl_update_wide`` launches, :data:`gated_launches` ``algl_update_gated``
+launches, :data:`merge_launches` ``algl_merge_draws`` launches and
+:data:`wide_merge_launches` ``algl_merge_draws_wide`` launches, and nothing
+else; the update counts are added to under
 :data:`~._cuda_common.COUNT_LOCK`, since the interop server launches from
 several threads.
 """
@@ -51,14 +61,16 @@ from typing import Optional
 import torch
 
 from ._cuda_common import COUNT_LOCK, build_info, check_tensors
-from .algorithm_l import (MergeDraws, ReservoirState, _signed_rows, merge_draws, update, update_gated,
-                          update_steady)
+from .algorithm_l import (MergeDraws, ReservoirState, _check_counts, _signed_rows, merge_draws, update,
+                          update_gated, update_steady)
 
 __all__ = [
     "launches",
+    "wide_launches",
     "gated_launches",
     "update_cuda",
     "merge_launches",
+    "wide_merge_launches",
     "update_gated_cuda",
     "update_steady_cuda",
     "merge_draws_cuda",
@@ -72,10 +84,14 @@ __all__ = [
 
 #: ``algl_update`` launches so far (set it to 0 to count a run)
 launches = 0
+#: ``algl_update_wide`` launches so far (set it to 0 to count a run)
+wide_launches = 0
 #: ``algl_update_gated`` launches so far (set it to 0 to count a run)
 gated_launches = 0
 #: ``algl_merge_draws`` launches so far (set it to 0 to count a run)
 merge_launches = 0
+#: ``algl_merge_draws_wide`` launches so far (set it to 0 to count a run)
+wide_merge_launches = 0
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -95,6 +111,9 @@ def _library(path: Optional[str] = None):
         lib = load("algorithm_l") if path is None else ctypes.CDLL(path)
         lib.algl_update.argtypes = [_VP] * 7 + [_INT] * 4 + [_VP]
         lib.algl_update.restype = _INT
+        if hasattr(lib, "algl_update_wide"):  # an older build (kernel_ab.py) has none
+            lib.algl_update_wide.argtypes = [_VP] * 7 + [_INT] * 4 + [_VP]
+            lib.algl_update_wide.restype = _INT
         if hasattr(lib, "algl_update_gated"):  # an older build (kernel_ab.py) has none
             lib.algl_update_gated.argtypes = [_VP] * 8 + [_INT] * 3 + [_VP]
             lib.algl_update_gated.restype = _INT
@@ -117,6 +136,9 @@ def _merge_library(path: Optional[str] = None):
         lib = load("algl_merge") if path is None else ctypes.CDLL(path)
         lib.algl_merge_draws.argtypes = [_VP] * 7 + [_INT] * 2 + [_VP]
         lib.algl_merge_draws.restype = _INT
+        if hasattr(lib, "algl_merge_draws_wide"):  # an older build (kernel_ab.py) has none
+            lib.algl_merge_draws_wide.argtypes = [_VP] * 6 + [_INT] * 2 + [_VP]
+            lib.algl_merge_draws_wide.restype = _INT
         _merge_lib = lib
     return _merge_lib
 
@@ -127,10 +149,11 @@ def _raise_on(code: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
 
 
-def kernel_info() -> dict:
-    """:func:`~._cuda_common.build_info` of ``algl_update``'s kernel
-    (needs a card)."""
-    return build_info(_library().algl_kernel_info)
+def kernel_info(wide: bool = False) -> dict:
+    """:func:`~._cuda_common.build_info` of ``algl_update``'s kernel, or
+    with ``wide`` of ``algl_update_wide``'s (needs a card)."""
+    lib = _library()
+    return build_info(lib.algl_wide_kernel_info if wide else lib.algl_kernel_info)
 
 
 def gated_kernel_info() -> dict:
@@ -139,14 +162,22 @@ def gated_kernel_info() -> dict:
     return build_info(_library().algl_gated_kernel_info)
 
 
-def merge_kernel_info() -> dict:
-    """:func:`~._cuda_common.build_info` of ``algl_merge_draws``' kernel
-    (needs a card)."""
-    return build_info(_merge_library().algl_merge_kernel_info)
+def merge_kernel_info(wide: bool = False) -> dict:
+    """:func:`~._cuda_common.build_info` of ``algl_merge_draws``' kernel,
+    or with ``wide`` of ``algl_merge_draws_wide``'s (needs a card)."""
+    lib = _merge_library()
+    return build_info(lib.algl_merge_wide_kernel_info if wide else lib.algl_merge_kernel_info)
 
 
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _aligned8(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it in a fresh (aligned) allocation where its data
+    does not start on 8 bytes: a WIDE kernel reads ``[R, 2]`` uint32 words
+    as uint64."""
+    return t if t.data_ptr() % 8 == 0 else t.clone()
 
 
 def _validate(state: ReservoirState, batch: torch.Tensor, valid) -> None:
@@ -155,8 +186,9 @@ def _validate(state: ReservoirState, batch: torch.Tensor, valid) -> None:
         "samples": state.samples, "count": state.count, "nxt": state.nxt,
         "log_w": state.log_w, "key": state.key, "batch": batch,
     }
+    counter = ((R, 2), torch.uint32) if state.count.ndim == 2 else ((R,), torch.int32)
     expect = {
-        "count": ((R,), torch.int32), "nxt": ((R,), torch.int32),
+        "count": counter, "nxt": counter,
         "log_w": ((R,), torch.float32), "key": ((R, 2), torch.int64),
     }
     if valid is not None:
@@ -166,7 +198,7 @@ def _validate(state: ReservoirState, batch: torch.Tensor, valid) -> None:
 
 
 def _launch(state: ReservoirState, batch: torch.Tensor, valid, fill: bool) -> ReservoirState:
-    global launches
+    global launches, wide_launches
     _validate(state, batch, valid)
     if state.samples.device.type == "cpu":
         return (update if fill else update_steady)(state, batch, valid)
@@ -175,24 +207,32 @@ def _launch(state: ReservoirState, batch: torch.Tensor, valid, fill: bool) -> Re
     R, k = state.samples.shape
     B = batch.shape[1]
     lib = _library()
+    wide = state.wide
+    if wide:
+        state = state._replace(count=_aligned8(state.count), nxt=_aligned8(state.nxt))
     # the kernel reads the key as uint32 words: the low half of each int64
     key32 = state.key.to(torch.int32)
-    code = lib.algl_update(
+    name = "algl_update_wide" if wide else "algl_update"
+    code = getattr(lib, name)(
         state.samples.data_ptr(), state.count.data_ptr(), state.nxt.data_ptr(),
         state.log_w.data_ptr(), key32.data_ptr(), batch.data_ptr(),
         valid.data_ptr() if valid is not None else None,
         R, k, B, int(fill), _stream(state.samples.device),
     )
-    _raise_on(code, "algl_update launch")
+    _raise_on(code, f"{name} launch")
     with COUNT_LOCK:
-        launches += 1
+        if wide:
+            wide_launches += 1
+        else:
+            launches += 1
     return state
 
 
 def update_cuda(
     state: ReservoirState, batch: torch.Tensor, valid: Optional[torch.Tensor] = None
 ) -> ReservoirState:
-    """Fill-capable tile update (the port of ``update_pallas``)."""
+    """Fill-capable tile update (the port of ``update_pallas``; WIDE
+    counters launch ``algl_update_wide``)."""
     return _launch(state, batch, valid, fill=True)
 
 
@@ -214,8 +254,11 @@ def update_gated_cuda(
     state in place and returns it; on CPU tensors it runs the plain
     version, which returns a new state.  ``nvalid`` must lie in
     ``[0, Bg]`` and ``advance`` be nonnegative (the engine checks both on
-    the host; the kernel trusts them)."""
+    the host; the kernel trusts them).  WIDE counters raise
+    ``ValueError``, as the reference's ``update_gated`` does."""
     global gated_launches
+    if state.wide:
+        raise ValueError("update_gated requires narrow (non-WIDE) counters")
     R = state.samples.shape[0]
     tensors = {
         "samples": state.samples, "count": state.count, "nxt": state.nxt,
@@ -258,12 +301,13 @@ def merge_draws_cuda(
     :func:`~.algorithm_l.merge_samples_keyed` takes it).  On CUDA tensors
     (contiguous) it launches ``algl_merge_draws`` once, into new tensors,
     with no host sync; on CPU tensors it runs the plain
-    :func:`~.algorithm_l.merge_draws`."""
-    global merge_launches
+    :func:`~.algorithm_l.merge_draws`.  WIDE counts (both ``[R, 2]``
+    32-bit words) launch ``algl_merge_draws_wide`` and take no
+    ``signed``."""
+    global merge_launches, wide_merge_launches
     R = row_keys.shape[0]
+    _check_counts(count_a, count_b, R)
     for name, c in (("count_a", count_a), ("count_b", count_b)):
-        if c.shape != (R,) or c.dtype not in (torch.int32, torch.uint32):
-            raise ValueError(f"{name} must be int32 or uint32 [R={R}], got {c.dtype} {tuple(c.shape)}")
         if c.device != row_keys.device:
             raise ValueError(f"{name} is on {c.device}, row_keys on {row_keys.device}")
     if row_keys.shape != (R, 2) or row_keys.dtype != torch.int64:
@@ -280,21 +324,32 @@ def merge_draws_cuda(
         return merge_draws(count_a, count_b, row_keys, k, signed)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if signed is None:
+    wide = count_a.ndim == 2
+    if signed is None and not wide:
         signed = _signed_rows(count_a, count_b)
-    if not all(t.is_contiguous() for t in (count_a, count_b, row_keys, signed)):
+    if not all(t.is_contiguous() for t in (count_a, count_b, row_keys, signed) if t is not None):
         raise ValueError("count_a, count_b, row_keys and signed must be contiguous")
     # the kernel reads the key as uint32 words: the low half of each int64
     key32 = row_keys.to(torch.int32)
     j_a = torch.empty(R, dtype=torch.int32, device=dev)
     u_a = torch.empty((R, k), dtype=torch.float32, device=dev)
     u_b = torch.empty((R, k), dtype=torch.float32, device=dev)
-    code = _merge_library().algl_merge_draws(
-        count_a.data_ptr(), count_b.data_ptr(), signed.data_ptr(), key32.data_ptr(), j_a.data_ptr(),
-        u_a.data_ptr(), u_b.data_ptr(), R, k, _stream(dev),
-    )
-    _raise_on(code, "algl_merge_draws launch")
-    merge_launches += 1
+    lib = _merge_library()
+    if wide:
+        count_a, count_b = _aligned8(count_a), _aligned8(count_b)
+        code = lib.algl_merge_draws_wide(
+            count_a.data_ptr(), count_b.data_ptr(), key32.data_ptr(), j_a.data_ptr(),
+            u_a.data_ptr(), u_b.data_ptr(), R, k, _stream(dev),
+        )
+        _raise_on(code, "algl_merge_draws_wide launch")
+        wide_merge_launches += 1
+    else:
+        code = lib.algl_merge_draws(
+            count_a.data_ptr(), count_b.data_ptr(), signed.data_ptr(), key32.data_ptr(),
+            j_a.data_ptr(), u_a.data_ptr(), u_b.data_ptr(), R, k, _stream(dev),
+        )
+        _raise_on(code, "algl_merge_draws launch")
+        merge_launches += 1
     return MergeDraws(j_a, u_a, u_b)
 
 

@@ -13,11 +13,12 @@ from __future__ import annotations
 
 import torch
 
-from .threefry import MASK32, counter_bits, threefry2x32
+from .threefry import MASK32, counter_bits, counter_bits_pair, threefry2x32
 
 __all__ = [
     "uniform_from_bits",
     "accept_draws_words",
+    "accept_draws_pair",
     "uniforms",
     "key_from_seed",
     "split_keys",
@@ -40,6 +41,15 @@ def accept_draws_words(k1, k2, idx, k: int):
     u2 = uniform_from_bits(w1)
     slot = (w2 % k).to(torch.int32)
     return slot, u1, u2
+
+
+def accept_draws_pair(k1, k2, idx_hi, idx_lo, k: int):
+    """:func:`accept_draws_words` for an absolute index carried as its
+    ``(hi, lo)`` uint32 words (WIDE counters): the same draws as the
+    64-bit index."""
+    w0, w1, w2 = counter_bits_pair(k1, k2, idx_hi, idx_lo, 3)
+    slot = (w2 % k).to(torch.int32)
+    return slot, uniform_from_bits(w0), uniform_from_bits(w1)
 
 
 def uniforms(k1, k2, idx, n: int):

@@ -22,8 +22,10 @@ __all__ = [
     "MASK32",
     "threefry2x32",
     "fold_in_words",
+    "fold_in_words_pair",
     "bits_words",
     "counter_bits",
+    "counter_bits_pair",
 ]
 
 MASK32 = 0xFFFFFFFF
@@ -74,6 +76,13 @@ def fold_in_words(k1, k2, idx) -> Tuple[torch.Tensor, torch.Tensor]:
     return threefry2x32(k1, k2, hi, lo)
 
 
+def fold_in_words_pair(k1, k2, idx_hi, idx_lo) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fold_in_words` for a 64-bit index carried as its ``(hi, lo)``
+    uint32 words (WIDE counters, :mod:`.u64e`): both hash the block
+    ``(hi, lo)``, so the two agree bit for bit on the same logical index."""
+    return threefry2x32(k1, k2, idx_hi, idx_lo)
+
+
 def bits_words(k1, k2, n: int) -> Tuple[torch.Tensor, ...]:
     """``jr.bits(key, (n,), uint32)`` on raw words: word ``j`` is
     ``out0 ^ out1`` of block ``(0, j)``."""
@@ -88,4 +97,10 @@ def bits_words(k1, k2, n: int) -> Tuple[torch.Tensor, ...]:
 def counter_bits(k1, k2, idx, n: int) -> Tuple[torch.Tensor, ...]:
     """``n`` words for the counter-derived key ``fold_in(key, idx)``."""
     f1, f2 = fold_in_words(k1, k2, idx)
+    return bits_words(f1, f2, n)
+
+
+def counter_bits_pair(k1, k2, idx_hi, idx_lo, n: int) -> Tuple[torch.Tensor, ...]:
+    """:func:`counter_bits` for an index carried as ``(hi, lo)`` words."""
+    f1, f2 = fold_in_words_pair(k1, k2, idx_hi, idx_lo)
     return bits_words(f1, f2, n)

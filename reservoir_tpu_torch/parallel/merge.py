@@ -79,14 +79,15 @@ def _uniform_pairwise(key_words: torch.Tensor) -> Pairwise:
     """The uniform pairwise merge of a level, over the leaves ``(samples,
     count, signed)``: ``signed`` (bool) marks a count that the merge reads
     as int32, as the JAX package's tree passes an input's int32 count (past
-    2^31 - 1 it is negative); a merged count is uint32."""
+    2^31 - 1 it is negative); a merged count is uint32.  WIDE ``[.., 2]``
+    counts are unsigned 64-bit words, whose merged counts stay WIDE."""
 
     def pairwise(a: Leaves, b: Leaves, first_node: int, pairs: int) -> Leaves:
         rows = a[0].shape[0] // pairs
         nodes = torch.arange(first_node, first_node + pairs, dtype=torch.int32, device=key_words.device)
         f1, f2 = fold_in_words(key_words[0], key_words[1], nodes)
         row_keys = split_keys(torch.stack([f1, f2], dim=1), rows).reshape(pairs * rows, 2)
-        signed = a[2].to(torch.uint8) | (b[2].to(torch.uint8) << 1)
+        signed = None if a[1].ndim == 2 else a[2].to(torch.uint8) | (b[2].to(torch.uint8) << 1)
         samples, count = _algl.merge_samples_keyed(a[0], a[1], b[0], b[1], row_keys, signed)
         # the tree carries the uint32 count as its int32 bits
         return samples, count.view(torch.int32), torch.zeros_like(a[2])
@@ -130,7 +131,7 @@ def _tree_for(mode: str, items: Leaves, key_words: Optional[torch.Tensor]) -> Le
     dtypes = [x.dtype for x in items]
     items = tuple(x.view(torch.int32) if x.dtype == torch.uint32 else x for x in items)
     if mode == "uniform":
-        signed = torch.full(items[1].shape, dtypes[1] == torch.int32, device=items[1].device)
+        signed = torch.full(items[1].shape[:2], dtypes[1] == torch.int32, device=items[1].device)
         out = _merge_tree(items + (signed,), _uniform_pairwise(key_words))[:2]
         dtypes[1] = torch.uint32  # the merged count cannot wrap below 2^32
     else:
@@ -150,6 +151,12 @@ def _uniform_leaves(parts, k: int) -> Tuple[np.ndarray, np.ndarray]:
     for p, (sample, count) in enumerate(parts):
         s = np.atleast_1d(np.asarray(sample, dtype))[:k]
         rows[p, : s.shape[0]] = s
+        if not 0 <= int(count) < 2**32:
+            # the reference lifts each count to uint32 and overflows there
+            raise OverflowError(
+                f"part {p}: count {int(count)} does not fit the host merge's uint32 counts; "
+                "merge WIDE [D, R, 2] counts with uniform_stream_merger"
+            )
         counts[p] = int(count)
     return rows, counts
 
@@ -344,10 +351,11 @@ def _stream_merge(mode: str, stacked: Sequence[Stacked], key=None) -> Leaves:
 def uniform_stream_merger(samples: Stacked, count: Stacked, key) -> Tuple[torch.Tensor, torch.Tensor]:
     """Merge per-shard Algorithm-L results ``(samples [D, R, k], count
     [D, R])`` into one logical sample ``(samples [R, k], count [R]
-    uint32)`` on the first shard's device.  Each argument is one stacked
-    tensor (the D shards are ranks on its device) or a sequence of D
-    per-shard tensors, each on its own rank's device; ``key`` is an int seed
-    or ``[2]`` uint32 key words."""
+    uint32)`` on the first shard's device; WIDE counts ``[D, R, 2]`` merge
+    exactly at any magnitude into WIDE ``[R, 2]`` totals.  Each argument is
+    one stacked tensor (the D shards are ranks on its device) or a sequence
+    of D per-shard tensors, each on its own rank's device; ``key`` is an
+    int seed or ``[2]`` uint32 key words."""
     return _stream_merge("uniform", (samples, count), key)
 
 

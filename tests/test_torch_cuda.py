@@ -14,13 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from reservoir_tpu_torch import DeviceSampler, DeviceStreamBridge, ReservoirEngine, SamplerConfig
+from reservoir_tpu_torch import DeviceSampler, DeviceStreamBridge, ReservoirEngine, SamplerConfig, convert
 from reservoir_tpu_torch.ops import algorithm_l as T
 from reservoir_tpu_torch.ops import algorithm_l_cuda as TK
 from reservoir_tpu_torch.ops import distinct as TD
 from reservoir_tpu_torch.ops import distinct_cuda as TDK
 from reservoir_tpu_torch.ops import fmath
 from reservoir_tpu_torch.ops import merge_cuda as TM
+from reservoir_tpu_torch.ops import u64e as TU
 from reservoir_tpu_torch.ops import weighted as TW
 from reservoir_tpu_torch.ops import weighted_cuda as TWK
 from reservoir_tpu_torch.ops.rng import key_from_seed
@@ -1488,3 +1489,121 @@ def test_two_shard_cluster_merges_on_the_card_as_on_the_host(cuda_device, tmp_pa
         cl.migrate("k3", 1 - cl.shard_of("k3"))
     np.testing.assert_array_equal(clusters[0].snapshot("k3"), before)
     np.testing.assert_array_equal(clusters[1].snapshot("k3"), before)
+
+
+# ------------------------------------------------------------ WIDE counters
+
+
+def _wide_lifted(R, k, B, shift, device, gen):
+    """A WIDE state past its fill with imminent accepts (``nxt = count + 1 +
+    U[0, 3B)``), re-based to ``count + shift``."""
+    s = T.init(key_from_seed(6), R, k, count_dtype="wide", device=device)
+    s = TK.update_cuda(s, torch.randint(0, 2**30, (R, 2 * k), dtype=torch.int32, device=device,
+                                        generator=gen))
+    off = 1 + torch.randint(0, 3 * B, (R,), dtype=torch.int64, device=device, generator=gen)
+    count = TU.add64(TU.words(s.count), TU.from_int(shift, (R,), device))
+    return s._replace(count=TU.to_u32(count), nxt=TU.to_u32(TU.add_u32(count, off)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, (1 << 31) - 300, (1 << 32) - 300, (1 << 33) + 12345])
+@pytest.mark.parametrize("k", [16, 13, 6])
+def test_wide_kernel_equals_plain_version_across_each_boundary(cuda_device, k, shift):
+    R, B = 1024, 512
+    gen = torch.Generator(device=cuda_device).manual_seed(k)
+    s = _wide_lifted(R, k, B, shift, cuda_device, gen)
+    start = TU.words(s.count)
+    before = TK.wide_launches
+    for i in range(3):
+        tile = torch.randint(-(2**31), 2**31 - 1, (R, B), dtype=torch.int32, device=cuda_device,
+                             generator=gen)
+        valid = torch.randint(0, B + 1, (R,), dtype=torch.int32, device=cuda_device,
+                              generator=gen) if i == 2 else None
+        ref = T.update_steady(_clone(s), tile, valid)
+        s = TK.update_steady_cuda(s, tile, valid)
+        for f in _FIELDS:
+            assert torch.equal(_bits(getattr(s, f)), _bits(getattr(ref, f))), f
+    assert TK.wide_launches - before == 3
+    # every row took its elements exactly, across the boundary
+    assert torch.equal(TU.words(s.count), TU.add_u32(start, 2 * B + valid.long()))
+
+
+@pytest.mark.cuda
+def test_wide_kernel_fill_and_misaligned_counters_equal_plain_version(cuda_device):
+    """Fill tiles from empty, and counters whose words do not start on 8
+    bytes (the wrapper copies them into aligned tensors)."""
+    R, k, B = 1000, 13, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    s = T.init(key_from_seed(2), R, k, count_dtype="wide", device=cuda_device)
+    s32 = T.init(key_from_seed(2), R, k, device=cuda_device)
+    for i in range(3):
+        tile = torch.randint(-(2**31), 2**31 - 1, (R, 5 if i == 0 else B), dtype=torch.int32,
+                             device=cuda_device, generator=gen)
+        if i == 1:  # counters at an odd word offset
+            for name in ("count", "nxt"):
+                buf = torch.empty(2 * R + 1, dtype=torch.int32, device=cuda_device)
+                buf[1:].copy_(getattr(s, name).view(torch.int32).flatten())
+                s = s._replace(**{name: buf[1:].view(R, 2).view(torch.uint32)})
+            assert s.count.data_ptr() % 8 == 4
+        ref = T.update(_clone(s), tile)
+        s = TK.update_cuda(s, tile)
+        s32 = TK.update_cuda(s32, tile)
+        for f in _FIELDS:
+            assert torch.equal(_bits(getattr(s, f)), _bits(getattr(ref, f))), f
+        # a zero high word: the int32 kernel's state
+        assert torch.equal(s.samples, s32.samples) and torch.equal(s.log_w, s32.log_w)
+        assert torch.equal(TU.words(s.nxt)[:, 0], s32.nxt.long())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 128])
+def test_wide_merge_kernel_equals_plain_version(cuda_device, k):
+    R = 512
+    rng = np.random.default_rng(k)
+    ca = rng.integers(0, 1 << 40, R).astype(np.uint64)
+    cb = rng.integers(0, 1 << 40, R).astype(np.uint64)
+    ca[:8] = [0, 1, 2**32 - 1, 2**32 + 1, 2**63 + 5, 2**64 - 5, 3, 0]
+    cb[:8] = [0, 2, 2**32 + 5, 2**32 - 3, 2**63, 7, 2**31 + 1, 5]
+
+    def planes(x):
+        w = np.stack([(x & np.uint64(0xFFFFFFFF)), x >> np.uint64(32)], -1).astype(np.uint32)
+        return torch.from_numpy(w.view(np.int32)).view(torch.uint32).to(cuda_device)
+
+    keys = torch.randint(0, 2**32, (R, 2), dtype=torch.int64, device=cuda_device)
+    before = TK.wide_merge_launches
+    got = TK.merge_draws_cuda(planes(ca), planes(cb), keys, k)
+    want = T.merge_draws(planes(ca), planes(cb), keys, k)
+    assert TK.wide_merge_launches - before == 1
+    for f in ("j_a", "u_a", "u_b"):
+        assert torch.equal(_bits(getattr(got, f)), _bits(getattr(want, f))), f
+    s = torch.randint(0, 2**30, (R, k), dtype=torch.int32, device=cuda_device)
+    m_s, m_c = T.merge_samples_keyed(s, planes(ca), s + 1, planes(cb), keys)
+    assert m_c.shape == (R, 2) and TK.wide_merge_launches - before == 2
+    w_s, w_c = T.merge_from_draws(s, planes(ca), s + 1, planes(cb), want)
+    assert torch.equal(m_s, w_s) and torch.equal(_bits(m_c), _bits(w_c))
+
+
+@pytest.mark.cuda
+def test_card_wide_engine_equals_cpu_engine(cuda_device):
+    R, k, B = 512, 13, 128
+    rng = np.random.default_rng(12)
+    cfg = SamplerConfig(k, R, B, count_dtype="wide")
+    card = ReservoirEngine(cfg, key=1, device=cuda_device, reusable=True)
+    host = ReservoirEngine(cfg, key=1, device="cpu", reusable=True)
+    before = TK.wide_launches, TK.launches
+    for i in range(4):
+        tile = rng.integers(0, 2**31, (R, B)).astype(np.int32)
+        valid = rng.integers(0, B + 1, R).astype(np.int32) if i == 3 else None
+        card.sample(torch.from_numpy(tile).to(cuda_device) if i % 2 else tile, valid)
+        host.sample(tile, valid)
+    card.reset_rows([1, 7, 7], 4)
+    host.reset_rows([1, 7, 7], 4)
+    for _ in range(2):
+        tile = rng.integers(0, 2**31, (R, B)).astype(np.int32)
+        card.sample(tile)
+        host.sample(tile)
+    assert (TK.wide_launches - before[0], TK.launches - before[1]) == (6, 0)
+    for name, a in convert.state_to_numpy(card.state).items():
+        np.testing.assert_array_equal(a, convert.state_to_numpy(host.state)[name])
+    for a, b in zip(card.result_arrays(), host.result_arrays()):
+        np.testing.assert_array_equal(a, b)

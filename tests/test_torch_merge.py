@@ -197,10 +197,16 @@ def test_masked_perm_equals_jax(k):
 
 
 def test_wide_counts_raise_naming_the_roadmap():
+    """L3 is ported: two WIDE ``[R, 2]`` counts merge (into WIDE totals);
+    what still raises is a WIDE count beside a narrow one, with the
+    reference's ``ValueError`` (``tests/test_torch_wide_count.py`` holds
+    the WIDE merge against the JAX package)."""
     s = torch.zeros((2, 4), dtype=torch.int32)
     wide = torch.zeros((2, 2), dtype=torch.int32).view(torch.uint32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*L3"):
-        TA.merge_samples(s, wide, s, wide, key_from_seed(0))
+    _, count = TA.merge_samples(s, wide, s, wide, key_from_seed(0))
+    assert count.shape == (2, 2) and count.dtype == torch.uint32
+    with pytest.raises(ValueError, match="mixed-width"):
+        TA.merge_samples(s, wide, s, torch.zeros(2, dtype=torch.int32), key_from_seed(0))
     with pytest.raises(ValueError, match="int32 or uint32"):
         TA.merge_samples(s, torch.zeros(2, dtype=torch.int64), s, torch.zeros(2, dtype=torch.int32),
                          key_from_seed(0))
