@@ -14,8 +14,9 @@ gate, and the reference's public surface: the pass-through operator
 BASELINE.md config 1's size, and the serving plane: the engine's row
 operations and ``ReservoirService`` at bench.py's serve and traffic
 shapes, the hot standby and its failover at the ha shape, and the sharded
-cluster at the shards / merge shape — and holds each CUDA kernel against
-its plain torch version.  Phases, each of
+cluster at the shards / merge shape, WIDE counters, and the reference's
+``map_fn`` / ``hash_fn`` hooks and fused stream in each mode — and holds
+each CUDA kernel against its plain torch version.  Phases, each of
 which fails the run with a non-zero exit:
 
 1. device: require a CUDA card; print its name and power limit;
@@ -354,7 +355,41 @@ which fails the run with a non-zero exit:
    the bound with 8-byte counters, ``algl_merge_draws_wide`` on phase 19's
    counts beside the narrow kernel and on (a)'s counts beside its bound
    and plain version, each with its build, and the WIDE engine's elem/s
-   fed from the device.
+   fed from the device;
+39. the map hook (``map_fn``), each launch count set to 0 before each part:
+   engines with an exact elementwise map at config 5 (int32 elements to
+   float32 samples, and with WIDE counters), at the weighted configuration
+   and at the distinct one with Zipf keys, 4 tiles each: 4 launches of the
+   mode's kernel and none of another, rows 0..1023 equal to
+   ``device="cpu"`` (the plain versions, map on accept); the map pass over
+   a ``[65536, 2048]`` tile timed beside the steady kernel on the mapped
+   tile, with its bytes bound; a mapped distinct tile launches the
+   pre-hashed instantiation on the mapped keys' own words (the reference
+   runs any hook on XLA): its map pass, that hash pass and the kernel
+   timed beside the default kernel on the same mapped keys; then ``DeviceStreamBridge``s with a
+   map (R=4096, B=1024, 8 lockstep rounds of 2,048 a row through
+   ``push_interleaved``): gated with an int32 map, gated and ungated with
+   an int32 to float32 map, each launching its flushes
+   (``algl_update_gated`` its gated dispatches), its state equal to the
+   ungated card engine with the map and, rows 0..1023, to
+   ``device="cpu"``;
+40. the hash hook (``hash_fn``): the pre-hashed instantiation of
+   ``distinct_update`` against ``update_prehashed`` at R=4096, k=256,
+   B=1024 with int32 and int64 keys (random from empty, Zipf, ragged Zipf,
+   Zipf; an int64 tile as its planes) and beyond shared memory (k=19371
+   int32, 14529 int64, R=8), bit for bit; an engine with a ``hash_fn`` fed
+   8 device and 2 host Zipf tiles per key width: 10 pre-hashed launches
+   and no other, rows 0..1023 equal to an exact host oracle of the k
+   smallest (scrambled user hash, key) pairs; timings as in 15 of a steady Zipf
+   tile and a tile from empty beside the default-hash kernel on the same
+   keys, with the hash pass, the plain version, the bound and the build;
+41. the fused stream: ``sample_stream(fused=True)`` of a host stream of n
+   full tiles and a tail of 17 at config 5 (n=4, int32 and WIDE
+   counters), the weighted and the distinct (int64 keys) configurations
+   and the distinct one with ``map_fn`` and ``hash_fn`` (n=8): n + 1
+   launches of the mode's kernel, the state equal to the per-tile path's
+   bit for bit (the port feeds a fused stream tile by tile); elements/s
+   fed from the host, on the second (warm) run.
 
 Depth cut for the time limit: feed (b) follows feed (a) on the same
 bridge, so its rows are past the early stream, where a row's 8,192
@@ -369,7 +404,7 @@ on the card).
 A phase's line ends with the seconds since the script started.
 
 The line before the last is ``{"kernels": [...]}``, before it
-``{"wide": {...}}`` (phases 36-38), ``{"ha": {...}}`` (phases 33-35), ``{"serve": {...}}`` (phases 30-32), ``{"operator": {...}}`` (phases 27-29), ``{"gate": {...}}`` (phases
+``{"hooks": {...}}`` (phases 39-41), ``{"wide": {...}}`` (phases 36-38), ``{"ha": {...}}`` (phases 33-35), ``{"serve": {...}}`` (phases 30-32), ``{"operator": {...}}`` (phases 27-29), ``{"gate": {...}}`` (phases
 24-26) and ``{"bridge": {...}}`` (phases 20-23); the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or run outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -872,6 +907,7 @@ def main() -> None:
     merge_entry["ha_launches"] = ha_launches["algl_merge_draws"]
     wide, wide_entry, wide_merge_entry = wide_phases(
         gen, dev, here, {"fill_tile": fill_accepts, "steady_tile": steady_accepts, "deep_steady_tile": deep_accepts})
+    hooks, hook_extra, prehashed_entry = hook_phases(gen, dev, here)
 
     card = card_line()
     log(card)
@@ -881,7 +917,8 @@ def main() -> None:
     log(json.dumps({"serve": serve}))
     log(json.dumps({"ha": ha}))
     log(json.dumps({"wide": wide}))
-    log(json.dumps({"kernels": [{
+    log(json.dumps({"hooks": hooks}))
+    entries = [{
         "name": "algl_update",
         "route": "cuda",
         "source": "reservoir_tpu_torch/csrc/algorithm_l.cu",
@@ -906,7 +943,10 @@ def main() -> None:
         "bridge_ragged_flush": bridge["ragged_flush"],
         "gated_bridge_fallback_launches": gate["fallback_launches"],
         **algl_extra,
-    }, weighted, distinct, merge, gated_entry, merge_entry, wide_entry, wide_merge_entry]}))
+    }, weighted, distinct, merge, gated_entry, merge_entry, wide_entry, wide_merge_entry, prehashed_entry]
+    for entry in entries:
+        entry.update(hook_extra.get(entry["name"], {}))
+    log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
 
@@ -1129,13 +1169,14 @@ def weighted_phases(gen, dev) -> dict:
 
 
 def distinct_bound_ms(lanes: int, wide: bool, inserts: int, rows_inserting: int,
-                      rows: int = DR, k: int = DK) -> tuple:
+                      rows: int = DR, k: int = DK, prehashed: bool = False) -> tuple:
     """The distinct kernel's bound for a tile of ``lanes`` keys over
     ``rows`` rows (DR unless given), with ``inserts`` entries new to the
     state over ``rows_inserting`` rows (the least inserts any order of
-    candidates needs)."""
+    candidates needs); ``prehashed`` reads two hash words a lane more."""
     planes = 4 if wide else 3
-    nbytes = (8 if wide else 4) * lanes + rows * D_STATE_BYTES_PER_ROW + rows_inserting * 2 * k * 4 * planes
+    nbytes = ((8 if wide else 4) + (8 if prehashed else 0)) * lanes + rows * D_STATE_BYTES_PER_ROW \
+        + rows_inserting * 2 * k * 4 * planes
     t_bytes = nbytes / PEAK_BYTES
     per_insert = D_OPS_PER_SEARCH_STEP * (k.bit_length() - 1) + planes * k // 2
     t_ops = (D_OPS_PER_LANE * lanes + per_insert * inserts) / PEAK_INT32
@@ -4759,6 +4800,515 @@ def _wide_phases(gen, dev, here: str, accepts: dict, cpu_future) -> tuple:
         "build": kern.merge_kernel_info(wide=True),
     }
     return line, update_entry, merge_entry
+
+
+
+# ------------------------------------------- the hooks (L5) and the fused stream (L7)
+
+# phase 39: the tiles each mapped engine takes (a fill tile, then steady
+# ones), and the gated bridge's rounds and chunk a row
+HOOK_TILES = 4
+HOOK_ROUNDS, HOOK_CHUNK = 8, 2048
+# phase 40: tiles of the pre-hashed engine path (device, then host)
+HASH_DEV_TILES, HASH_HOST_TILES = 8, 2
+# phase 41: full tiles of each fused stream, and its ragged tail
+FUSED_TILES = {"uniform": 4, "wide": 4, "weighted": 8, "distinct": 8, "distinct_hooked": 8}
+FUSED_TAIL = 17
+
+
+def map_half(x):
+    """int32 elements to float32 samples, exactly: ``(x >> 8) / 2``."""
+    return (x >> 8).to(torch.float32) * 0.5
+
+
+def map_affine(x):
+    """``3 x + 7``, wrapping as int32 (or int64) arithmetic does."""
+    return x * 3 + 7
+
+
+def map_halve(x):
+    """``x >> 1``: pairs of keys become one."""
+    return x >> 1
+
+
+def hash_narrow(v):
+    """A user hash of 4-byte keys (torch or numpy): ``(v >> 16, 31 v)``."""
+    return v >> 16, v * 31
+
+
+def hash_wide(x):
+    """A user hash of 8-byte keys (torch or numpy)."""
+    return (x >> 32) ^ x, x * 0x9E37
+
+
+def hook_launches() -> dict:
+    """Every update kernel's launch count."""
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.ops import distinct_cuda as dkern
+    from reservoir_tpu_torch.ops import weighted_cuda as wkern
+
+    return {"algl_update": kern.launches, "algl_update_wide": kern.wide_launches,
+            "algl_update_gated": kern.gated_launches, "weighted_update": wkern.launches,
+            "distinct_update": dkern.launches, "distinct_update_prehashed": dkern.prehashed_launches}
+
+
+def zero_launches() -> None:
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.ops import distinct_cuda as dkern
+    from reservoir_tpu_torch.ops import weighted_cuda as wkern
+
+    kern.launches = kern.wide_launches = kern.gated_launches = 0
+    wkern.launches = dkern.launches = dkern.prehashed_launches = 0
+
+
+def only(name: str, n: int) -> dict:
+    """:func:`hook_launches` of a run that launched ``name`` n times and no
+    other update kernel."""
+    return {k: (n if k == name else 0) for k in hook_launches()}
+
+
+def held_value_keys(state) -> torch.Tensor:
+    """A distinct state's keys as int64 (narrow ones sign-extended), slots
+    past ``size`` as INT64_MAX, sorted a row: keys identify entries under
+    any hash."""
+    keys = held_keys(state).long()
+    slot = torch.arange(keys.shape[1], device=keys.device)[None, :]
+    return torch.sort(torch.where(slot < state.size[:, None].long(), keys, 2**63 - 1), dim=1).values
+
+
+def net_inserts_by_key(before, after) -> tuple:
+    """:func:`net_inserts` for states under a user hash, where two keys may
+    share a hash: entries are told apart by their keys."""
+    b, a = held_value_keys(before), held_value_keys(after)
+    idx = torch.searchsorted(b, a).clamp(max=b.shape[1] - 1)
+    new = ((b.gather(1, idx) != a) & (a != 2**63 - 1)).sum(1)
+    return int(new.sum().item()), int((new > 0).sum().item())
+
+
+def user_hash_oracle(tiles, salts, hash_fn, samples, sizes, k: int) -> tuple:
+    """Phase 40's exact host oracle, in numpy with the port's hashing:
+    each row's k smallest (scrambled user hash, key) pairs among its
+    distinct keys, in that order; a scrambled hash of (MAX, MAX) counts as
+    any other (the reference's XLA rule under a user hash).  Returns
+    ``(ok, message)``."""
+    from reservoir_tpu_torch.ops import hashing
+
+    keys = np.concatenate(tiles, axis=1)
+    hi, lo = hash_fn(keys)
+    hi = (np.asarray(hi).astype(np.int64) & 0xFFFFFFFF).astype(np.uint32)
+    lo = (np.asarray(lo).astype(np.int64) & 0xFFFFFFFF).astype(np.uint32)
+    sh, sl = hashing.scramble64(hi, lo, salts[:, 0:1], salts[:, 1:2], salts[:, 2:3], salts[:, 3:4])
+    h = (sh.astype(np.uint64) << np.uint64(32)) | sl.astype(np.uint64)
+    val = keys.astype(np.int64).view(np.uint64)  # (sign-extended) value words, in their order
+    order = np.lexsort((val, h), axis=1)
+    h, val, keys = (np.take_along_axis(x, order, 1) for x in (h, val, keys))
+    first = np.ones(h.shape, bool)
+    first[:, 1:] = (h[:, 1:] != h[:, :-1]) | (val[:, 1:] != val[:, :-1])
+    rank = np.cumsum(first, axis=1)
+    want_size = np.minimum(k, rank[:, -1])
+    if not (sizes == want_size).all():
+        bad = int(np.flatnonzero(sizes != want_size)[0])
+        return False, f"row {bad} holds {sizes[bad]} keys, min(k, #distinct) is {want_size[bad]}"
+    sel = first & (rank <= k)
+    want = np.zeros((keys.shape[0], k), keys.dtype)
+    r_idx, c_idx = np.nonzero(sel)
+    want[r_idx, rank[r_idx, c_idx] - 1] = keys[r_idx, c_idx]
+    got = np.where(np.arange(k)[None, :] < sizes[:, None], samples, 0)
+    if not (got == want).all():
+        bad = int(np.flatnonzero((got != want).any(1))[0])
+        return False, f"row {bad} differs from the k smallest (hash, key) pairs of its distinct keys"
+    return True, ""
+
+
+def hook_phases(gen, dev, here: str) -> tuple:
+    """Phases 39-41: the map and hash hooks and the fused stream on the
+    card.  Returns the ``hooks`` line, the additions to earlier kernels'
+    entries (by name) and the ``kernels`` entry of the pre-hashed
+    ``distinct_update``."""
+    line, extra = {}, {}
+    line["map"] = map_phase(gen, dev, extra)
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["hash"], entry = hash_phase(gen, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["fused"] = fused_phase(gen, dev, extra)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, extra, entry
+
+
+def map_phase(gen, dev, extra: dict) -> dict:
+    """Phase 39: engines with a map at full width (config 5 with int32 and
+    WIDE counters, weighted config 4, the distinct configuration) and a
+    gated bridge with a map, each against ``device="cpu"`` (map on accept)
+    on rows 0..1023, one launch a tile; the map pass timed beside the
+    kernel."""
+    import reservoir_tpu_torch as rtt
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.ops import distinct as dplain
+    from reservoir_tpu_torch.ops import distinct_cuda as dkern
+    from reservoir_tpu_torch.ops.hashing import to_i32
+    from reservoir_tpu_torch.ops.hooks import map_values
+
+    out = {}
+    cases = [
+        ("uniform int32 -> float32", "algl_update", dict(max_sample_size=K, num_reservoirs=R, tile_size=B,
+                                                          sample_dtype="float32"), map_half),
+        ("uniform, WIDE counters", "algl_update_wide", dict(max_sample_size=K, num_reservoirs=R, tile_size=B,
+                                                             count_dtype="wide"), map_affine),
+        ("weighted", "weighted_update", dict(max_sample_size=WK, num_reservoirs=WR, tile_size=WB,
+                                             weighted=True), map_affine),
+        ("distinct, Zipf keys", "distinct_update_prehashed", dict(max_sample_size=DK, num_reservoirs=DR,
+                                                                  tile_size=DB, distinct=True), map_halve),
+    ]
+    for label, name, kw, fn in cases:
+        rows = kw["num_reservoirs"]
+        width = kw["tile_size"]
+        gen.manual_seed(39)
+        if kw.get("distinct"):
+            tiles = [zipf_keys(gen, rows, width, torch.int32, dev) for _ in range(HOOK_TILES)]
+        else:
+            tiles = [torch.randint(-(2**31), 2**31 - 1, (rows, width), dtype=torch.int32, device=dev,
+                                   generator=gen) for _ in range(HOOK_TILES)]
+        weights = ([weight_tile(gen, rows, width, "zeros", dev) for _ in range(HOOK_TILES)]
+                   if kw.get("weighted") else [None] * HOOK_TILES)
+        torch.cuda.synchronize()
+        zero_launches()
+        eng = rtt.ReservoirEngine(rtt.SamplerConfig(**kw), key=0, map_fn=fn)
+        for tile, w in zip(tiles, weights):
+            eng.sample(tile, weights=w)
+        torch.cuda.synchronize()
+        got = hook_launches()
+        if got != only(name, HOOK_TILES):
+            fail(f"[39 map] {label}: launches {got} for {HOOK_TILES} tiles, not {HOOK_TILES} of {name} alone")
+        extra.setdefault(name, {})["mapped_launches"] = got[name]
+        cpu = rtt.ReservoirEngine(rtt.SamplerConfig(**{**kw, "num_reservoirs": ROWS_CPU}), key=0, map_fn=fn,
+                                  device="cpu")
+        for tile, w in zip(tiles, weights):
+            cpu.sample(tile[:ROWS_CPU].cpu(), weights=None if w is None else w[:ROWS_CPU].cpu())
+        if not same(cpu.state, clone(eng.state, ROWS_CPU, "cpu")):
+            fail(f"[39 map] {label}: the card engine != device=\"cpu\" (map on accept) on rows 0..{ROWS_CPU - 1}")
+        sizes = eng.peek_arrays()[1]
+        case = {"launches": got[name], "min_size": int(sizes.min())}
+        if name.startswith("algl"):
+            # the map pass beside the kernel it feeds, on the last (steady) tile
+            tile, state = tiles[-1], eng.state
+            mapped = map_values(fn, tile, eng._dtype)
+            map_ms = event_ms(lambda _: map_values(fn, tile, eng._dtype), batch=10)
+            kernel_ms = event_ms(lambda st: kern.update_steady_cuda(st, mapped), setup=lambda: clone(state),
+                                 batch=10)
+            nbytes = tile.numel() * (tile.element_size() + mapped.element_size())
+            case.update({"map_ms": map_ms, "kernel_ms": kernel_ms,
+                         "map_bound_ms": 1e3 * nbytes / PEAK_BYTES, "map_bytes": nbytes})
+            extra[name]["map_pass"] = {k: case[k] for k in ("map_ms", "kernel_ms", "map_bound_ms")}
+        elif kw.get("distinct"):
+            # a mapped distinct tile: the map pass, the pass that takes the
+            # mapped keys' own words as hash planes, and the pre-hashed
+            # kernel beside the default one on the same mapped keys
+            tile, state = tiles[-1], eng.state
+            mapped = dplain.map_keys(state, tile, fn)
+            hashes = tuple(to_i32(w).contiguous() for w in dplain.hook_hashes(state, mapped, None))
+            case.update({
+                "map_ms": event_ms(lambda _: dplain.map_keys(state, tile, fn), batch=10),
+                "hash_pass_ms": event_ms(lambda _: tuple(to_i32(w).contiguous()
+                                                         for w in dplain.hook_hashes(state, mapped, None)),
+                                         batch=10),
+                "kernel_ms": event_ms(lambda st: dkern.update_prehashed_cuda(st, mapped, hashes),
+                                      setup=lambda: clone(state), batch=10),
+                "default_kernel_ms": event_ms(lambda st: dkern.update_prehashed_cuda(st, mapped, None),
+                                              setup=lambda: clone(state), batch=10),
+            })
+            extra[name]["map_pass"] = {k: case[k] for k in ("map_ms", "hash_pass_ms", "kernel_ms",
+                                                             "default_kernel_ms")}
+        out[label] = case
+        log(f"[39 map] {card_line()} | {label}: {HOOK_TILES} tiles, {got[name]} {name} launches, sizes >= "
+            f"{case['min_size']}; rows 0..{ROWS_CPU - 1} == device=\"cpu\" (map on accept)"
+            + (f"; map pass {case['map_ms']:.4f} ms (bound {case['map_bound_ms']:.4f} ms, bytes) beside the "
+               f"steady kernel on the mapped tile {case['kernel_ms']:.4f} ms" if "map_bound_ms" in case else "")
+            + (f"; map pass {case['map_ms']:.4f} ms, own-words hash pass {case['hash_pass_ms']:.4f} ms, the "
+               f"pre-hashed kernel on the mapped keys {case['kernel_ms']:.4f} ms (the default kernel "
+               f"{case['default_kernel_ms']:.4f} ms)" if "hash_pass_ms" in case else ""))
+        del eng, cpu, tiles, weights
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # bridges with a map: lockstep rounds through push_interleaved, each
+    # against the ungated card engine and device="cpu" fed the same rows in
+    # tiles.  A card flush ships the demux's element bytes, so a map that
+    # changes the dtype runs both bridges' flush paths on other words
+    total = HOOK_ROUNDS * HOOK_CHUNK
+    streams = ((np.arange(RR, dtype=np.int64)[:, None] * 1_000_003 + np.arange(total, dtype=np.int64)[None, :])
+               % 2**32 - 2**31).astype(np.int32)
+    ids = np.tile(np.arange(RR, dtype=np.int32), HOOK_CHUNK)
+    bridges = [("gated bridge", True, map_affine, {}),
+               ("gated bridge, int32 -> float32", True, map_half, {"sample_dtype": "float32"}),
+               ("ungated bridge, int32 -> float32", False, map_half, {"sample_dtype": "float32"})]
+    refs = {}
+    for label, gated, fn, kw in bridges:
+        cfg = rtt.SamplerConfig(max_sample_size=K, num_reservoirs=RR, tile_size=RB, **kw)
+        zero_launches()
+        bridge = rtt.DeviceStreamBridge(cfg, key=0, map_fn=fn, gated=gated)
+        for rnd in range(HOOK_ROUNDS):
+            bridge.push_interleaved(ids, streams[:, rnd * HOOK_CHUNK:(rnd + 1) * HOOK_CHUNK].T.ravel())
+        bridge.flush()
+        bridge.drain_barrier()
+        torch.cuda.synchronize()
+        m = bridge.metrics
+        got = hook_launches()
+        if (got["algl_update_gated"] != m.gated_dispatches or got["algl_update"] != m.flushes - m.gated_dispatches
+                or sum(got.values()) != m.flushes or (m.gated_dispatches >= 1) != gated):
+            fail(f"[39 map] {label}: launches {got} for {m.flushes} flushes, {m.gated_dispatches} gated")
+        if gated and "algl_update_gated" not in extra:
+            extra["algl_update_gated"] = {"mapped_launches": got["algl_update_gated"]}
+        counted = dict(got)
+        if fn not in refs:  # the references, once a map
+            engine = rtt.ReservoirEngine(cfg, key=0, map_fn=fn)
+            cpu = rtt.ReservoirEngine(rtt.SamplerConfig(max_sample_size=K, num_reservoirs=ROWS_CPU,
+                                                        tile_size=RB, **kw), key=0, map_fn=fn, device="cpu")
+            for t in range(total // RB):
+                tile = streams[:, t * RB:(t + 1) * RB]
+                engine.sample(tile)
+                cpu.sample(tile[:ROWS_CPU])
+            torch.cuda.synchronize()
+            if not same(cpu.state, clone(engine._state, ROWS_CPU, "cpu")):
+                fail(f"[39 map] the card engine with {fn.__name__} != device=\"cpu\" (map on accept) on rows "
+                     f"0..{ROWS_CPU - 1}")
+            refs[fn] = engine
+        if not same(bridge.engine._state, refs[fn]._state):
+            fail(f"[39 map] the {label}'s state != the ungated card engine with the same map")
+        out[label] = {"flushes": m.flushes, "gated_dispatches": m.gated_dispatches, "launches": counted}
+        log(f"[39 map] {label} R {RR}, k {K}, B {RB}, {HOOK_ROUNDS} lockstep rounds of {HOOK_CHUNK} a row: "
+            f"{m.flushes} flushes, {m.gated_dispatches} gated ({counted['algl_update_gated']} algl_update_gated "
+            f"and {counted['algl_update']} algl_update launches); == the ungated card engine, rows "
+            f"0..{ROWS_CPU - 1} == device=\"cpu\"")
+        del bridge
+    del refs
+    return out
+
+
+def hash_phase(gen, dev) -> tuple:
+    """Phase 40: the pre-hashed ``distinct_update`` against its plain
+    version (narrow and int64 keys, on chip and beyond shared memory), the
+    hooked engine against an exact oracle with one launch a tile, and its
+    timings beside the default-hash kernel on the same keys."""
+    import reservoir_tpu_torch as rtt
+    from reservoir_tpu_torch.convert import distinct_state_to_numpy
+    from reservoir_tpu_torch.ops import distinct as dplain
+    from reservoir_tpu_torch.ops import distinct_cuda as dkern
+    from reservoir_tpu_torch.ops.hashing import to_i32
+    from reservoir_tpu_torch.ops.hooks import hash_words
+    from reservoir_tpu_torch.ops.rng import key_from_seed
+
+    def planes(tile, fn):
+        return tuple(to_i32(w).contiguous() for w in hash_words(fn, tile))
+
+    worst, checked = 0.0, 0
+    for dtype, fn in ((torch.int32, hash_narrow), (torch.int64, hash_wide)):
+        gen.manual_seed(40)
+        s = dplain.init(key_from_seed(40), DR, DK, sample_dtype=dtype, device=dev)
+        for t, kind in enumerate(("random", "zipf", "zipf", "zipf")):
+            tile = (wide_or_narrow(torch.randint(-(2**62), 2**62, (DR, DB), generator=gen, device=dev), dtype)
+                    if kind == "random" else zipf_keys(gen, DR, DB, dtype, dev))
+            valid = (torch.randint(0, DB + 1, (DR,), dtype=torch.int32, device=dev, generator=gen)
+                     if t == 2 else None)
+            hashes = planes(tile, fn)
+            batch = tile
+            if dtype == torch.int64 and t == 1:  # an 8-byte tile as its (hi, lo) planes
+                w = tile.view(torch.int32).view(DR, DB, 2)
+                batch = (w[..., 1].contiguous(), w[..., 0].contiguous())
+            ref = dplain.update_prehashed(clone(s), tile, hashes, valid)
+            s = dkern.update_prehashed_cuda(s, batch, hashes, valid)
+            torch.cuda.synchronize()
+            worst = max(worst, max_abs_err(s, ref))
+            checked += 1
+            if not same(s, ref):
+                fail(f"[40 hash] pre-hashed distinct_update != update_prehashed ({dtype}, tile {t}: {kind})")
+        log(f"[40 hash] pre-hashed kernel vs plain, {dtype}, R {DR}, k {DK}: 4 tiles (random from empty, Zipf, "
+            "ragged Zipf, Zipf) bit-identical")
+        del s, ref
+    for dtype, fn, k_big in ((torch.int32, hash_narrow, 19371), (torch.int64, hash_wide, 14529)):
+        wide = dtype == torch.int64
+        if dkern.kernel_info(k_big, wide, prehashed=True)["dynamic_smem"] != 0:
+            fail(f"[40 hash] the pre-hashed kernel at k {k_big} ({dtype}) reports a block in shared memory")
+        s = dplain.init(key_from_seed(41), 8, k_big, sample_dtype=dtype, device=dev)
+        for t in range(2):
+            tile = wide_or_narrow(torch.randint(-(2**62), 2**62, (8, 12288), generator=gen, device=dev), dtype)
+            hashes = planes(tile, fn)
+            ref = dplain.update_prehashed(clone(s), tile, hashes)
+            s = dkern.update_prehashed_cuda(s, tile, hashes)
+            torch.cuda.synchronize()
+            worst = max(worst, max_abs_err(s, ref))
+            checked += 1
+            if not same(s, ref):
+                fail(f"[40 hash] pre-hashed kernel != plain beyond shared memory ({dtype}, k {k_big}, tile {t})")
+        if int(s.size.min().item()) != k_big:
+            fail(f"[40 hash] a row at k {k_big} ({dtype}) holds fewer than k keys")
+        log(f"[40 hash] pre-hashed kernel vs plain, {dtype}, k {k_big} (beyond shared memory, R 8): 2 tiles "
+            "bit-identical")
+        del s, ref
+
+    # the engine path with a hash_fn, 4- and 8-byte keys, against an oracle
+    main_launches, rates = 0, {}
+    for name, dtype, fn in (("int32", torch.int32, hash_narrow), ("int64", torch.int64, hash_wide)):
+        gen.manual_seed(42)
+        dev_tiles = [zipf_keys(gen, DR, DB, dtype, dev) for _ in range(HASH_DEV_TILES)]
+        host_tiles = [zipf_keys(gen, DR, DB, dtype, dev).cpu().numpy() for _ in range(HASH_HOST_TILES)]
+        torch.cuda.synchronize()
+        zero_launches()
+        eng = rtt.ReservoirEngine(rtt.SamplerConfig(max_sample_size=DK, num_reservoirs=DR, tile_size=DB,
+                                                    distinct=True, element_dtype=name), key=0, hash_fn=fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for tile in dev_tiles:
+            eng.sample(tile)
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t0
+        for tile in host_tiles:
+            eng.sample(tile)
+        torch.cuda.synchronize()
+        n = HASH_DEV_TILES + HASH_HOST_TILES
+        got = hook_launches()
+        if got != only("distinct_update_prehashed", n):
+            fail(f"[40 hash] the hooked distinct engine ({name}) launched {got} for {n} tiles")
+        main_launches += got["distinct_update_prehashed"]
+        salts = distinct_state_to_numpy(eng.state)["salts"][:ROWS_CPU]
+        samples, sizes = eng.result_arrays()
+        # the oracle on rows 0..1023 (numpy over all 4,096 would take ~15 s a width)
+        ok, msg = user_hash_oracle([t[:ROWS_CPU].cpu().numpy() for t in dev_tiles]
+                                   + [t[:ROWS_CPU] for t in host_tiles], salts, fn, samples[:ROWS_CPU],
+                                   sizes[:ROWS_CPU], DK)
+        if not ok:
+            fail(f"[40 hash] hooked distinct engine ({name}): {msg}")
+        rates[name] = HASH_DEV_TILES * DR * DB / t_dev
+        log(f"[40 hash] engine with hash_fn, {name} Zipf keys: {n} tiles, {got['distinct_update_prehashed']} "
+            f"pre-hashed launches, rows 0..{ROWS_CPU - 1} equal the exact (hash, key) oracle, sizes {int(sizes.min())}.."
+            f"{int(sizes.max())}; {rates[name]:.6e} elem/s fed from the device")
+        del eng, dev_tiles, host_tiles
+
+    # timings: a steady Zipf tile and a tile from empty, the pre-hashed
+    # kernel beside the default-hash kernel on the same keys
+    gen.manual_seed(43)
+    s0 = dplain.init(key_from_seed(0), DR, DK, device=dev)
+    pre_state, def_state = clone(s0), clone(s0)
+    for _ in range(8):
+        tile = zipf_keys(gen, DR, DB, torch.int32, dev)
+        pre_state = dkern.update_prehashed_cuda(pre_state, tile, planes(tile, hash_narrow))
+        def_state = dkern.update_prehashed_cuda(def_state, tile, None)
+    timings = {}
+    for label, pre_s, def_s in (("steady Zipf tile after 8", pre_state, def_state),
+                                ("Zipf tile from empty", s0, s0)):
+        tile = zipf_keys(gen, DR, DB, torch.int32, dev)
+        hashes = planes(tile, hash_narrow)
+        ms = event_ms(lambda st: dkern.update_prehashed_cuda(st, tile, hashes), setup=lambda: clone(pre_s),
+                      batch=10)
+        default_ms = event_ms(lambda st: dkern.update_prehashed_cuda(st, tile, None), setup=lambda: clone(def_s),
+                              batch=10)
+        hash_ms = event_ms(lambda _: planes(tile, hash_narrow), batch=10)
+        plain_times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ref = dplain.update_prehashed(pre_s, tile, hashes)
+            torch.cuda.synchronize()
+            plain_times.append(1e3 * (time.perf_counter() - t0))
+        inserts, rows_in = net_inserts_by_key(pre_s, ref)
+        bound, by = distinct_bound_ms(DR * DB, False, inserts, rows_in, prehashed=True)
+        timings[label] = {"ms": ms, "default_hash_ms": default_ms, "hash_pass_ms": hash_ms,
+                          "plain_ms": statistics.median(plain_times), "bound_ms": bound, "bound_by": by,
+                          "net_inserts": inserts, "rows_inserting": rows_in}
+        del ref
+    card = card_line()
+    build = dkern.kernel_info(DK, False, prehashed=True)
+    for label, t in timings.items():
+        log(f"[40 hash timings] {card} | {label}: pre-hashed kernel {t['ms']:.4f} ms (default-hash kernel "
+            f"{t['default_hash_ms']:.4f} ms on the same keys), plain {t['plain_ms']:.1f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), net inserts {t['net_inserts']} over "
+            f"{t['rows_inserting']} rows; the hash pass {t['hash_pass_ms']:.4f} ms; build {build_text(build)}")
+    steady = timings["steady Zipf tile after 8"]
+    entry = {
+        "name": "distinct_update_prehashed",
+        "route": "cuda",
+        "source": "reservoir_tpu_torch/csrc/distinct.cu",
+        "replaces": "reservoir_tpu/ops/distinct_pallas.py:129",
+        "replaces_note": "the pre-hashed instantiation of distinct_update; under a hash_fn the reference "
+                         "declines its Pallas kernel and runs XLA (reservoir_tpu/ops/distinct.py:232)",
+        "launches": main_launches,
+        "max_abs_err": worst,
+        "ms": steady["ms"],
+        "plain_ms": steady["plain_ms"],
+        "bound_ms": steady["bound_ms"],
+        "bound_by": steady["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a deduplicating bottom-k merge",
+        "steady_zipf_tile": steady,
+        "fill_tile": timings["Zipf tile from empty"],
+        "tiles_checked": checked,
+        "engine_elem_per_s": rates,
+        "build": {"int32": build, "int64": dkern.kernel_info(DK, True, prehashed=True)},
+    }
+    return {"tiles_checked": checked, "engine_launches": main_launches, "timings": timings}, entry
+
+
+def fused_phase(gen, dev, extra: dict) -> dict:
+    """Phase 41: ``sample_stream(fused=True)`` at full width in the three
+    modes, with WIDE counters and with hooks, each against the per-tile
+    path bit for bit, one launch a tile; elements/s fed from the host."""
+    import reservoir_tpu_torch as rtt
+
+    out = {}
+    modes = {
+        "uniform": ("algl_update", dict(max_sample_size=K, num_reservoirs=R, tile_size=B), {}),
+        "wide": ("algl_update_wide", dict(max_sample_size=K, num_reservoirs=R, tile_size=B, count_dtype="wide"),
+                 {}),
+        "weighted": ("weighted_update", dict(max_sample_size=WK, num_reservoirs=WR, tile_size=WB, weighted=True),
+                     {}),
+        "distinct": ("distinct_update", dict(max_sample_size=DK, num_reservoirs=DR, tile_size=DB, distinct=True,
+                                             element_dtype="int64"), {}),
+        "distinct_hooked": ("distinct_update_prehashed", dict(max_sample_size=DK, num_reservoirs=DR,
+                                                              tile_size=DB, distinct=True),
+                            dict(map_fn=map_halve, hash_fn=hash_narrow)),
+    }
+    for mode, (name, kw, hooks) in modes.items():
+        n = FUSED_TILES[mode]
+        rows, width = kw["num_reservoirs"], kw["tile_size"]
+        N = n * width + FUSED_TAIL
+        gen.manual_seed(41)
+        if kw.get("distinct"):
+            dtype = torch.int64 if kw.get("element_dtype") == "int64" else torch.int32
+            stream = zipf_keys(gen, rows, N, dtype, dev).cpu().numpy()
+        else:
+            stream = torch.randint(-(2**31), 2**31 - 1, (rows, N), dtype=torch.int32, device=dev,
+                                   generator=gen).cpu().numpy()
+        w = weight_tile(gen, rows, N, "zeros", dev).cpu().numpy() if kw.get("weighted") else None
+        cfg = rtt.SamplerConfig(**kw)
+        fused = rtt.ReservoirEngine(cfg, key=0, reusable=True, **hooks)
+        tiled = rtt.ReservoirEngine(cfg, key=0, reusable=True, **hooks)
+        launches = {}
+        for turn, eng in (("per_tile", tiled), ("fused", fused)):
+            torch.cuda.synchronize()
+            zero_launches()
+            t0 = time.perf_counter()
+            eng.sample_stream(stream, weights=w, fused=turn == "fused")
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches[turn] = hook_launches()
+        if launches["fused"] != only(name, n + 1) or launches["per_tile"] != only(name, n + 1):
+            fail(f"[41 fused] {mode}: launches fused {launches['fused']}, per tile {launches['per_tile']} for "
+                 f"{n} full tiles and a ragged tail")
+        if not same(fused._state, tiled._state):
+            fail(f"[41 fused] {mode}: the fused stream != the per-tile path")
+        eps = rows * N / seconds  # the second run, warm
+        out[mode] = {"tiles": n, "tail": FUSED_TAIL, "launches": launches["fused"][name],
+                     "host_fed_elem_per_s": eps, "seconds": seconds}
+        extra.setdefault(name, {})["fused_launches"] = launches["fused"][name]
+        extra[name]["fused_host_fed_elem_per_s"] = eps
+        log(f"[41 fused] {card_line()} | {mode}, [{rows}, {N}] host stream ({n} full tiles of {width} and a tail "
+            f"of {FUSED_TAIL}){' with map_fn and hash_fn' if hooks else ''}: {launches['fused'][name]} {name} "
+            f"launches, == the per-tile path; fed from the host {eps:.6e} elem/s (warm)")
+        del fused, tiled, stream, w
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

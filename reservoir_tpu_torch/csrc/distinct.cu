@@ -14,6 +14,19 @@
 // Unlike the TPU kernel it takes a per-row valid count, so ragged tiles run
 // here too.
 //
+// The pre-hashed instantiation (PRE, the reference's hash_fn hook, which
+// reservoir_tpu/ops/distinct.py:_update_one scrambles in place of the
+// value's words) reads a separate pair of [R, B] pre-scramble hash planes
+// and scrambles those; it still reads the value planes, for what it stores
+// and for the order.  A user hash may give two values one hash, so there
+// an entry is identified and ordered by (hash_hi, hash_lo, value_hi,
+// value_lo), 128 bits, in every compare, equality and match below.  It
+// follows the reference's XLA sort-merge, which is what the reference runs
+// under a user hash: while a row is not full every lane is a candidate, a
+// scrambled hash of (MAX, MAX) included; a full row's threshold is its last
+// entry's 128-bit key.  Its plain version is
+// reservoir_tpu_torch/ops/distinct.py:update_prehashed with hash planes.
+//
 // Bound.  Every tile word must be read once (4 or 8 bytes a lane); per lane
 // the scramble is ~64 integer operations (6 rounds of fmix32, an add and the
 // Feistel xor, the salt xors).  A steady tile of the distinct benchmark
@@ -87,6 +100,33 @@ __device__ __forceinline__ uint32_t sign_hi(uint32_t lo) {
   return static_cast<uint32_t>(static_cast<int32_t>(lo) >> 31);
 }
 
+// An entry's key: its scrambled hash and its value words.  The default
+// instantiation orders and identifies entries by the hash alone (the
+// scramble is a permutation of the value); the pre-hashed one by all four
+// words.
+struct Key {
+  uint32_t h, l, vh, vl;
+};
+
+template <bool PRE>
+__device__ __forceinline__ bool before(const Key& a, const Key& b) {
+  if (!PRE || a.h != b.h || a.l != b.l) return lt64(a.h, a.l, b.h, b.l);
+  return lt64(a.vh, a.vl, b.vh, b.vl);
+}
+
+template <bool PRE>
+__device__ __forceinline__ bool same_key(const Key& a, const Key& b) {
+  return a.h == b.h && a.l == b.l && (!PRE || (a.vh == b.vh && a.vl == b.vl));
+}
+
+// Whether a lane's key is a candidate against the row's threshold: below
+// the last entry (whose hash is (MAX, MAX) while the row is not full); the
+// pre-hashed rule takes every lane of a row that is not full.
+template <bool PRE>
+__device__ __forceinline__ bool below(const Key& c, const Key& thr, bool full) {
+  return (PRE && !full) || before<PRE>(c, thr);
+}
+
 // The position of the n-th (0-based) set bit of m; n < popc(m).
 __device__ __forceinline__ int nth_set(unsigned m, int n) {
   int pos = 0;
@@ -142,6 +182,33 @@ struct Block<false> {
   }
 };
 
+// Words first .. first + 3 of one plane's row (those below v).
+__device__ __forceinline__ void load_words(const uint32_t* __restrict__ row, bool vec, int first,
+                                           int v, uint32_t (&w)[kPer]) {
+  if (first >= v) return;
+  if (vec) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(row + first));
+    w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < kPer; ++e)
+      if (first + e < v) w[e] = __ldg(row + first + e);
+  }
+}
+
+// Entry i of a row block as a Key; its value words are read only where the
+// order needs them (PRE).
+template <bool WIDE, bool PRE, bool ON_CHIP>
+__device__ __forceinline__ Key entry(const Block<ON_CHIP>& blk, int i) {
+  const uint2 e = blk.hash(i);
+  Key key{e.x, e.y, 0u, 0u};
+  if (PRE) {
+    key.vl = blk.vl[i];
+    key.vh = WIDE ? blk.vh[i] : sign_hi(key.vl);
+  }
+  return key;
+}
+
 // Keys first .. first + 3 of the row (those below v) into lo/hi words.
 template <bool WIDE>
 __device__ __forceinline__ void load_keys(const uint32_t* __restrict__ lo_row,
@@ -179,36 +246,32 @@ __device__ __forceinline__ void load_keys(const uint32_t* __restrict__ lo_row,
   }
 }
 
-// One round: each lane with c set offers the key (ch, cl) / (cvh, cvl).
-// Keys already held or repeated in the round go; the rest are merged into
-// the sorted block in one pass.  Updates sz, the threshold and dirty.
-template <bool WIDE, bool ON_CHIP>
+// One round: each lane with c set offers the key cand (its hash and value
+// words).  Keys already held or repeated in the round go; the rest are
+// merged into the sorted block in one pass.  Updates sz, the threshold,
+// full and dirty.
+template <bool WIDE, bool ON_CHIP, bool PRE>
 __device__ __forceinline__ void take_round(const Block<ON_CHIP>& blk, int k, int lane, bool c,
-                                           uint32_t ch, uint32_t cl, uint32_t cvh, uint32_t cvl,
-                                           int& sz, uint32_t& th, uint32_t& tl, bool& dirty) {
+                                           const Key& cand, int& sz, Key& thr, bool& full,
+                                           bool& dirty) {
+  const uint32_t ch = cand.h, cl = cand.l, cvh = cand.vh, cvl = cand.vl;
   // rank in the block (entries below) and an equal entry, by binary search
   int p = 0;
   if (sz > 0) {
     for (int step = 1 << (31 - __clz(sz)); step > 0; step >>= 1) {
       const int probe = p + step - 1;
-      if (probe < sz) {
-        const uint2 e = blk.hash(probe);
-        if (lt64(e.x, e.y, ch, cl)) p += step;
-      }
+      if (probe < sz && before<PRE>(entry<WIDE, PRE>(blk, probe), cand)) p += step;
     }
   }
   bool s = c;
-  if (s && p < sz) {
-    const uint2 e = blk.hash(p);
-    s = !(e.x == ch && e.y == cl);
-  }
+  if (s && p < sz) s = !same_key<PRE>(entry<WIDE, PRE>(blk, p), cand);
   const unsigned sm = __ballot_sync(kFull, s);
   if (sm == 0) return;
   // a key repeated in the round keeps its lowest lane
   bool keep = false;
   if (s) {
-    const unsigned eq =
-        __match_any_sync(sm, (static_cast<unsigned long long>(ch) << 32) | cl);
+    unsigned eq = __match_any_sync(sm, (static_cast<unsigned long long>(ch) << 32) | cl);
+    if (PRE) eq &= __match_any_sync(sm, (static_cast<unsigned long long>(cvh) << 32) | cvl);
     keep = (eq & ((1u << lane) - 1u)) == 0;
   }
   const unsigned km = __ballot_sync(kFull, keep);
@@ -217,8 +280,12 @@ __device__ __forceinline__ void take_round(const Block<ON_CHIP>& blk, int k, int
   int rank = 0;
   for (unsigned m = km; m; m &= m - 1u) {
     const int src = __ffs(m) - 1;
-    const uint32_t oh = __shfl_sync(kFull, ch, src), ol = __shfl_sync(kFull, cl, src);
-    rank += lt64(oh, ol, ch, cl) ? 1 : 0;
+    Key other{__shfl_sync(kFull, ch, src), __shfl_sync(kFull, cl, src), 0u, 0u};
+    if (PRE) {
+      other.vh = __shfl_sync(kFull, cvh, src);
+      other.vl = __shfl_sync(kFull, cvl, src);
+    }
+    rank += before<PRE>(other, cand) ? 1 : 0;
   }
   // lane r < n takes the new key of rank r
   unsigned sel = km;
@@ -268,20 +335,20 @@ __device__ __forceinline__ void take_round(const Block<ON_CHIP>& blk, int k, int
   __syncwarp();
   sz = sz + n < k ? sz + n : k;
   if (sz == k) {
-    const uint2 t = blk.hash(k - 1);
-    th = t.x;
-    tl = t.y;
+    thr = entry<WIDE, PRE>(blk, k - 1);
+    full = true;
   }
   dirty = true;
 }
 
-template <bool WIDE, bool ON_CHIP>
+template <bool WIDE, bool ON_CHIP, bool PRE>
 __global__ void __launch_bounds__(kMaxWarps * 32, 8)
 update_kernel(uint32_t* __restrict__ values, uint32_t* __restrict__ value_hi,
               uint32_t* __restrict__ hash_hi, uint32_t* __restrict__ hash_lo,
               int32_t* __restrict__ size, int32_t* __restrict__ count,
               const uint32_t* __restrict__ salts, const uint32_t* __restrict__ tile_lo,
               const uint32_t* __restrict__ tile_hi, int stride, int vec,
+              const uint32_t* __restrict__ pre_hi, const uint32_t* __restrict__ pre_lo,
               const int32_t* __restrict__ valid, int R, int k, int B, int warp_bytes) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
@@ -306,16 +373,25 @@ update_kernel(uint32_t* __restrict__ values, uint32_t* __restrict__ value_hi,
   const int vt = v < 0 ? 0 : (v > B ? B : v);
   int sz = size[r];
   // the threshold: the last entry, (MAX, MAX) while the row is not full
-  uint32_t th = hash_hi[row + k - 1], tl = hash_lo[row + k - 1];
+  // (the pre-hashed rule reads the last entry's value words too, and only
+  // once the row is full)
+  bool full = sz >= k;
+  Key thr{hash_hi[row + k - 1], hash_lo[row + k - 1], 0u, 0u};
+  if (PRE && full) {
+    thr.vl = values[row + k - 1];
+    thr.vh = WIDE ? value_hi[row + k - 1] : sign_hi(thr.vl);
+  }
   bool held = false;   // the row's block is in shared memory
   bool dirty = false;  // and differs from the one in memory
   const size_t base = static_cast<size_t>(r) * B * stride;
   const uint32_t* lo_row = tile_lo + base;
   const uint32_t* hi_row = WIDE ? tile_hi + base : nullptr;
+  const uint32_t* ph_row = PRE ? pre_hi + static_cast<size_t>(r) * B : nullptr;
+  const uint32_t* pl_row = PRE ? pre_lo + static_cast<size_t>(r) * B : nullptr;
 
   // candidates wait in lanes, one a lane, until 32 are pending or the row
   // ends; the threshold may have tightened since their chunk's ballots
-  uint32_t pch = 0u, pcl = 0u, pcvh = 0u, pcvl = 0u;
+  Key pend{0u, 0u, 0u, 0u};
   int npend = 0;
   bool ready = !ON_CHIP;  // the block's copy has landed
   auto flush = [&]() {
@@ -324,34 +400,44 @@ update_kernel(uint32_t* __restrict__ values, uint32_t* __restrict__ value_hi,
       __syncwarp();
       ready = true;
     }
-    const bool c = lane < npend && lt64(pch, pcl, th, tl);
-    take_round<WIDE, ON_CHIP>(blk, k, lane, c, pch, pcl, pcvh, pcvl, sz, th, tl, dirty);
+    const bool c = lane < npend && below<PRE>(pend, thr, full);
+    take_round<WIDE, ON_CHIP, PRE>(blk, k, lane, c, pend, sz, thr, full, dirty);
   };
 
   uint32_t nlo[kPer] = {0u, 0u, 0u, 0u}, nhi[kPer] = {0u, 0u, 0u, 0u};
+  uint32_t nph[kPer] = {0u, 0u, 0u, 0u}, npl[kPer] = {0u, 0u, 0u, 0u};
   load_keys<WIDE>(lo_row, hi_row, stride, vec != 0, kPer * lane, vt, nlo, nhi);
+  if (PRE) {
+    load_words(ph_row, vec != 0, kPer * lane, vt, nph);
+    load_words(pl_row, vec != 0, kPer * lane, vt, npl);
+  }
   for (int off = 0; off < vt; off += kChunk) {
     uint32_t lo[kPer], hi[kPer];
+    uint32_t sh[kPer], sl[kPer];
 #pragma unroll
     for (int e = 0; e < kPer; ++e) {
       lo[e] = nlo[e];
       hi[e] = nhi[e];
+      sh[e] = PRE ? nph[e] : hi[e];
+      sl[e] = PRE ? npl[e] : lo[e];
     }
     const int first = off + kPer * lane;
-    if (off + kChunk < vt) load_keys<WIDE>(lo_row, hi_row, stride, vec != 0, first + kChunk, vt, nlo, nhi);
-    uint32_t sh[kPer], sl[kPer];
+    if (off + kChunk < vt) {
+      load_keys<WIDE>(lo_row, hi_row, stride, vec != 0, first + kChunk, vt, nlo, nhi);
+      if (PRE) {
+        load_words(ph_row, vec != 0, first + kChunk, vt, nph);
+        load_words(pl_row, vec != 0, first + kChunk, vt, npl);
+      }
+    }
     unsigned bal[kPer];
 #pragma unroll
-    for (int e = 0; e < kPer; ++e) {
-      sh[e] = hi[e];
-      sl[e] = lo[e];
-      dhash::scramble64(sh[e], sl[e], r0h, r0l, r1h, r1l);
-    }
+    for (int e = 0; e < kPer; ++e) dhash::scramble64(sh[e], sl[e], r0h, r0l, r1h, r1l);
     int pre[kPer];
     int total = 0;
 #pragma unroll
     for (int e = 0; e < kPer; ++e) {
-      bal[e] = __ballot_sync(kFull, first + e < vt && lt64(sh[e], sl[e], th, tl));
+      const Key key{sh[e], sl[e], hi[e], lo[e]};
+      bal[e] = __ballot_sync(kFull, first + e < vt && below<PRE>(key, thr, full));
       pre[e] = total;
       total += __popc(bal[e]);
     }
@@ -391,12 +477,7 @@ update_kernel(uint32_t* __restrict__ values, uint32_t* __restrict__ value_hi,
         const uint32_t a = __shfl_sync(kFull, sh[e], src), b = __shfl_sync(kFull, sl[e], src);
         const uint32_t x = __shfl_sync(kFull, lo[e], src);
         const uint32_t y = WIDE ? __shfl_sync(kFull, hi[e], src) : 0u;
-        if (recv && es == e) {
-          pch = a;
-          pcl = b;
-          pcvl = x;
-          pcvh = WIDE ? y : sign_hi(x);
-        }
+        if (recv && es == e) pend = Key{a, b, WIDE ? y : sign_hi(x), x};
       }
       npend += take;
       done += take;
@@ -456,38 +537,53 @@ __host__ inline Shape shape_for(bool wide, int k) {
   return {warps, warps * warp_bytes(wide, k), true};
 }
 
-template <bool WIDE, bool ON_CHIP>
+template <bool WIDE, bool ON_CHIP, bool PRE>
 int launch(const Shape& sh, uint32_t* values, uint32_t* value_hi, uint32_t* hash_hi,
            uint32_t* hash_lo, int32_t* size, int32_t* count, const uint32_t* salts,
-           const uint32_t* tile_lo, const uint32_t* tile_hi, int stride, const int32_t* valid,
-           int R, int k, int B, cudaStream_t stream) {
+           const uint32_t* tile_lo, const uint32_t* tile_hi, int stride, const uint32_t* pre_hi,
+           const uint32_t* pre_lo, const int32_t* valid, int R, int k, int B,
+           cudaStream_t stream) {
   if (sh.smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(update_kernel<WIDE, ON_CHIP>,
+    const cudaError_t e = cudaFuncSetAttribute(update_kernel<WIDE, ON_CHIP, PRE>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(sh.smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; };
   const int vec = B % 4 == 0 && aligned(tile_lo) &&
-                  (!WIDE || stride == 2 || aligned(tile_hi));
+                  (!WIDE || stride == 2 || aligned(tile_hi)) &&
+                  (!PRE || (aligned(pre_hi) && aligned(pre_lo)));
   const int blocks = (R + sh.warps - 1) / sh.warps;
-  update_kernel<WIDE, ON_CHIP><<<blocks, sh.warps * 32, sh.smem, stream>>>(
+  update_kernel<WIDE, ON_CHIP, PRE><<<blocks, sh.warps * 32, sh.smem, stream>>>(
       values, value_hi, hash_hi, hash_lo, size, count, salts, tile_lo, tile_hi, stride, vec,
-      valid, R, k, B, static_cast<int>(warp_bytes(WIDE, k)));
+      pre_hi, pre_lo, valid, R, k, B, static_cast<int>(warp_bytes(WIDE, k)));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool WIDE>
+template <bool WIDE, bool PRE>
 int launch_at(uint32_t* values, uint32_t* value_hi, uint32_t* hash_hi, uint32_t* hash_lo,
               int32_t* size, int32_t* count, const uint32_t* salts, const uint32_t* tile_lo,
-              const uint32_t* tile_hi, int stride, const int32_t* valid, int R, int k, int B,
-              cudaStream_t stream) {
+              const uint32_t* tile_hi, int stride, const uint32_t* pre_hi, const uint32_t* pre_lo,
+              const int32_t* valid, int R, int k, int B, cudaStream_t stream) {
   const Shape sh = shape_for(WIDE, k);
   return sh.on_chip
-             ? launch<WIDE, true>(sh, values, value_hi, hash_hi, hash_lo, size, count, salts,
-                                  tile_lo, tile_hi, stride, valid, R, k, B, stream)
-             : launch<WIDE, false>(sh, values, value_hi, hash_hi, hash_lo, size, count, salts,
-                                   tile_lo, tile_hi, stride, valid, R, k, B, stream);
+             ? launch<WIDE, true, PRE>(sh, values, value_hi, hash_hi, hash_lo, size, count, salts,
+                                       tile_lo, tile_hi, stride, pre_hi, pre_lo, valid, R, k, B,
+                                       stream)
+             : launch<WIDE, false, PRE>(sh, values, value_hi, hash_hi, hash_lo, size, count,
+                                        salts, tile_lo, tile_hi, stride, pre_hi, pre_lo, valid, R,
+                                        k, B, stream);
+}
+
+template <bool PRE>
+int info(bool wide, int k, int* out) {
+  const Shape sh = shape_for(wide, k);
+  const int threads = sh.warps * 32;
+  if (wide)
+    return sh.on_chip ? kinfo::query(update_kernel<true, true, PRE>, threads, sh.smem, out)
+                      : kinfo::query(update_kernel<true, false, PRE>, threads, 0, out);
+  return sh.on_chip ? kinfo::query(update_kernel<false, true, PRE>, threads, sh.smem, out)
+                    : kinfo::query(update_kernel<false, false, PRE>, threads, 0, out);
 }
 
 }  // namespace dst
@@ -497,31 +593,53 @@ extern "C" {
 // One distinct tile merge, in place.  value_hi and tile_hi are null for
 // narrow keys.  Lane p of row r is word (r * B + p) * stride of tile_lo (and
 // tile_hi); stride 2 is an int64 tile read in place (tile_hi = tile_lo + 1).
-// valid may be null (every row takes B).  Returns cudaGetLastError() after
-// the launch.
+// pre_hi and pre_lo, both null or both not, are the [R, B] pre-scramble
+// hash planes of the pre-hashed instantiation (lane p of row r is word
+// r * B + p); null hashes the keys' own words.  valid may be null (every
+// row takes B).  Returns cudaGetLastError() after the launch.
+int distinct_update_hashed(uint32_t* values, uint32_t* value_hi, uint32_t* hash_hi,
+                           uint32_t* hash_lo, int32_t* size, int32_t* count,
+                           const uint32_t* salts, const uint32_t* tile_lo,
+                           const uint32_t* tile_hi, int stride, const uint32_t* pre_hi,
+                           const uint32_t* pre_lo, const int32_t* valid, int R, int k, int B,
+                           cudaStream_t stream) {
+  if (R <= 0) return static_cast<int>(cudaSuccess);
+  if ((pre_hi == nullptr) != (pre_lo == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = value_hi != nullptr;
+  if (pre_hi != nullptr)
+    return wide ? dst::launch_at<true, true>(values, value_hi, hash_hi, hash_lo, size, count,
+                                            salts, tile_lo, tile_hi, stride, pre_hi, pre_lo,
+                                            valid, R, k, B, stream)
+                : dst::launch_at<false, true>(values, value_hi, hash_hi, hash_lo, size, count,
+                                             salts, tile_lo, tile_hi, stride, pre_hi, pre_lo,
+                                             valid, R, k, B, stream);
+  return wide ? dst::launch_at<true, false>(values, value_hi, hash_hi, hash_lo, size, count,
+                                           salts, tile_lo, tile_hi, stride, nullptr, nullptr,
+                                           valid, R, k, B, stream)
+              : dst::launch_at<false, false>(values, value_hi, hash_hi, hash_lo, size, count,
+                                            salts, tile_lo, tile_hi, stride, nullptr, nullptr,
+                                            valid, R, k, B, stream);
+}
+
+// distinct_update_hashed with the keys' own words hashed (the entry point
+// of builds that predate the pre-hashed instantiation, which kernel_ab.py
+// still loads).
 int distinct_update(uint32_t* values, uint32_t* value_hi, uint32_t* hash_hi, uint32_t* hash_lo,
                     int32_t* size, int32_t* count, const uint32_t* salts,
                     const uint32_t* tile_lo, const uint32_t* tile_hi, int stride,
                     const int32_t* valid, int R, int k, int B, cudaStream_t stream) {
-  if (R <= 0) return static_cast<int>(cudaSuccess);
-  if (value_hi != nullptr)
-    return dst::launch_at<true>(values, value_hi, hash_hi, hash_lo, size, count, salts, tile_lo,
-                             tile_hi, stride, valid, R, k, B, stream);
-  return dst::launch_at<false>(values, value_hi, hash_hi, hash_lo, size, count, salts, tile_lo,
-                            tile_hi, stride, valid, R, k, B, stream);
+  return distinct_update_hashed(values, value_hi, hash_hi, hash_lo, size, count, salts, tile_lo,
+                                tile_hi, stride, nullptr, nullptr, valid, R, k, B, stream);
 }
 
 // The build's registers, spills, shared memory and resident warps an SM of
 // the kernel a launch at k runs (kinfo::query's five numbers in out); its
 // dynamic shared memory is 0 where the row's block stays in global memory.
-int distinct_kernel_info(int wide, int k, int* out) {
-  const dst::Shape sh = dst::shape_for(wide != 0, k);
-  const int threads = sh.warps * 32;
-  if (wide)
-    return sh.on_chip ? kinfo::query(dst::update_kernel<true, true>, threads, sh.smem, out)
-                      : kinfo::query(dst::update_kernel<true, false>, threads, 0, out);
-  return sh.on_chip ? kinfo::query(dst::update_kernel<false, true>, threads, sh.smem, out)
-                    : kinfo::query(dst::update_kernel<false, false>, threads, 0, out);
+int distinct_kernel_info(int wide, int k, int* out) { return dst::info<false>(wide != 0, k, out); }
+
+// distinct_kernel_info of the pre-hashed instantiation.
+int distinct_prehashed_kernel_info(int wide, int k, int* out) {
+  return dst::info<true>(wide != 0, k, out);
 }
 
 const char* distinct_error_string(int code) {

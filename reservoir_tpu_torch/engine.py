@@ -41,6 +41,22 @@ its own buffers as soon as :meth:`ReservoirEngine.sample` returns.  CUDA
 tensors on the engine's device are used as they are: host weights are
 checked to be nonnegative, device weights are not (that would cost a
 device-to-host sync per tile).
+
+The reference's hooks (:mod:`~reservoir_tpu_torch.ops.hooks`, elementwise
+functions on torch tensors): ``map_fn`` applies on accept in uniform and
+weighted mode and to every element in distinct mode, and the samples
+take its results in the sample dtype, which may then differ from the
+element dtype; ``hash_fn`` (distinct mode) gives the pre-scramble hash
+words.  A hooked engine ships its tiles in the element dtype, whole (8-byte
+keys are not split into planes); on the card the kernel wrappers map the
+tile, hash it and launch the kernels on the results (the distinct kernel's
+pre-hashed instantiation under either hook), and with ``device="cpu"``
+the plain versions apply the hooks as the reference does.
+
+:meth:`ReservoirEngine.sample_stream` takes the reference's ``fused=True``
+and feeds the stream tile by tile all the same: one launch a tile, as the
+reference's fused scan runs one update a tile, so the same state bit for
+bit.
 """
 
 from __future__ import annotations
@@ -76,6 +92,8 @@ _DISTINCT_DTYPES = {
     "int64": torch.int64,
     "uint64": torch.uint64,
 }
+#: element dtypes a map takes in any mode: 4- and 8-byte words
+_ELEMENT_DTYPES = {**_TORCH_DTYPES, **_DISTINCT_DTYPES}
 
 State = Union[_algl.ReservoirState, _wtd.WeightedState, _dist.DistinctState]
 
@@ -101,6 +119,12 @@ class ReservoirEngine:
         stay open.
       device: ``None`` means ``"cuda"`` and raises without a card;
         ``"cpu"`` runs the plain torch version.
+      map_fn: an elementwise map on torch tensors
+        (:mod:`~reservoir_tpu_torch.ops.hooks`), applied on accept
+        (uniform, weighted) or to every element (distinct); its results are
+        cast to the sample dtype.
+      hash_fn: distinct mode only: an elementwise hash of the mapped keys
+        returning ``(hi, lo)`` integer words.
     """
 
     def __init__(
@@ -117,39 +141,59 @@ class ReservoirEngine:
         validate_max_sample_size(config.max_sample_size)
         if config.weighted and config.distinct:
             raise ValueError("weighted and distinct modes are mutually exclusive")
+        if hash_fn is not None and not config.distinct:
+            raise ValueError("hash_fn is only meaningful with distinct=True")
         wide_counts = _check_count_dtype(config.count_dtype)
-        if config.impl == "pallas" and wide_counts:
-            raise ValueError(
-                "impl='pallas' requires int32 counters (the kernel's "
-                "supports() contract); count_dtype='wide' dispatches "
-                "XLA — use impl='auto'"
-            )
+        if config.impl == "pallas":
+            if map_fn is not None:
+                raise ValueError("impl='pallas' requires an identity map_fn")
+            if wide_counts:
+                raise ValueError(
+                    "impl='pallas' requires int32 counters (the kernel's "
+                    "supports() contract); count_dtype='wide' dispatches "
+                    "XLA — use impl='auto'"
+                )
+            if hash_fn is not None:
+                raise ValueError(
+                    "impl='pallas' requires the default hash (the kernel "
+                    "owns the value-bits embedding); use impl='auto'"
+                )
         if config.mesh_axis is not None:
             raise _not_in_slice("mesh_axis", "L4")
-        if map_fn is not None or hash_fn is not None:
-            raise _not_in_slice("map_fn / hash_fn", "L5")
         if config.impl == "xla":
             raise ValueError(
                 "impl='xla' is not a production path of the torch port; "
                 "'auto' and 'pallas' both run the CUDA kernel"
             )
         dtype_name = np.dtype(config.resolved_sample_dtype()).name
+        elem_name = np.dtype(config.element_dtype).name
         dtypes = _DISTINCT_DTYPES if config.distinct else _TORCH_DTYPES
-        if dtype_name != np.dtype(config.element_dtype).name or dtype_name not in dtypes:
+        if dtype_name not in dtypes or (map_fn is None and elem_name != dtype_name):
             if config.distinct:
                 raise ValueError(
                     "distinct mode requires a 32- or 64-bit integer sample dtype, the "
-                    f"same for elements and samples: one of {sorted(dtypes)}, got "
-                    f"{config.element_dtype!r} / {config.resolved_sample_dtype()!r}"
+                    f"same for elements and samples without a map_fn: one of {sorted(dtypes)}, "
+                    f"got {config.element_dtype!r} / {config.resolved_sample_dtype()!r}"
                 )
             raise ValueError(
                 "the torch port stores 4-byte words: element and sample dtype "
-                f"must both be one of {sorted(dtypes)}, got "
+                f"must both be one of {sorted(dtypes)} (the same without a map_fn), got "
                 f"{config.element_dtype!r} / {config.resolved_sample_dtype()!r}"
             )
+        if elem_name not in _ELEMENT_DTYPES:
+            raise ValueError(
+                f"a map_fn takes elements of one of {sorted(_ELEMENT_DTYPES)}, got "
+                f"{config.element_dtype!r}"
+            )
         self._config = config
+        self._map_fn = map_fn
+        self._hash_fn = hash_fn
+        #: the hooks see whole tiles in the element dtype
+        self._hooked = map_fn is not None or hash_fn is not None
         self._dtype = dtypes[dtype_name]
         self._np_dtype = np.dtype(dtype_name)
+        self._elem_dtype = _ELEMENT_DTYPES[elem_name]
+        self._np_elem = np.dtype(elem_name)
         self._wide = self._np_dtype.itemsize == 8
         self._reusable = reusable
         self._open = True
@@ -248,7 +292,17 @@ class ReservoirEngine:
 
     def _tile_to_device(self, tile: Any) -> _dist.Batch:
         """The tile as a contiguous tensor on the engine's device; an 8-byte
-        host tile (or its ``(hi, lo)`` planes) as a pair of word planes."""
+        host tile (or its ``(hi, lo)`` planes) as a pair of word planes.  A
+        hooked engine's tile stays whole, in the element dtype."""
+        if self._hooked:
+            if self._on_card(tile, "tile"):
+                if tile.dtype != self._elem_dtype:
+                    raise ValueError(f"tile dtype {tile.dtype} != element dtype {self._elem_dtype}")
+                return tile.contiguous()
+            host = tile.numpy() if isinstance(tile, torch.Tensor) else np.asarray(tile)
+            if host.dtype != self._np_elem:
+                host = host.astype(self._np_elem)
+            return self._to_device(host, self._elem_dtype)
         if self._on_card(tile, "tile"):
             ok = tile.dtype in _dist.WIDE_DTYPES if self._wide else tile.dtype == self._dtype
             if not ok:
@@ -323,13 +377,13 @@ class ReservoirEngine:
             w_dev = self._weights_to_device(weights, (R, width), check_weights)
         batch = self._tile_to_device(tile)
         if self._config.weighted:
-            self._state = _wkernel.update_cuda(self._state, batch, w_dev, valid_dev)
+            self._state = _wkernel.update_cuda(self._state, batch, w_dev, valid_dev, self._map_fn)
         elif self._config.distinct:
-            self._state = _dkernel.update_cuda(self._state, batch, valid_dev)
+            self._state = _dkernel.update_cuda(self._state, batch, valid_dev, self._map_fn, self._hash_fn)
         else:
             steady = self._min_count >= self._config.max_sample_size
             fn = _kernel.update_steady_cuda if steady else _kernel.update_cuda
-            self._state = fn(self._state, batch, valid_dev)
+            self._state = fn(self._state, batch, valid_dev, self._map_fn)
         self._min_count += width if valid is None else int(valid_np.min())
 
     def sample_all(self, tiles: Any) -> None:
@@ -361,19 +415,26 @@ class ReservoirEngine:
         tail is padded and masked through ``valid``.  A weighted engine
         takes a parallel ``[R, N]`` ``weights`` array, checked whole before
         any tile is consumed; its padding has weight 1.0.  A host stream of
-        8-byte distinct keys is split into word planes once, not per tile."""
+        8-byte distinct keys is split into word planes once, not per tile.
+
+        ``fused=True`` (the reference's fused stream, one scan over the
+        full tiles) is taken for the reference's signature and runs the
+        same per-tile launches, which give the fused scan's state bit for
+        bit."""
         self._check_open()
-        if fused:
-            raise _not_in_slice("sample_stream(fused=True)", "L7")
+        if isinstance(stream, torch.Tensor) and stream.device.type == "cpu":
+            stream = stream.numpy()
         if not isinstance(stream, torch.Tensor):
             stream = np.asarray(stream)
         R, N = stream.shape
         planes = None
-        if self._wide and not isinstance(stream, torch.Tensor):
+        if self._wide and not self._hooked and not isinstance(stream, torch.Tensor):
             planes = _dist.split_values_host(stream)
         if self._config.weighted:
             if weights is None:
                 raise ValueError("weighted engine requires a weights array")
+            if isinstance(weights, torch.Tensor) and weights.device.type == "cpu":
+                weights = weights.numpy()
             if not isinstance(weights, torch.Tensor):
                 weights = np.asarray(weights, np.float32)
             if tuple(weights.shape) != (R, N):
@@ -413,11 +474,12 @@ class ReservoirEngine:
 
         Duplicates mode with int32 counters only, the
         :func:`~reservoir_tpu_torch.stream.gate.gate_ineligible_reason`
-        contract.  The host tile (a numpy array, a list or a CPU tensor),
-        ``nvalid`` and ``advance`` are snapshotted into one pinned buffer
-        and copied to the card in one ``non_blocking`` copy, then
-        ``algl_update_gated`` runs once (the plain version with
-        ``device="cpu"``).
+        contract.  The host tile (a numpy array, a list or a CPU tensor, of
+        the element dtype), ``nvalid`` and ``advance`` are snapshotted into
+        one pinned buffer and copied to the card in one ``non_blocking``
+        copy, then ``algl_update_gated`` runs once (the plain version with
+        ``device="cpu"``), on the candidates mapped by the engine's
+        ``map_fn`` where it has one.
         """
         self._check_open()
         if self._ops is not _algl:
@@ -429,7 +491,7 @@ class ReservoirEngine:
             raise ValueError("sample_gated requires narrow int32 counters")
         R = self._config.num_reservoirs
         host = tile.numpy() if isinstance(tile, torch.Tensor) else tile
-        tile_host = np.asarray(host, dtype=self._np_dtype)
+        tile_host = np.asarray(host, dtype=self._np_elem)
         if tile_host.ndim != 2 or tile_host.shape[0] != R:
             raise ValueError(f"gated tile must be [num_reservoirs={R}, Bg], got {tile_host.shape}")
         bg = tile_host.shape[1]
@@ -449,16 +511,16 @@ class ReservoirEngine:
         # one buffer, one copy: nvalid, advance, then the tile's words,
         # written straight into it (the snapshot: the caller may reuse its
         # arrays at once)
-        packed_host = self._host_buffer((2 * R + R * bg,), torch.int32)
+        packed_host = self._host_buffer((2 * R + R * bg * self._np_elem.itemsize // 4,), torch.int32)
         words = packed_host.numpy()
         words[:R] = nvalid_np
         words[R:2 * R] = advance_np
-        words[2 * R:].view(self._np_dtype).reshape(R, bg)[...] = tile_host
+        words[2 * R:].view(self._np_elem).reshape(R, bg)[...] = tile_host
         min_advance = int(advance_np.min())
         packed = self._ship(packed_host)
         nv_dev, adv_dev = packed[:R], packed[R:2 * R]
-        batch = packed[2 * R:].view(self._dtype).view(R, bg)
-        self._state = _kernel.update_gated_cuda(self._state, batch, nv_dev, adv_dev)
+        batch = packed[2 * R:].view(self._elem_dtype).view(R, bg)
+        self._state = _kernel.update_gated_cuda(self._state, batch, nv_dev, adv_dev, self._map_fn)
         self._min_count += min_advance
 
     # ------------------------------------------------------------ row leasing
@@ -570,11 +632,14 @@ class ReservoirEngine:
         save_engine(path, self, metadata=metadata)
 
     @classmethod
-    def restore(cls, path: str, *, device: Optional[Any] = None) -> "ReservoirEngine":
-        """Rebuild a checkpointed engine (from either package) on ``device``."""
+    def restore(cls, path: str, *, device: Optional[Any] = None, map_fn: Any = None,
+                hash_fn: Any = None) -> "ReservoirEngine":
+        """Rebuild a checkpointed engine (from either package) on ``device``.
+        Hooks are code, not data: pass those the engine was saved with, or
+        the reference's ``ValueError`` is raised."""
         from .utils.checkpoint import load_engine
 
-        return load_engine(path, engine_cls=cls, device=device)
+        return load_engine(path, engine_cls=cls, device=device, map_fn=map_fn, hash_fn=hash_fn)
 
     # --------------------------------------------------------------- results
 

@@ -41,12 +41,13 @@ counts.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import fmath, u64e
 from .hashing import to_i32, words
+from .hooks import stored_words as _stored
 from .rng import accept_draws_pair, accept_draws_words, split_keys
 from .threefry import MASK32, bits_words, fold_in_words, threefry2x32
 
@@ -250,11 +251,11 @@ def init(
     )
 
 
-def _check(state: ReservoirState, batch: torch.Tensor, valid) -> None:
+def _check(state: ReservoirState, batch: torch.Tensor, valid, mapped: bool = False) -> None:
     R, _ = state.samples.shape
     if batch.ndim != 2 or batch.shape[0] != R:
         raise ValueError(f"batch must be [R={R}, B], got {tuple(batch.shape)}")
-    if batch.dtype != state.samples.dtype:
+    if not mapped and batch.dtype != state.samples.dtype:
         raise ValueError(
             f"batch dtype {batch.dtype} != samples dtype {state.samples.dtype}"
         )
@@ -267,13 +268,14 @@ def _update_wide(
     batch: torch.Tensor,
     valid: Optional[torch.Tensor],
     fill: bool,
+    map_fn: Optional[Callable] = None,
 ) -> Tuple[ReservoirState, int]:
     """:func:`_update` for WIDE counters (the reference's ``_update_one``
     with 64-bit pair arithmetic)."""
     R, k = state.samples.shape
     B = batch.shape[1]
     dev = batch.device
-    bits = batch.view(torch.int32)
+    dtype = state.samples.dtype
     samples = state.samples.clone()
     out = samples.view(torch.int32)
     count = u64e.words(state.count)
@@ -287,7 +289,7 @@ def _update_wide(
         take = (((count[:, 1] == 0) & (c_lo < k))[:, None] & (dest < k)
                 & (lane[None, :] < v[:, None]))
         rows = torch.arange(R, device=dev)[:, None].expand(R, B)
-        out[rows[take], dest[take]] = bits[take]
+        out[rows[take], dest[take]] = _stored(batch, map_fn, dtype, take)
     nxt = u64e.words(state.nxt)
     log_w = state.log_w.clone()
     k1, k2 = state.key[:, 0], state.key[:, 1]
@@ -301,7 +303,7 @@ def _update_wide(
         pos = u64e.diff_small(u64e.sub_u32(n, 1), count[rows]).to(torch.int64)
         pos = torch.where(pos < 0, pos + B, pos).clamp(0, B - 1)
         slot, lw, n_new = _advance_pair(log_w[rows], n, k1[rows], k2[rows], n[:, 1], n[:, 0], k)
-        out[rows, slot.to(torch.int64)] = bits[rows, pos]
+        out[rows, slot.to(torch.int64)] = _stored(batch, map_fn, dtype, (rows, pos))
         nxt[rows] = n_new
         log_w[rows] = lw
         rows = rows[u64e.le(n_new, end[rows])]
@@ -313,14 +315,15 @@ def _update(
     batch: torch.Tensor,
     valid: Optional[torch.Tensor],
     fill: bool,
+    map_fn: Optional[Callable] = None,
 ) -> Tuple[ReservoirState, int]:
-    _check(state, batch, valid)
+    _check(state, batch, valid, mapped=map_fn is not None)
     if state.wide:
-        return _update_wide(state, batch, valid, fill)
+        return _update_wide(state, batch, valid, fill, map_fn)
     R, k = state.samples.shape
     B = batch.shape[1]
     dev = batch.device
-    bits = batch.view(torch.int32)
+    dtype = state.samples.dtype
     samples = state.samples.clone()
     out = samples.view(torch.int32)
     count = state.count
@@ -333,7 +336,7 @@ def _update(
         dest = count.to(torch.int64)[:, None] + lane[None, :]
         take = (dest < k) & (lane[None, :] < v.to(torch.int64)[:, None])
         rows = torch.arange(R, device=dev)[:, None].expand(R, B)
-        out[rows[take], dest[take]] = bits[take]
+        out[rows[take], dest[take]] = _stored(batch, map_fn, dtype, take)
     nxt = state.nxt.clone()
     log_w = state.log_w.clone()
     k1, k2 = state.key[:, 0], state.key[:, 1]
@@ -348,7 +351,7 @@ def _update(
         # the reference's gather index rule (wrap negatives, then clamp)
         pos = torch.where(pos < 0, pos + B, pos).clamp(0, B - 1)
         slot, lw, n_new = _advance_words(log_w[rows], n, k1[rows], k2[rows], n, k)
-        out[rows, slot.to(torch.int64)] = bits[rows, pos]
+        out[rows, slot.to(torch.int64)] = _stored(batch, map_fn, dtype, (rows, pos))
         nxt[rows] = n_new
         log_w[rows] = lw
         rows = rows[n_new <= end[rows]]
@@ -359,21 +362,29 @@ def update(
     state: ReservoirState,
     batch: torch.Tensor,
     valid: Optional[torch.Tensor] = None,
+    map_fn: Optional[Callable] = None,
 ) -> ReservoirState:
     """Consume one ``[R, B]`` tile, fill phase included: reservoir ``r``
     takes ``batch[r, :valid[r]]`` (default: the whole row).  Returns a new
-    state; the input state is not modified."""
-    return _update(state, batch, valid, fill=True)[0]
+    state; the input state is not modified.
+
+    ``map_fn`` (elementwise, :mod:`.hooks`) is applied on accept, as the
+    reference applies it: to the fill's elements and to each accepted
+    element, its results cast to the sample dtype; ``batch`` is then of the
+    element dtype.  Acceptance depends on the draws alone, so the map never
+    moves the skip chain."""
+    return _update(state, batch, valid, True, map_fn)[0]
 
 
 def update_steady(
     state: ReservoirState,
     batch: torch.Tensor,
     valid: Optional[torch.Tensor] = None,
+    map_fn: Optional[Callable] = None,
 ) -> ReservoirState:
     """:func:`update` without the fill-phase copy, for tiles where every
     reservoir already holds k elements."""
-    return _update(state, batch, valid, fill=False)[0]
+    return _update(state, batch, valid, False, map_fn)[0]
 
 
 def update_accepts(
@@ -381,11 +392,12 @@ def update_accepts(
     batch: torch.Tensor,
     valid: Optional[torch.Tensor] = None,
     fill: bool = True,
+    map_fn: Optional[Callable] = None,
 ) -> Tuple[ReservoirState, int]:
     """:func:`update` (or :func:`update_steady` with ``fill=False``) that
     also returns the number of acceptances over all rows — the data-dependent
     work a kernel's bound is reckoned from."""
-    return _update(state, batch, valid, fill)
+    return _update(state, batch, valid, fill, map_fn)
 
 
 def update_gated(
@@ -393,6 +405,7 @@ def update_gated(
     batch: torch.Tensor,
     nvalid: torch.Tensor,
     advance: torch.Tensor,
+    map_fn: Optional[Callable] = None,
 ) -> ReservoirState:
     """Consume one pre-gated ``[R, Bg]`` candidate tile (the port of the
     reference's ``update_gated``, which is XLA, not Pallas).
@@ -408,17 +421,18 @@ def update_gated(
     state equals :func:`update` over the full tiles.  The reference is
     always compiled, so the chain takes the fused ``log_w`` update.  A
     lockstep loop over the candidates: the plain version, for the CPU and
-    as the kernel's reference.  Returns a new state."""
+    as the kernel's reference.  ``map_fn`` applies on accept, as in
+    :func:`update`.  Returns a new state."""
     R, k = state.samples.shape
     if state.wide:
         raise ValueError("update_gated requires narrow (non-WIDE) counters")
-    _check(state, batch, None)
+    _check(state, batch, None, mapped=map_fn is not None)
     for name, t in (("nvalid", nvalid), ("advance", advance)):
         if t.shape != (R,) or t.dtype != torch.int32:
             raise ValueError(f"{name} must be an int32 [R={R}] tensor, got {t.dtype} {tuple(t.shape)}")
     bg = batch.shape[1]
     dev = batch.device
-    bits = batch.view(torch.int32)
+    dtype = state.samples.dtype
     samples = state.samples.clone()
     out = samples.view(torch.int32)
     count = state.count
@@ -428,7 +442,7 @@ def update_gated(
     dest = count.to(torch.int64)[:, None] + lane[None, :]
     take = (lane[None, :] < f[:, None]) & (dest >= 0) & (dest < k)
     rows = torch.arange(R, device=dev)[:, None].expand(R, bg)
-    out[rows[take], dest[take]] = bits[take]
+    out[rows[take], dest[take]] = _stored(batch, map_fn, dtype, take)
     nxt = state.nxt.clone()
     log_w = state.log_w.clone()
     k1, k2 = state.key[:, 0], state.key[:, 1]
@@ -439,7 +453,7 @@ def update_gated(
     while rows.numel():
         n = nxt[rows]
         slot, lw, n_new = _advance_words(log_w[rows], n, k1[rows], k2[rows], n, k)
-        out[rows, slot.to(torch.int64)] = bits[rows, j[rows]]
+        out[rows, slot.to(torch.int64)] = _stored(batch, map_fn, dtype, (rows, j[rows]))
         nxt[rows] = n_new
         log_w[rows] = lw
         j[rows] += 1

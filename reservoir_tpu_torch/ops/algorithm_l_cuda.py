@@ -44,6 +44,13 @@ on one device:
 - on CPU tensors they run the plain version (:func:`update` /
   :func:`update_steady` of :mod:`.algorithm_l`), which returns a new state.
 
+With a ``map_fn`` (:mod:`.hooks`) the update, the gated one too, maps the
+whole tile on the card and casts it to the sample dtype, then launches the
+unchanged kernel on the mapped words: for an elementwise map the same
+state as the reference's map on accept, which the plain version applies on
+the CPU.  The map costs one pass over the tile beside the kernel, which
+reads only the elements it accepts.
+
 :data:`launches` counts ``algl_update`` launches, :data:`wide_launches`
 ``algl_update_wide`` launches, :data:`gated_launches` ``algl_update_gated``
 launches, :data:`merge_launches` ``algl_merge_draws`` launches and
@@ -56,11 +63,12 @@ several threads.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from ._cuda_common import COUNT_LOCK, build_info, check_tensors
+from .hooks import map_values
 from .algorithm_l import (MergeDraws, ReservoirState, _check_counts, _signed_rows, merge_draws, update,
                           update_gated, update_steady)
 
@@ -197,8 +205,13 @@ def _validate(state: ReservoirState, batch: torch.Tensor, valid) -> None:
     check_tensors("batch", tensors, expect)
 
 
-def _launch(state: ReservoirState, batch: torch.Tensor, valid, fill: bool) -> ReservoirState:
+def _launch(state: ReservoirState, batch: torch.Tensor, valid, fill: bool,
+            map_fn: Optional[Callable] = None) -> ReservoirState:
     global launches, wide_launches
+    if map_fn is not None:
+        if state.samples.device.type == "cpu":
+            return (update if fill else update_steady)(state, batch, valid, map_fn)
+        batch = map_values(map_fn, batch, state.samples.dtype)
     _validate(state, batch, valid)
     if state.samples.device.type == "cpu":
         return (update if fill else update_steady)(state, batch, valid)
@@ -229,23 +242,33 @@ def _launch(state: ReservoirState, batch: torch.Tensor, valid, fill: bool) -> Re
 
 
 def update_cuda(
-    state: ReservoirState, batch: torch.Tensor, valid: Optional[torch.Tensor] = None
+    state: ReservoirState,
+    batch: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+    map_fn: Optional[Callable] = None,
 ) -> ReservoirState:
     """Fill-capable tile update (the port of ``update_pallas``; WIDE
     counters launch ``algl_update_wide``)."""
-    return _launch(state, batch, valid, fill=True)
+    return _launch(state, batch, valid, True, map_fn)
 
 
 def update_steady_cuda(
-    state: ReservoirState, batch: torch.Tensor, valid: Optional[torch.Tensor] = None
+    state: ReservoirState,
+    batch: torch.Tensor,
+    valid: Optional[torch.Tensor] = None,
+    map_fn: Optional[Callable] = None,
 ) -> ReservoirState:
     """Steady tile update without the fill copy (the port of
     ``update_steady_pallas``)."""
-    return _launch(state, batch, valid, fill=False)
+    return _launch(state, batch, valid, False, map_fn)
 
 
 def update_gated_cuda(
-    state: ReservoirState, batch: torch.Tensor, nvalid: torch.Tensor, advance: torch.Tensor
+    state: ReservoirState,
+    batch: torch.Tensor,
+    nvalid: torch.Tensor,
+    advance: torch.Tensor,
+    map_fn: Optional[Callable] = None,
 ) -> ReservoirState:
     """Apply one pre-gated ``[R, Bg]`` candidate tile: row ``r`` advances
     by ``advance[r]`` elements, of which ``batch[r, :nvalid[r]]`` were
@@ -255,10 +278,16 @@ def update_gated_cuda(
     version, which returns a new state.  ``nvalid`` must lie in
     ``[0, Bg]`` and ``advance`` be nonnegative (the engine checks both on
     the host; the kernel trusts them).  WIDE counters raise
-    ``ValueError``, as the reference's ``update_gated`` does."""
+    ``ValueError``, as the reference's ``update_gated`` does.  A
+    ``map_fn`` maps the candidate tile as :func:`update_cuda` maps a
+    tile."""
     global gated_launches
     if state.wide:
         raise ValueError("update_gated requires narrow (non-WIDE) counters")
+    if map_fn is not None:
+        if state.samples.device.type == "cpu":
+            return update_gated(state, batch, nvalid, advance, map_fn)
+        batch = map_values(map_fn, batch, state.samples.dtype)
     R = state.samples.shape[0]
     tensors = {
         "samples": state.samples, "count": state.count, "nxt": state.nxt,

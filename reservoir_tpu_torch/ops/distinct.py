@@ -19,6 +19,17 @@ compares each lane strictly against the row's last entry: **a lane whose
 scrambled hash is exactly (MAX, MAX) is never taken** (the XLA sort-merge
 would keep it while the row is not full; the chance is 2^-64 a value).
 
+The hooks (:mod:`.hooks`): ``map_fn`` maps every element, and the stored
+keys are the mapped values; ``hash_fn(mapped)`` gives the ``(hi, lo)``
+words that are scrambled in place of the value's.  With either hook the
+reference always runs its XLA sort-merge (its Pallas kernel declines
+hooks), so a hooked tile goes through :func:`update_prehashed`, with the
+mapped keys' own words as the hash when there is no ``hash_fn``, and
+follows XLA's rule: a lane whose scrambled hash is (MAX, MAX) is kept
+while its row is not full.  A user
+hash may give two values one hash; the sort on ``(hash, value)`` keeps
+both, ordered by value.
+
 Keys are 4-byte (narrow: ``values`` holds the sample dtype, the high word
 is the sign extension of its bits) or 8-byte integers (wide: ``values`` is
 the low word and ``value_hi`` the high word).  Every ``[R, k]`` plane is
@@ -35,12 +46,13 @@ cut to the k smallest hashes.  There padding is told by ``size`` alone.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .hashing import default_hash64, scramble64, to_i32, words
+from .hooks import hash_words, map_values
 from .threefry import MASK32, threefry2x32
 
 __all__ = [
@@ -49,7 +61,11 @@ __all__ = [
     "WIDE_DTYPES",
     "init",
     "update",
+    "update_prehashed",
     "update_steady",
+    "map_keys",
+    "join_planes",
+    "hook_hashes",
     "merge",
     "result",
     "split_values_host",
@@ -190,10 +206,70 @@ def _sort_by(key: torch.Tensor, cols: Tuple[torch.Tensor, ...]) -> Tuple[torch.T
     return tuple(c.gather(1, order) for c in cols)
 
 
-def update(state: DistinctState, batch: Batch, valid: Optional[torch.Tensor] = None) -> DistinctState:
+def map_keys(state: DistinctState, batch: Batch, map_fn: Optional[Callable]) -> Batch:
+    """The keys a tile stores: ``batch`` itself without a map; else
+    ``map_fn`` of every element (an 8-byte tile's ``(hi, lo)`` planes are
+    first joined into int64), cast to the state's dtype: narrow to the
+    values' dtype, wide to int64 (which keeps a uint64 key's bits)."""
+    if map_fn is None:
+        return batch
+    return map_values(map_fn, join_planes(batch), torch.int64 if state.wide else state.values.dtype)
+
+
+def join_planes(batch: Batch) -> torch.Tensor:
+    """A tile as one tensor, as the hooks see it: ``(hi, lo)`` planes
+    joined into int64, any other tile as it is."""
+    if isinstance(batch, tuple):
+        hi, lo = batch
+        return (words(hi) << 32) | words(lo)
+    return batch
+
+
+def update(
+    state: DistinctState,
+    batch: Batch,
+    valid: Optional[torch.Tensor] = None,
+    map_fn: Optional[Callable] = None,
+    hash_fn: Optional[Callable] = None,
+) -> DistinctState:
     """Merge one ``[R, B]`` tile into the bottom-k state: reservoir ``r``
     takes ``batch[r, :valid[r]]`` (default: the whole row).  Returns a new
-    state; the input state is not modified."""
+    state; the input state is not modified.
+
+    ``map_fn`` maps every element (:func:`map_keys`); ``batch`` is then of
+    the element dtype.  ``hash_fn(mapped)`` gives the pre-scramble hash
+    words (:func:`.hooks.hash_words`); a hooked tile is merged by
+    :func:`update_prehashed` (:func:`hook_hashes`)."""
+    mapped = map_keys(state, batch, map_fn)
+    if map_fn is None and hash_fn is None:
+        return update_prehashed(state, mapped, None, valid)
+    return update_prehashed(state, mapped, hook_hashes(state, mapped, hash_fn), valid)
+
+
+def hook_hashes(state: DistinctState, mapped: Batch, hash_fn: Optional[Callable]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pre-scramble hash words of a hooked engine's mapped keys, as
+    uint32 values in int64: ``hash_fn``'s, or without one the default
+    hash, the keys' own words.  The reference runs any hook on its XLA
+    sort-merge, so a hooked tile always takes the pre-hashed merge and
+    its rule for a scrambled hash of (MAX, MAX)."""
+    if hash_fn is None:
+        return _value_planes(state, mapped)
+    return hash_words(hash_fn, join_planes(mapped))
+
+
+def update_prehashed(
+    state: DistinctState,
+    batch: Batch,
+    hashes: Optional[Tuple[torch.Tensor, torch.Tensor]],
+    valid: Optional[torch.Tensor] = None,
+) -> DistinctState:
+    """:func:`update` of keys ``batch`` whose pre-scramble hash words are
+    ``hashes``, an ``(hi, lo)`` pair of ``[R, B]`` tensors of 32-bit words
+    (int32 bits, or uint32 values in int64): the plain version of the
+    kernel's pre-hashed instantiation.  ``None`` hashes the keys' own
+    words, under the Pallas kernel's rule (a scrambled hash of (MAX, MAX)
+    is never taken); given hashes follow the XLA sort-merge's, which keeps
+    such a lane while the row is not full."""
     R, k = state.values.shape
     bhi, blo = _value_planes(state, batch)
     if bhi.ndim != 2 or bhi.shape[0] != R:
@@ -204,10 +280,19 @@ def update(state: DistinctState, batch: Batch, valid: Optional[torch.Tensor] = N
         raise ValueError(f"valid must be an int32 [R={R}] tensor, got {valid.dtype} {tuple(valid.shape)}")
     v = valid if valid is not None else torch.full((R,), B, dtype=torch.int32, device=dev)
     s = words(state.salts)
-    hhi, hlo = scramble64(bhi, blo, s[:, 0:1], s[:, 1:2], s[:, 2:3], s[:, 3:4])
-    # a masked lane, or one whose hash is (MAX, MAX), is padding
+    if hashes is None:
+        pre_hi, pre_lo = bhi, blo
+    else:
+        pre_hi, pre_lo = (h & MASK32 if h.dtype == torch.int64 else words(h) for h in hashes)
+        if pre_hi.shape != bhi.shape or pre_lo.shape != bhi.shape:
+            raise ValueError(f"hashes must be two [R={R}, B={B}] planes, got {tuple(pre_hi.shape)} "
+                             f"and {tuple(pre_lo.shape)}")
+    hhi, hlo = scramble64(pre_hi, pre_lo, s[:, 0:1], s[:, 1:2], s[:, 2:3], s[:, 3:4])
     lane = torch.arange(B, device=dev)
-    tile_pad = (lane[None, :] >= v[:, None]) | ((hhi == MASK32) & (hlo == MASK32))
+    tile_pad = lane[None, :] >= v[:, None]
+    if hashes is None:
+        # the Pallas rule: a lane whose hash is (MAX, MAX) is padding
+        tile_pad = tile_pad | ((hhi == MASK32) & (hlo == MASK32))
     carried_pad = torch.arange(k, device=dev)[None, :] >= state.size[:, None]
     cvlo = words(state.values)
     cvhi = words(state.value_hi) if state.wide else _carried_hi(state.values)

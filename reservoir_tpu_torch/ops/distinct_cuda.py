@@ -15,6 +15,14 @@ serial steps a row takes per round bound a tile from empty; its note says
 how the design answers both.  Unlike the Pallas kernel it takes ``valid``,
 so ragged tiles run through it too.
 
+Its pre-hashed instantiation (the template flag ``PRE``, entry point
+``distinct_update_hashed``) runs the reference's hooks: it reads
+a separate pair of ``[R, B]`` pre-scramble hash planes and scrambles those
+instead of the keys' words, orders entries by ``(hash, value)`` (a user
+hash may give two keys one hash) and follows the reference's XLA rule for a
+scrambled hash of (MAX, MAX).  :func:`update_prehashed_cuda` launches it;
+its plain version is :func:`.distinct.update_prehashed`.
+
 :func:`update_cuda` takes the state and a tile on one device.  A narrow
 tile is ``[R, B]`` of the state's dtype; a wide one an int64/uint64
 ``[R, B]`` tensor (the kernel reads the two words of each key in place) or
@@ -26,25 +34,37 @@ an ``(hi, lo)`` pair of 32-bit ``[R, B]`` planes:
 - on CPU tensors it runs the plain version (:func:`.distinct.update`), which
   returns a new state.
 
-:data:`launches` counts kernel launches, and nothing else; it is added to
-under :data:`~._cuda_common.COUNT_LOCK`, since the interop server launches
-from several threads.
+With hooks (:mod:`.hooks`), on the card it maps the tile with ``map_fn``
+(cast to the state's dtype), takes the mapped keys' hash words from
+``hash_fn`` (their own words without one, :func:`.distinct.hook_hashes`)
+and launches the pre-hashed instantiation on them, as the reference runs
+any hook on XLA; on the CPU the plain version applies the hooks itself.
+
+:data:`launches` counts launches of the default instantiation and
+:data:`prehashed_launches` those of the pre-hashed one, and nothing else;
+they are added to under :data:`~._cuda_common.COUNT_LOCK`, since the
+interop server launches from several threads.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from ._cuda_common import COUNT_LOCK, build_info, check_tensors
-from .distinct import NARROW_DTYPES, WIDE_DTYPES, Batch, DistinctState, update
+from .distinct import (NARROW_DTYPES, WIDE_DTYPES, Batch, DistinctState, hook_hashes, map_keys, update,
+                       update_prehashed)
+from .hashing import to_i32
 
-__all__ = ["launches", "update_cuda", "update", "kernel_info"]
+__all__ = ["launches", "prehashed_launches", "update_cuda", "update_prehashed_cuda", "update",
+           "kernel_info"]
 
-#: kernel launches so far (set it to 0 to count a run)
+#: launches of the default instantiation so far (set it to 0 to count a run)
 launches = 0
+#: launches of the pre-hashed instantiation so far (set it to 0 to count a run)
+prehashed_launches = 0
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -63,19 +83,24 @@ def _library(path: Optional[str] = None):
         lib = load("distinct") if path is None else ctypes.CDLL(path)
         lib.distinct_update.argtypes = [_VP] * 9 + [_INT] + [_VP] + [_INT] * 3 + [_VP]
         lib.distinct_update.restype = _INT
+        if hasattr(lib, "distinct_update_hashed"):  # an older build (kernel_ab.py) has none
+            lib.distinct_update_hashed.argtypes = [_VP] * 9 + [_INT] + [_VP] * 3 + [_INT] * 3 + [_VP]
+            lib.distinct_update_hashed.restype = _INT
         lib.distinct_error_string.argtypes = [_INT]
         lib.distinct_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def kernel_info(k: int, wide: bool) -> dict:
+def kernel_info(k: int, wide: bool, prehashed: bool = False) -> dict:
     """:func:`~._cuda_common.build_info` of the kernel a launch at
-    ``k`` runs, for narrow or wide keys (needs a card): ``dynamic_smem`` is
-    0 where a row's block passes shared memory (k > 19,370 narrow, k >
-    14,528 wide) and the instantiation that keeps it in the state's own
-    arrays runs."""
-    return build_info(_library().distinct_kernel_info, int(wide), k)
+    ``k`` runs, for narrow or wide keys, default or pre-hashed (needs a
+    card): ``dynamic_smem`` is 0 where a row's block passes shared memory
+    (k > 19,370 narrow, k > 14,528 wide) and the instantiation that keeps
+    it in the state's own arrays runs."""
+    lib = _library()
+    query = lib.distinct_prehashed_kernel_info if prehashed else lib.distinct_kernel_info
+    return build_info(query, int(wide), k)
 
 
 def _tile_words(state: DistinctState, batch: Batch):
@@ -102,11 +127,13 @@ def _tile_words(state: DistinctState, batch: Batch):
     return {"batch": words}, words, words, 2, batch.shape[1]
 
 
-def _validate(state: DistinctState, batch: Batch, valid) -> tuple:
+def _validate(state: DistinctState, batch: Batch, valid, hashes=None) -> tuple:
     R, k = state.values.shape
     tiles, lo, hi, stride, B = _tile_words(state, batch)
     if B < 1:
         raise ValueError(f"batch must be [R={R}, B >= 1], got {tuple(lo.shape)}")
+    if hashes is not None:
+        tiles["pre_hi"], tiles["pre_lo"] = hashes
     tensors = {
         "samples": state.values.view(torch.int32) if state.wide else state.values,
         "hash_hi": state.hash_hi, "hash_lo": state.hash_lo, "size": state.size,
@@ -123,6 +150,8 @@ def _validate(state: DistinctState, batch: Batch, valid) -> tuple:
         expect["samples"] = ((R, k), torch.int32)
     if "hi" in tiles:
         expect["hi"] = ((R, B), torch.int32)
+    if hashes is not None:
+        expect["pre_hi"] = expect["pre_lo"] = ((R, B), torch.int32)
     if valid is not None:
         tensors["valid"] = valid
         expect["valid"] = ((R,), torch.int32)
@@ -133,30 +162,63 @@ def _validate(state: DistinctState, batch: Batch, valid) -> tuple:
 
 
 def update_cuda(
-    state: DistinctState, batch: Batch, valid: Optional[torch.Tensor] = None
+    state: DistinctState,
+    batch: Batch,
+    valid: Optional[torch.Tensor] = None,
+    map_fn: Optional[Callable] = None,
+    hash_fn: Optional[Callable] = None,
 ) -> DistinctState:
     """Distinct tile merge (the port of ``update_pallas``): reservoir ``r``
-    takes ``batch[r, :valid[r]]``."""
-    global launches
-    lo, hi, stride, B = _validate(state, batch, valid)
+    takes ``batch[r, :valid[r]]``, mapped by ``map_fn`` and hashed by
+    ``hash_fn`` where given."""
+    if map_fn is None and hash_fn is None:
+        return update_prehashed_cuda(state, batch, None, valid)
+    if state.values.device.type == "cpu":
+        return update(state, batch, valid, map_fn, hash_fn)
+    mapped = map_keys(state, batch, map_fn)
+    hashes = tuple(to_i32(w).contiguous() for w in hook_hashes(state, mapped, hash_fn))
+    return update_prehashed_cuda(state, mapped, hashes, valid)
+
+
+def update_prehashed_cuda(
+    state: DistinctState,
+    batch: Batch,
+    hashes: Optional[Tuple[torch.Tensor, torch.Tensor]],
+    valid: Optional[torch.Tensor] = None,
+) -> DistinctState:
+    """The tile merge of keys ``batch`` whose pre-scramble hash words are
+    ``hashes`` (an ``(hi, lo)`` pair of int32 ``[R, B]`` planes), launched
+    as the pre-hashed instantiation; ``None`` hashes the keys' own words,
+    launched as the default one.  On CPU tensors it runs
+    :func:`.distinct.update_prehashed`."""
+    global launches, prehashed_launches
+    lo, hi, stride, B = _validate(state, batch, valid, hashes)
     dev = state.values.device
     if dev.type == "cpu":
-        return update(state, batch, valid)
+        return update_prehashed(state, batch, hashes, valid)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     R, k = state.values.shape
     lib = _library()
     hi_ptr = None if hi is None else hi.data_ptr() + (4 if stride == 2 else 0)
-    code = lib.distinct_update(
+    args = [
         state.values.data_ptr(), state.value_hi.data_ptr() if state.wide else None,
         state.hash_hi.data_ptr(), state.hash_lo.data_ptr(), state.size.data_ptr(),
         state.count.data_ptr(), state.salts.data_ptr(), lo.data_ptr(), hi_ptr, stride,
-        valid.data_ptr() if valid is not None else None,
-        R, k, B, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    ]
+    tail = [valid.data_ptr() if valid is not None else None, R, k, B,
+            torch.cuda.current_stream(dev).cuda_stream]
+    if hashes is None:
+        name, code = "distinct_update", lib.distinct_update(*args, *tail)
+    else:
+        name = "distinct_update_hashed"
+        code = lib.distinct_update_hashed(*args, hashes[0].data_ptr(), hashes[1].data_ptr(), *tail)
     if code != 0:
         msg = lib.distinct_error_string(code).decode()
-        raise RuntimeError(f"distinct_update launch failed: CUDA error {code} ({msg})")
+        raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
     with COUNT_LOCK:
-        launches += 1
+        if hashes is None:
+            launches += 1
+        else:
+            prehashed_launches += 1
     return state

@@ -30,13 +30,14 @@ acceptance depth, as in :mod:`.algorithm_l`.  Samples and elements move as
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import fmath
 from .algorithm_l import SAMPLE_DTYPES
 from .fmath import flush
+from .hooks import stored_words as _stored
 from .prefix import lane_cumsum
 from .rng import split_keys, uniforms
 
@@ -119,11 +120,12 @@ def _conditional(u1: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return fmath.fma(u1, 1.0 - t, t)
 
 
-def _check(state: WeightedState, elems: torch.Tensor, weights: torch.Tensor, valid) -> None:
+def _check(state: WeightedState, elems: torch.Tensor, weights: torch.Tensor, valid,
+           mapped: bool = False) -> None:
     R = state.samples.shape[0]
     if elems.ndim != 2 or elems.shape[0] != R or elems.shape[1] < 1:
         raise ValueError(f"elems must be [R={R}, B >= 1], got {tuple(elems.shape)}")
-    if elems.dtype != state.samples.dtype:
+    if not mapped and elems.dtype != state.samples.dtype:
         raise ValueError(f"elems dtype {elems.dtype} != samples dtype {state.samples.dtype}")
     if tuple(weights.shape) != tuple(elems.shape):
         raise ValueError(f"weights {tuple(weights.shape)} must match elems {tuple(elems.shape)}")
@@ -137,12 +139,13 @@ def _update(
     weights: torch.Tensor,
     valid: Optional[torch.Tensor],
     fill: bool,
+    map_fn: Optional[Callable] = None,
 ) -> Tuple[WeightedState, int]:
-    _check(state, elems, weights, valid)
+    _check(state, elems, weights, valid, mapped=map_fn is not None)
     R, k = state.samples.shape
     B = elems.shape[1]
     dev = elems.device
-    bits = elems.view(torch.int32)
+    dtype = state.samples.dtype
     samples = state.samples.clone()
     out = samples.view(torch.int32)
     lkeys = state.lkeys.clone()
@@ -169,7 +172,7 @@ def _update(
             (u0,) = uniforms(k1[r_f], k2[r_f], idx, 1)
             lk = torch.clamp(flush(fmath.log(u0) / wf[r_f, j_f]), min=_F32_MIN)
             dest = (n_filled[r_f] + prank[r_f, j_f] - 1).to(torch.int64)
-            out[r_f, dest] = bits[r_f, j_f]
+            out[r_f, dest] = _stored(elems, map_fn, dtype, (r_f, j_f))
             lkeys[r_f, dest] = lk
         # the fill completing in this tile draws the first jump, keyed on
         # index k, against the just-filled reservoir's minimum key
@@ -214,7 +217,7 @@ def _update(
         t = fmath.exp(flush(w_c * lt))
         r2 = _conditional(u1, t)
         lkey_new = torch.clamp(flush(fmath.log(r2) / w_c), min=_F32_MIN)
-        out[rows, slot] = bits[rows, jl]
+        out[rows, slot] = _stored(elems, map_fn, dtype, (rows, jl))
         lkeys[rows, slot] = lkey_new
         xw[rows] = _draw_xw(u2, lkeys[rows].min(1).values)
         base[rows] = cw[rows, jl]
@@ -231,11 +234,14 @@ def update(
     elems: torch.Tensor,
     weights: torch.Tensor,
     valid: Optional[torch.Tensor] = None,
+    map_fn: Optional[Callable] = None,
 ) -> WeightedState:
     """Consume one ``[R, B]`` (elements, weights) tile pair: reservoir ``r``
     takes ``elems[r, :valid[r]]`` (default: the whole row).  Returns a new
-    state; the input state is not modified."""
-    return _update(state, elems, weights, valid, fill=True)[0]
+    state; the input state is not modified.  ``map_fn`` (elementwise,
+    :mod:`.hooks`) applies on the fill and on accept, its results cast to
+    the sample dtype, as in :func:`.algorithm_l.update`."""
+    return _update(state, elems, weights, valid, True, map_fn)[0]
 
 
 def update_steady(
@@ -243,12 +249,13 @@ def update_steady(
     elems: torch.Tensor,
     weights: torch.Tensor,
     valid: Optional[torch.Tensor] = None,
+    map_fn: Optional[Callable] = None,
 ) -> WeightedState:
     """:func:`update` without the fill scatter (every reservoir full).  Kept
     for parity with the JAX package; no engine path calls it, because
     zero-weight items leave a host-side count unable to prove the fill is
     over."""
-    return _update(state, elems, weights, valid, fill=False)[0]
+    return _update(state, elems, weights, valid, False, map_fn)[0]
 
 
 def update_accepts(
@@ -257,11 +264,12 @@ def update_accepts(
     weights: torch.Tensor,
     valid: Optional[torch.Tensor] = None,
     fill: bool = True,
+    map_fn: Optional[Callable] = None,
 ) -> Tuple[WeightedState, int]:
     """:func:`update` (or :func:`update_steady` with ``fill=False``) that
     also returns the number of acceptances over all rows — the data-dependent
     work a kernel's bound is reckoned from."""
-    return _update(state, elems, weights, valid, fill)
+    return _update(state, elems, weights, valid, fill, map_fn)
 
 
 def merge_parts(

@@ -21,17 +21,23 @@ kernel it takes ``valid``, so ragged tiles run through it too.
 - on CPU tensors it runs the plain version (:func:`.weighted.update`), which
   returns a new state.
 
+With a ``map_fn`` (:mod:`.hooks`) it maps the whole element tile on the
+card and casts it to the sample dtype, then launches the unchanged kernel:
+for an elementwise map the reference's map on accept, which the plain
+version applies on the CPU.
+
 :data:`launches` counts kernel launches, and nothing else.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from ._cuda_common import build_info, check_tensors
+from .hooks import map_values
 from .weighted import WeightedState, update
 
 __all__ = ["launches", "update_cuda", "update", "kernel_info"]
@@ -92,10 +98,16 @@ def update_cuda(
     elems: torch.Tensor,
     weights: torch.Tensor,
     valid: Optional[torch.Tensor] = None,
+    map_fn: Optional[Callable] = None,
 ) -> WeightedState:
     """Fill-capable weighted tile update (the port of ``update_pallas``):
-    reservoir ``r`` takes ``elems[r, :valid[r]]`` with their weights."""
+    reservoir ``r`` takes ``elems[r, :valid[r]]`` with their weights,
+    mapped by ``map_fn`` where given."""
     global launches
+    if map_fn is not None:
+        if state.samples.device.type == "cpu":
+            return update(state, elems, weights, valid, map_fn)
+        elems = map_values(map_fn, elems, state.samples.dtype)
     _validate(state, elems, weights, valid)
     dev = state.samples.device
     if dev.type == "cpu":

@@ -55,7 +55,6 @@ from typing import Any, Deque, List, Optional, Tuple
 
 import numpy as np
 
-from ..engine import _not_in_slice
 from ..obs import registry as _obs
 from ..obs import trace as _ctrace
 from ..obs.export import json_snapshot, write_json_atomic
@@ -278,8 +277,9 @@ class StandbyReplica:
     Args:
       checkpoint_dir: the primary's checkpoint directory (shared or
         shipped filesystem).
-      map_fn / hash_fn: not ported (L5): raise ``NotImplementedError``,
-        as the engine does.
+      map_fn / hash_fn: code is not data: pass again the hooks the
+        primary's engine runs with; the standby's engine (and a
+        re-bootstrap's, and the promoted primary's) runs them.
       max_records: tile-apply batch bound per :meth:`poll`.
       clock: monotonic time source for staleness accounting (injectable).
       faults: fault plane for the ``replica.*`` sites.
@@ -307,9 +307,9 @@ class StandbyReplica:
         status_path: Optional[str] = None,
         device: Optional[Any] = None,
     ) -> None:
-        if map_fn is not None or hash_fn is not None:
-            raise _not_in_slice("map_fn / hash_fn", "L5")
         self._dir = checkpoint_dir
+        self._map_fn = map_fn
+        self._hash_fn = hash_fn
         self._device = device
         self._status_path = status_path
         self._max_records = int(max_records)
@@ -367,7 +367,8 @@ class StandbyReplica:
         the checkpoint's watermark."""
         engine_path = os.path.join(self._dir, "engine.npz")
         engine, metadata = load_engine(
-            engine_path, device=self._device, with_metadata=True
+            engine_path, device=self._device, with_metadata=True,
+            map_fn=self._map_fn, hash_fn=self._hash_fn,
         )
         info = (metadata or {}).get("bridge")
         if info is None:

@@ -564,7 +564,9 @@ class DeviceStreamBridge:
     Args:
       config: engine config; ``num_reservoirs`` is the stream count.
       key: seed or key words of the engine.
-      map_fn / hash_fn: not ported (L5): raise ``NotImplementedError``.
+      map_fn / hash_fn: the engine's hooks (elementwise functions on torch
+        tensors, :mod:`~reservoir_tpu_torch.ops.hooks`), forwarded to it,
+        gated or not; pushed elements are of the config's element dtype.
       reusable: reusable bridges allow :meth:`complete` followed by more
         pushes (snapshot semantics).
       mesh: not ported (L4): raises ``NotImplementedError``.
@@ -644,14 +646,12 @@ class DeviceStreamBridge:
     ) -> None:
         if mesh is not None:
             raise _not_in_slice("a bridge over a mesh (mesh=)", "L4")
-        if map_fn is not None or hash_fn is not None:
-            raise _not_in_slice("map_fn / hash_fn", "L5")
         if durability not in ("buffered", "fsync"):
             raise ValueError(f"durability must be 'buffered' or 'fsync', got {durability!r}")
         self._config = config
         self._faults = faults
         self._engine = _engine if _engine is not None else ReservoirEngine(
-            config, key=key, reusable=reusable, device=device
+            config, key=key, reusable=reusable, device=device, map_fn=map_fn, hash_fn=hash_fn
         )
         self._reusable = reusable
         S, B = config.num_reservoirs, config.tile_size
@@ -1043,7 +1043,9 @@ class DeviceStreamBridge:
             start.record(stream)
             copied = False
             try:
-                tile = self._pinned[i].to(dev, non_blocking=True).view(self._engine._dtype).view(S, B)
+                # the demux's bytes are elements: a map may give the
+                # samples another dtype
+                tile = self._pinned[i].to(dev, non_blocking=True).view(self._engine._elem_dtype).view(S, B)
                 weights = (
                     self._wpinned[i].to(dev, non_blocking=True)
                     if self._wpinned is not None
@@ -1492,12 +1494,13 @@ class DeviceStreamBridge:
 
         ``replay_hook(bridge, watermark)`` is called once when the state
         reaches the checkpoint's watermark and again after each replayed
-        tile with its sequence number.
+        tile with its sequence number.  ``map_fn``/``hash_fn`` are code, not
+        data: pass again those the crashed bridge ran with (a mismatch with
+        the checkpoint raises the reference's ``ValueError``).
         """
-        if map_fn is not None or hash_fn is not None:
-            raise _not_in_slice("map_fn / hash_fn", "L5")
         engine_path = os.path.join(checkpoint_dir, "engine.npz")
-        engine, metadata = load_engine(engine_path, device=device, with_metadata=True)
+        engine, metadata = load_engine(engine_path, device=device, with_metadata=True,
+                                       map_fn=map_fn, hash_fn=hash_fn)
         info = (metadata or {}).get("bridge")
         if info is None:
             raise ValueError(

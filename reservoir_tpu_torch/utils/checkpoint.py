@@ -297,7 +297,9 @@ def advance_epoch(directory: str) -> int:
 
 
 def save_engine(path: str, engine, metadata: Optional[dict] = None) -> None:
-    """Checkpoint a live engine: state, config and lifecycle."""
+    """Checkpoint a live engine: state, config and lifecycle.  ``map_fn``
+    and ``hash_fn`` are code, not data: they are recorded only as present
+    or absent, and must be passed again to :func:`load_engine`."""
     engine._check_open()
     arrays, manifest = _pack_state(engine._state, metadata)
     dev = engine.device
@@ -306,8 +308,8 @@ def save_engine(path: str, engine, metadata: Optional[dict] = None) -> None:
             "config": _config_to_jsonable(engine.config),
             "reusable": engine._reusable,
             "min_count": engine._min_count,
-            "has_map_fn": False,
-            "has_hash_fn": False,
+            "has_map_fn": engine._map_fn is not None,
+            "has_hash_fn": engine._hash_fn is not None,
             "backend": {
                 "platform": dev.type,
                 "device_count": torch.cuda.device_count() if dev.type == "cuda" else 1,
@@ -323,10 +325,13 @@ def save_engine(path: str, engine, metadata: Optional[dict] = None) -> None:
 
 
 def load_engine(path: str, engine_cls: Optional[type] = None, *, device: Any = None,
-                with_metadata: bool = False):
+                with_metadata: bool = False, map_fn: Any = None, hash_fn: Any = None):
     """Rebuild a checkpointed uniform, weighted or distinct engine on
     ``device``; with ``with_metadata``, ``(engine, metadata)`` (the stream
-    bridge's recovery reads its journal watermark there)."""
+    bridge's recovery reads its journal watermark there).  Raises the
+    reference's ``ValueError`` when the checkpoint was saved with a
+    ``map_fn`` or ``hash_fn`` and none is passed, or the other way round: a
+    silent mismatch would change what is stored."""
     from ..engine import ReservoirEngine
 
     arrays, manifest = _read_npz(path)
@@ -339,11 +344,12 @@ def load_engine(path: str, engine_cls: Optional[type] = None, *, device: Any = N
             f"checkpoint {path!r} holds a {state_class}; the torch port restores "
             f"{', '.join(_STATES)} engines only"
         )
-    if info.get("has_map_fn") or info.get("has_hash_fn"):
-        raise CheckpointMismatch(
-            f"checkpoint {path!r} was saved with a map_fn/hash_fn, which the "
-            "torch port does not run"
-        )
+    for flag, fn, name in (("has_map_fn", map_fn, "map_fn"), ("has_hash_fn", hash_fn, "hash_fn")):
+        if bool(info.get(flag)) != (fn is not None):
+            raise ValueError(
+                f"checkpoint was saved with {name} "
+                f"{'present' if info.get(flag) else 'absent'}; restore must match"
+            )
     config = SamplerConfig(**info["config"])
     if _state_class(config) != state_class:
         raise CheckpointMismatch(
@@ -359,7 +365,8 @@ def load_engine(path: str, engine_cls: Optional[type] = None, *, device: Any = N
         )
     state = _unpack_state(path, arrays, manifest)
     engine = (engine_cls or ReservoirEngine)(
-        config, reusable=info["reusable"], device=device, _initial_state=state
+        config, reusable=info["reusable"], device=device, map_fn=map_fn, hash_fn=hash_fn,
+        _initial_state=state,
     )
     engine._min_count = info["min_count"]
     return (engine, manifest.get("metadata", {})) if with_metadata else engine

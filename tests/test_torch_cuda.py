@@ -1607,3 +1607,167 @@ def test_card_wide_engine_equals_cpu_engine(cuda_device):
         np.testing.assert_array_equal(a, convert.state_to_numpy(host.state)[name])
     for a, b in zip(card.result_arrays(), host.result_arrays()):
         np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------- the hooks (L5) and fused stream (L7)
+
+
+def _pre_hashes(tile, how):
+    """Pre-scramble hash planes (int32) for a tile of keys: a hash that
+    collides often (``collide``: the keys' low nibble under a zero high
+    word), or a mix of both words (``mix``)."""
+    x = tile.view(torch.int64) if tile.dtype.itemsize == 8 else tile.view(torch.int32).to(torch.int64)
+    if how == "collide":
+        hi, lo = torch.zeros_like(x), x & 0xF
+    else:
+        hi, lo = ((x >> 32) ^ (x * 31)) & 0xFFFFFFFF, (x ^ (x >> 7)) & 0xFFFFFFFF
+    to32 = lambda w: torch.where(w >= 2**31, w - 2**32, w).to(torch.int32).contiguous()  # noqa: E731
+    return to32(hi), to32(lo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["collide", "mix"])
+@pytest.mark.parametrize("dtype, R, k, B", [
+    (torch.int32, 512, 16, 256), (torch.int64, 512, 16, 256), (torch.int32, 64, 1, 130),
+    (torch.int32, 3, 19370, 4096), (torch.int32, 3, 19371, 4096),
+    (torch.int64, 3, 14528, 4096), (torch.int64, 3, 14529, 4096),
+])
+def test_prehashed_distinct_kernel_equals_plain_version(cuda_device, dtype, R, k, B, how):
+    """The pre-hashed instantiation against ``update_prehashed``, bit for
+    bit, narrow and wide, on chip and beyond shared memory (the k on each
+    side of the limit), with a hash that gives many keys one hash (the
+    order falls to the value words) and one that mixes them; a tile from
+    empty, a Zipf tile, a ragged tile and fresh keys."""
+    wide = dtype == torch.int64
+    on_chip = TDK.kernel_info(k, wide, prehashed=True)["dynamic_smem"] > 0
+    assert on_chip == (TDK.kernel_info(k, wide)["dynamic_smem"] > 0)
+    gen = torch.Generator(device=cuda_device).manual_seed(k + B)
+    s = TD.init(key_from_seed(3), R, k, sample_dtype=dtype, device=cuda_device)
+    before = (TDK.launches, TDK.prehashed_launches)
+    for i, kind in enumerate(("random", "zipf", "zipf", "random")):
+        tile = _card_keys(gen, R, B, cuda_device, dtype, kind)
+        hashes = _pre_hashes(tile, how)
+        valid = (torch.randint(0, B + 1, (R,), dtype=torch.int32, device=cuda_device, generator=gen)
+                 if i == 2 else None)
+        ref = TD.update_prehashed(_dclone(s), tile, hashes, valid)
+        s = TDK.update_prehashed_cuda(s, _as_batch(tile, "planes" if wide and i == 1 else "int64"),
+                                      hashes, valid)
+        for f in _DFIELDS:
+            a, b = getattr(s, f), getattr(ref, f)
+            assert (a is None and b is None) or torch.equal(a.view(torch.int32), b.view(torch.int32)), (f, i)
+    assert (TDK.launches, TDK.prehashed_launches) == (before[0], before[1] + 4)
+
+
+@pytest.mark.cuda
+def test_a_user_hash_of_max_max_is_kept_on_the_card(cuda_device):
+    """Salts that send a pre-scramble hash to (MAX, MAX): the pre-hashed
+    kernel keeps the key while the row is not full (the reference's XLA
+    rule under a hash_fn), as its plain version does."""
+    R, k, B = 32, 256, 128  # k > B: no row fills
+    plant = 123456789
+    s = _planted_state(R, k, torch.int32, cuda_device, plant)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    tile = _card_keys(gen, R, B, cuda_device, torch.int32, "random")
+    tile[:, 5] = plant
+    hashes = (torch.where(tile < 0, -1, 0).to(torch.int32), tile.clone())  # the default hash's words
+    ref = TD.update_prehashed(_dclone(s), tile, hashes)
+    s = TDK.update_prehashed_cuda(s, tile, hashes)
+    for f in _DFIELDS:
+        a, b = getattr(s, f), getattr(ref, f)
+        assert (a is None and b is None) or torch.equal(a.view(torch.int32), b.view(torch.int32)), f
+    assert (s.values == plant).any(dim=1).all()
+
+
+_HOOK_MODES = {
+    "uniform": (dict(sample_dtype="float32"), lambda x: (x >> 8).to(torch.float32) * 0.5, None),
+    "wide": (dict(count_dtype="wide"), lambda x: x * 3 + 7, None),
+    "weighted": (dict(weighted=True), lambda x: x ^ 0x5A5A, None),
+    "distinct": (dict(distinct=True), lambda x: x & 0x3FFF, lambda v: (v >> 16, v * 31)),
+    "distinct_map": (dict(distinct=True), lambda x: x & 0x3FFF, None),
+    "distinct_int64": (dict(distinct=True, element_dtype="int64"), lambda x: x & ~0xFFFF000,
+                       lambda x: ((x >> 32) ^ x, x & 0xFF)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(_HOOK_MODES))
+def test_hooked_card_engine_equals_the_cpu_engine(cuda_device, mode):
+    """A hooked engine on the card (map the tile, hash it, launch) against
+    ``device="cpu"`` (the plain versions, map on accept), one launch a tile."""
+    kw, map_fn, hash_fn = _HOOK_MODES[mode]
+    R, k, B = 512, 13, 128
+    cfg = SamplerConfig(k, R, B, **kw)
+    card = ReservoirEngine(cfg, key=1, map_fn=map_fn, hash_fn=hash_fn, device=cuda_device)
+    host = ReservoirEngine(cfg, key=1, map_fn=map_fn, hash_fn=hash_fn, device="cpu")
+    rng = np.random.default_rng(17)
+    counts = lambda: (TK.launches + TK.wide_launches, TWK.launches, TDK.launches, TDK.prehashed_launches)  # noqa: E731
+    before = counts()
+    for i in range(4):
+        tile = rng.integers(0, 1 << 20, (R, B)).astype(kw.get("element_dtype", "int32"))
+        w = rng.uniform(0.0, 2.0, (R, B)).astype(np.float32) if kw.get("weighted") else None
+        valid = rng.integers(0, B + 1, R).astype(np.int32) if i == 3 else None
+        card.sample(torch.from_numpy(tile).to(cuda_device) if i % 2 else tile, valid, weights=w)
+        host.sample(tile, valid, weights=w)
+    got = [a - b for a, b in zip(counts(), before)]
+    # a hooked distinct tile always takes the pre-hashed instantiation
+    assert sum(got) == 4 and got[3] == (4 if kw.get("distinct") else 0)
+    for a, b in zip(card.result_arrays(), host.result_arrays()):
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gated", [False, True])
+def test_bridge_with_a_dtype_changing_map_equals_the_cpu_bridge(cuda_device, gated):
+    """A bridge whose map turns int32 elements into float32 samples, gated
+    or not, against ``device="cpu"``: a card flush ships the demux's
+    element bytes, and the engine maps them (the gated bridge's fill
+    flushes take that path too)."""
+    S, B, n = 64, 16, 160
+    cfg = SamplerConfig(4, S, B, sample_dtype="float32")
+    data = np.random.default_rng(23).integers(0, 1 << 30, (S, n)).astype(np.int32)
+    ids = np.tile(np.arange(S, dtype=np.int32), B)
+
+    def run(device):
+        bridge = DeviceStreamBridge(cfg, key=3, map_fn=lambda x: (x >> 8).to(torch.float32) * 0.5,
+                                    gated=gated, gate_tile=8, device=device)
+        for off in range(0, n, B):
+            bridge.push_interleaved(ids, data[:, off:off + B].T.ravel())
+        out = bridge.complete()
+        return bridge.metrics.snapshot(), out
+
+    before = (TK.launches, TK.gated_launches)
+    metrics, got = run(cuda_device)
+    launched = (TK.launches - before[0], TK.gated_launches - before[1])
+    assert launched[0] >= 1 and (launched[1] >= 1 if gated else launched[1] == 0)
+    assert metrics["gated_dispatches"] == launched[1]
+    _, want = run("cpu")
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == np.float32
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["uniform", "wide", "weighted", "distinct", "distinct_int64", "hooked"])
+def test_fused_stream_equals_the_per_tile_path_on_the_card(cuda_device, mode):
+    """``sample_stream(fused=True)`` against the per-tile path, bit for bit,
+    with one launch a tile."""
+    R, k, B, n = 1024, 16, 256, 5
+    kw = {"uniform": {}, "wide": dict(count_dtype="wide"), "weighted": dict(weighted=True),
+          "distinct": dict(distinct=True), "distinct_int64": dict(distinct=True, element_dtype="int64"),
+          "hooked": dict(distinct=True)}[mode]
+    hooks = dict(map_fn=lambda x: x & 0xFFFF, hash_fn=lambda v: (v >> 3, v * 31)) if mode == "hooked" else {}
+    cfg = SamplerConfig(k, R, B, **kw)
+    rng = np.random.default_rng(19)
+    stream = rng.integers(0, 1 << 18, (R, n * B + 17)).astype(kw.get("element_dtype", "int32"))
+    w = rng.uniform(0.0, 2.0, stream.shape).astype(np.float32) if kw.get("weighted") else None
+    engines = [ReservoirEngine(cfg, key=2, reusable=True, device=cuda_device, **hooks) for _ in range(2)]
+    counts = lambda: TK.launches + TK.wide_launches + TWK.launches + TDK.launches + TDK.prehashed_launches  # noqa: E731
+    before = counts()
+    engines[0].sample_stream(stream, weights=w, fused=True)
+    torch.cuda.synchronize()
+    assert counts() - before == n + 1  # n fused tiles and the ragged tail
+    engines[1].sample_stream(stream, weights=w)
+    for a, b in zip(engines[0].state, engines[1].state):
+        assert (a is None and b is None) or torch.equal(a.view(torch.int32) if a.dtype == torch.uint32 else a,
+                                                         b.view(torch.int32) if b.dtype == torch.uint32 else b)
