@@ -14,13 +14,17 @@ gate, and the reference's public surface: the pass-through operator
 BASELINE.md config 1's size, and the serving plane: the engine's row
 operations and ``ReservoirService`` at bench.py's serve and traffic
 shapes, the hot standby and its failover at the ha shape, and the sharded
-cluster at the shards / merge shape, WIDE counters, and the reference's
-``map_fn`` / ``hash_fn`` hooks and fused stream in each mode — and holds
+cluster at the shards / merge shape, WIDE counters, the reference's
+``map_fn`` / ``hash_fn`` hooks and fused stream in each mode, and the
+sharded engine (``mesh_axis``) over 8 ranks of the card — and holds
 each CUDA kernel against its plain torch version.  Phases, each of
 which fails the run with a non-zero exit:
 
 1. device: require a CUDA card; print its name and power limit;
 2. build: compile ``reservoir_tpu_torch/csrc`` with nvcc, print the seconds;
+   then count, in the SASS of a probe built with the same flags
+   (``cuobjdump``), the instructions of a 32-bit and a 64-bit ``%`` by pipe,
+   which the merge kernels' bounds (phases 19 and 38) count a scan step;
 3. kernel vs plain version on the card at R=65536, k=128, B=2048, for
    int32 and float32 tiles (with -0.0 and NaN bit patterns planted), and
    for int32 at k=100: a partial fill tile of width 64, a tile across the
@@ -172,12 +176,13 @@ which fails the run with a non-zero exit:
    nvalid 0 and advance 0 — samples, count, nxt and log_w bit-identical to
    the plain version on the card and to ``algl_update`` over the whole
    tile, rows 0..1023 to the plain version on the CPU; the native replica
-   over all 65,536 rows of each state (its rows split over threads) equal
-   to the torch replica on every 64th row;
+   over all 65,536 rows of each int32 state (its rows split over threads;
+   a replica never reads the samples) equal to the torch replica on every
+   256th row;
 25. the gated bridge at full width, ``DeviceStreamBridge(SamplerConfig(
    k=128, R=65536, tile_size=2048), key=0, gated=True)``, every launch
    count set to 0 first: (a) a lockstep ``push_interleaved`` of 12 tiles,
-   then (b) 8 rounds of ``push(row, chunk)`` of 8,192 elements
+   then (b) 3 rounds of ``push(row, chunk)`` of 8,192 elements
    ``row * N + pos`` a row, round-robin, made at each push; after each,
    the state equals the card engine fed the same row streams in
    ``[R, B]`` tiles, with one ``algl_update_gated`` launch a gated
@@ -215,8 +220,8 @@ which fails the run with a non-zero exit:
 28. ``SampleServer`` on 127.0.0.1 with a factory of card ``DeviceSampler``s
    (``tile_size=1024``, key 0; int32 for mode 0, int64 distinct keys for
    mode 1): 8 concurrent mode-0 connections (k = 128), each a different
-   stream of 1,048,576 int64 values below 2^31 in 16 ``B`` frames of
-   65,536, then ``C``: 8,192 ``algl_update`` launches, each reply equal to
+   stream of 524,288 int64 values below 2^31 in 8 ``B`` frames of
+   65,536, then ``C``: 4,096 ``algl_update`` launches, each reply equal to
    a card ``DeviceSampler`` fed that stream; one mode-1 connection (k =
    256, phase 27's Zipf keys): 1,024 ``distinct_update`` launches, the
    reply equal to the exact oracle; an ``F`` connection answered ``A``,
@@ -233,7 +238,7 @@ which fails the run with a non-zero exit:
    a ``[1, 1024]`` host tile's ``engine.sample`` with and without
    ``valid``, and the wire for 1 and 8 connections with the host and the
    device factory, each with the client's Nagle algorithm on and off
-   (``TCP_NODELAY``), 7 runs of one connection and 3 of eight (median,
+   (``TCP_NODELAY``), 5 runs of one connection and 2 of eight (median,
    least, most); with CUDA events, ``algl_update`` and ``distinct_update`` on
    this path's steady ``[1, 1024]`` tiles (after 8 tiles) beside their
    bounds (both shorter than their wrappers' host time, so ``event_ms``
@@ -367,7 +372,7 @@ which fails the run with a non-zero exit:
    pre-hashed instantiation on the mapped keys' own words (the reference
    runs any hook on XLA): its map pass, that hash pass and the kernel
    timed beside the default kernel on the same mapped keys; then ``DeviceStreamBridge``s with a
-   map (R=4096, B=1024, 8 lockstep rounds of 2,048 a row through
+   map (R=4096, B=1024, 4 lockstep rounds of 2,048 a row through
    ``push_interleaved``): gated with an int32 map, gated and ungated with
    an int32 to float32 map, each launching its flushes
    (``algl_update_gated`` its gated dispatches), its state equal to the
@@ -391,20 +396,54 @@ which fails the run with a non-zero exit:
    bit for bit (the port feeds a fused stream tile by tile); elements/s
    fed from the host, on the second (warm) run.
 
+42. meshed engines over 8 ranks of the card (``mesh=make_mesh(devices=
+   ["cuda"] * 8)``, ``mesh_axis="res"``), each launch count set to 0
+   first: config 5 (R=65536, k=128, B=2048: 8,192 rows a rank, as on
+   the reference's v5e-8), the same with WIDE counters, the weighted
+   configuration and the distinct one with Zipf int64 keys, each fed 10
+   device and 2 host tiles: 8 launches a tile of the mode's kernel and no
+   other, the state equal to the unmeshed card engine's bit for bit and,
+   rows 0..1023, to a meshed ``device="cpu"`` engine's (2 CPU ranks, in a
+   child process while the card works); elements/s fed from the device
+   and from the host beside the unmeshed engine's, after a warm-up tile;
+43. ``sharded_result`` of config 5's meshed state: one
+   ``merge_ring_gather`` launch, every rank's samples and sizes equal to
+   ``gather_parts_plain``'s, the total equal to the host's sum with its
+   int32 wrap; the gather timed beside its bytes bound, (d + d^2) n 4 at
+   3.35 TB/s, and the library call (the ``torch.cat`` of per-rank
+   ``.to()`` copies onto every rank), and the whole call;
+44. a meshed bridge (R=4096, B=1024, 8 ranks of the card) with
+   ``gated=True``, inert with the reference's reason, over 8 lockstep
+   ``push_interleaved`` tiles: 8 ``algl_update`` launches a flush, the
+   samples equal to a meshed ``device="cpu"`` bridge's (2 CPU ranks, in a
+   child process); then a journaling
+   meshed bridge (``checkpoint_every=3``) dropped after 5 tiles,
+   ``recover(mesh=)`` replaying its journaled flush through 8 launches,
+   and the rest of the stream: the same samples.
+
 Depth cut for the time limit: feed (b) follows feed (a) on the same
 bridge, so its rows are past the early stream, where a row's 8,192
 elements have more candidates than the gate tile and go through the
-staging, one whole-tile flush per 2,048; the windows of (a) are its tiles
-5-12 and of (b) its rounds 2-8; the ungated bridge's (b) window is 64
-pushes of round 1 (each push of 8,192 elements to one row flushes the
-whole 512 MiB tile four times); phase 31 (b) opens 8,704 sessions, so 512
-rows recycle, not bench.py's 2,048 (each recycle is a row reset of ~30 ms
-on the card).
+staging, one whole-tile flush per 2,048 (feed (a) keeps its 12 tiles: after
+8, most of (b)'s pushes have more candidates than the gate tile and go
+through the staging, which multiplied the phase's time); the windows of
+(a) are its tiles 5-8 on both bridges (the gated one then takes tiles 9-12
+outside the window) and of (b) its rounds 2-3; the ungated bridge's (b)
+window is 32 pushes of round 1 (each push of 8,192 elements to one row
+flushes the whole 512 MiB tile four times); phase 24 compares the two
+replicas on the int32 states only; a mode-0 wire connection streams 8
+frames of 65,536 in phase 28 and 4 in phase 29's timed runs, which run 5
+times with one connection and twice with eight, and the host samplers'
+rates are the median of 3 runs (2 for the slowest); phase 24's torch
+replica runs on every 256th row, not every 64th; phase 39's mapped
+bridges take 4 lockstep rounds, not 8; phase 31
+(b) opens 8,704 sessions, so 512 rows recycle, not bench.py's 2,048 (each
+recycle is a row reset of ~30 ms on the card).
 
 A phase's line ends with the seconds since the script started.
 
 The line before the last is ``{"kernels": [...]}``, before it
-``{"hooks": {...}}`` (phases 39-41), ``{"wide": {...}}`` (phases 36-38), ``{"ha": {...}}`` (phases 33-35), ``{"serve": {...}}`` (phases 30-32), ``{"operator": {...}}`` (phases 27-29), ``{"gate": {...}}`` (phases
+``{"sharded": {...}}`` (phases 42-44), ``{"hooks": {...}}`` (phases 39-41), ``{"wide": {...}}`` (phases 36-38), ``{"ha": {...}}`` (phases 33-35), ``{"serve": {...}}`` (phases 30-32), ``{"operator": {...}}`` (phases 27-29), ``{"gate": {...}}`` (phases
 24-26) and ``{"bridge": {...}}`` (phases 20-23); the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or run outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -435,6 +474,10 @@ REPS = 11
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 PEAK_INT32 = 64 * 132 * 1.98e9
+# the IMAD pipe (64 lanes an SM) and the conversion and special-function
+# unit (16 lanes an SM: MUFU, I2F, F2I)
+PEAK_IMAD = 64 * 132 * 1.98e9
+PEAK_SFU = 16 * 132 * 1.98e9
 # a Threefry-2x32 block's operations that only the INT32 pipe issues: its
 # 20 rounds' rotations and xors (its ~32 adds may issue to the FMA pipe as
 # IMAD, so they are left out); every integer bound below counts a block so
@@ -477,10 +520,14 @@ RR, RB = 4096, 1024
 # the skip gate's phases: the gate tile, feed (a)'s lockstep tiles, feed
 # (b)'s rounds and chunk a row, and the ungated bridge's window of (b)
 GATE_CAP = 64
+# phase 24: the torch replica runs on every REPLICA_STRIDE-th row (32 rows
+# in each of the native replica's 8 threads' ranges)
+REPLICA_STRIDE = 256
 FEED_A_TILES = 12
-FEED_B_ROUNDS = 8
+FEED_A_WINDOW = 4
+FEED_B_ROUNDS = 3
 FEED_B_CHUNK = 8192
-UNGATED_B_PUSHES = 64
+UNGATED_B_PUSHES = 32
 # the merge kernel's sample sizes in its cases
 MERGE_KS = (1, 5, 128, 1000)
 MERGE_ROWS = 2048
@@ -712,6 +759,10 @@ def main() -> None:
     mkern._library()
     kern._merge_library()
     log(f"[2 build] csrc built and loaded in {time.perf_counter() - t0:.2f} s")
+    REMAINDER_OPS.update(remainder_ops(os.path.join(here, "build", "chip_smoke")))
+    log(f"[2 build] the merge scan's remainders on sm_90 (SASS, by pipe): "
+        + (f"32-bit % {REMAINDER_OPS['rem32']}, 64-bit % {REMAINDER_OPS['rem64']} (through a subroutine: "
+           f"{REMAINDER_OPS['subroutine']})" if REMAINDER_OPS else "cuobjdump missing: left out of the bounds"))
 
     # 3. kernel vs plain version, full width
     gen = torch.Generator(device=dev)
@@ -908,6 +959,7 @@ def main() -> None:
     wide, wide_entry, wide_merge_entry = wide_phases(
         gen, dev, here, {"fill_tile": fill_accepts, "steady_tile": steady_accepts, "deep_steady_tile": deep_accepts})
     hooks, hook_extra, prehashed_entry = hook_phases(gen, dev, here)
+    sharded, sharded_extra = sharded_phases(gen, dev, here)
 
     card = card_line()
     log(card)
@@ -918,6 +970,7 @@ def main() -> None:
     log(json.dumps({"ha": ha}))
     log(json.dumps({"wide": wide}))
     log(json.dumps({"hooks": hooks}))
+    log(json.dumps({"sharded": sharded}))
     entries = [{
         "name": "algl_update",
         "route": "cuda",
@@ -946,6 +999,7 @@ def main() -> None:
     }, weighted, distinct, merge, gated_entry, merge_entry, wide_entry, wide_merge_entry, prehashed_entry]
     for entry in entries:
         entry.update(hook_extra.get(entry["name"], {}))
+        entry.update(sharded_extra.get(entry["name"], {}))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
@@ -1528,19 +1582,104 @@ def words_err(got, want) -> float:
     return err
 
 
-def merge_bound_ms(steps: int, draws: int, rows: int, k: int, row_bytes: int = 21) -> tuple:
+def merge_bound_ms(steps: int, draws: int, rows: int, k: int, row_bytes: int = 21, wide: bool = False) -> tuple:
     """The merge kernel's bound for ``rows`` rows of sample size ``k``
     whose scans ran ``steps`` steps and drew ``draws`` words in all (each
     rejected attempt counted): per step a fold and each word drawn one
-    Threefry block; per row two folds and 2k key words; each block's
-    INT32-pipe operations over that pipe's rate (the scan's remainders
-    left out); bytes the counts, flags and keys read (17 a row), j_a and the
-    keys written (4 + 8k a row): ``row_bytes`` + 8k a row (WIDE counts,
-    8 bytes each and no flags: 28)."""
+    Threefry block; per row two folds and 2k key words; and per step the
+    scan's remainders, three 32-bit ``%`` (``randint_exact``: 2^32 mod
+    denom, then the draw mod denom) or, with WIDE counts, two 64-bit ``%``,
+    each the SASS instructions :func:`remainder_ops` counted on its pipe.
+    The operations' time is the busiest pipe's: the INT32 pipe (the blocks'
+    and the remainders' integer ops), the IMAD pipe and the conversion and
+    special-function unit (``PEAK_SFU``); bytes the counts, flags and keys
+    read (17 a row), j_a and the keys written (4 + 8k a row):
+    ``row_bytes`` + 8k a row (WIDE counts, 8 bytes each and no flags:
+    28)."""
     blocks = steps + draws + 2 * rows * (k + 1)
-    t_ops = THREEFRY_INT32_OPS * blocks / PEAK_INT32
+    rem = REMAINDER_OPS.get("rem64" if wide else "rem32") or {}
+    n_rem = (2 if wide else 3) * steps
+    t_int = (THREEFRY_INT32_OPS * blocks + n_rem * rem.get("integer", 0)) / PEAK_INT32
+    t_ops = max(t_int, n_rem * rem.get("fma", 0) / PEAK_IMAD, n_rem * rem.get("convert/special", 0) / PEAK_SFU)
     t_bytes = rows * (row_bytes + 8 * k) / PEAK_BYTES
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+#: a probe of one remainder a thread, 32- and 64-bit, beside kernels that
+#: load and store the same words: the difference is the remainder's code
+REMAINDER_PROBE = r"""
+#include <cstdint>
+extern "C" __global__ void probe_base32(const uint32_t* a, const uint32_t* b, uint32_t* o) {
+  const int i = threadIdx.x; o[i] = a[i] ^ b[i]; }
+extern "C" __global__ void probe_rem32(const uint32_t* a, const uint32_t* b, uint32_t* o) {
+  const int i = threadIdx.x; o[i] = a[i] % b[i]; }
+extern "C" __global__ void probe_base64(const uint64_t* a, const uint64_t* b, uint64_t* o) {
+  const int i = threadIdx.x; o[i] = a[i] ^ b[i]; }
+extern "C" __global__ void probe_rem64(const uint64_t* a, const uint64_t* b, uint64_t* o) {
+  const int i = threadIdx.x; o[i] = a[i] % b[i]; }
+"""
+#: the SASS instructions of a 32-bit and a 64-bit ``%`` by pipe (set by
+#: :func:`remainder_ops`; empty where ``cuobjdump`` is missing)
+REMAINDER_OPS: dict = {}
+
+
+def remainder_ops(work: str) -> dict:
+    """The SASS instructions a 32-bit and a 64-bit unsigned ``%`` take on
+    sm_90, by the pipe that issues them (``kernel_ab.PIPES``): the probe
+    built with the port's nvcc flags, ``cuobjdump -sass`` of it, each
+    remainder kernel less its load-and-store twin.  The 64-bit ``%`` tests
+    whether both operands fit 32 bits and takes a 32-bit path when they
+    do, which no remainder of the WIDE scan does (2^64 mod denom and a
+    64-bit draw): its count leaves out a 32-bit ``%``'s instructions where
+    it branches (inline, or through a subroutine, whose instructions are
+    added), so that the count is no more than the path the scan runs.
+    Returns ``{}`` where ``cuobjdump`` is missing."""
+    import re
+
+    from kernel_ab import PIPES
+    from reservoir_tpu_torch import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        return {}
+    os.makedirs(work, exist_ok=True)
+    src, cubin = os.path.join(work, "rem_probe.cu"), os.path.join(work, "rem_probe.cubin")
+    with open(src, "w") as fh:
+        fh.write(REMAINDER_PROBE)
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([_build.nvcc_path(), *flags, "-cubin", "-o", cubin, src], check=True, capture_output=True,
+                   timeout=300)
+    text = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    funcs, name = {}, None
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            funcs[name] = []
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(.*?);", ln)
+        if name is not None and m:
+            words = m.group(1).split()
+            funcs[name].append((words[1] if words[0].startswith("@") else words[0]).split(".")[0])
+
+    def by_pipe(ops) -> dict:
+        counts = {pipe: 0 for pipe in PIPES} | {"other": 0}
+        for op in ops:
+            counts[next((p for p, names in PIPES.items() if op in names), "other")] += 1
+        return counts
+
+    def minus(a: dict, b: dict) -> dict:
+        return {p: max(0, a[p] - b[p]) for p in a}
+
+    pipes = {n: by_pipe(ops) for n, ops in funcs.items()}
+    rem32 = minus(pipes["probe_rem32"], pipes["probe_base32"])
+    callee = {p: sum(c[p] for n, c in pipes.items() if not n.startswith("probe_")) for p in rem32}
+    rem64 = minus(pipes["probe_rem64"], pipes["probe_base64"])
+    if rem64["control"] or any(callee.values()):
+        rem64 = {p: v + callee[p] for p, v in minus(rem64, rem32).items()}
+    return {"rem32": rem32, "rem64": rem64,
+            "instructions": {"rem32": sum(rem32.values()), "rem64": sum(rem64.values())},
+            "subroutine": any(callee.values())}
 
 
 def merge_steps(count_a: torch.Tensor, count_b: torch.Tensor, k: int) -> int:
@@ -2588,8 +2727,13 @@ def gate_phases(gen, dev, here: str) -> tuple:
             del ref, got, full, tile
         # the two replicas on each of these states: the native one over all
         # R rows (split over its threads), the torch one over every
-        # (R // ROWS_CPU)-th row, a sample that falls in every thread's range
-        idx = torch.arange(0, R, R // ROWS_CPU, device=dev)
+        # (R // ROWS_CPU)-th row, a sample that falls in every thread's range.
+        # A replica reads count, nxt, log_w and key, never the samples, so
+        # the int32 states' chains stand for the float32 ones (a depth cut)
+        if dtype != torch.int32:
+            del plan, state
+            continue
+        idx = torch.arange(0, R, REPLICA_STRIDE, device=dev)
         idx_np = idx.cpu().numpy()
         threads = 0
         for label, state, hi in plan:
@@ -2600,7 +2744,7 @@ def gate_phases(gen, dev, here: str) -> tuple:
             threads = min(full_gate.threads(), R // 1024)
             full_n = full_gate.evaluate(m)
             row_n = full_gate.evaluate_row(int(idx_np[row]), int(m[idx_np[row]]) + extra)
-            sub_gate = SkipGate(ROWS_CPU, K, B, np.int32, cap=cap, native=False)
+            sub_gate = SkipGate(idx.numel(), K, B, np.int32, cap=cap, native=False)
             sub_gate.resync(_EngineView(type(state)(*(None if t is None else t[idx].cpu() for t in state))))
             full_t = sub_gate.evaluate(m[idx_np])
             row_t = sub_gate.evaluate_row(row, int(m[idx_np[row]]) + extra)
@@ -2614,7 +2758,7 @@ def gate_phases(gen, dev, here: str) -> tuple:
                 if not np.array_equal(np.asarray(x).view(np.int32), np.asarray(y).view(np.int32)):
                     fail(f"the native replica != the torch replica ({dtype}, {label})")
         log(f"[24 replicas] {dtype}: native replica over all {R} rows ({threads} threads) == torch "
-            f"replica on every {R // ROWS_CPU}th row of the four states (evaluate and evaluate_row: "
+            f"replica on every {REPLICA_STRIDE}th row of the four states (evaluate and evaluate_row: "
             "pos, fill, n_acc, count, nxt, log_w)")
         del plan, state
 
@@ -2663,11 +2807,13 @@ def gate_phases(gen, dev, here: str) -> tuple:
     bridge = rtt.DeviceStreamBridge(cfg, key=0, gated=True)
     if not (bridge.gate_active and bridge._gate.native and bridge._gate.cap == cap):
         fail("the gated bridge's gate is not active with the native replica")
-    warm_a = 4
+    warm_a, win_a = 4, FEED_A_WINDOW
     window(bridge, lambda: feed_a(bridge, range(warm_a)))  # the fill: fallback flushes
     before = snap(bridge.metrics)
-    dt_a = window(bridge, lambda: feed_a(bridge, range(warm_a, TILES_A)))
+    dt_a = window(bridge, lambda: feed_a(bridge, range(warm_a, warm_a + win_a)))
     gated_a = stage_row(bridge.metrics, before)
+    # the rest of (a), past the window: (b) starts where it ends
+    window(bridge, lambda: feed_a(bridge, range(warm_a + win_a, TILES_A)))
     m = bridge.metrics
     launches_a = (kern.launches, kern.gated_launches)
     if kern.gated_launches != m.gated_dispatches or kern.launches != m.flushes - m.gated_dispatches:
@@ -2776,7 +2922,7 @@ def gate_phases(gen, dev, here: str) -> tuple:
     ungated = rtt.DeviceStreamBridge(cfg, key=0)
     window(ungated, lambda: feed_a(ungated, range(warm_a)))
     before = snap(ungated.metrics)
-    dt_ua = window(ungated, lambda: feed_a(ungated, range(warm_a, TILES_A)))
+    dt_ua = window(ungated, lambda: feed_a(ungated, range(warm_a, warm_a + win_a)))
     ungated_a = stage_row(ungated.metrics, before)
     # feed (b) ungated: every push of CHUNK_B > B elements to one row fills
     # it CHUNK_B / B times, and each fill flushes the whole [R, B] tile,
@@ -2789,7 +2935,7 @@ def gate_phases(gen, dev, here: str) -> tuple:
     del ungated, lock_chunks, lock_tiles
     gc.collect()
     rates = {
-        "a": {"gated": (TILES_A - warm_a) * R * B / dt_a, "ungated": (TILES_A - warm_a) * R * B / dt_ua},
+        "a": {"gated": win_a * R * B / dt_a, "ungated": win_a * R * B / dt_ua},
         "b": {"gated": (ROUNDS_B - 1) * R * CHUNK_B / dt_b, "ungated": win_rows * CHUNK_B / dt_ub},
     }
     # the replica's evaluation, native and plain, from the state after feed (a)
@@ -2803,7 +2949,7 @@ def gate_phases(gen, dev, here: str) -> tuple:
             t0 = time.perf_counter()
             ev = gate.evaluate(np.full(R, B, np.int32))
             full_t.append(1e3 * (time.perf_counter() - t0))
-        for row in range(200 if native else 3):
+        for row in range(200 if native else 1):
             t0 = time.perf_counter()
             gate.evaluate_row(row, CHUNK_B)
             row_t.append(1e3 * (time.perf_counter() - t0))
@@ -2888,7 +3034,13 @@ OP_N = 1_048_876  # 1,024 full tiles and a ragged 300
 OP_DN = 1 << 20
 OP_CANCEL = 500_000
 OP_KS_RUNS, OP_KS_N = 512, 8192
-WIRE_CONNS, WIRE_FRAME, WIRE_REPS = 8, 65_536, 7
+WIRE_CONNS, WIRE_FRAME, WIRE_REPS = 8, 65_536, 5
+# a mode-0 wire connection's stream: 8 frames (a depth cut, see the
+# docstring), and the timed runs of 8 connections at once
+WIRE_N = 8 * WIRE_FRAME
+WIRE_CONC_REPS = 2
+# the frames a connection streams in phase 29's timed runs
+WIRE_TIMED_FRAMES = 4
 
 
 def op_zipf(seed: int, n: int) -> np.ndarray:
@@ -3117,7 +3269,7 @@ def operator_phases(dev) -> tuple:
                             element_dtype="int64" if mode == 1 else "int32")
         return DeviceSampler(cfg, key=0)
 
-    streams = [np.random.default_rng(280 + i).integers(0, 2**31, OP_DN) for i in range(WIRE_CONNS)]
+    streams = [np.random.default_rng(280 + i).integers(0, 2**31, WIRE_N) for i in range(WIRE_CONNS)]
     frames = [wire_frames(v) for v in streams]
     with SampleServer(sampler_factory=factory) as srv:
         torch.cuda.synchronize()
@@ -3125,9 +3277,9 @@ def operator_phases(dev) -> tuple:
         dkern.launches = 0
         replies, wire_s = wire_concurrent(srv.address, 0, OP_K, frames)
         w_launches = kern.launches
-        if w_launches != WIRE_CONNS * (OP_DN // OP_B) or dkern.launches:
+        if w_launches != WIRE_CONNS * (WIRE_N // OP_B) or dkern.launches:
             fail(f"{WIRE_CONNS} connections launched algl_update {w_launches} times, not "
-                 f"{WIRE_CONNS * (OP_DN // OP_B)}")
+                 f"{WIRE_CONNS * (WIRE_N // OP_B)}")
         for i, (v, got) in enumerate(zip(streams, replies)):
             ref = DeviceSampler(ucfg, key=0)
             ref.sample_all(v)
@@ -3162,8 +3314,8 @@ def operator_phases(dev) -> tuple:
                 refused = True
             if not refused:
                 fail("a frame over MAX_FRAME_ELEMS was not refused")
-    log(f"[28 server] {WIRE_CONNS} concurrent mode-0 connections of {OP_DN} values in "
-        f"{OP_DN // WIRE_FRAME} frames: {w_launches} algl_update launches, every reply == a card "
+    log(f"[28 server] {WIRE_CONNS} concurrent mode-0 connections of {WIRE_N} values in "
+        f"{WIRE_N // WIRE_FRAME} frames: {w_launches} algl_update launches, every reply == a card "
         f"DeviceSampler fed its stream; mode 1 (k {OP_DK}, Zipf int64): {wd_launches} "
         f"distinct_update launches, reply == the exact oracle; F answered A, served after an "
         f"abrupt disconnect, a frame over MAX_FRAME_ELEMS refused")
@@ -3175,7 +3327,7 @@ def operator_phases(dev) -> tuple:
     rng_arr = np.arange(n, dtype=np.int64)
     host = {}
 
-    def host_rate(fn, reps=5) -> float:
+    def host_rate(fn, reps=3) -> float:
         times = []
         for _ in range(reps):
             t0 = time.perf_counter()
@@ -3183,7 +3335,7 @@ def operator_phases(dev) -> tuple:
             times.append(time.perf_counter() - t0)
         return n / statistics.median(times)
 
-    host["Sample_drain_range"] = host_rate(lambda: Sample(OP_K, rng=0).run(range(n)).drain(), reps=3)
+    host["Sample_drain_range"] = host_rate(lambda: Sample(OP_K, rng=0).run(range(n)).drain(), reps=2)
     host["sampler_range_c_scan"] = host_rate(lambda: api.sampler(OP_K, rng=0).sample_all(range(n)))
     host["sampler_int64_c_scan"] = host_rate(lambda: api.sampler(OP_K, rng=0).sample_all(rng_arr))
     host["sampler_int64_native_false"] = host_rate(
@@ -3192,7 +3344,7 @@ def operator_phases(dev) -> tuple:
         lambda: api.sampler(OP_K, rng=0, native=False).sample_all(range(n)))
     host["distinct_zipf_c_scan"] = host_rate(lambda: api.distinct(OP_DK, rng=0).sample_all(keys))
     host["distinct_zipf_native_false"] = host_rate(
-        lambda: api.distinct(OP_DK, rng=0, native=False).sample_all(keys), reps=3)
+        lambda: api.distinct(OP_DK, rng=0, native=False).sample_all(keys), reps=2)
 
     flush_s = [0.0]
 
@@ -3245,15 +3397,18 @@ def operator_phases(dev) -> tuple:
     del eng
 
     # the wire's rate varies from run to run by more than 10x, so each
-    # case runs WIRE_REPS times (one connection) or 3 times (8 at once)
+    # case runs WIRE_REPS times (one connection) or WIRE_CONC_REPS times
+    # (8 at once), each connection streaming WIRE_N values
     wire = {}
+    timed = [f[:WIRE_TIMED_FRAMES] for f in frames]
+    timed_n = WIRE_TIMED_FRAMES * WIRE_FRAME
     for name, kw in (("host", {}), ("device", {"sampler_factory": factory})):
         with SampleServer(**kw) as srv:
-            wire_concurrent(srv.address, 0, OP_K, frames[:1])  # warm
+            wire_concurrent(srv.address, 0, OP_K, timed[:1])  # warm
             for nodelay in (False, True):
                 for conns in (1, WIRE_CONNS):
-                    rates = [conns * n / wire_concurrent(srv.address, 0, OP_K, frames[:conns], nodelay)[1]
-                             for _ in range(WIRE_REPS if conns == 1 else 3)]
+                    rates = [conns * timed_n / wire_concurrent(srv.address, 0, OP_K, timed[:conns], nodelay)[1]
+                             for _ in range(WIRE_REPS if conns == 1 else WIRE_CONC_REPS)]
                     wire[f"{name}_{conns}{'_nodelay' if nodelay else ''}"] = {
                         "median": statistics.median(rates), "min": min(rates), "max": max(rates),
                         "runs": rates}
@@ -4740,8 +4895,8 @@ def _wide_phases(gen, dev, here: str, accepts: dict, cpu_future) -> tuple:
     same_ms = event_ms(lambda _: kern.merge_draws_cuda(wca, wcb, nkeys, K), batch=10)
     past_ms = event_ms(lambda _: kern.merge_draws_cuda(ca, cb, row_keys, K), batch=10)
     draws_same = plain.merge_scan(wca, wcb, nkeys, K)[1]
-    same_bound, same_by = merge_bound_ms(wide_merge_steps(wca, wcb), draws_same, R, K, row_bytes=28)
-    past_bound, past_by = merge_bound_ms(wide_merge_steps(ca, cb), draws_past, R, K, row_bytes=28)
+    same_bound, same_by = merge_bound_ms(wide_merge_steps(wca, wcb), draws_same, R, K, row_bytes=28, wide=True)
+    past_bound, past_by = merge_bound_ms(wide_merge_steps(ca, cb), draws_past, R, K, row_bytes=28, wide=True)
     log(f"[38 wide timings] {card} | algl_merge_draws_wide at [{R}, {K}]: phase 19's counts {same_ms:.4f} ms "
         f"(the narrow kernel {narrow_ms:.4f} ms), bound {same_bound:.4f} ms ({same_by}), {draws_same} words drawn; "
         f"counts past 2^32 {past_ms:.4f} ms, bound {past_bound:.4f} ms ({past_by}), {draws_past} words drawn; "
@@ -4808,7 +4963,7 @@ def _wide_phases(gen, dev, here: str, accepts: dict, cpu_future) -> tuple:
 # phase 39: the tiles each mapped engine takes (a fill tile, then steady
 # ones), and the gated bridge's rounds and chunk a row
 HOOK_TILES = 4
-HOOK_ROUNDS, HOOK_CHUNK = 8, 2048
+HOOK_ROUNDS, HOOK_CHUNK = 4, 2048
 # phase 40: tiles of the pre-hashed engine path (device, then host)
 HASH_DEV_TILES, HASH_HOST_TILES = 8, 2
 # phase 41: full tiles of each fused stream, and its ragged tail
@@ -5310,6 +5465,332 @@ def fused_phase(gen, dev, extra: dict) -> dict:
         torch.cuda.empty_cache()
     return out
 
+
+# ------------------------------------------------------- the sharded engine (L4)
+
+# phase 42: ranks of the meshes (all on the one card), and each engine's
+# tiles from the device and from the host; the ranks of the device="cpu"
+# references (2: meshed, at a quarter of 8 ranks' cost, since the plain
+# versions' time goes by launch, not by row)
+MESH_RANKS = 8
+MESH_DEV_TILES, MESH_HOST_TILES = 10, 2
+MESH_CPU_RANKS = 2
+# phase 44: the meshed bridge's lockstep tiles (phase 23's bridge shape)
+MESH_BRIDGE_TILES = 8
+#: phase 42's configurations: (label, kernel, config)
+MESH_CASES = (
+    ("config 5", "algl_update", dict(max_sample_size=K, num_reservoirs=R, tile_size=B)),
+    ("config 5, WIDE counters", "algl_update_wide", dict(max_sample_size=K, num_reservoirs=R, tile_size=B,
+                                                         count_dtype="wide")),
+    ("weighted config 4", "weighted_update", dict(max_sample_size=WK, num_reservoirs=WR, tile_size=WB,
+                                                  weighted=True)),
+    ("distinct, Zipf int64 keys", "distinct_update", dict(max_sample_size=DK, num_reservoirs=DR, tile_size=DB,
+                                                          distinct=True, element_dtype="int64")),
+)
+
+
+def mesh_cpu_engine(kw: dict, path: str) -> dict:
+    """Phase 42's reference, in a child process: a meshed ``device="cpu"``
+    engine (``MESH_CPU_RANKS`` ranks) of ``ROWS_CPU`` rows fed rows
+    0..ROWS_CPU-1 of every tile (``path``: ``t{i}``, ``w{i}``); its state
+    as numpy."""
+    import reservoir_tpu_torch as rtt
+    from reservoir_tpu_torch import convert
+    from reservoir_tpu_torch.parallel import make_mesh
+
+    torch.set_num_threads(1)
+    eng = rtt.ReservoirEngine(rtt.SamplerConfig(**{**kw, "num_reservoirs": ROWS_CPU}, mesh_axis="res"), key=0,
+                              mesh=make_mesh(devices=["cpu"] * MESH_CPU_RANKS))
+    with np.load(path) as data:
+        for i in range(MESH_DEV_TILES + MESH_HOST_TILES):
+            eng.sample(data[f"t{i}"], weights=data[f"w{i}"] if f"w{i}" in data.files else None)
+    return convert.state_to_numpy(eng.state)
+
+
+def mesh_bridge_data() -> np.ndarray:
+    """Phase 44's streams, ``[RR, MESH_BRIDGE_TILES * RB]`` int32 from a
+    numpy seed (the parent and the child make the same)."""
+    return np.random.default_rng(44).integers(-(2**31), 2**31 - 1, (RR, MESH_BRIDGE_TILES * RB),
+                                              dtype=np.int32)
+
+
+def mesh_bridge_feed(bridge, data: np.ndarray, tiles) -> None:
+    """Lockstep tiles of phase 44's streams through ``push_interleaved``."""
+    streams = np.tile(np.arange(RR, dtype=np.int32), RB)
+    for t in tiles:
+        bridge.push_interleaved(streams, np.ascontiguousarray(data[:, t * RB:(t + 1) * RB].T).ravel())
+
+
+def mesh_bridge_cpu() -> list:
+    """Phase 44's reference, in a child process: a meshed ``device="cpu"``
+    bridge fed every tile; its samples."""
+    import reservoir_tpu_torch as rtt
+    from reservoir_tpu_torch.parallel import make_mesh
+
+    torch.set_num_threads(1)
+    cfg = rtt.SamplerConfig(max_sample_size=K, num_reservoirs=RR, tile_size=RB, mesh_axis="res")
+    bridge = rtt.DeviceStreamBridge(cfg, key=0, mesh=make_mesh(devices=["cpu"] * MESH_CPU_RANKS))
+    mesh_bridge_feed(bridge, mesh_bridge_data(), range(MESH_BRIDGE_TILES))
+    return bridge.complete()
+
+
+def same_host(a: dict, b: dict) -> bool:
+    """Two states as numpy field dicts, every field's bytes equal."""
+    return a.keys() == b.keys() and all(
+        (a[f] is None) == (b[f] is None) and (a[f] is None or np.array_equal(a[f].view(np.uint8),
+                                                                            b[f].view(np.uint8)))
+        for f in a)
+
+
+def sharded_phases(gen, dev, here: str) -> tuple:
+    """Phases 42-44: meshed engines over 8 ranks of the one card against
+    the unmeshed card engine and a meshed ``device="cpu"`` engine,
+    ``sharded_result`` at config 5 against the plain gather, and a meshed
+    bridge with its recovery; the ``device="cpu"`` references run in
+    child processes while the card works.  Returns the ``sharded`` line
+    and the additions to the update and gather kernels' entries (by
+    name)."""
+    import concurrent.futures
+    import multiprocessing
+
+    work = os.path.join(here, "build", "chip_smoke")  # gitignored
+    os.makedirs(work, exist_ok=True)
+    line, extra = {}, {}
+    pool = concurrent.futures.ProcessPoolExecutor(len(MESH_CASES) + 1,
+                                                  mp_context=multiprocessing.get_context("spawn"))
+    try:
+        bridge_ref = pool.submit(mesh_bridge_cpu)
+        line["engines"], shards, cpu_refs = mesh_engine_phase(gen, dev, extra, pool, work)
+        gc.collect()
+        torch.cuda.empty_cache()
+        line["result"] = sharded_result_phase(dev, shards, extra)
+        del shards
+        gc.collect()
+        torch.cuda.empty_cache()
+        line["bridge"] = mesh_bridge_phase(dev, work, extra, bridge_ref)
+        t0 = time.perf_counter()
+        for label, (future, got) in cpu_refs.items():
+            if not same_host(future.result(timeout=900), got):
+                fail(f"[42 meshed engine] {label}: the card's meshed engine != a meshed device=\"cpu\" engine "
+                     f"on rows 0..{ROWS_CPU - 1}")
+        waited = time.perf_counter() - t0
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    line["cpu_reference_wait_s"] = waited
+    log(f"[42 meshed engine] every configuration's rows 0..{ROWS_CPU - 1} == a meshed device=\"cpu\" engine "
+        f"({MESH_CPU_RANKS} CPU ranks, in child processes; {waited:.1f} s waited after phase 44)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, extra
+
+
+def mesh_engine_phase(gen, dev, extra: dict, pool, work: str) -> tuple:
+    """Phase 42: each configuration's meshed engine (8 ranks of the card)
+    fed 10 device and 2 host tiles: 8 launches a tile of the mode's kernel
+    and no other, its state equal to the unmeshed card engine's bit for
+    bit; elem/s fed from the device and from the host beside the unmeshed
+    engine's, each engine warmed by one tile first.  Submits each
+    ``device="cpu"`` reference to ``pool``.  Returns the phase's record,
+    config 5's meshed shards, and by configuration the reference's future
+    beside the card's rows 0..1023 as numpy."""
+    import reservoir_tpu_torch as rtt
+    from reservoir_tpu_torch import convert
+    from reservoir_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=[dev] * MESH_RANKS)
+    out, kept, refs = {}, None, {}
+    n = MESH_DEV_TILES + MESH_HOST_TILES
+    for i, (label, name, kw) in enumerate(MESH_CASES):
+        rows, width = kw["num_reservoirs"], kw["tile_size"]
+        gen.manual_seed(42)
+        if kw.get("distinct"):
+            tiles = [zipf_keys(gen, rows, width, torch.int64, dev) for _ in range(n)]
+        else:
+            tiles = [torch.randint(-(2**31), 2**31 - 1, (rows, width), dtype=torch.int32, device=dev,
+                                   generator=gen) for _ in range(n)]
+        weights = ([weight_tile(gen, rows, width, "zeros", dev) for _ in range(n)]
+                   if kw.get("weighted") else [None] * n)
+        path = os.path.join(work, f"mesh_rows_{i}.npz")
+        cpu_rows = {f"t{j}": t[:ROWS_CPU].cpu().numpy() for j, t in enumerate(tiles)}
+        cpu_rows.update({f"w{j}": w[:ROWS_CPU].cpu().numpy() for j, w in enumerate(weights) if w is not None})
+        np.savez(path, **cpu_rows)
+        del cpu_rows
+        future = pool.submit(mesh_cpu_engine, kw, path)
+        host = [(t.cpu().numpy(), None if w is None else w.cpu().numpy())
+                for t, w in zip(tiles[MESH_DEV_TILES:], weights[MESH_DEV_TILES:])]
+        rates, engines = {}, {}
+        for which, ekw in (("meshed", dict(mesh=mesh)), ("unmeshed", dict(device=dev))):
+            cfg = rtt.SamplerConfig(**kw, mesh_axis="res" if which == "meshed" else None)
+            warm = rtt.ReservoirEngine(cfg, key=1, **ekw)
+            warm.sample(tiles[0], weights=weights[0])
+            warm.sample(*host[0][:1], weights=host[0][1])
+            del warm
+            torch.cuda.synchronize()
+            zero_launches()
+            eng = rtt.ReservoirEngine(cfg, key=0, **ekw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for tile, w in zip(tiles[:MESH_DEV_TILES], weights[:MESH_DEV_TILES]):
+                eng.sample(tile, weights=w)
+            torch.cuda.synchronize()
+            t_dev = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for tile, w in host:
+                eng.sample(tile, weights=w)
+            torch.cuda.synchronize()
+            t_host = time.perf_counter() - t0
+            got = hook_launches()
+            per = MESH_RANKS if which == "meshed" else 1
+            if got != only(name, per * n):
+                fail(f"[42 meshed engine] {label}, {which}: launches {got} for {n} tiles, not {per * n} of "
+                     f"{name} alone")
+            if which == "meshed":
+                extra.setdefault(name, {})["meshed_launches"] = got[name]
+            rates[which] = {"device_fed": MESH_DEV_TILES * rows * width / t_dev,
+                            "host_fed": MESH_HOST_TILES * rows * width / t_host}
+            engines[which] = eng
+        meshed, single = engines["meshed"], engines["unmeshed"]
+        if len(meshed._shards) != MESH_RANKS or not same(meshed.state, single.state):
+            fail(f"[42 meshed engine] {label}: the meshed engine != the unmeshed card engine")
+        refs[label] = (future, convert.state_to_numpy(clone(meshed.state, ROWS_CPU, "cpu")))
+        sizes = meshed.peek_arrays()[1]
+        out[label] = {"launches": got[name], "ranks": MESH_RANKS, "rows_a_rank": rows // MESH_RANKS,
+                      "elem_per_s": rates, "min_size": int(sizes.min())}
+        extra[name]["meshed_elem_per_s"] = rates
+        log(f"[42 meshed engine] {card_line()} | {label}, {MESH_RANKS} ranks of the card ({rows // MESH_RANKS} "
+            f"rows a rank): {n} tiles, {got[name]} {name} launches; state == the unmeshed card engine; elem/s "
+            f"fed from the device {rates['meshed']['device_fed']:.6e} (unmeshed "
+            f"{rates['unmeshed']['device_fed']:.6e}), from the host {rates['meshed']['host_fed']:.6e} (unmeshed "
+            f"{rates['unmeshed']['host_fed']:.6e})")
+        if name == "algl_update":
+            kept = meshed._shards
+        del engines, meshed, single, tiles, weights, host
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, kept, refs
+
+
+def sharded_result_phase(dev, shards, extra: dict) -> dict:
+    """Phase 43: ``sharded_result`` of config 5's meshed state: one
+    ``merge_ring_gather`` launch, every rank's words equal to
+    ``gather_parts_plain``'s, the total the host's sum with its int32
+    wrap; the gather timed beside its bytes bound and the library call
+    (the ``torch.cat`` of per-rank ``.to()`` copies onto every rank,
+    ``gather_parts_plain``), and the whole call."""
+    from reservoir_tpu_torch.ops import algorithm_l as plain
+    from reservoir_tpu_torch.ops import merge_cuda as mkern
+    from reservoir_tpu_torch.parallel import make_mesh, sharded_result
+
+    mesh = make_mesh(devices=[dev] * MESH_RANKS)
+    call = sharded_result(mesh)
+    torch.cuda.synchronize()
+    mkern.launches = 0
+    samples, sizes, totals = call(shards)
+    torch.cuda.synchronize()
+    launches = mkern.launches
+    if launches != 1:
+        fail(f"[43 sharded_result] {launches} merge_ring_gather launches, not 1")
+    comm = mkern.RingCommunicator(mesh.devices)
+    leaves = [(*plain.result(s), s.count) for s in shards]
+    want = mkern.gather_parts_plain(leaves, comm)
+    total = int(sum(int(s.count.long().sum().item()) for s in shards))
+    wrapped = (total + 2**31) % 2**32 - 2**31
+    for r, (s, z, t, w) in enumerate(zip(samples, sizes, totals, want)):
+        if not (torch.equal(bits(s), bits(w[0])) and torch.equal(z, w[1])) or int(t.item()) != wrapped:
+            fail(f"[43 sharded_result] rank {r}'s samples, sizes or total != the plain gather's and the host sum")
+    del samples, sizes, totals, want
+    d = MESH_RANKS
+    words = sum(t.numel() for t in leaves[0])
+    gather_ms = event_ms(lambda _: mkern.gather_parts(leaves, comm))
+    library_ms = event_ms(lambda _: mkern.gather_parts_plain(leaves, comm))
+    call_ms = event_ms(lambda _: call(shards))
+    nbytes = (d + d * d) * words * 4
+    bound = 1e3 * nbytes / PEAK_BYTES
+    mkern.launches = launches
+    rec = {"launches": launches, "ranks": d, "words_a_rank": words, "total": wrapped, "gather_ms": gather_ms,
+           "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms, "sharded_result_ms": call_ms}
+    extra.setdefault("merge_ring_gather", {}).update({"meshed_launches": launches, "sharded_result": rec})
+    log(f"[43 sharded_result] {card_line()} | config 5 over {d} ranks of the card: {launches} merge_ring_gather "
+        f"launch, every rank's samples, sizes == gather_parts_plain, total {wrapped} == the host sum (int32 "
+        f"wrap); the gather of {words} words a rank {gather_ms:.4f} ms, bound {bound:.4f} ms (bytes, "
+        f"(d + d^2) n 4), the library call (torch.cat of per-rank .to() onto every rank) {library_ms:.4f} ms; "
+        f"the whole sharded_result {call_ms:.4f} ms")
+    return rec
+
+
+def mesh_bridge_phase(dev, work: str, extra: dict, reference) -> dict:
+    """Phase 44: a meshed bridge (R 4,096, B 1,024, 8 ranks of the card)
+    with ``gated=True`` (inert, with the reference's reason) over lockstep
+    ``push_interleaved`` tiles: 8 kernels a flush, its samples equal to a
+    meshed ``device="cpu"`` bridge's (``reference``, a child's future);
+    then a journaling meshed bridge dropped after 5 tiles and
+    ``recover()``-ed onto the mesh, the rest fed: the same samples."""
+    import reservoir_tpu_torch as rtt
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=[dev] * MESH_RANKS)
+    cfg = rtt.SamplerConfig(max_sample_size=K, num_reservoirs=RR, tile_size=RB, mesh_axis="res")
+    n = MESH_BRIDGE_TILES
+    data = mesh_bridge_data()
+    torch.cuda.synchronize()
+    zero_launches()
+    live = rtt.DeviceStreamBridge(cfg, key=0, mesh=mesh, gated=True)
+    reason = live.gate_inert_reason
+    if live.gate_active or reason != "meshed engine (gated dispatch is single-device)":
+        fail(f"[44 meshed bridge] gated=True is not inert with the reference's reason: {reason!r}")
+    t0 = time.perf_counter()
+    mesh_bridge_feed(live, data, range(n))
+    live.flush()
+    live.drain_barrier()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    flushes = live.metrics.flushes
+    got = live.complete()
+    launches = hook_launches()
+    if launches != only("algl_update", MESH_RANKS * flushes):
+        fail(f"[44 meshed bridge] launches {launches} for {flushes} flushes, not {MESH_RANKS} a flush")
+    extra.setdefault("algl_update", {})["meshed_bridge_launches"] = launches["algl_update"]
+    del live
+    ckdir = os.path.join(work, "meshed_recovery")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    dropped = rtt.DeviceStreamBridge(cfg, key=0, mesh=mesh, checkpoint_dir=ckdir, checkpoint_every=3)
+    mesh_bridge_feed(dropped, data, range(n // 2 + 1))
+    dropped.drain_barrier()
+    seq = dropped.flushed_seq
+    del dropped  # the crash: the staged rows are lost
+    gc.collect()
+    before = kern.launches
+    t0 = time.perf_counter()
+    recovered = rtt.DeviceStreamBridge.recover(ckdir, mesh=mesh)
+    recover_s = time.perf_counter() - t0
+    replayed = kern.launches - before
+    counts = recovered.engine.state.count.cpu().numpy()
+    # the flushes journaled since the last checkpoint replay, 8 launches each
+    if (recovered.flushed_seq != seq or len(recovered.engine._shards) != MESH_RANKS
+            or replayed != MESH_RANKS * (seq % 3) or not replayed):
+        fail(f"[44 meshed bridge] recovered at flush {recovered.flushed_seq} of {seq}, over "
+             f"{len(recovered.engine._shards)} ranks, {replayed} launches replayed")
+    if (counts != counts[0]).any() or counts[0] % RB:
+        fail(f"[44 meshed bridge] the recovered rows' durable counts are not one whole tile: "
+             f"{counts.min()}..{counts.max()}")
+    mesh_bridge_feed(recovered, data, range(int(counts[0]) // RB, n))
+    resumed = recovered.complete()
+    shutil.rmtree(ckdir, ignore_errors=True)
+    want = reference.result(timeout=900)
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        fail("[44 meshed bridge] the card's meshed bridge != the meshed device=\"cpu\" bridge")
+    if not all(np.array_equal(a, b) for a, b in zip(resumed, want)):
+        fail("[44 meshed bridge] the recovered meshed bridge's samples != the meshed device=\"cpu\" bridge's")
+    rec = {"tiles": n, "flushes": flushes, "launches": launches["algl_update"], "gate_inert_reason": reason,
+           "host_fed_elem_per_s": n * RR * RB / seconds, "recovered_at_flush": seq,
+           "replayed_launches": replayed, "recover_s": recover_s}
+    log(f"[44 meshed bridge] {card_line()} | R {RR}, B {RB}, {MESH_RANKS} ranks of the card, gated=True inert "
+        f"({reason}): {n} lockstep tiles through push_interleaved, {flushes} flushes, {launches['algl_update']} "
+        f"algl_update launches; samples == a meshed device=\"cpu\" bridge; {rec['host_fed_elem_per_s']:.6e} "
+        f"elem/s fed from the host; a journaling meshed bridge dropped at flush {seq}, recover(mesh=) in "
+        f"{recover_s:.2f} s ({replayed} launches replayed), the rest fed: samples == device=\"cpu\"")
+    return rec
 
 if __name__ == "__main__":
     main()

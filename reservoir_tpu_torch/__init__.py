@@ -26,6 +26,9 @@ of several shards of one stream into one exact sample:
   the flush journal and recovery, in the JAX package's formats;
 - :mod:`reservoir_tpu_torch.parallel.merge` — the merge tree over parts
   spread over ranks, and the stream mergers;
+- :mod:`reservoir_tpu_torch.parallel.sharded` — one engine's reservoirs
+  sharded over the ranks of a ``Mesh`` (``SamplerConfig(mesh_axis=...)``),
+  and :mod:`.parallel.multihost`, the ``torch.distributed`` join;
 - :mod:`reservoir_tpu_torch.api` — the reference's public surface: the
   ``Sampler`` trait, the factories :func:`sampler` and :func:`distinct`
   with the single-use / reusable lifecycle, ``SampleView`` snapshots, and

@@ -57,6 +57,18 @@ the plain versions apply the hooks as the reference does.
 and feeds the stream tile by tile all the same: one launch a tile, as the
 reference's fused scan runs one update a tile, so the same state bit for
 bit.
+
+With ``config.mesh_axis`` the reservoirs are sharded over the ranks of a
+:class:`~reservoir_tpu_torch.parallel.sharded.Mesh` (default: every
+visible card): rank ``i`` of ``n`` holds rows ``[i R/n, (i+1) R/n)`` on its
+device.  A host tile is snapshotted once into a pinned buffer and each
+rank's row block copied to its card without blocking (the buffer is held
+until the copy to every card has run); a tile on a rank's card is split
+with ``.to(rank)``; ``valid`` is split by rank, the fill lower bound stays
+global.  Each rank's block then goes through the mode's kernel, one launch
+a rank a tile.  A meshed engine is bit-identical to the unmeshed one with
+the same key, and its rows read back in order.  An unmeshed engine is the
+one-rank case of the same code.
 """
 
 from __future__ import annotations
@@ -73,10 +85,9 @@ from .errors import SamplerClosedError
 from .ops import algorithm_l as _algl
 from .ops import algorithm_l_cuda as _kernel
 from .ops import distinct as _dist
-from .ops import distinct_cuda as _dkernel
 from .ops import weighted as _wtd
-from .ops import weighted_cuda as _wkernel
 from .ops.rng import key_from_seed
+from .parallel.sharded import Mesh, RowSharding, gather_state, make_mesh, rank_update, shard_state
 
 __all__ = ["ReservoirEngine"]
 
@@ -98,16 +109,9 @@ _ELEMENT_DTYPES = {**_TORCH_DTYPES, **_DISTINCT_DTYPES}
 State = Union[_algl.ReservoirState, _wtd.WeightedState, _dist.DistinctState]
 
 
-def _not_in_slice(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, 'Left out of the first slice', "
-        f"{item}); the torch port runs uniform, weighted and distinct modes with "
-        "int32 or WIDE counters on one device"
-    )
-
-
 class ReservoirEngine:
-    """R independent k-reservoirs updated in lockstep on one device.
+    """R independent k-reservoirs updated in lockstep on one device, or
+    sharded over the ranks of a mesh.
 
     Args:
       config: engine configuration (k, R, dtypes, tile size); with
@@ -118,7 +122,11 @@ class ReservoirEngine:
       reusable: single-use engines close on ``result()``; reusable ones
         stay open.
       device: ``None`` means ``"cuda"`` and raises without a card;
-        ``"cpu"`` runs the plain torch version.
+        ``"cpu"`` runs the plain torch version.  Not with a mesh.
+      mesh: the ranks the reservoirs shard over, with ``config.mesh_axis``
+        only; defaults to :func:`~reservoir_tpu_torch.parallel.make_mesh`
+        over every visible card.  ``make_mesh(devices=["cpu"] * n)`` runs
+        the plain versions on CPU ranks.
       map_fn: an elementwise map on torch tensors
         (:mod:`~reservoir_tpu_torch.ops.hooks`), applied on accept
         (uniform, weighted) or to every element (distinct); its results are
@@ -134,6 +142,7 @@ class ReservoirEngine:
         reusable: bool = False,
         *,
         device: Optional[Any] = None,
+        mesh: Optional[Mesh] = None,
         map_fn: Any = None,
         hash_fn: Any = None,
         _initial_state: Optional[State] = None,
@@ -159,7 +168,21 @@ class ReservoirEngine:
                     "owns the value-bits embedding); use impl='auto'"
                 )
         if config.mesh_axis is not None:
-            raise _not_in_slice("mesh_axis", "L4")
+            if device is not None:
+                raise ValueError(
+                    "device pinning and mesh sharding are mutually exclusive "
+                    "(a pinned engine lives on one chip)"
+                )
+            mesh = mesh if mesh is not None else make_mesh(axis=config.mesh_axis)
+            n_shards = mesh.shape[config.mesh_axis]
+            if config.num_reservoirs % n_shards != 0:
+                raise ValueError(
+                    f"num_reservoirs={config.num_reservoirs} must divide "
+                    f"evenly over the {n_shards}-device '{config.mesh_axis}' "
+                    "mesh axis"
+                )
+        elif mesh is not None:
+            raise ValueError("mesh requires config.mesh_axis to be set")
         if config.impl == "xla":
             raise ValueError(
                 "impl='xla' is not a production path of the torch port; "
@@ -197,22 +220,30 @@ class ReservoirEngine:
         self._wide = self._np_dtype.itemsize == 8
         self._reusable = reusable
         self._open = True
-        self._device = resolve_device(device)
         self._ops = _dist if config.distinct else (_wtd if config.weighted else _algl)
+        self._mesh = mesh
+        self._device = None if mesh is not None else resolve_device(device)
+        # an unmeshed engine is the one-rank case
+        ranks = mesh if mesh is not None else Mesh([self._device])
+        #: each rank's device and rows
+        self._blocks = RowSharding(ranks, ranks.axis_names[0]).blocks(config.num_reservoirs)
+        self._ranks = [b.device for b in self._blocks]
+        #: the cards the ranks are on (none on CPU ranks), in rank order
+        self._cards = list(dict.fromkeys(d for d in self._ranks if d.type == "cuda"))
         if _initial_state is not None:
-            # a copy: row operations and the kernels write the state in place
-            self._state = type(_initial_state)(
-                *_on(_initial_state, lambda t: t.to(self._device, copy=True))
-            )
+            # copies: row operations and the kernels write the state in place
+            self._shards = shard_state(_initial_state, ranks, ranks.axis_names[0])
         else:
-            self._state = self._ops.init(
+            state = self._ops.init(
                 _key_words(key), config.num_reservoirs, config.max_sample_size,
-                sample_dtype=self._dtype, device=self._device, **self._count_arg(),
+                sample_dtype=self._dtype, device=self._ranks[0], **self._count_arg(),
             )
+            self._shards = [state] if mesh is None else shard_state(state, mesh, mesh.axis_names[0])
         # host-side lower bound on every reservoir's count: exact under
         # full tiles, conservative under ragged ones
         self._min_count = 0
-        # (pinned buffer, copy event) pairs not yet known to be complete
+        # (pinned buffer, [copy event a card]) pairs not yet known to be
+        # complete
         self._staging: deque = deque()
         #: row resets and adoptions applied so far.  The skip gate keys its
         #: replica's staleness on it.
@@ -225,8 +256,14 @@ class ReservoirEngine:
         return self._config
 
     @property
-    def device(self) -> torch.device:
+    def device(self) -> Optional[torch.device]:
+        """The engine's device (``None`` for a meshed engine)."""
         return self._device
+
+    @property
+    def mesh(self) -> Optional[Mesh]:
+        """The mesh the reservoirs shard over (``None`` unmeshed)."""
+        return self._mesh
 
     @property
     def is_open(self) -> bool:
@@ -235,17 +272,34 @@ class ReservoirEngine:
         return True if self._reusable else self._open
 
     @property
+    def _state(self) -> State:
+        """The live state of an unmeshed engine; a meshed engine's rows
+        gathered in order onto its first rank's device."""
+        if len(self._shards) == 1:
+            return self._shards[0]
+        return gather_state(self._shards, self._ranks[0])
+
+    @property
     def state(self) -> State:
-        """A copy of the state (the CUDA update mutates the live one): a
-        ``WeightedState`` in weighted mode, a ``DistinctState`` in distinct
-        mode, else a ``ReservoirState``."""
+        """A copy of the state (the CUDA update mutates the live one), rows
+        in order on the engine's (first rank's) device: a ``WeightedState``
+        in weighted mode, a ``DistinctState`` in distinct mode, else a
+        ``ReservoirState``."""
         self._check_open()
+        if len(self._shards) > 1:
+            return self._state
         return type(self._state)(*_on(self._state, torch.clone))
 
     def _count_arg(self) -> dict:
         """The uniform ``init``'s ``count_dtype`` argument (none for the
         other modes, whose counters are int32)."""
         return {"count_dtype": self._config.count_dtype} if self._ops is _algl else {}
+
+    def _synchronize(self) -> None:
+        """Wait for the work queued on every rank's card (none on CPU
+        ranks)."""
+        for card in self._cards:
+            torch.cuda.current_stream(card).synchronize()
 
     def _check_open(self) -> None:
         if not self._reusable and not self._open:
@@ -254,51 +308,65 @@ class ReservoirEngine:
     # -------------------------------------------------------------- sampling
 
     def _release_staging(self) -> None:
-        while self._staging and self._staging[0][1].query():
+        while self._staging and all(e.query() for e in self._staging[0][1]):
             self._staging.popleft()
 
-    def _to_device(self, host: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
-        """A host array (already of ``dtype``) as a tensor on the engine's
-        device: a snapshot, through a pinned buffer on the card."""
+    def _to_device(self, host: np.ndarray, dtype: torch.dtype) -> List[torch.Tensor]:
+        """A host array (already of ``dtype``) as one row block a rank on
+        its device: a snapshot, through a pinned buffer on the card."""
         buf = self._host_buffer(host.shape, dtype)
         buf.numpy()[...] = host  # the snapshot
         return self._ship(buf)
 
     def _host_buffer(self, shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
         """A fresh host buffer for :meth:`_ship`: pinned on the card."""
-        if self._device.type == "cpu":
+        if not self._cards:
             return torch.empty(shape, dtype=dtype)
         self._release_staging()
         return torch.empty(shape, dtype=dtype, pin_memory=True)
 
-    def _ship(self, buf: torch.Tensor) -> torch.Tensor:
-        """A filled :meth:`_host_buffer` on the engine's device: one
-        ``non_blocking`` copy on the card, held until it has run."""
-        if self._device.type == "cpu":
-            return buf
-        out = buf.to(self._device, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self._device))
-        self._staging.append((buf, event))
+    def _ship(self, buf: torch.Tensor, split: bool = True) -> List[torch.Tensor]:
+        """A filled :meth:`_host_buffer` as each rank's row block on its
+        device (``split=False``: the whole buffer on the one rank's): one
+        ``non_blocking`` copy a rank on the card, the buffer held until
+        every card has run its copies (an event a card)."""
+        cuts = ([(b.device, slice(b.start, b.stop)) for b in self._blocks] if split
+                else [(self._ranks[0], slice(None))])
+        if not self._cards:
+            return [buf[rows] for _, rows in cuts]
+        out = [buf[rows].to(dev, non_blocking=True) for dev, rows in cuts]
+        events = []
+        for card in self._cards:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(card))
+            events.append(event)
+        self._staging.append((buf, events))
         return out
 
     def _on_card(self, x: Any, what: str) -> bool:
-        """True for a CUDA tensor on the engine's device (used as it is)."""
+        """True for a CUDA tensor on a rank's card (used as it is, split by
+        rank)."""
         if isinstance(x, torch.Tensor) and x.device.type == "cuda":
-            if x.device != self._device:
-                raise ValueError(f"{what} is on {x.device}, the engine on {self._device}")
+            if x.device not in self._cards:
+                where = self._device if self._mesh is None else [str(c) for c in self._cards]
+                raise ValueError(f"{what} is on {x.device}, the engine on {where}")
             return True
         return False
 
-    def _tile_to_device(self, tile: Any) -> _dist.Batch:
-        """The tile as a contiguous tensor on the engine's device; an 8-byte
-        host tile (or its ``(hi, lo)`` planes) as a pair of word planes.  A
-        hooked engine's tile stays whole, in the element dtype."""
+    def _split(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """A tensor on a rank's card as one contiguous row block a rank,
+        each moved to its rank's device (a view where it is there)."""
+        return [t[b.start:b.stop].to(b.device).contiguous() for b in self._blocks]
+
+    def _tile_to_device(self, tile: Any) -> List[_dist.Batch]:
+        """The tile as one contiguous row block a rank on its device; an
+        8-byte host tile (or its ``(hi, lo)`` planes) as pairs of word
+        planes.  A hooked engine's tile stays whole, in the element dtype."""
         if self._hooked:
             if self._on_card(tile, "tile"):
                 if tile.dtype != self._elem_dtype:
                     raise ValueError(f"tile dtype {tile.dtype} != element dtype {self._elem_dtype}")
-                return tile.contiguous()
+                return self._split(tile)
             host = tile.numpy() if isinstance(tile, torch.Tensor) else np.asarray(tile)
             if host.dtype != self._np_elem:
                 host = host.astype(self._np_elem)
@@ -307,11 +375,12 @@ class ReservoirEngine:
             ok = tile.dtype in _dist.WIDE_DTYPES if self._wide else tile.dtype == self._dtype
             if not ok:
                 raise ValueError(f"tile dtype {tile.dtype} != samples dtype {self._dtype}")
-            return tile.contiguous()
+            return self._split(tile)
         if self._wide:
             if not isinstance(tile, tuple):
                 tile = _dist.split_values_host(tile.numpy() if isinstance(tile, torch.Tensor) else tile)
-            return tuple(self._to_device(plane.view(np.int32), torch.int32) for plane in tile)
+            planes = [self._to_device(plane.view(np.int32), torch.int32) for plane in tile]
+            return list(zip(*planes))
         host = tile.numpy() if isinstance(tile, torch.Tensor) else np.asarray(tile)
         if host.dtype != self._np_dtype:
             host = host.astype(self._np_dtype)
@@ -319,13 +388,13 @@ class ReservoirEngine:
 
     def _weights_to_device(
         self, weights: Any, shape: Tuple[int, int], check: bool
-    ) -> torch.Tensor:
-        """The weights tile as contiguous float32 on the engine's device.
+    ) -> List[torch.Tensor]:
+        """The weights tile as contiguous float32 row blocks, one a rank.
         With ``check``, host weights must be nonnegative (NaN fails the
         check); CUDA weights are taken as they are, with no device-to-host
         sync."""
         if self._on_card(weights, "weights"):
-            w = weights.to(torch.float32).contiguous()
+            w = weights.to(torch.float32)
         else:
             host = weights.numpy() if isinstance(weights, torch.Tensor) else weights
             host = np.asarray(host, np.float32)
@@ -334,7 +403,7 @@ class ReservoirEngine:
             w = host
         if tuple(w.shape) != shape:
             raise ValueError(f"weights must match tile shape {shape}, got {tuple(w.shape)}")
-        return w if isinstance(w, torch.Tensor) else self._to_device(w, torch.float32)
+        return self._split(w) if isinstance(w, torch.Tensor) else self._to_device(w, torch.float32)
 
     def sample(self, tile: Any, valid: Optional[Any] = None, weights: Optional[Any] = None) -> None:
         """Consume one ``[R, B]`` tile; ``valid`` (``[R]``, host) lets row
@@ -359,7 +428,7 @@ class ReservoirEngine:
         if not self._config.weighted and weights is not None:
             raise ValueError("weights are only meaningful with weighted=True")
         width = shape[1]
-        valid_dev = None
+        valid_dev = [None] * len(self._blocks)
         if valid is not None:
             if isinstance(valid, torch.Tensor):
                 valid = valid.cpu().numpy()
@@ -371,19 +440,18 @@ class ReservoirEngine:
                     f"valid entries must be in [0, {width}], got "
                     f"[{valid_np.min()}, {valid_np.max()}]"
                 )
-            valid_dev = torch.from_numpy(valid_np).to(self._device)
-        w_dev = None
+            valid_dev = [torch.from_numpy(valid_np[b.start:b.stop]).to(b.device) for b in self._blocks]
+        extra = [valid_dev]
         if self._config.weighted:
-            w_dev = self._weights_to_device(weights, (R, width), check_weights)
+            extra.insert(0, self._weights_to_device(weights, (R, width), check_weights))
         batch = self._tile_to_device(tile)
-        if self._config.weighted:
-            self._state = _wkernel.update_cuda(self._state, batch, w_dev, valid_dev, self._map_fn)
-        elif self._config.distinct:
-            self._state = _dkernel.update_cuda(self._state, batch, valid_dev, self._map_fn, self._hash_fn)
-        else:
-            steady = self._min_count >= self._config.max_sample_size
-            fn = _kernel.update_steady_cuda if steady else _kernel.update_cuda
-            self._state = fn(self._state, batch, valid_dev, self._map_fn)
+        steady = self._ops is _algl and self._min_count >= self._config.max_sample_size
+        fn = rank_update(self._ops, steady)
+        hooks = {"map_fn": self._map_fn}
+        if self._config.distinct:
+            hooks["hash_fn"] = self._hash_fn
+        # one launch a rank: each rank's block on its own device
+        self._shards = [fn(st, *args, **hooks) for st, *args in zip(self._shards, batch, *extra)]
         self._min_count += width if valid is None else int(valid_np.min())
 
     def sample_all(self, tiles: Any) -> None:
@@ -472,7 +540,7 @@ class ReservoirEngine:
         order) were shipped.  Bit-identical to :meth:`sample` over the
         full tiles (:func:`~.ops.algorithm_l.update_gated`).
 
-        Duplicates mode with int32 counters only, the
+        Duplicates mode with int32 counters on an unmeshed engine only, the
         :func:`~reservoir_tpu_torch.stream.gate.gate_ineligible_reason`
         contract.  The host tile (a numpy array, a list or a CPU tensor, of
         the element dtype), ``nvalid`` and ``advance`` are snapshotted into
@@ -487,8 +555,11 @@ class ReservoirEngine:
                 "sample_gated requires duplicates mode (the skip gate "
                 "replicates the Algorithm-L recursion only)"
             )
-        if self._state.count.ndim != 1 or self._state.count.dtype != torch.int32:
+        count = self._shards[0].count
+        if count.ndim != 1 or count.dtype != torch.int32:
             raise ValueError("sample_gated requires narrow int32 counters")
+        if self._mesh is not None:
+            raise ValueError("sample_gated does not support meshed engines")
         R = self._config.num_reservoirs
         host = tile.numpy() if isinstance(tile, torch.Tensor) else tile
         tile_host = np.asarray(host, dtype=self._np_elem)
@@ -517,10 +588,10 @@ class ReservoirEngine:
         words[R:2 * R] = advance_np
         words[2 * R:].view(self._np_elem).reshape(R, bg)[...] = tile_host
         min_advance = int(advance_np.min())
-        packed = self._ship(packed_host)
+        (packed,) = self._ship(packed_host, split=False)
         nv_dev, adv_dev = packed[:R], packed[R:2 * R]
         batch = packed[2 * R:].view(self._elem_dtype).view(R, bg)
-        self._state = _kernel.update_gated_cuda(self._state, batch, nv_dev, adv_dev, self._map_fn)
+        self._shards[0] = _kernel.update_gated_cuda(self._shards[0], batch, nv_dev, adv_dev, self._map_fn)
         self._min_count += min_advance
 
     # ------------------------------------------------------------ row leasing
@@ -540,20 +611,28 @@ class ReservoirEngine:
         return rows
 
     def _scatter(self, rows: np.ndarray, part: State) -> None:
-        """Write row ``i`` of ``part`` over row ``rows[i]`` of every state
-        field, in place.  Where a row repeats, its last occurrence wins (as
-        the reference's scatter gives on XLA): only that one is written, so
-        the result does not depend on the order of the card's writes."""
+        """Write row ``i`` of ``part`` (on any device) over row ``rows[i]``
+        of every state field, in place, on the rank that holds it.  Where a
+        row repeats, its last occurrence wins (as the reference's scatter
+        gives on XLA): only that one is written, so the result does not
+        depend on the order of the card's writes."""
         last = rows.size - 1 - np.unique(rows[::-1], return_index=True)[1]
-        pos = None
-        if last.size < rows.size:
-            pos = torch.from_numpy(last).to(self._device)
-            rows = rows[last]
-        idx = torch.from_numpy(rows.astype(np.int64)).to(self._device)
-        for full, one in zip(self._state, part):
-            if full is not None:
-                one = _signed(one)
-                _signed(full).index_copy_(0, idx, one if pos is None else one.index_select(0, pos))
+        if last.size == rows.size:  # no repeats: every position, in order
+            last = np.arange(rows.size)
+        rows = rows[last]
+        for b, shard in zip(self._blocks, self._shards):
+            mine = (rows >= b.start) & (rows < b.stop)
+            if not mine.any():
+                continue
+            # the part's rows this rank takes, unless it takes all in order
+            take = None if mine.all() and last.size == part[0].shape[0] else last[mine]
+            idx = torch.from_numpy((rows[mine] - b.start).astype(np.int64)).to(b.device)
+            for full, one in zip(shard, part):
+                if full is not None:
+                    one = _signed(one)
+                    if take is not None:
+                        one = one.index_select(0, torch.from_numpy(take).to(one.device))
+                    _signed(full).index_copy_(0, idx, one.to(b.device))
         self._min_count = 0
         self.reset_epochs += 1
 
@@ -563,31 +642,50 @@ class ReservoirEngine:
         as :meth:`SessionTable.sub_key <reservoir_tpu_torch.serve.sessions.SessionTable.sub_key>`
         derives them): the serving plane's session recycling.
 
-        ``init(key, len(rows), k)`` is scattered over ``rows``; every other
-        row's stream continues bit-identically.  The uniform ``init`` rounds
-        as the reference's compiled reset does (``compiled=True``).  The
-        fill lower bound drops to 0 and :attr:`reset_epochs` counts the
-        reset.  Single writer, as :meth:`sample`: a caller with a pipelined
-        bridge drains it first.
+        ``init(key, len(rows), k)`` is scattered over ``rows`` (each on the
+        rank that holds it); every other row's stream continues
+        bit-identically.  The uniform ``init`` rounds as the reference's
+        compiled reset does (``compiled=True``).  The fill lower bound drops
+        to 0 and :attr:`reset_epochs` counts the reset.  Single writer, as
+        :meth:`sample`: a caller with a pipelined bridge drains it first.
         """
         self._check_open()
         rows = self._validate_rows(rows)
         extra = {"compiled": True, **self._count_arg()} if self._ops is _algl else {}
         part = self._ops.init(
             _key_words(key), int(rows.size), self._config.max_sample_size,
-            sample_dtype=self._dtype, device=self._device, **extra,
+            sample_dtype=self._dtype, device=self._ranks[0], **extra,
         )
         self._scatter(rows, part)
 
     def export_rows(self, rows: Any) -> State:
         """The whole state of ``rows`` (samples, counters and per-row keys)
         as the mode's state class with leading axis ``len(rows)``, in fresh
-        tensors on the engine's device: the source half of a live
-        migration.  :meth:`adopt_rows` on an engine of the same config
+        tensors on the engine's (first rank's) device: the source half of a
+        live migration.  :meth:`adopt_rows` on an engine of the same config
         continues the rows bit-identically."""
         self._check_open()
-        idx = torch.from_numpy(self._validate_rows(rows).astype(np.int64)).to(self._device)
-        return type(self._state)(*_on(self._state, lambda t: _signed(t).index_select(0, idx).view(t.dtype)))
+        rows = self._validate_rows(rows)
+        home = self._ranks[0]
+        if len(self._shards) == 1:
+            idx = torch.from_numpy(rows.astype(np.int64)).to(home)
+            return type(self._shards[0])(
+                *_on(self._shards[0], lambda t: _signed(t).index_select(0, idx).view(t.dtype)))
+        per = self._blocks[0].stop
+        rank_of = rows // per
+        out = [None if t is None else torch.empty((rows.size,) + tuple(t.shape[1:]),
+                                                  dtype=_signed(t).dtype, device=home)
+               for t in self._shards[0]]
+        for r in np.unique(rank_of):
+            pos = np.flatnonzero(rank_of == r)
+            b = self._blocks[r]
+            local = torch.from_numpy((rows[pos] - b.start).astype(np.int64)).to(b.device)
+            at = torch.from_numpy(pos.astype(np.int64)).to(home)
+            for o, t in zip(out, self._shards[r]):
+                if o is not None:
+                    o.index_copy_(0, at, _signed(t).index_select(0, local).to(home))
+        return type(self._shards[0])(
+            *(None if o is None else o.view(t.dtype) for o, t in zip(out, self._shards[0])))
 
     def adopt_rows(self, rows: Any, sub_state: State) -> None:
         """Scatter an :meth:`export_rows` sub-state (of this or another
@@ -597,21 +695,22 @@ class ReservoirEngine:
         so a skip gate re-pulls its replica."""
         self._check_open()
         rows = self._validate_adopt(rows, sub_state)
-        self._scatter(rows, type(sub_state)(*_on(sub_state, lambda t: t.to(self._device))))
+        self._scatter(rows, sub_state)
 
     def _validate_adopt(self, rows: Any, sub_state: State) -> np.ndarray:
         """The checks of :meth:`adopt_rows` (the rows, and the sub-state's
         class, leading axis, dtypes and row shapes); returns the rows."""
         rows = self._validate_rows(rows)
-        if type(sub_state) is not type(self._state):
+        like = self._shards[0]
+        if type(sub_state) is not type(like):
             raise ValueError(
                 f"sub_state is a {type(sub_state).__name__}; this engine holds a "
-                f"{type(self._state).__name__}"
+                f"{type(like).__name__}"
             )
         lead = {int(t.shape[0]) for t in sub_state if t is not None}
         if lead != {int(rows.size)}:
             raise ValueError(f"sub_state leading axis {sorted(lead)} does not match {rows.size} rows")
-        for name, full, one in zip(self._state._fields, self._state, sub_state):
+        for name, full, one in zip(like._fields, like, sub_state):
             if (full is None) != (one is None) or (
                 full is not None and (one.dtype != full.dtype or one.shape[1:] != full.shape[1:])
             ):
@@ -626,41 +725,47 @@ class ReservoirEngine:
 
     def save(self, path: str, metadata: Optional[dict] = None) -> None:
         """Checkpoint state and config to ``path`` (atomic ``.npz``, the JAX
-        package's format)."""
+        package's format; a meshed engine's rows in order, so either package
+        restores it on any mesh its rows divide over)."""
         from .utils.checkpoint import save_engine
 
         save_engine(path, self, metadata=metadata)
 
     @classmethod
-    def restore(cls, path: str, *, device: Optional[Any] = None, map_fn: Any = None,
-                hash_fn: Any = None) -> "ReservoirEngine":
-        """Rebuild a checkpointed engine (from either package) on ``device``.
-        Hooks are code, not data: pass those the engine was saved with, or
-        the reference's ``ValueError`` is raised."""
+    def restore(cls, path: str, *, device: Optional[Any] = None, mesh: Optional[Mesh] = None,
+                map_fn: Any = None, hash_fn: Any = None) -> "ReservoirEngine":
+        """Rebuild a checkpointed engine (from either package) on ``device``,
+        or, for a config with ``mesh_axis``, sharded over ``mesh`` (default
+        every visible card).  Hooks are code, not data: pass those the
+        engine was saved with, or the reference's ``ValueError`` is
+        raised."""
         from .utils.checkpoint import load_engine
 
-        return load_engine(path, engine_cls=cls, device=device, map_fn=map_fn, hash_fn=hash_fn)
+        return load_engine(path, engine_cls=cls, device=device, mesh=mesh, map_fn=map_fn,
+                           hash_fn=hash_fn)
 
     # --------------------------------------------------------------- results
 
     def _host_result(self) -> Tuple[np.ndarray, np.ndarray]:
-        samples, sizes = self._ops.result(self._state)
+        parts = [self._ops.result(st) for st in self._shards]
+        samples = _host_rows([p[0] for p in parts])
+        sizes = _host_rows([p[1] for p in parts])
         if self._config.distinct:
-            samples = _dist.assemble_values(samples, self._state.value_hi, self._np_dtype)
-            return samples, sizes.cpu().numpy()
-        return samples.cpu().numpy(), sizes.cpu().numpy()
+            hi = None if not self._wide else _host_rows([st.value_hi for st in self._shards])
+            samples = _dist.assemble_values(samples, hi, self._np_dtype)
+        return samples, sizes
 
     def result_arrays(self) -> Tuple[np.ndarray, np.ndarray]:
-        """``(samples [R, k], sizes [R])`` on the host; entries at or past a
-        row's size are zeros.  A weighted row's size is its number of filled
-        slots; a distinct row holds its values in hash order, 8-byte keys
-        reassembled.  A single-use engine closes and frees its device
-        state."""
+        """``(samples [R, k], sizes [R])`` on the host, rows in order; entries
+        at or past a row's size are zeros.  A weighted row's size is its
+        number of filled slots; a distinct row holds its values in hash
+        order, 8-byte keys reassembled.  A single-use engine closes and
+        frees its device state."""
         self._check_open()
         out = self._host_result()
         if not self._reusable:
             self._open = False
-            self._state = None
+            self._shards = None
             self._staging.clear()
         return out
 
@@ -708,6 +813,13 @@ def _key_words(key: Any) -> torch.Tensor:
     if words.shape != (2,):
         raise ValueError(f"key must be an int seed or [2] uint32 key words, got shape {words.shape}")
     return torch.from_numpy(words.astype(np.uint32).astype(np.int64))
+
+
+def _host_rows(parts: List[torch.Tensor]) -> np.ndarray:
+    """Row blocks (one a rank, in order) as one host array."""
+    if len(parts) == 1:
+        return parts[0].cpu().numpy()
+    return np.concatenate([p.cpu().numpy() for p in parts])
 
 
 def _signed(t: torch.Tensor) -> torch.Tensor:

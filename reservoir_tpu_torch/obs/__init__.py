@@ -2,7 +2,9 @@
 metrics registry with its latency histograms (:mod:`.registry`), the
 structured event log (:mod:`.events`), causal spans (:mod:`.trace`), the
 flight recorder (:mod:`.flight`), the Prometheus and JSON exporters
-(:mod:`.export`) and the burn-rate SLO plane (:mod:`.slo`).
+(:mod:`.export`), the burn-rate SLO plane (:mod:`.slo`) and the online
+sample-quality auditor (:mod:`.audit`), whose ``audit.*`` instruments the
+``sample_quality`` SLO judges.
 
 Telemetry is off by default: every instrumented hot path costs one
 module-global load and an ``is None`` test until :func:`enable` is called::
@@ -16,6 +18,7 @@ module-global load and an ``is None`` test until :func:`enable` is called::
 """
 
 from . import flight, trace
+from .audit import SampleQualityAuditor
 from .events import EventLog, read_events
 from .export import json_snapshot, prometheus_text, write_json_snapshot
 from .flight import FlightRecorder, read_bundle
@@ -45,6 +48,7 @@ __all__ = [
     "SLOPlane",
     "SLOSpec",
     "SLOVerdict",
+    "SampleQualityAuditor",
     "Span",
     "Tracer",
     "active",

@@ -55,10 +55,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-import torch
-
 from ..config import SamplerConfig
-from ..convert import resolve_device
 from ..errors import (
     FencedError,
     SessionIngestError,
@@ -91,15 +88,6 @@ def shard_of(key: str, n_shards: int, routing_epoch: int = 0) -> int:
     return h % int(n_shards)
 
 
-def _spread_devices(n: int) -> List[torch.device]:
-    """Deal the visible cards round robin over ``n`` slots: consecutive
-    shards land on distinct cards when there are enough, and share fairly
-    when there are not.  Raises without a card."""
-    resolve_device(None)
-    count = torch.cuda.device_count()
-    return [torch.device("cuda", i % count) for i in range(int(n))]
-
-
 def _resolve_devices(devices: Optional[Any], n_shards: int) -> List[Any]:
     """Normalize the cluster ``devices=`` knob into one entry per shard:
     ``None`` -> all ``None`` (the card), ``"spread"`` -> the visible cards
@@ -113,7 +101,9 @@ def _resolve_devices(devices: Optional[Any], n_shards: int) -> List[Any]:
                 f"devices= accepts None, 'spread', or a sequence of "
                 f"{n_shards} devices; got {devices!r}"
             )
-        return _spread_devices(n_shards)
+        from ..parallel.multihost import spread_devices
+
+        return spread_devices(n_shards)
     devs = list(devices)
     if len(devs) != n_shards:
         raise ValueError(

@@ -64,7 +64,7 @@ import numpy as np
 import torch
 
 from ..config import SamplerConfig
-from ..engine import ReservoirEngine, _not_in_slice
+from ..engine import ReservoirEngine
 from ..errors import (
     AbruptStreamTermination,
     CheckpointMismatch,
@@ -569,7 +569,12 @@ class DeviceStreamBridge:
         gated or not; pushed elements are of the config's element dtype.
       reusable: reusable bridges allow :meth:`complete` followed by more
         pushes (snapshot semantics).
-      mesh: not ported (L4): raises ``NotImplementedError``.
+      mesh: with ``config.mesh_axis``, the ranks the engine's reservoirs
+        shard over (:class:`~reservoir_tpu_torch.parallel.sharded.Mesh`;
+        default every visible card); each flush snapshots the host tile
+        once and copies each rank's rows to its card.  The staging tiles
+        are then numpy arrays, and ``gated=True`` is inert.  Not with
+        ``device``.
       pipelined: overlap the host demux with the flush — the demux fills
         one tile while the other's copy and dispatch run on a worker thread
         (default on).  ``False`` flushes synchronously from one tile.
@@ -644,14 +649,13 @@ class DeviceStreamBridge:
         native: bool = True,
         _engine: Optional[ReservoirEngine] = None,
     ) -> None:
-        if mesh is not None:
-            raise _not_in_slice("a bridge over a mesh (mesh=)", "L4")
         if durability not in ("buffered", "fsync"):
             raise ValueError(f"durability must be 'buffered' or 'fsync', got {durability!r}")
         self._config = config
         self._faults = faults
         self._engine = _engine if _engine is not None else ReservoirEngine(
-            config, key=key, reusable=reusable, device=device, map_fn=map_fn, hash_fn=hash_fn
+            config, key=key, reusable=reusable, device=device, mesh=mesh, map_fn=map_fn,
+            hash_fn=hash_fn,
         )
         self._reusable = reusable
         S, B = config.num_reservoirs, config.tile_size
@@ -659,7 +663,9 @@ class DeviceStreamBridge:
         self._staging = NativeStaging(S, B, dtype, weighted=config.weighted, native=native)
         n_bufs = 2 if pipelined else 1
         dev = self._engine.device
-        self._cuda = dev.type == "cuda"
+        # a meshed engine (no one device) takes host tiles, which it
+        # snapshots and ships to each rank's card itself
+        self._cuda = dev is not None and dev.type == "cuda"
         # every engine call of the bridge runs on the stream current at
         # construction, from whichever thread makes it, so the worker's
         # kernels, push_tile's and the result's reads stay in order
@@ -1309,10 +1315,13 @@ class DeviceStreamBridge:
 
     def drain_barrier(self) -> None:
         """Wait for the flush in flight (re-raising its error) and, on the
-        card, for the bridge's stream: the state is then final."""
+        card, for the bridge's stream (a meshed engine's: each card's): the
+        state is then final."""
         self._join()
         if self._cuda:
             self._stream.synchronize()
+        else:
+            self._engine._synchronize()
 
     def flush_would_block(self) -> bool:
         """True when a :meth:`flush` now would wait for the pipeline (no
@@ -1478,6 +1487,7 @@ class DeviceStreamBridge:
         gate_tile: Optional[int] = None,
         replay_hook: Optional[Any] = None,
         device: Optional[Any] = None,
+        mesh: Optional[Any] = None,
         native: bool = True,
     ) -> "DeviceStreamBridge":
         """Rebuild a crashed auto-checkpointing bridge (of either package)
@@ -1496,10 +1506,12 @@ class DeviceStreamBridge:
         reaches the checkpoint's watermark and again after each replayed
         tile with its sequence number.  ``map_fn``/``hash_fn`` are code, not
         data: pass again those the crashed bridge ran with (a mismatch with
-        the checkpoint raises the reference's ``ValueError``).
+        the checkpoint raises the reference's ``ValueError``).  A meshed
+        bridge's engine is restored onto ``mesh`` (default every visible
+        card), where its rows must divide.
         """
         engine_path = os.path.join(checkpoint_dir, "engine.npz")
-        engine, metadata = load_engine(engine_path, device=device, with_metadata=True,
+        engine, metadata = load_engine(engine_path, device=device, mesh=mesh, with_metadata=True,
                                        map_fn=map_fn, hash_fn=hash_fn)
         info = (metadata or {}).get("bridge")
         if info is None:

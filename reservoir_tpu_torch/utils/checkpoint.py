@@ -302,7 +302,12 @@ def save_engine(path: str, engine, metadata: Optional[dict] = None) -> None:
     or absent, and must be passed again to :func:`load_engine`."""
     engine._check_open()
     arrays, manifest = _pack_state(engine._state, metadata)
-    dev = engine.device
+    # the backend a restore's pre-flight names: a meshed engine's ranks
+    if engine.mesh is not None:
+        dev, count = engine.mesh.devices[0], engine.mesh.size
+    else:
+        dev = engine.device
+        count = torch.cuda.device_count() if dev.type == "cuda" else 1
     manifest.update({
         "engine": {
             "config": _config_to_jsonable(engine.config),
@@ -312,7 +317,7 @@ def save_engine(path: str, engine, metadata: Optional[dict] = None) -> None:
             "has_hash_fn": engine._hash_fn is not None,
             "backend": {
                 "platform": dev.type,
-                "device_count": torch.cuda.device_count() if dev.type == "cuda" else 1,
+                "device_count": count,
             },
         },
     })
@@ -324,14 +329,68 @@ def save_engine(path: str, engine, metadata: Optional[dict] = None) -> None:
         reg.histogram("checkpoint.write_s").observe(time.perf_counter() - t0)
 
 
+#: state fields whose second dimension is the sample capacity ``k``
+_K_FIELDS = frozenset({"samples", "values", "lkeys", "hash_hi", "hash_lo"})
+
+
+def _preflight(path: str, config: SamplerConfig, arrays: dict, manifest: dict, mesh) -> None:
+    """The reference's recovery pre-flight: refuse a restore whose state
+    arrays cannot match the recorded config, naming the field, and a
+    meshed restore whose rows do not divide over the ranks of the mesh it
+    restores onto (the port's counterpart of the live backend's device
+    count), naming the backend the checkpoint was taken on."""
+    R = config.num_reservoirs
+    for field in manifest.get("fields", ()):
+        if field.get("kind") == "none":
+            continue
+        name = field["name"]
+        arr = arrays.get(name)
+        if arr is None:
+            raise CheckpointCorrupt(
+                f"checkpoint {path!r}: state field {name!r} listed in the "
+                "manifest is missing from the archive"
+            )
+        if arr.ndim < 1 or arr.shape[0] != R:
+            raise CheckpointMismatch(
+                f"checkpoint {path!r}: state field {name!r} has leading "
+                f"dimension {arr.shape[0] if arr.ndim else '<scalar>'}, but "
+                f"the recorded config has num_reservoirs={R}"
+            )
+        if name in _K_FIELDS and arr.ndim >= 2 and arr.shape[1] != config.max_sample_size:
+            raise CheckpointMismatch(
+                f"checkpoint {path!r}: state field {name!r} has sample "
+                f"capacity {arr.shape[1]}, but the recorded config has "
+                f"max_sample_size={config.max_sample_size}"
+            )
+    if config.mesh_axis is not None and mesh is not None:
+        live = mesh.shape[config.mesh_axis]
+        if R % live:
+            saved = (manifest.get("engine") or {}).get("backend") or {}
+            was = (
+                f"; it was taken on {saved['device_count']} "
+                f"{saved.get('platform', '?')} device(s)"
+                if saved.get("device_count")
+                else ""
+            )
+            raise CheckpointMismatch(
+                f"checkpoint {path!r} shards {R} reservoirs over mesh axis "
+                f"{config.mesh_axis!r}, which does not divide evenly over "
+                f"the {live} device(s) of the live backend{was}"
+            )
+
+
 def load_engine(path: str, engine_cls: Optional[type] = None, *, device: Any = None,
-                with_metadata: bool = False, map_fn: Any = None, hash_fn: Any = None):
+                mesh: Any = None, with_metadata: bool = False, map_fn: Any = None,
+                hash_fn: Any = None):
     """Rebuild a checkpointed uniform, weighted or distinct engine on
-    ``device``; with ``with_metadata``, ``(engine, metadata)`` (the stream
-    bridge's recovery reads its journal watermark there).  Raises the
-    reference's ``ValueError`` when the checkpoint was saved with a
-    ``map_fn`` or ``hash_fn`` and none is passed, or the other way round: a
-    silent mismatch would change what is stored."""
+    ``device``, or, for a config with ``mesh_axis``, re-sharded over
+    ``mesh`` (default: every visible card); with ``with_metadata``,
+    ``(engine, metadata)`` (the stream bridge's recovery reads its journal
+    watermark there).  Raises the reference's ``ValueError`` when the
+    checkpoint was saved with a ``map_fn`` or ``hash_fn`` and none is
+    passed, or the other way round: a silent mismatch would change what is
+    stored; and its pre-flight's ``CheckpointMismatch`` when the rows do
+    not divide over the mesh."""
     from ..engine import ReservoirEngine
 
     arrays, manifest = _read_npz(path)
@@ -356,17 +415,15 @@ def load_engine(path: str, engine_cls: Optional[type] = None, *, device: Any = N
             f"checkpoint {path!r}: a {state_class} with a config of weighted="
             f"{config.weighted}, distinct={config.distinct}"
         )
-    R, k = config.num_reservoirs, config.max_sample_size
-    first = _STATES[state_class][0][0][0]
-    if first in arrays and arrays[first].shape != (R, k):
-        raise CheckpointMismatch(
-            f"checkpoint {path!r}: {first} have shape {arrays[first].shape}, "
-            f"but the recorded config has R={R}, k={k}"
-        )
+    if config.mesh_axis is not None and device is None and mesh is None:
+        from ..parallel.sharded import make_mesh
+
+        mesh = make_mesh(axis=config.mesh_axis)
+    _preflight(path, config, arrays, manifest, mesh)
     state = _unpack_state(path, arrays, manifest)
     engine = (engine_cls or ReservoirEngine)(
-        config, reusable=info["reusable"], device=device, map_fn=map_fn, hash_fn=hash_fn,
-        _initial_state=state,
+        config, reusable=info["reusable"], device=device, mesh=mesh, map_fn=map_fn,
+        hash_fn=hash_fn, _initial_state=state,
     )
     engine._min_count = info["min_count"]
     return (engine, manifest.get("metadata", {})) if with_metadata else engine

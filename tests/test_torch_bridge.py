@@ -6,11 +6,13 @@ protocol; the pipeline under contention; and what the slice leaves out."""
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import os
 import subprocess
 import sys
 import threading
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -333,10 +335,19 @@ def test_pipelined_thread_stress():
         _same(want, res)
 
 
+def _in_a_two_process_group(make):
+    """``make()`` as a member of a process group of two sees it: a mesh
+    that spans processes is what the port leaves out of L4."""
+    with mock.patch.object(torch.distributed, "is_initialized", return_value=True), \
+            mock.patch.object(torch.distributed, "get_world_size", return_value=2):
+        return make()
+
+
 @pytest.mark.parametrize(
     "make, label",
     [
-        (lambda cfg: DeviceStreamBridge(cfg, mesh=object(), device="cpu"), "L4"),
+        (lambda cfg: _in_a_two_process_group(
+            lambda: DeviceStreamBridge(dataclasses.replace(cfg, mesh_axis="res"))), "L4"),
     ],
     ids=["mesh"],
 )

@@ -1771,3 +1771,182 @@ def test_fused_stream_equals_the_per_tile_path_on_the_card(cuda_device, mode):
     for a, b in zip(engines[0].state, engines[1].state):
         assert (a is None and b is None) or torch.equal(a.view(torch.int32) if a.dtype == torch.uint32 else a,
                                                          b.view(torch.int32) if b.dtype == torch.uint32 else b)
+
+
+# ------------------------------------------------------ the sharded engine (L4)
+
+_MESH_MODES = {
+    "uniform": ({}, None),
+    "wide": (dict(count_dtype="wide"), None),
+    "weighted": (dict(weighted=True), None),
+    "distinct": (dict(distinct=True), None),
+    "distinct_int64": (dict(distinct=True, element_dtype="int64"), None),
+    "hooked": (dict(distinct=True), lambda x: x & 0x3FFF),
+}
+
+
+def _launch_counts():
+    return {"algl": TK.launches, "wide": TK.wide_launches, "weighted": TWK.launches,
+            "distinct": TDK.launches, "prehashed": TDK.prehashed_launches, "gather": TM.launches}
+
+
+def _host_state(state):
+    return {k: (None if v is None else v.view(np.uint8)) for k, v in convert.state_to_numpy(state).items()}
+
+
+def _same_host_states(a, b):
+    ha, hb = _host_state(a), _host_state(b)
+    for name in ha:
+        assert (ha[name] is None) == (hb[name] is None), name
+        if ha[name] is not None:
+            np.testing.assert_array_equal(ha[name], hb[name], err_msg=name)
+
+
+def _mesh_run(cfg, engine_kw, map_fn, tiles, device_tiles=()):
+    eng = ReservoirEngine(cfg, key=4, reusable=True, map_fn=map_fn, **engine_kw)
+    for i, (tile, w, valid) in enumerate(tiles):
+        if i in device_tiles:
+            tile = torch.from_numpy(tile).to("cuda")
+            w = None if w is None else torch.from_numpy(w).to("cuda")
+        eng.sample(tile, valid, weights=w)
+    return eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(_MESH_MODES))
+def test_meshed_card_engine_equals_the_unmeshed_card_engine_and_a_cpu_mesh(cuda_device, mode):
+    """A meshed engine over 4 ranks of one card against the unmeshed card
+    engine and a meshed engine on 4 CPU ranks, bit for bit, with exactly
+    one launch of the mode's kernel a rank a tile."""
+    from reservoir_tpu_torch.parallel import make_mesh
+
+    kw, map_fn = _MESH_MODES[mode]
+    R, k, B = 256, 9, 64
+    rng = np.random.default_rng(31)
+    dtype = kw.get("element_dtype", "int32")
+    tiles = []
+    for i in range(4):
+        tile = rng.integers(0, 1 << 12 if kw.get("distinct") else 1 << 30, (R, B)).astype(dtype)
+        w = rng.uniform(0.0, 2.0, (R, B)).astype(np.float32) if kw.get("weighted") else None
+        valid = rng.integers(0, B + 1, R).astype(np.int32) if i == 2 else None
+        tiles.append((tile, w, valid))
+    meshed_cfg, plain_cfg = SamplerConfig(k, R, B, mesh_axis="res", **kw), SamplerConfig(k, R, B, **kw)
+    before = _launch_counts()
+    meshed = _mesh_run(meshed_cfg, dict(mesh=make_mesh(devices=[cuda_device] * 4)), map_fn, tiles,
+                       device_tiles=(1, 3))
+    torch.cuda.synchronize()
+    got = {name: n - before[name] for name, n in _launch_counts().items()}
+    name = ("prehashed" if map_fn is not None else "distinct") if kw.get("distinct") else \
+        "wide" if kw.get("count_dtype") else "weighted" if kw.get("weighted") else "algl"
+    assert got == {**{n: 0 for n in got}, name: 4 * 4}
+    single = _mesh_run(plain_cfg, dict(device=cuda_device), map_fn, tiles, device_tiles=(1, 3))
+    cpu_mesh = _mesh_run(meshed_cfg, dict(mesh=make_mesh(devices=["cpu"] * 4)), map_fn, tiles)
+    _same_host_states(meshed.state, single.state)
+    _same_host_states(meshed.state, cpu_mesh.state)
+    rows = np.asarray([200, 3, 64, 3, 130], np.int32)
+    for eng in (meshed, single):
+        eng.reset_rows(rows, 8)
+        eng.adopt_rows([1, 255, 70], eng.export_rows([128, 2, 191]))
+        eng.sample(*tiles[0][:1], weights=tiles[0][1])
+    _same_host_states(meshed.state, single.state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+def test_sharded_result_on_the_card_equals_the_plain_gather(cuda_device, wide):
+    """``sharded_result`` over 4 ranks of the card: one all-gather launch,
+    every rank's samples, sizes and total equal to ``gather_parts_plain``'s
+    words and the host's sum."""
+    from reservoir_tpu_torch.parallel import make_mesh, shard_state, sharded_result
+
+    R, k = 512, 16
+    state = T.init(key_from_seed(3), R, k, device=cuda_device, count_dtype="wide" if wide else "int32")
+    rng = np.random.default_rng(37)
+    if wide:
+        counts = rng.integers(2**31, 2**40, R).astype(np.uint64)
+        words = np.stack([counts & 0xFFFFFFFF, counts >> 32], 1).astype(np.uint32)
+        state = state._replace(count=torch.from_numpy(words.view(np.int32)).to(cuda_device).view(torch.uint32))
+    else:
+        counts = rng.integers(2**28, 2**31 - 1, R).astype(np.int32)
+        state = state._replace(count=torch.from_numpy(counts).to(cuda_device))
+    state = state._replace(samples=torch.from_numpy(rng.integers(0, 1 << 30, (R, k)).astype(np.int32))
+                           .to(cuda_device))
+    mesh = make_mesh(devices=[cuda_device] * 4)
+    shards = shard_state(state, mesh)
+    before = TM.launches
+    samples, sizes, totals = sharded_result(mesh)(shards)
+    torch.cuda.synchronize()
+    assert TM.launches - before == 1
+    comm = TM.RingCommunicator(mesh.devices)
+    leaves = [(*T.result(s), s.count) for s in shards]
+    want = TM.gather_parts_plain(leaves, comm)
+    for s, z, t, w in zip(samples, sizes, totals, want):
+        assert torch.equal(_bits(s), _bits(w[0])) and torch.equal(z, w[1])
+        if wide:
+            np.testing.assert_allclose(float(t), float(counts.astype(np.float64).sum()), rtol=1e-6)
+        else:
+            total = int(counts.astype(np.int64).sum())
+            assert int(t) == (total + 2**31) % 2**32 - 2**31
+
+
+@pytest.mark.cuda
+def test_meshed_bridge_on_the_card_recovers_as_a_cpu_mesh(cuda_device, tmp_path):
+    """A meshed bridge over 4 ranks of the card, interleaved pushes, one
+    launch a rank a flush; dropped after a checkpoint and recovered onto
+    the mesh: the same samples as a meshed bridge on CPU ranks."""
+    from reservoir_tpu_torch.parallel import make_mesh
+
+    S, B, k = 64, 16, 4
+    cfg = SamplerConfig(k, S, B, mesh_axis="res")
+    rng = np.random.default_rng(41)
+    ids = rng.integers(0, S, 4000).astype(np.int32)
+    vals = rng.integers(0, 1 << 20, 4000).astype(np.int32)
+    ref = DeviceStreamBridge(cfg, key=5, mesh=make_mesh(devices=["cpu"] * 4))
+    ref.push_interleaved(ids, vals)
+    want = ref.complete()
+    before = TK.launches
+    live = DeviceStreamBridge(cfg, key=5, mesh=make_mesh(devices=[cuda_device] * 4), gated=True,
+                              checkpoint_dir=str(tmp_path), checkpoint_every=3)
+    assert live.gate_inert_reason == "meshed engine (gated dispatch is single-device)"
+    live.push_interleaved(ids[:2000], vals[:2000])
+    live.drain_barrier()
+    assert TK.launches - before == 4 * live.metrics.flushes
+    seen = live.metrics.flushed_elements
+    del live  # the drop: what was staged after the last flush is lost
+    rec = DeviceStreamBridge.recover(str(tmp_path), mesh=make_mesh(devices=[cuda_device] * 4))
+    assert rec.metrics.flushed_elements == seen
+    # a flush takes everything staged before it: the flushed elements are
+    # a prefix of the pushes, and the rest is pushed again
+    rec.push_interleaved(ids[seen:], vals[seen:])
+    for a, b in zip(rec.complete(), want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["uniform", "weighted", "distinct_int64"])
+def test_meshed_engine_over_distinct_cards_equals_one_card(cuda_device, mode):
+    """Ranks on every visible card (device tiles split across cards with
+    peer copies, and ``sharded_result``'s cross-card gather) against the
+    same ranks on one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards: the cross-card path")
+    from reservoir_tpu_torch.parallel import make_mesh, sharded_result
+
+    kw, _ = _MESH_MODES[mode]
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    R, k, B = 64 * len(cards), 8, 64
+    rng = np.random.default_rng(43)
+    tiles = [(rng.integers(0, 1 << 12, (R, B)).astype(kw.get("element_dtype", "int32")),
+              rng.uniform(0.0, 2.0, (R, B)).astype(np.float32) if kw.get("weighted") else None, None)
+             for _ in range(3)]
+    cfg = SamplerConfig(k, R, B, mesh_axis="res", **kw)
+    spread = _mesh_run(cfg, dict(mesh=make_mesh(devices=cards)), None, tiles, device_tiles=(1,))
+    one = _mesh_run(cfg, dict(mesh=make_mesh(devices=[cuda_device] * len(cards))), None, tiles)
+    _same_host_states(spread.state, one.state)
+    ops = TW if kw.get("weighted") else TD if kw.get("distinct") else T
+    before = TM.launches
+    got = sharded_result(spread.mesh, ops=ops)(spread._shards)
+    assert TM.launches - before == len(cards)  # one launch a card
+    want = sharded_result(one.mesh, ops=ops)(one._shards)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(_bits(g).cpu(), _bits(w).cpu())

@@ -11,6 +11,7 @@ import json
 import os
 import subprocess
 import sys
+from unittest import mock
 
 import jax.random as jr
 import numpy as np
@@ -283,7 +284,8 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "new = ('api', 'oracle.algorithm_l', 'oracle.bottom_k', 'oracle.weighted',\n"
         "       'stream.operator', 'stream.interop', 'serve.sessions', 'serve.service',\n"
         "       'serve.autotune', 'ops.autotune', 'serve.replica', 'serve.ha',\n"
-        "       'serve.shard', 'serve.cluster', 'obs.export', 'obs.slo', 'ops.u64e')\n"
+        "       'serve.shard', 'serve.cluster', 'obs.export', 'obs.slo', 'ops.u64e',\n"
+        "       'parallel.sharded', 'parallel.multihost', 'obs.audit')\n"
         "bad += [n for n in new if 'reservoir_tpu_torch.' + n not in sys.modules]\n"
         "print(len([n for n in sys.modules if n.startswith('reservoir_tpu_torch')]), bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -291,18 +293,26 @@ def test_package_imports_neither_jax_nor_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 57
+    assert int(proc.stdout.split()[0]) >= 60
+
+
+def _in_a_two_process_group(make):
+    """``make()`` as a member of a process group of two sees it: a mesh
+    that spans processes is what the port leaves out of L4."""
+    with mock.patch.object(torch.distributed, "is_initialized", return_value=True), \
+            mock.patch.object(torch.distributed, "get_world_size", return_value=2):
+        return make()
 
 
 @pytest.mark.parametrize(
     "make",
     [
-        lambda: ReservoirEngine(SamplerConfig(4, 2, mesh_axis="res"), device="cpu"),
+        lambda: _in_a_two_process_group(lambda: ReservoirEngine(SamplerConfig(4, 2, mesh_axis="res"))),
     ],
     ids=["mesh_axis"],
 )
 def test_what_the_slice_leaves_out_raises_naming_the_roadmap(make):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*L4"):
         make()
 
 
