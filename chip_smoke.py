@@ -134,8 +134,10 @@ which fails the run with a non-zero exit:
    leaves (its launch shape) against the plain version, every rank's copy
    bit for bit, in a launch that the path's count leaves out;
 19. merge timings as in 7: the all-gather at phase 18's uniform shape
-   beside its bytes bound, its plain version and ``torch.stack`` of the
-   packed blocks once a rank (the library yardstick; over NCCL only where
+   (``gather_times``: the wrapper's calls back to back, the bare launch
+   with its arguments and outputs made beforehand, one call between the
+   events, the host's time a call, and the build) beside its bytes bound,
+   its plain version and ``torch.stack`` of the packed blocks once a rank (the library yardstick; over NCCL only where
    there is more than one card); the merge kernel at [65536, 128] beside
    its bound (from the draws of phase 17's plain run), its plain version
    and the torch argsort and gather that follow it; and one batched
@@ -409,7 +411,9 @@ which fails the run with a non-zero exit:
 43. ``sharded_result`` of config 5's meshed state: one
    ``merge_ring_gather`` launch, every rank's samples and sizes equal to
    ``gather_parts_plain``'s, the total equal to the host's sum with its
-   int32 wrap; the gather timed beside its bytes bound, (d + d^2) n 4 at
+   int32 wrap; the gather timed (one call between the events, and
+   ``gather_times``' other three readings: the kernel's own time apart
+   from the wrapper's host work) beside its bytes bound, (d + d^2) n 4 at
    3.35 TB/s, and the library call (the ``torch.cat`` of per-rank
    ``.to()`` copies onto every rank), and the whole call;
 44. a meshed bridge (R=4096, B=1024, 8 ranks of the card) with
@@ -1582,6 +1586,53 @@ def words_err(got, want) -> float:
     return err
 
 
+def gather_times(leaves, comm) -> dict:
+    """The all-gather over ``comm`` of ``leaves``, timed four ways:
+    ``launch_ms`` the bare launch (every argument but the stream made
+    beforehand, into outputs allocated beforehand: the kernel's own time,
+    10 launches back to back), ``call_ms`` the wrapper call
+    (``gather_parts``: checks, outputs, arguments and the launch) 10 calls
+    back to back, ``call_1_ms`` one wrapper call between the events (the
+    host's work before the launch inside them), and ``host_ms`` the host's
+    time a wrapper call (10 calls on the host's clock, no sync between)."""
+    from reservoir_tpu_torch.ops import merge_cuda as mkern
+
+    launch = mkern.launcher(leaves, mkern._outputs(leaves, comm), comm)
+    out = {"launch_ms": event_ms(lambda _: launch(), batch=10),
+           "call_ms": event_ms(lambda _: mkern.gather_parts(leaves, comm), batch=10),
+           "call_1_ms": event_ms(lambda _: mkern.gather_parts(leaves, comm))}
+    host = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            mkern.gather_parts(leaves, comm)
+        host.append(1e3 * (time.perf_counter() - t0) / 10)
+        torch.cuda.synchronize()
+    out["host_ms"] = statistics.median(host)
+    comm.check()
+    return out
+
+
+def wide_planes(x: np.ndarray, dev) -> torch.Tensor:
+    """uint64 values as ``[..., 2]`` uint32 (lo, hi) planes on ``dev``."""
+    from reservoir_tpu_torch.ops import u64e
+
+    return u64e.to_u32(u64e.make(torch.from_numpy((x & np.uint64(0xFFFFFFFF)).astype(np.int64)),
+                                 torch.from_numpy((x >> np.uint64(32)).astype(np.int64)))).to(dev)
+
+
+def wide_merge_counts(rng) -> tuple:
+    """Phase 38's WIDE counts past 2^32 as uint64 ``[R]`` arrays: A's in
+    [2^32, 2^40), B's in [0, 2^40), the first rows at the edges (2^32 and
+    2^63, give or take a little); ``rng`` is ``default_rng(38)``."""
+    ca_h = rng.integers(2**32, 2**40, R).astype(np.uint64)
+    cb_h = rng.integers(0, 2**40, R).astype(np.uint64)
+    ca_h[:6] = [2**32 - 1, 2**32 + 1, 2**33 + 12345, 0, 2**63, 5]
+    cb_h[:6] = [1, 2**32 - 3, 7, 0, 2**63 - 1, 2**31]
+    return ca_h, cb_h
+
+
 def merge_bound_ms(steps: int, draws: int, rows: int, k: int, row_bytes: int = 21, wide: bool = False) -> tuple:
     """The merge kernel's bound for ``rows`` rows of sample size ``k``
     whose scans ran ``steps`` steps and drew ``draws`` words in all (each
@@ -2138,8 +2189,9 @@ def merge_phases(gen, dev) -> tuple:
         return 1e3 * (d + d * d) * words * 4 / PEAK_BYTES
 
     words = R * K + R
-    gather_ms = event_ms(lambda _: mkern.gather_parts(full_leaves, full_comm), batch=10)
-    full_comm.check()
+    gather_t = gather_times(full_leaves, full_comm)
+    gather_ms = gather_t["call_ms"]
+    gather_build = mkern.kernel_info()
     plain_ms = event_ms(lambda _: mkern.gather_parts_plain(full_leaves, full_comm), batch=10)
     packed = [torch.cat([s, c[:, None]], 1) for s, c in full_leaves]
     library_ms = event_ms(lambda _: [torch.stack(packed) for _ in range(D)], batch=10)
@@ -2177,8 +2229,10 @@ def merge_phases(gen, dev) -> tuple:
     card = card_line()
     log(f"[19 merge timings] {card} | all-gather of {D} ranks x ([{R}, {K}] + [{R}]) words "
         f"({4 * words / 1e6:.1f} MB a rank in, {4 * D * words / 1e6:.1f} MB a rank out): kernel "
-        f"{gather_ms:.4f} ms, plain {plain_ms:.4f} ms, torch.stack of the packed blocks once a rank "
-        f"{library_ms:.4f} ms, bound {bound:.4f} ms (bytes)")
+        f"{gather_ms:.4f} ms (gather_parts, 10 calls back to back; the bare launch {gather_t['launch_ms']:.4f} ms, "
+        f"one call between the events {gather_t['call_1_ms']:.4f} ms, the host {gather_t['host_ms']:.4f} ms a "
+        f"call), plain {plain_ms:.4f} ms, torch.stack of the packed blocks once a rank "
+        f"{library_ms:.4f} ms, bound {bound:.4f} ms (bytes); build {build_text(gather_build)}")
     merge_build = kern.merge_kernel_info()
     log(f"[19 merge timings] {card} | merge kernel (algl_merge_draws) at [{R}, {K}] ({steps} scan steps, "
         f"{n_draws} words drawn): {merge_ms:.4f} ms, plain {merge_plain_ms:.1f} ms, bound {merge_bound:.4f} ms "
@@ -2226,6 +2280,9 @@ def merge_phases(gen, dev) -> tuple:
         "bound_by": "bytes",
         "library_ms": library_ms,
         "library_note": f"torch.stack of the {D} packed [{R}, {K + 1}] blocks, once a rank, on one card",
+        "ms_note": "gather_parts, 10 calls back to back",
+        **{k: v for k, v in gather_t.items() if k != "call_ms"},
+        "build": gather_build,
         "cards": n_cards,
         "pairwise_merge_ms": pair_ms,
         "stream_merger_ms": stream_ms,
@@ -4792,16 +4849,8 @@ def _wide_phases(gen, dev, here: str, accepts: dict, cpu_future) -> tuple:
 
     # 38. WIDE merges: (a) a pairwise merge at the main path's shape
     rng = np.random.default_rng(38)
-    ca_h = rng.integers(2**32, 2**40, R).astype(np.uint64)
-    cb_h = rng.integers(0, 2**40, R).astype(np.uint64)
-    ca_h[:6] = [2**32 - 1, 2**32 + 1, 2**33 + 12345, 0, 2**63, 5]
-    cb_h[:6] = [1, 2**32 - 3, 7, 0, 2**63 - 1, 2**31]
-
-    def planes(x):
-        return u64e.to_u32(u64e.make(torch.from_numpy((x & np.uint64(0xFFFFFFFF)).astype(np.int64)),
-                                     torch.from_numpy((x >> np.uint64(32)).astype(np.int64)))).to(dev)
-
-    ca, cb = planes(ca_h), planes(cb_h)
+    ca_h, cb_h = wide_merge_counts(rng)
+    ca, cb = wide_planes(ca_h, dev), wide_planes(cb_h, dev)
     sa, sb = random_tile(gen, K, torch.int32, dev), random_tile(gen, K, torch.int32, dev)
     row_keys = split_keys(key_from_seed(38, device=dev), R)
     torch.cuda.synchronize()
@@ -4834,7 +4883,7 @@ def _wide_phases(gen, dev, here: str, accepts: dict, cpu_future) -> tuple:
     shards = 4
     s_st = torch.randint(-(2**31), 2**31 - 1, (shards, R, K), dtype=torch.int32, device=dev, generator=gen)
     c_host = rng.integers(2**31, 2**38, (shards, R)).astype(np.uint64)
-    c_st = torch.stack([planes(c) for c in c_host])
+    c_st = torch.stack([wide_planes(c, dev) for c in c_host])
     torch.cuda.synchronize()
     kern.wide_merge_launches = kern.merge_launches = mkern.launches = 0
     t0 = time.perf_counter()
@@ -5701,18 +5750,22 @@ def sharded_result_phase(dev, shards, extra: dict) -> dict:
     del samples, sizes, totals, want
     d = MESH_RANKS
     words = sum(t.numel() for t in leaves[0])
-    gather_ms = event_ms(lambda _: mkern.gather_parts(leaves, comm))
+    times = gather_times(leaves, comm)
+    gather_ms = times["call_1_ms"]
     library_ms = event_ms(lambda _: mkern.gather_parts_plain(leaves, comm))
     call_ms = event_ms(lambda _: call(shards))
     nbytes = (d + d * d) * words * 4
     bound = 1e3 * nbytes / PEAK_BYTES
     mkern.launches = launches
     rec = {"launches": launches, "ranks": d, "words_a_rank": words, "total": wrapped, "gather_ms": gather_ms,
+           "gather_ms_note": "one gather_parts call between the events", **times,
            "bound_ms": bound, "bound_by": "bytes", "library_ms": library_ms, "sharded_result_ms": call_ms}
     extra.setdefault("merge_ring_gather", {}).update({"meshed_launches": launches, "sharded_result": rec})
     log(f"[43 sharded_result] {card_line()} | config 5 over {d} ranks of the card: {launches} merge_ring_gather "
         f"launch, every rank's samples, sizes == gather_parts_plain, total {wrapped} == the host sum (int32 "
-        f"wrap); the gather of {words} words a rank {gather_ms:.4f} ms, bound {bound:.4f} ms (bytes, "
+        f"wrap); the gather of {words} words a rank {gather_ms:.4f} ms (one gather_parts call between the "
+        f"events; 10 back to back {times['call_ms']:.4f} ms a call, the bare launch {times['launch_ms']:.4f} ms, "
+        f"the host {times['host_ms']:.4f} ms a call), bound {bound:.4f} ms (bytes, "
         f"(d + d^2) n 4), the library call (torch.cat of per-rank .to() onto every rank) {library_ms:.4f} ms; "
         f"the whole sharded_result {call_ms:.4f} ms")
     return rec

@@ -5,11 +5,12 @@
 ``DIR`` holds another version of ``reservoir_tpu_torch/csrc`` (for example
 the parent commit's, from ``git archive``, or a variant of this one, with
 the headers its sources include).  Each of ``algorithm_l.cu``,
-``distinct.cu``, ``weighted.cu`` and ``algl_merge.cu`` that it holds must
-keep the C entry points of its wrapper (``algl_update`` and
-``algl_update_gated``, ``distinct_update``, ``weighted_update``,
-``algl_merge_draws``) with their arguments, and only those kernels are
-timed (a variant directory holds just the file it edits).  The script
+``distinct.cu``, ``weighted.cu``, ``algl_merge.cu`` and ``merge_ring.cu``
+that it holds must keep the C entry points of its wrapper (``algl_update``
+and ``algl_update_gated``, ``distinct_update``, ``weighted_update``,
+``algl_merge_draws`` and ``algl_merge_draws_wide``, ``merge_ring_gather``
+and its helpers) with their arguments, and only those kernels are timed (a
+variant directory holds just the file it edits).  The script
 builds those files of both versions with the port's own nvcc flags (plus
 ``-Xptxas -v``) into ``reservoir_tpu_torch/_build/ab/``, all at once,
 loads each build through its wrapper (``_library(path)`` of
@@ -32,7 +33,16 @@ on its tiles, times old and new in turns (old, new, new, old) with
   (``chip_smoke.weighted_timing_cases``): the fill tile from empty, the
   steady tile from count 7 B, and that tile with every weight 0;
 - ``algl_merge_draws`` on phase 19's uniform pair
-  (``chip_smoke.merge_timing_case``, R = 65,536, k = 128).
+  (``chip_smoke.merge_timing_case``, R = 65,536, k = 128), and, where the
+  old build has it, ``algl_merge_draws_wide`` on that pair's counts as
+  WIDE words and on phase 38's counts past 2^32;
+- ``merge_ring_gather`` at phase 19's shape (4 ranks of the card, each
+  ``[65536, 128]`` and ``[65536]`` words) and at phase 43's (8 ranks, each
+  ``[8192, 128]``, ``[8192]`` and ``[8192]``), each build's output equal to
+  ``gather_parts_plain``'s, timed four ways in turns
+  (``chip_smoke.gather_times``): the bare launch (the kernel's own time),
+  the wrapper call back to back, one wrapper call between the events, and
+  the host's time a wrapper call.
 
 Each tile is first run once by both builds, and their results must be
 bit-identical, unless ``--unchecked`` says that the old build is a
@@ -43,7 +53,8 @@ printed, with each kernel's instructions by the pipe their opcodes issue
 to (``cuobjdump -sass``: the kernel's, and its largest loop's), and for the
 checkout's build its ``kernel_info`` at the launch shape (shared memory and
 resident warps an SM), with the card's name and power limit and each
-tile's bound (``chip_smoke``'s bound functions); the whole goes to
+tile's bound (``chip_smoke``'s bound functions, the merge kernels' with
+the remainders ``chip_smoke.remainder_ops`` counts); the whole goes to
 ``--out`` as JSON.  It needs a CUDA card and nvcc.
 """
 
@@ -58,13 +69,15 @@ import statistics
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("algorithm_l", "distinct", "weighted", "algl_merge")
+KERNELS = ("algorithm_l", "distinct", "weighted", "algl_merge", "merge_ring")
 #: the kernels of each source whose SASS is counted
 SASS_KERNELS = {"algorithm_l": ("update_kernel", "gated_kernel"), "distinct": ("update_kernel",),
-                "weighted": ("update_kernel",), "algl_merge": ("draws_kernel",)}
+                "weighted": ("update_kernel",), "algl_merge": ("draws_kernel",),
+                "merge_ring": ("gather_kernel",)}
 
 
 def build(dirs: dict, out_dir: str, names=KERNELS) -> dict:
@@ -143,6 +156,16 @@ def sass_counts(lib: str, kernel: str = "update_kernel") -> dict:
             "largest_loop": {"instructions": size, "by_pipe": by_pipe(ops[start:end + 1])}}
 
 
+def gather_leaves(gen, dev, d: int, rows: int, widths: tuple, seed: int) -> list:
+    """d ranks' leaves for a timed all-gather: a ``[rows, w]`` block of
+    random int32 words for each width ``w`` of ``widths`` (``None`` for a
+    ``[rows]`` leaf), made from ``seed``."""
+    gen.manual_seed(seed)
+    return [tuple(torch.randint(0, 2**31 - 1, (rows,) if w is None else (rows, w), dtype=torch.int32,
+                                device=dev, generator=gen) for w in widths)
+            for _ in range(d)]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", required=True, help="directory with the old csrc sources")
@@ -159,18 +182,21 @@ def main() -> None:
     sys.path.insert(0, HERE)
     import chip_smoke as cs
     from reservoir_tpu_torch.ops import algorithm_l as uplain
+    from reservoir_tpu_torch.ops.rng import key_from_seed, split_keys
     from reservoir_tpu_torch.ops import algorithm_l_cuda as ukern
     from reservoir_tpu_torch.ops import distinct as dplain
     from reservoir_tpu_torch.ops import distinct_cuda as dkern
+    from reservoir_tpu_torch.ops import merge_cuda as mkern
     from reservoir_tpu_torch.ops import weighted as wplain
     from reservoir_tpu_torch.ops import weighted_cuda as wkern
 
     card = cs.card_line()
     dev = torch.device("cuda")
+    cs.REMAINDER_OPS.update(cs.remainder_ops(os.path.join(HERE, "reservoir_tpu_torch", "_build", "ab")))
     built = build({"old": args.old, "new": os.path.join(HERE, "reservoir_tpu_torch", "csrc")},
                   os.path.join(HERE, "reservoir_tpu_torch", "_build", "ab"), names)
     loaders = {"algorithm_l": ukern._library, "distinct": dkern._library, "weighted": wkern._library,
-               "algl_merge": ukern._merge_library}
+               "algl_merge": ukern._merge_library, "merge_ring": mkern._library}
 
     def use(which: str, name: str) -> None:
         """Make ``which`` build the one the wrapper of ``name`` launches."""
@@ -180,7 +206,9 @@ def main() -> None:
         use("new", name)
     info = {"algorithm_l": lambda: {"algorithm_l": ukern.kernel_info(),
                                     "algorithm_l_gated": ukern.gated_kernel_info()},
-            "algl_merge": lambda: {"algl_merge": ukern.merge_kernel_info()},
+            "algl_merge": lambda: {"algl_merge": ukern.merge_kernel_info(),
+                                   "algl_merge_wide": ukern.merge_kernel_info(wide=True)},
+            "merge_ring": lambda: {"merge_ring": mkern.kernel_info()},
             "distinct": lambda: {"distinct": dkern.kernel_info(cs.DK, False),
                                  "distinct_wide": dkern.kernel_info(cs.DK, True)},
             "weighted": lambda: {"weighted": wkern.kernel_info(cs.WK)}}
@@ -251,6 +279,56 @@ def main() -> None:
            cs.merge_bound_ms(steps, draws, cs.R, cs.K), {"scan_steps": steps, "words_drawn": draws},
            setup=lambda: None)
         del sa, sb, j_a
+        # algl_merge_draws_wide, where the old build has it: phase 19's
+        # counts as WIDE words, and phase 38's counts past 2^32
+        if all(hasattr(ctypes.CDLL(built[w]["algl_merge"][0]), "algl_merge_draws_wide") for w in built):
+            wca, wcb = (cs.wide_planes(c.cpu().numpy().astype(np.uint64), dev) for c in (ca, cb))
+            pa_h, pb_h = cs.wide_merge_counts(np.random.default_rng(38))
+            pca, pcb = cs.wide_planes(pa_h, dev), cs.wide_planes(pb_h, dev)
+            pkeys = split_keys(key_from_seed(38, device=dev), cs.R)
+            for label, (a, b, kk) in (("phase 19's counts as WIDE words", (wca, wcb, keys)),
+                                      ("counts past 2^32 (phase 38)", (pca, pcb, pkeys))):
+                draws = uplain.merge_scan(a, b, kk, cs.K)[1]
+                ab("algl_merge", f"wide pair [{cs.R}, {cs.K}], {label}", None,
+                   lambda _, a=a, b=b, kk=kk: ukern.merge_draws_cuda(a, b, kk, cs.K),
+                   cs.merge_bound_ms(cs.wide_merge_steps(a, b), draws, cs.R, cs.K, row_bytes=28, wide=True),
+                   {"words_drawn": draws}, setup=lambda: None)
+
+    # merge_ring_gather at phase 19's shape (4 ranks) and phase 43's (8)
+    for d, rows, widths, seed in ((4, cs.R, (cs.K, None), 67), (8, cs.R // 8, (cs.K, None, None), 43)):
+        if "merge_ring" not in names:
+            break
+        leaves = gather_leaves(gen, dev, d, rows, widths, seed)
+        words = sum(t.numel() for t in leaves[0])
+        label = f"{d} ranks of the card x {words} words"
+        comms, got = {}, {}
+        for which in ("old", "new"):
+            use(which, "merge_ring")
+            comms[which] = mkern.RingCommunicator([dev] * d)
+            got[which] = mkern.gather_parts(leaves, comms[which])
+            torch.cuda.synchronize()
+            comms[which].check()
+        want = mkern.gather_parts_plain(leaves, comms["new"])
+        if not args.unchecked and cs.words_err(got["old"], want) != 0.0:
+            sys.exit(f"FAIL: the old merge_ring_gather != gather_parts_plain at {label}")
+        if cs.words_err(got["new"], want) != 0.0:
+            sys.exit(f"FAIL: the new merge_ring_gather != gather_parts_plain at {label}")
+        del got, want
+        times = {"old": [], "new": []}
+        for which in ("old", "new", "new", "old"):
+            use(which, "merge_ring")
+            times[which].append(cs.gather_times(leaves, comms[which]))
+        use("new", "merge_ring")
+        bound = 1e3 * (d + d * d) * words * 4 / cs.PEAK_BYTES
+        results["tiles"].append({"kernel": "merge_ring", "tile": label, "bound_ms": bound, "bound_by": "bytes",
+                                 "old_ms": [t["launch_ms"] for t in times["old"]],
+                                 "new_ms": [t["launch_ms"] for t in times["new"]],
+                                 "ms_note": "the bare launch", "old": times["old"], "new": times["new"]})
+        for what in ("launch_ms", "call_ms", "call_1_ms", "host_ms"):
+            o, n = [t[what] for t in times["old"]], [t[what] for t in times["new"]]
+            print(f"[ab] {card} | merge_ring {label}, {what[:-3]}: old {o[0]:.4f} / {o[1]:.4f} ms, new "
+                  f"{n[0]:.4f} / {n[1]:.4f} ms (old, new, new, old), bound {bound:.4f} ms (bytes)", flush=True)
+        del leaves, comms
 
     # distinct_update on phase 15's tiles
     for label, state, tile, wide in cs.distinct_timing_cases(gen, dev) if "distinct" in names else ():

@@ -30,21 +30,35 @@
 // fold and one block an attempt (each rejected attempt counted), and each
 // of the 2k key words one block, with the side's fold.  At R = 65,536,
 // k = 128 that is ~1.4e9 such operations, ~0.08 ms at 64 INT32 lanes x 132
-// SMs x 1.98 GHz; the remainders and the adds are left out, so this is a
-// floor.  Bytes: the counts, flags and keys (17 a row) read, j_a and the 2 R k
-// keys (8 k a row) written: ~67 MB, ~0.02 ms.  chip_smoke.py reports the
-// measured time beside the bound it computes from the run's own draws.
+// SMs x 1.98 GHz; the adds are left out, so this is a floor.
+// chip_smoke.merge_bound_ms adds each step's remainders, counted on the
+// build's SASS (chip_smoke.remainder_ops).  Bytes: the counts, flags and
+// keys (17 a row) read, j_a and the 2 R k keys (8 k a row) written: ~67 MB,
+// ~0.02 ms.  chip_smoke.py reports the measured time beside the bound it
+// computes from the run's own draws.
 //
-// Design.  One launch, two kinds of block.  The first ceil(R / 128) blocks
-// scan, one thread a row, with the key and the remaining counts in
-// registers.  The other blocks write the 2 R k key words fully parallel: a
-// thread hashes one fold and 8 consecutive words of one row and side, and
-// stores them as two 16-byte words where k is a multiple of 4.  The scan
-// blocks come first in the grid, so the key blocks fill the SMs around the
-// longer scan threads.  Hashing each step's fold and first attempt a step
-// ahead, to overlap them with the remainders, moved the time by under 2%
-// either way on an H100 (kernel_ab.py; PERF.md, Findings), so a step
-// hashes its own.
+// Design.  One launch, two kinds of block.  The scan's randomness does not
+// depend on its carry: every active step takes exactly one element, from A
+// or from B, so rem_a + rem_b falls by exactly 1 a step (mod 2^32, or 2^64
+// for WIDE counts) whichever side is taken and whether or not a side
+// wrapped.  So step t's denominator is total - t (>= 1 for t < m <= total),
+// and its fold, its rejection attempts and its draw x_t are all fixed
+// before the scan starts; only take_t = x_t < rem_a, rem_a -= take_t, is
+// serial.  The first ceil(R / kRows) blocks each take kRows rows: all
+// kThreads threads draw the x_t of every (row, step) of a chunk of kSteps
+// steps into shared memory, in parallel (a warp a step, a lane a row), and
+// then the first warp walks the compare chain, a lane a row, over the
+// chunk; a longer scan takes further chunks.  The other blocks write the
+// 2 R k key words fully parallel: a thread hashes one fold and kWords
+// consecutive words of one row and side, and stores them as 16-byte words
+// where k is a multiple of 4.  The scan blocks come first in the grid.
+// The operations are the one-thread-a-row scan's, and on an H100 the
+// integer pipe, not the scan's critical path, sets the pace: a Threefry
+// round is an add, a rotation and an xor, and the compiler issues most
+// adds there too.  So the blocks here add on the FMA pipe (block(),
+// add_on_fma), and a key thread hashes 16 words a fold, not 8.  A warp a
+// row, with the chain walked by ballots, ran slower (PERF.md, Findings), as
+// did the earlier design, one thread a row walking its m steps alone.
 //
 // WIDE counts (algl_merge_draws_wide).  The same kernel instantiated for
 // 64-bit counts (ops/u64e.py's [R, 2] uint32 (lo, hi) words, read in place
@@ -56,10 +70,10 @@
 // of block (1, a) (u64e.make(b1, b0)), accepted below 2^64 - (2^64 mod
 // denom), and both remainders are the native 64-bit %, which equals
 // u64e.mod64's restoring division; a side's size is min(count, k),
-// unsigned (no signed flags).  The permutation keys are the narrow ones.
-// Bound: as the narrow kernel's, with 8-byte counts (R(28 + 8k) bytes);
-// the 64-bit remainders are left out of the operations, as the 32-bit
-// ones are.
+// unsigned (no signed flags).  The permutation keys are the narrow ones,
+// and the chain compares and subtracts 64-bit words (x_t is kept as one).
+// Bound: as the narrow kernel's, with 8-byte counts (R(28 + 8k) bytes) and
+// two 64-bit remainders a step in place of three 32-bit ones.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // (see reservoir_tpu_torch/_build.py).  Plain C interface for ctypes.
@@ -73,19 +87,54 @@
 
 namespace algl_merge {
 
-constexpr int kThreads = 128;
-constexpr int kWords = 8;  // key words a thread of a key block writes
+constexpr int kThreads = 256;
+constexpr int kRows = 32;     // rows a scan block: a lane each
+constexpr int kSteps = 128;   // steps of a chunk: the draws a scan block keeps in shared memory
+constexpr int kWords = 16;    // key words a thread of a key block writes
+static_assert(kRows == 32 && kThreads % kRows == 0, "a warp draws one step of every row of its block");
+
+// a * one + b as one multiply-add (IMAD, on the FMA pipe); one is 1, but
+// the compiler cannot know it, so it cannot turn this back into an add
+__device__ __forceinline__ uint32_t add_on_fma(uint32_t a, uint32_t b, uint32_t one) {
+  uint32_t d;
+  asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(one), "r"(b));
+  return d;
+}
+
+// Threefry-2x32, word for word algl::threefry2x32, with each round's add
+// issued as a multiply-add by `one` (add_on_fma): the rotations and xors
+// alone keep the integer pipe busy, and the adds go beside them to the FMA
+// pipe, which this kernel leaves idle otherwise.
+__device__ __forceinline__ void block(uint32_t k1, uint32_t k2, uint32_t x0, uint32_t x1, uint32_t& out0,
+                                      uint32_t& out1, uint32_t one) {
+  const uint32_t ks[3] = {k1, k2, k1 ^ k2 ^ 0x1BD11BDAu};
+  const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int group = 0; group < 5; ++group) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x0 = add_on_fma(x1, x0, one);
+      x1 = algl::rotl32(x1, rot[group % 2][i]) ^ x0;
+    }
+    x0 += ks[(group + 1) % 3];
+    x1 += ks[(group + 2) % 3] + static_cast<uint32_t>(group + 1);
+  }
+  out0 = x0;
+  out1 = x1;
+}
 
 // The exact uniform integer in [0, denom) of the folded key (f1, f2) (the
 // port of _randint_exact); denom >= 1.
-__device__ __forceinline__ uint32_t randint_exact(uint32_t f1, uint32_t f2, uint32_t denom) {
+__device__ __forceinline__ uint32_t randint_exact(uint32_t f1, uint32_t f2, uint32_t denom, uint32_t one) {
   // 2^32 mod denom; 0 when denom divides 2^32, which accepts every word
   const uint32_t space_mod = (0xFFFFFFFFu % denom + 1u) % denom;
   const uint32_t thresh = 0u - space_mod;
   uint32_t bits;
   for (uint32_t a = 0;; ++a) {
     uint32_t b0, b1;
-    algl::threefry2x32(f1, f2, 1u, a, b0, b1);
+    block(f1, f2, 1u, a, b0, b1, one);
     bits = b0 ^ b1;
     if (space_mod == 0u || bits < thresh) break;
   }
@@ -94,14 +143,14 @@ __device__ __forceinline__ uint32_t randint_exact(uint32_t f1, uint32_t f2, uint
 
 // The exact uniform integer in [0, denom) for a 64-bit denom >= 1 (the port
 // of _randint_exact_u64e): attempt a is the word (b0 << 32) | b1.
-__device__ __forceinline__ uint64_t randint_exact(uint32_t f1, uint32_t f2, uint64_t denom) {
+__device__ __forceinline__ uint64_t randint_exact(uint32_t f1, uint32_t f2, uint64_t denom, uint32_t one) {
   // 2^64 mod denom, as (2^64 - denom) mod denom
   const uint64_t space_mod = (0ull - denom) % denom;
   const uint64_t thresh = 0ull - space_mod;
   uint64_t bits;
   for (uint32_t a = 0;; ++a) {
     uint32_t b0, b1;
-    algl::threefry2x32(f1, f2, 1u, a, b0, b1);
+    block(f1, f2, 1u, a, b0, b1, one);
     bits = (static_cast<uint64_t>(b0) << 32) | b1;
     if (space_mod == 0u || bits < thresh) break;
   }
@@ -119,26 +168,58 @@ draws_kernel(const Count<kWide>* __restrict__ count_a, const Count<kWide>* __res
              int32_t* __restrict__ j_a, float* __restrict__ u_a, float* __restrict__ u_b, int R, int k,
              int scan_blocks, int vec) {
   using C = Count<kWide>;
+  const uint32_t one = blockDim.x / kThreads;  // 1, unknown to the compiler (add_on_fma)
   if (static_cast<int>(blockIdx.x) < scan_blocks) {
-    const int r = blockIdx.x * kThreads + threadIdx.x;
-    if (r >= R) return;
-    const uint32_t k1 = key[2 * r], k2 = key[2 * r + 1];
-    C rem_a = count_a[r], rem_b = count_b[r];
-    const C total = rem_a + rem_b;  // wraps as the reference's uint32 (or u64e) sum
-    const uint32_t m = total < static_cast<C>(k) ? static_cast<uint32_t>(total) : static_cast<uint32_t>(k);
-    int32_t taken = 0;
-    for (uint32_t t = 0; t < m; ++t) {
-      uint32_t f1, f2;
-      algl::threefry2x32(k1, k2, 0u, t, f1, f2);  // fold_in(key, t)
-      const C sum = rem_a + rem_b;
-      if (randint_exact(f1, f2, sum == 0u ? C{1} : sum) < rem_a) {
-        --rem_a;
-        ++taken;
-      } else {
-        --rem_b;
-      }
+    __shared__ C draws[kSteps][kRows];  // x_t of step t0 + i of row `lane`: draws[i][lane]
+    __shared__ uint32_t longest;        // the block's most steps
+    const int lane = threadIdx.x % kRows;
+    const int warp = threadIdx.x / kRows;
+    const int r = blockIdx.x * kRows + lane;
+    C c_a = 0, c_b = 0;
+    uint32_t k1 = 0, k2 = 0;
+    if (r < R) {
+      c_a = count_a[r];
+      c_b = count_b[r];
+      k1 = key[2 * r];
+      k2 = key[2 * r + 1];
     }
-    j_a[r] = taken;
+    const C total = c_a + c_b;  // wraps as the reference's uint32 (or u64e) sum
+    const uint32_t m = total < static_cast<C>(k) ? static_cast<uint32_t>(total) : static_cast<uint32_t>(k);
+    if (warp == 0) {
+      uint32_t most = m;
+#pragma unroll
+      for (int off = kRows / 2; off > 0; off /= 2) most = max(most, __shfl_xor_sync(0xFFFFFFFFu, most, off));
+      if (lane == 0) longest = most;
+    }
+    __syncthreads();
+    const uint32_t steps = longest;
+    C rem_a = c_a;  // the chain's carry, in the first warp
+    int32_t taken = 0;
+    for (uint32_t t0 = 0; t0 < steps; t0 += kSteps) {
+      // draw: warp w takes steps t0 + w, t0 + w + kThreads / kRows, ...
+      for (int i = warp; i < kSteps; i += kThreads / kRows) {
+        const uint32_t t = t0 + i;
+        if (t < m) {
+          uint32_t f1, f2;
+          block(k1, k2, 0u, t, f1, f2, one);  // fold_in(key, t)
+          const C denom = total - static_cast<C>(t);   // rem_a + rem_b at step t, >= 1
+          draws[i][lane] = randint_exact(f1, f2, denom == 0u ? C{1} : denom, one);
+        }
+      }
+      __syncthreads();
+      // walk: take from A iff x_t < rem_a
+      if (warp == 0 && m > t0) {
+        const uint32_t n = min(m - t0, static_cast<uint32_t>(kSteps));
+#pragma unroll 8
+        for (uint32_t i = 0; i < n; ++i) {
+          const bool take = draws[i][lane] < rem_a;
+          rem_a -= static_cast<C>(take);
+          taken += take;
+        }
+      }
+      __syncthreads();
+    }
+    if (warp == 0 && r < R) j_a[r] = taken;
     return;
   }
   // a key block: thread i writes words c * kWords .. of row r, side s
@@ -159,12 +240,14 @@ draws_kernel(const Count<kWide>* __restrict__ count_a, const Count<kWide>* __res
     size = ((signed_rows[r] >> side) & 1) ? static_cast<int64_t>(static_cast<int32_t>(c))
                                           : static_cast<int64_t>(c);
   uint32_t f1, f2;
-  algl::threefry2x32(key[2 * r], key[2 * r + 1], 0u, static_cast<uint32_t>(k + side), f1, f2);
+  block(key[2 * r], key[2 * r + 1], 0u, static_cast<uint32_t>(k + side), f1, f2, one);
   float u[kWords];
 #pragma unroll
   for (int q = 0; q < kWords; ++q) {
     const int j = j0 + q;
-    const uint32_t w = algl::bits_word(f1, f2, static_cast<uint32_t>(j));
+    uint32_t b0, b1;
+    block(f1, f2, 0u, static_cast<uint32_t>(j), b0, b1, one);  // word j of bits(f)
+    const uint32_t w = b0 ^ b1;
     u[q] = j < size ? __fmul_rn(static_cast<float>(w >> 9), 1.1920928955078125e-07f)
                     : __int_as_float(0x7F800000);
   }
@@ -180,7 +263,7 @@ draws_kernel(const Count<kWide>* __restrict__ count_a, const Count<kWide>* __res
   }
 }
 
-inline int n_scan_blocks(int R) { return (R + kThreads - 1) / kThreads; }
+inline int n_scan_blocks(int R) { return (R + kRows - 1) / kRows; }
 
 inline int64_t key_blocks(int R, int k) {
   const int64_t threads = 2 * static_cast<int64_t>(R) * ((k + kWords - 1) / kWords);

@@ -20,20 +20,29 @@
 //
 // One launch a card: blockIdx.x runs over the card's ranks and blockIdx.y
 // over a rank's blocks of threads.  Ranks that share a card share their
-// reads: the card's blocks together walk every source block once, 16 bytes
-// a thread (neighbouring threads on neighbouring addresses, 4-byte accesses
-// only where a block's start is not 16-byte aligned), and store each word
-// into the slot of every rank on the card.  So d ranks on one card read each
-// input once and write each output once, which is the bound below; d cards
-// read each peer's block once over NVLink.  Per launch: (a) each rank's
-// first block announces that the rank has entered, and the blocks copy the
-// source blocks that live on this card (its own ranks'); (b) every block
-// waits until each rank has entered this call (its inputs exist: the
-// handshake of the TPU kernel's barrier semaphore); (c) the blocks copy the
-// other cards' source blocks from their owners; (d) a rank's last block to
-// finish tells every rank that this rank is done reading, and the rank's
-// first block stays until all d ranks have said so, so no input is freed or
-// overwritten under a peer's reads.
+// reads: the card's blocks together walk every source block once and store
+// each word into the slot of every rank on the card.  So d ranks on one
+// card read each input once and write each output once, which is the
+// bound below; d cards read each peer's block once over NVLink.  On the
+// card, a block's first thread moves the source blocks with the bulk copy
+// engine (TMA): each 8 KB tile of a source block comes once into a ring of
+// four shared-memory stages (cp.async.bulk, completing on the stage's
+// mbarrier) and goes out to each local rank's slot from there, one bulk
+// store a rank, so no register carries a word and the threads issue one
+// instruction a tile and rank; the card's blocks share the tiles out.  A
+// block that is not 16-byte aligned at its source or at any slot, and the
+// last few bytes of one that is, go through the threads, 16 bytes a thread
+// where aligned, 4 elsewhere (neighbouring threads on neighbouring
+// addresses), as do the other cards' blocks: a bulk copy through a peer
+// pointer is not used.  Each source block's mode is fixed by the host per
+// call.  Per launch: (a) each rank's first block announces that the rank
+// has entered, and the blocks copy the source blocks that live on this
+// card (its own ranks'); (b) every block waits until each rank has entered
+// this call (its inputs exist: the handshake of the TPU kernel's barrier
+// semaphore); (c) the blocks copy the other cards' source blocks from their
+// owners; (d) a rank's last block to finish tells every rank that this rank
+// is done reading, and the rank's first block stays until all d ranks have
+// said so, so no input is freed or overwritten under a peer's reads.
 //
 // The flags are four words of device memory a rank, on the rank's card:
 // {entered, done, status, arrivals}.  entered and done count calls (the
@@ -43,9 +52,9 @@
 // system-scope acquire loads; peer data is loaded past L1 (__ldcg) and the
 // outputs are stored as streaming data (__stcs).  Every wait is bounded by
 // kTimeoutNs on the global timer: a rank that times out writes 1 (peer
-// never entered) or 2 (peers never finished) into its status word and
-// leaves; the wrapper's caller reads it when it next synchronises and
-// raises.
+// never entered), 2 (peers never finished) or 3 (a bulk tile never
+// arrived) into its status word and leaves; the wrapper's caller reads it
+// when it next synchronises and raises.
 //
 // Ranks wait on each other inside the kernel, so all of a card's blocks
 // must be resident at once: the launch is cooperative (refused, not hung,
@@ -66,21 +75,30 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "kinfo.cuh"
+
 namespace ring {
 
 constexpr int kMaxRanks = 16;
 constexpr int kMaxLeaves = 8;
 constexpr int kThreads = 256;
+constexpr int kStages = 4;     // the bulk copy's ring of shared-memory tiles
+constexpr int kTile = 8192;    // bytes a stage
 constexpr unsigned long long kTimeoutNs = 2000000000ULL;  // 2 s a wait
 
 enum Flag { kEntered = 0, kDone = 1, kStatus = 2, kArrivals = 3 };
+// how a source block of a leaf is copied: by the threads, 4 or 16 bytes an
+// access, or by the bulk engine (its tail of under 16 bytes by the threads)
+enum Mode : unsigned char { kWords4 = 0, kWords16 = 1, kBulk = 2 };
 
 struct Params {
   const uint32_t* src[kMaxLeaves][kMaxRanks];  // src[l][q]: rank q's block of leaf l
-  uint32_t* dst[kMaxLeaves][kMaxRanks];        // dst[l][r]: rank r's [d, n[l]] output
+  uint32_t* out[kMaxLeaves][kMaxRanks];        // out[l][j]: the j-th local rank's [d, n[l]] output
   long long n[kMaxLeaves];                     // words in one block of leaf l
   unsigned* flags[kMaxRanks];                  // flags[r]: rank r's four flag words
   int local[kMaxRanks];                        // the ranks this launch runs
+  unsigned char here[kMaxRanks];               // whether source q lives on this card
+  unsigned char mode[kMaxLeaves][kMaxRanks];   // Mode of source q's block of leaf l
   int d, n_leaves;
   unsigned epoch;
 };
@@ -116,25 +134,19 @@ __device__ bool wait_reached(const unsigned* p, unsigned target) {
   return true;
 }
 
-// One source block of n words into slot `slot` of each of the m outputs in
-// dst, by the card's threads (tid of stride).  16-byte loads where src is
-// aligned, 16-byte stores where every destination is too.
-__device__ void copy_words(const uint32_t* __restrict__ src, uint32_t* const* dst, int m,
-                           long long slot, long long n, long long tid, long long stride) {
-  bool dst16 = true;
-  for (int j = 0; j < m; ++j) dst16 &= (reinterpret_cast<uintptr_t>(dst[j] + slot * n) & 15) == 0;
-  const bool src16 = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
-  const long long nv = src16 ? n / 4 : 0;
-  const uint4* s4 = reinterpret_cast<const uint4*>(src);
+// Words [from, n) of source q's block of leaf l into slot q of each of the
+// m local outputs, by the card's threads (tid of stride): 16-byte accesses
+// where the mode says every address is 16-byte aligned (from is a multiple
+// of 4), 4-byte ones elsewhere.
+__device__ __forceinline__ void copy_words(const Params& p, int l, int q, int m, long long from, bool vec,
+                                           long long tid, long long stride) {
+  const uint32_t* __restrict__ src = p.src[l][q];
+  const long long n = p.n[l], base = static_cast<long long>(q) * n;
+  const long long nv = vec ? (n - from) / 4 : 0;
+  const uint4* s4 = reinterpret_cast<const uint4*>(src + from);
   auto store4 = [&](long long i, uint4 v) {
-    for (int j = 0; j < m; ++j) {
-      uint32_t* out = dst[j] + slot * n + 4 * i;
-      if (dst16) {
-        __stcs(reinterpret_cast<uint4*>(out), v);  // streamed: not read again here
-      } else {
-        out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-      }
-    }
+    for (int j = 0; j < m; ++j)  // streamed: not read again here
+      __stcs(reinterpret_cast<uint4*>(p.out[l][j] + base + from) + i, v);
   };
   long long i = tid;
   // four independent loads in flight a thread
@@ -149,13 +161,120 @@ __device__ void copy_words(const uint32_t* __restrict__ src, uint32_t* const* ds
     store4(i + 3 * stride, v3);
   }
   for (; i < nv; i += stride) store4(i, __ldcg(s4 + i));
-  for (long long j = 4 * nv + tid; j < n; j += stride) {
-    const uint32_t v = __ldcg(src + j);
-    for (int t = 0; t < m; ++t) dst[t][slot * n + j] = v;
+  for (long long w = from + 4 * nv + tid; w < n; w += stride) {
+    const uint32_t v = __ldcg(src + w);
+    for (int j = 0; j < m; ++j) p.out[l][j][base + w] = v;
   }
 }
 
-__global__ void __launch_bounds__(kThreads) gather_kernel(const Params p) {
+// The bytes of source q's block of leaf l that the bulk engine copies: the
+// whole 16-byte words (none unless its mode is kBulk).
+__device__ __forceinline__ long long bulk_bytes(const Params& p, int l, int q) {
+  return p.mode[l][q] == kBulk ? (p.n[l] * 4) & ~15LL : 0;
+}
+
+// Walks the card's bulk tiles in order (source, then leaf, then offset),
+// for tile numbers that only grow.
+struct TileWalk {
+  int pair = 0;
+  long long first = 0;  // the number of the pair's first tile
+  int l = 0, q = 0;
+  long long off = 0;
+  unsigned bytes = 0;
+
+  // Moves to tile g; false past the last.
+  __device__ bool at(const Params& p, long long g) {
+    for (; pair < p.d * p.n_leaves; ++pair) {
+      q = pair / p.n_leaves;
+      l = pair - q * p.n_leaves;
+      const long long total = bulk_bytes(p, l, q);
+      const long long tiles = (total + kTile - 1) / kTile;
+      if (g < first + tiles) {
+        off = (g - first) * kTile;
+        bytes = static_cast<unsigned>(min(static_cast<long long>(kTile), total - off));
+        return true;
+      }
+      first += tiles;
+    }
+    return false;
+  }
+};
+
+__device__ __forceinline__ uint32_t smem(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Waits until the mbarrier at bar has completed the phase of this parity;
+// false after kTimeoutNs.
+__device__ bool wait_tile(uint32_t bar, uint32_t parity) {
+  const unsigned long long t0 = now_ns();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return true;
+    if (now_ns() - t0 > kTimeoutNs) return false;
+  }
+}
+
+// One thread's bulk copy of the tiles block, block + blocks, ...: each tile
+// comes once into a stage of shared memory (cp.async.bulk, completing on
+// the stage's mbarrier) and goes out to the m local outputs from there
+// (cp.async.bulk stores, one bulk group a tile).  A stage is filled again
+// once the stores of its tile have read it; kStages - 1 loads stay in
+// flight.  Returns when every store has completed, or writes 3 into
+// *status when a tile did not arrive within kTimeoutNs.
+__device__ void bulk_copy(const Params& p, int m, long long block, long long blocks,
+                          unsigned char (*stage)[kTile], unsigned long long* full, unsigned* status) {
+  for (int s = 0; s < kStages; ++s)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem(full + s)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  TileWalk loads, stores;
+  long long loaded = 0;
+  auto load = [&](int s) {
+    if (!loads.at(p, block + loaded * blocks)) return false;
+    const uint32_t bar = smem(full + s);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(loads.bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+            smem(stage[s])),
+        "l"(reinterpret_cast<const unsigned char*>(p.src[loads.l][loads.q]) + loads.off), "r"(loads.bytes),
+        "r"(bar)
+        : "memory");
+    ++loaded;
+    return true;
+  };
+  for (int s = 0; s < kStages && load(s); ++s) {
+  }
+  for (long long i = 0; i < loaded; ++i) {
+    const int s = static_cast<int>(i % kStages);
+    const uint32_t bar = smem(full + s), parity = static_cast<uint32_t>((i / kStages) & 1);
+    if (!wait_tile(bar, parity)) {
+      atomicCAS(status, 0u, 3u);
+      break;
+    }
+    stores.at(p, block + i * blocks);
+    const long long at = static_cast<long long>(stores.q) * p.n[stores.l] * 4 + stores.off;
+    for (int j = 0; j < m; ++j)
+      asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+                       reinterpret_cast<unsigned char*>(p.out[stores.l][j]) + at),
+                   "r"(smem(stage[s])), "r"(stores.bytes)
+                   : "memory");
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    if (i >= 1 && loaded == i - 1 + kStages) {
+      // the stores of tile i - 1 have read their stage: fill it again
+      asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      load(static_cast<int>((i - 1) % kStages));
+    }
+  }
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kThreads) gather_kernel(const __grid_constant__ Params p) {
   const int r = p.local[blockIdx.x];
   const int m = gridDim.x;  // ranks on this card
   const long long block = static_cast<long long>(blockIdx.y) * m + blockIdx.x;
@@ -163,26 +282,32 @@ __global__ void __launch_bounds__(kThreads) gather_kernel(const Params p) {
   const long long stride = static_cast<long long>(gridDim.y) * m * kThreads;
   unsigned* mine = p.flags[r];
   __shared__ int peers_entered;
+  __shared__ alignas(128) unsigned char stage[kStages][kTile];
+  __shared__ alignas(8) unsigned long long full[kStages];
 
   // Source rank q goes to slot q of every local rank's output; `here` says
-  // whether q's blocks live on this card.
+  // whether q's blocks live on this card.  The threads copy what the bulk
+  // engine does not.
   auto copy_sources = [&](bool here) {
     for (int s = 0; s < p.d; ++s) {
       const int q = (r + s) % p.d;  // start at home: ranks spread over the owners
-      bool local = false;
-      for (int j = 0; j < m; ++j) local |= p.local[j] == q;
-      if (local != here) continue;
+      if (static_cast<bool>(p.here[q]) != here) continue;
       for (int l = 0; l < p.n_leaves; ++l) {
-        uint32_t* dst[kMaxRanks];
-        for (int j = 0; j < m; ++j) dst[j] = p.dst[l][p.local[j]];
-        copy_words(p.src[l][q], dst, m, q, p.n[l], tid, stride);
+        const int mode = p.mode[l][q];
+        if (mode == kBulk)
+          copy_words(p, l, q, m, bulk_bytes(p, l, q) / 4, false, tid, stride);  // the tail
+        else
+          copy_words(p, l, q, m, 0, mode == kWords16, tid, stride);
       }
     }
   };
 
-  // (a) this rank has entered; the blocks of this card's own ranks
+  // (a) this rank has entered; the blocks of this card's own ranks, the
+  // bulk tiles shared out over all of the card's blocks
   if (blockIdx.y == 0 && threadIdx.x == 0) store_release(mine + kEntered, p.epoch);
   copy_sources(true);
+  if (threadIdx.x == 0)
+    bulk_copy(p, m, block, static_cast<long long>(gridDim.y) * m, stage, full, mine + kStatus);
 
   // (b) every rank has entered this call: its inputs exist
   if (threadIdx.x == 0) {
@@ -278,15 +403,23 @@ int merge_ring_gather(const void* const* src, void* const* dst, const long long*
       n_local < 1 || n_local > d || blocks_y < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   ring::Params p = {};
+  for (int i = 0; i < n_local; ++i) {
+    if (local[i] < 0 || local[i] >= d) return static_cast<int>(cudaErrorInvalidValue);
+    p.local[i] = local[i];
+    p.here[local[i]] = 1;
+  }
+  auto aligned16 = [](const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; };
   for (int l = 0; l < n_leaves; ++l) {
     p.n[l] = n[l];
+    for (int j = 0; j < n_local; ++j) p.out[l][j] = static_cast<uint32_t*>(dst[l * d + local[j]]);
     for (int q = 0; q < d; ++q) {
       p.src[l][q] = static_cast<const uint32_t*>(src[l * d + q]);
-      p.dst[l][q] = static_cast<uint32_t*>(dst[l * d + q]);
+      bool vec = aligned16(p.src[l][q]);
+      for (int j = 0; j < n_local; ++j) vec = vec && aligned16(p.out[l][j] + q * n[l]);
+      p.mode[l][q] = !vec ? ring::kWords4 : p.here[q] && n[l] >= 4 ? ring::kBulk : ring::kWords16;
     }
   }
   for (int q = 0; q < d; ++q) p.flags[q] = static_cast<unsigned*>(flags[q]);
-  for (int i = 0; i < n_local; ++i) p.local[i] = local[i];
   p.d = d;
   p.n_leaves = n_leaves;
   p.epoch = epoch;
@@ -299,6 +432,9 @@ int merge_ring_gather(const void* const* src, void* const* dst, const long long*
     return static_cast<int>(cudaGetLastError());
   });
 }
+
+// kinfo::query's five numbers of the gather kernel (on the current card).
+int merge_ring_kernel_info(int* out) { return kinfo::query(ring::gather_kernel, ring::kThreads, 0, out); }
 
 const char* merge_ring_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

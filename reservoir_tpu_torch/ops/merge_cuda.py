@@ -3,11 +3,12 @@
 Replaces the JAX package's Pallas TPU kernel
 (``reservoir_tpu/ops/merge_pallas.py:_ring_kernel``, entry points
 ``ring_all_gather`` and ``gather_parts``).  The kernel source is
-``csrc/merge_ring.cu``: every card reads each rank's blocks from their
-owner through peer pointers, once, 16 bytes a thread, and stores them into
-the output of each of its ranks; the ranks synchronise by epoch-counting
-flags in device memory.  Its note says what bounds it on
-an H100.
+``csrc/merge_ring.cu``: every card reads each rank's blocks once and
+stores them into the output of each of its ranks, the blocks on its own
+card through the bulk copy engine (a tile at a time into shared memory,
+one bulk store a rank), another card's through peer pointers, 16 bytes a
+thread; the ranks synchronise by epoch-counting flags in device memory.
+Its note says what bounds it on an H100.
 
 A **rank** is a torch device.  The ranks of a :class:`RingCommunicator` may
 name one card more than once (as XLA's virtual host devices let the JAX
@@ -29,13 +30,14 @@ gathered over all ranks ``[d * b, ...]`` in rank-major part order.
   (:func:`gather_parts_plain`, :func:`ring_all_gather_plain`).
 
 :data:`launches` counts kernel launches (one a card and call), and nothing
-else.
+else.  :func:`launcher` makes every argument of a call beforehand, so that
+the kernel's own time can be taken apart from the wrapper's host work.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -48,6 +50,8 @@ __all__ = [
     "gather_parts",
     "ring_all_gather_plain",
     "gather_parts_plain",
+    "launcher",
+    "kernel_info",
 ]
 
 #: kernel launches so far (set it to 0 to count a run)
@@ -59,6 +63,8 @@ MAX_LEAVES = 8
 _THREADS = 256
 #: 16-byte words a thread moves before the grid grows no further
 _VECTORS_PER_THREAD = 4
+#: leaf layouts a communicator keeps the launch arguments of
+_LAYOUTS_KEPT = 64
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -67,15 +73,21 @@ _lib = None
 _STATUS = {
     1: "a peer rank never entered the call",
     2: "the peer ranks never finished reading",
+    3: "a bulk copy of a tile never completed",
 }
 
 
-def _library():
+def _library(path: Optional[str] = None):
+    """The kernel's library: the checkout's build, or with ``path`` another
+    build of the same C entry points (``kernel_ab.py``)."""
     global _lib
-    if _lib is None:
-        from .._build import load
+    if _lib is None or path is not None:
+        if path is None:
+            from .._build import load
 
-        lib = load("merge_ring")
+            lib = load("merge_ring")
+        else:
+            lib = ctypes.CDLL(path)
         lib.merge_ring_gather.argtypes = [_VP] * 5 + [_INT] * 3 + [ctypes.c_uint, _INT, _INT, _VP]
         lib.merge_ring_gather.restype = _INT
         lib.merge_ring_max_blocks.argtypes = [_INT, ctypes.POINTER(_INT)]
@@ -88,10 +100,28 @@ def _library():
     return _lib
 
 
+def kernel_info() -> dict:
+    """:func:`~._cuda_common.build_info` of the gather kernel (needs a
+    card)."""
+    from ._cuda_common import build_info
+
+    return build_info(_library().merge_ring_kernel_info)
+
+
 def _raise_on(code: int, what: str) -> None:
     if code != 0:
         msg = _library().merge_ring_error_string(code).decode()
         raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+
+
+class _Layout(NamedTuple):
+    """A communicator's launch arguments for one layout of leaves."""
+
+    cards: list  # (card, local ranks as a ctypes array, their count, blocks_y) a card
+    n: object  # ctypes array: the words of one block of each leaf
+    flags: object  # ctypes array: each rank's flag words
+    pieces: list  # the int32 words a rank's output allocation splits into
+    leaves: list  # each gathered leaf's piece, and its dtype and shape where they are not the piece's
 
 
 class RingCommunicator:
@@ -125,6 +155,9 @@ class RingCommunicator:
         self.epoch = 0
         self._flags: Optional[List[torch.Tensor]] = None
         self._max_blocks: Dict[int, int] = {}
+        #: per leaf layout (each leaf's dtype and shape): each card's
+        #: launch arguments but the pointers and the stream
+        self._layouts: Dict[tuple, _Layout] = {}
 
     @property
     def size(self) -> int:
@@ -147,9 +180,42 @@ class RingCommunicator:
             self._flags = [torch.zeros(4, dtype=torch.int32, device=r) for r in self.ranks]
         return self._flags
 
-    def max_blocks(self, card: int) -> int:
-        self.flags()
-        return self._max_blocks[card]
+    def _layout(self, like: Tuple[Tuple[torch.dtype, torch.Size], ...]) -> "_Layout":
+        """What a call over leaves of ``like`` (each leaf's dtype and
+        shape) launches with, but the pointers and the stream, and its
+        outputs' shapes; made once a layout."""
+        layout = self._layouts.get(like)
+        if layout is None:
+            flags = self.flags()
+            d = self.size
+            words = [shape.numel() for _, shape in like]
+            by_card: Dict[int, List[int]] = {}
+            for r, rank in enumerate(self.ranks):
+                by_card.setdefault(rank.index, []).append(r)
+            # a card's blocks share the reads of all d source blocks
+            want = -(-(d * sum(words) // 4) // (_THREADS * _VECTORS_PER_THREAD))
+            layout = _Layout(
+                cards=[(card, (_INT * len(local))(*local), len(local),
+                        max(1, min(-(-want // len(local)), self._max_blocks[card] // len(local))))
+                       for card, local in by_card.items()],
+                n=(ctypes.c_longlong * len(words))(*words),
+                flags=(_VP * d)(*(f.data_ptr() for f in flags)),
+                pieces=[],
+                leaves=[],
+            )
+            # a rank's outputs: one allocation, each leaf's words from a
+            # 16-byte boundary (a piece of padding after a leaf that ends
+            # off it)
+            for (dtype, shape), w in zip(like, words):
+                layout.leaves.append((len(layout.pieces), dtype if dtype != torch.int32 else None,
+                                      (d * shape[0],) + tuple(shape[1:]) if len(shape) > 1 else None))
+                layout.pieces.append(d * w)
+                if d * w % 4:
+                    layout.pieces.append(4 - d * w % 4)
+            if len(self._layouts) >= _LAYOUTS_KEPT:
+                self._layouts.clear()
+            self._layouts[like] = layout
+        return layout
 
     def check(self) -> None:
         """Raise if a rank's wait timed out in any call so far.  Reads the
@@ -168,31 +234,37 @@ class RingCommunicator:
 Leaves = Sequence[torch.Tensor]
 
 
-def _check_leaves(rank_leaves: Sequence[Leaves], comm: RingCommunicator) -> None:
+def _check_leaves(rank_leaves: Sequence[Leaves], comm: RingCommunicator) -> tuple:
     """What the wrapper checks before any pointer crosses to CUDA: one tuple
     of leaves a rank, each leaf on its rank's device, contiguous, of a 4-byte
-    dtype, and of one shape and dtype over the ranks."""
+    dtype, and of one shape and dtype over the ranks.  Returns the leaves'
+    ``(dtype, shape)``."""
     if len(rank_leaves) != comm.size:
         raise ValueError(f"expected leaves for {comm.size} ranks, got {len(rank_leaves)}")
     first = rank_leaves[0]
     if not 1 <= len(first) <= MAX_LEAVES:
         raise ValueError(f"a part has 1 to {MAX_LEAVES} leaves, got {len(first)}")
-    for r, leaves in enumerate(rank_leaves):
+    like = tuple((leaf.dtype, leaf.shape) for leaf in first)
+    for dtype, shape in like:
+        if dtype.itemsize != 4:
+            raise ValueError(f"gather_parts moves 4-byte leaves only, got {dtype}")
+        if len(shape) < 1:
+            raise ValueError("gather_parts moves leaves of at least one dimension, got a scalar")
+    for r, (leaves, rank) in enumerate(zip(rank_leaves, comm.ranks)):
         if len(leaves) != len(first):
             raise ValueError(f"rank {r} has {len(leaves)} leaves, rank 0 has {len(first)}")
-        for i, (leaf, like) in enumerate(zip(leaves, first)):
-            if leaf.dtype.itemsize != 4:
-                raise ValueError(f"gather_parts moves 4-byte leaves only, got {leaf.dtype}")
-            if leaf.ndim < 1 or leaf.shape != like.shape or leaf.dtype != like.dtype:
+        for i, (leaf, (dtype, shape)) in enumerate(zip(leaves, like)):
+            if leaf.dtype != dtype or leaf.shape != shape:
                 raise ValueError(
                     f"leaf {i} of rank {r} is {leaf.dtype} {tuple(leaf.shape)}, "
-                    f"rank 0's is {like.dtype} {tuple(like.shape)}"
+                    f"rank 0's is {dtype} {tuple(shape)}"
                 )
             dev = leaf.device
-            if dev.type != comm.ranks[r].type or (dev.type == "cuda" and dev != comm.ranks[r]):
-                raise ValueError(f"leaf {i} of rank {r} is on {dev}, the rank on {comm.ranks[r]}")
+            if dev != rank and (dev.type != rank.type or dev.type == "cuda"):
+                raise ValueError(f"leaf {i} of rank {r} is on {dev}, the rank on {rank}")
             if not leaf.is_contiguous():
                 raise ValueError(f"leaf {i} of rank {r} must be contiguous")
+    return like
 
 
 def gather_parts_plain(rank_leaves: Sequence[Leaves], comm: RingCommunicator) -> List[Tuple[torch.Tensor, ...]]:
@@ -213,32 +285,50 @@ def ring_all_gather_plain(blocks: Sequence[torch.Tensor], comm: RingCommunicator
     return [torch.stack([b.to(rank) for b in blocks]) for rank in comm.ranks]
 
 
-def _launch(rank_leaves: Sequence[Leaves], outs: Sequence[Leaves], comm: RingCommunicator) -> None:
-    """One call of the kernel: a launch a card, all of them of one epoch."""
-    global launches
+def _like(rank_leaves: Sequence[Leaves]) -> tuple:
+    return tuple((leaf.dtype, leaf.shape) for leaf in rank_leaves[0])
+
+
+def launcher(rank_leaves: Sequence[Leaves], outs: Sequence[Leaves], comm: RingCommunicator, like=None):
+    """A call that launches the kernel once a card (a new epoch each call),
+    from ``rank_leaves`` into ``outs`` (each rank's ``[d * b, ...]`` leaves,
+    as :func:`gather_parts` returns them), with every argument but the
+    stream made beforehand: the bare launch, for timing it apart from the
+    wrapper.  The leaves are not checked here (:func:`gather_parts` does)."""
     lib = _library()
     d, n_leaves = comm.size, len(rank_leaves[0])
-    flags = comm.flags()
-    words = [leaf.numel() for leaf in rank_leaves[0]]
+    layout = comm._layout(like or _like(rank_leaves))
     src = (_VP * (n_leaves * d))(*(rank_leaves[q][i].data_ptr() for i in range(n_leaves) for q in range(d)))
     dst = (_VP * (n_leaves * d))(*(outs[r][i].data_ptr() for i in range(n_leaves) for r in range(d)))
-    n = (ctypes.c_longlong * n_leaves)(*words)
-    flag_ptrs = (_VP * d)(*(f.data_ptr() for f in flags))
-    comm.epoch += 1
-    by_card: Dict[int, List[int]] = {}
-    for r, rank in enumerate(comm.ranks):
-        by_card.setdefault(rank.index, []).append(r)
-    # a card's blocks share the reads of all d source blocks
-    want = -(-(d * sum(words) // 4) // (_THREADS * _VECTORS_PER_THREAD))
-    for card, local in by_card.items():
-        blocks_y = max(1, min(-(-want // len(local)), comm.max_blocks(card) // len(local)))
-        code = lib.merge_ring_gather(
-            src, dst, n, flag_ptrs, (_INT * len(local))(*local), len(local), d, n_leaves,
-            comm.epoch & 0xFFFFFFFF, card, blocks_y,
-            torch.cuda.current_stream(torch.device("cuda", card)).cuda_stream,
-        )
-        _raise_on(code, f"merge_ring_gather launch on cuda:{card}")
-        launches += 1
+
+    def launch() -> None:
+        global launches
+        comm.epoch += 1
+        for card, local, n_local, blocks_y in layout.cards:
+            code = lib.merge_ring_gather(
+                src, dst, layout.n, layout.flags, local, n_local, d, n_leaves, comm.epoch & 0xFFFFFFFF, card,
+                blocks_y, torch.cuda.current_stream(card).cuda_stream,
+            )
+            _raise_on(code, f"merge_ring_gather launch on cuda:{card}")
+            launches += 1
+
+    return launch
+
+
+def _outputs(rank_leaves: Sequence[Leaves], comm: RingCommunicator, like=None) -> List[Tuple[torch.Tensor, ...]]:
+    """Each rank's ``[d * b, ...]`` output leaves, views of one allocation
+    a rank: one ``torch.empty`` and one split a rank cost the host less
+    than one ``torch.empty`` a leaf."""
+    layout = comm._layout(like or _like(rank_leaves))
+    outs = []
+    for rank in comm.ranks:
+        pieces = torch.empty(sum(layout.pieces), dtype=torch.int32, device=rank).split_with_sizes(layout.pieces)
+        leaves = []
+        for i, dtype, shape in layout.leaves:
+            out = pieces[i] if dtype is None else pieces[i].view(dtype)
+            leaves.append(out if shape is None else out.view(shape))
+        outs.append(tuple(leaves))
+    return outs
 
 
 def gather_parts(
@@ -255,14 +345,9 @@ def gather_parts(
         comm = RingCommunicator([leaves[0].device for leaves in rank_leaves])
     if not comm.on_cuda:
         return gather_parts_plain(rank_leaves, comm)
-    _check_leaves(rank_leaves, comm)
-    d = comm.size
-    outs = [
-        tuple(torch.empty((d * leaf.shape[0],) + tuple(leaf.shape[1:]), dtype=leaf.dtype, device=rank)
-              for leaf in leaves)
-        for rank, leaves in zip(comm.ranks, rank_leaves)
-    ]
-    _launch(rank_leaves, outs, comm)
+    like = _check_leaves(rank_leaves, comm)
+    outs = _outputs(rank_leaves, comm, like)
+    launcher(rank_leaves, outs, comm, like)()
     return outs
 
 

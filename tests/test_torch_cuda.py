@@ -600,6 +600,43 @@ def test_gather_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 2, 8, 16])
+def test_gather_at_ranks_of_one_card_takes_every_leaf_layout(cuda_device, d):
+    """One launch a call (the bulk copy's tiles, and the threads where a
+    block is not 16-byte aligned) equals ``gather_parts_plain`` bit for bit
+    over leaves of different lengths: one of many 8 KB tiles and a part
+    tile, one whose blocks are 140 bytes (its slots past the first not
+    16-byte aligned, its first with a tail of 12 bytes), a ``[b]`` leaf,
+    and one whose source starts 4 bytes past a 16-byte boundary."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    comm = TM.RingCommunicator([cuda_device] * d)
+
+    def off_by_four(b, w, dtype):
+        flat = torch.randint(-(2**31), 2**31 - 1, (b * w + 1,), dtype=torch.int32, device=cuda_device,
+                             generator=gen)
+        return flat[1:].view(b, w).view(dtype)
+
+    for call in range(2):
+        rank_leaves = [
+            (_word_blocks(gen, 1, 1000, 131, torch.float32, cuda_device)[0],
+             _word_blocks(gen, 1, 7, 5, torch.int32, cuda_device)[0],
+             torch.randint(0, 99, (1000,), dtype=torch.int32, device=cuda_device, generator=gen),
+             off_by_four(33, 3, torch.uint32))
+            for _ in range(d)
+        ]
+        assert all(leaves[3].data_ptr() % 16 == 4 for leaves in rank_leaves)
+        before = TM.launches
+        got = TM.gather_parts(rank_leaves, comm)
+        assert TM.launches - before == 1
+        want = TM.gather_parts_plain(rank_leaves, comm)
+        comm.check()
+        for g_rank, w_rank in zip(got, want):
+            for g, x in zip(g_rank, w_rank):
+                assert g.shape == x.shape and g.dtype == x.dtype
+                assert torch.equal(_bits(g), _bits(x)), call
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["uniform", "weighted", "distinct"])
 @pytest.mark.parametrize("n_parts", [2, 3, 5, 8])
 def test_card_merge_tree_equals_the_host_tree(cuda_device, mode, n_parts):
@@ -1581,6 +1618,59 @@ def test_wide_merge_kernel_equals_plain_version(cuda_device, k):
     assert m_c.shape == (R, 2) and TK.wide_merge_launches - before == 2
     w_s, w_c = T.merge_from_draws(s, planes(ca), s + 1, planes(cb), want)
     assert torch.equal(m_s, w_s) and torch.equal(_bits(m_c), _bits(w_c))
+
+
+def _edge_counts(rng, R, k, wide):
+    """``[2, R]`` counts of every kind a row's scan meets: both zero, under
+    k (m < k), and, narrow, totals wrapping past 2^32 and denominators just
+    past 2^31 (about every second attempt rejected); WIDE, counts just
+    under 2^32 and pairs past 2^63 whose totals wrap past 2^64 (one of them
+    to 3)."""
+    kind = rng.integers(0, 4, R)
+    under = rng.integers(0, k, (2, R))
+    if wide:
+        big = (np.uint64(2**32) - rng.integers(1, 4 * k, (2, R)).astype(np.uint64),
+               np.uint64(2**63) + rng.integers(0, 2**40, (2, R)).astype(np.uint64))
+        c = np.where(kind == 0, np.uint64(0), np.where(kind == 1, under.astype(np.uint64),
+                                                       np.where(kind == 2, big[0], big[1])))
+        c[:, -1] = [2**63 + 2, 2**63 + 1]
+        return c.astype(np.uint64)
+    a = rng.integers(0, 2**31, R)
+    rejecting = np.stack([a, 2**31 + k + 1 + rng.integers(0, k + 1, R) - a])
+    c = np.where(kind == 0, 0, np.where(kind == 1, under,
+                                        np.where(kind == 2, rng.integers(2**31, 2**32, (2, R)), rejecting)))
+    return c.astype(np.uint32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("R, k", [(1, 3), (33, 33), (1000, 129), (97, 300)])
+def test_step_parallel_draws_kernel_at_edge_shapes(cuda_device, wide, R, k):
+    """The draws kernels (every step's draw in parallel, then the compare
+    chain) against the plain ``merge_draws`` bit for bit, one launch a
+    call: k not a multiple of 4 or of 32 and past one chunk of 128 steps,
+    R not a multiple of a block's 32 rows, rows with m < k, and counts
+    across 2^32 (narrow, with both signed readings) or across 2^32 and
+    2^64 (WIDE)."""
+    rng = np.random.default_rng(R * 1000 + k)
+    counts = _edge_counts(rng, R, k, wide)
+    keys = torch.from_numpy(rng.integers(0, 2**32, (R, 2)).astype(np.int64)).to(cuda_device)
+    if wide:
+        w = np.stack([counts & np.uint64(0xFFFFFFFF), counts >> np.uint64(32)], -1).astype(np.uint32)
+        cases = [tuple(torch.from_numpy(w[i].view(np.int32)).view(torch.uint32).to(cuda_device)
+                       for i in range(2))]
+    else:
+        c = torch.from_numpy(counts.view(np.int32)).to(cuda_device)
+        cases = [tuple(c[i].contiguous().view(dt) for i, dt in enumerate(dtypes))
+                 for dtypes in ((torch.int32, torch.uint32), (torch.uint32, torch.int32))]
+    for ca, cb in cases:
+        want = T.merge_draws(ca, cb, keys, k)
+        before = TK.wide_merge_launches if wide else TK.merge_launches
+        got = TK.merge_draws_cuda(ca, cb, keys, k)
+        torch.cuda.synchronize()
+        assert (TK.wide_merge_launches if wide else TK.merge_launches) - before == 1
+        for f in ("j_a", "u_a", "u_b"):
+            assert torch.equal(_bits(getattr(got, f)), _bits(getattr(want, f))), f
 
 
 @pytest.mark.cuda

@@ -299,29 +299,103 @@ def test_merges_whose_counts_wrap_past_2_32_equal_the_jax_package(case):
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
 
 
-@pytest.mark.parametrize("case", ["mixed", "large", "wrapped"])
+def _step_parallel_scan(ca, cb, row_keys, k):
+    """A model of the draws kernel's scan, written apart from the port's:
+    each step's denominator is ``total - t`` (mod 2^32, or 2^64 for WIDE
+    counts), since every active step takes exactly one element, so every
+    draw ``x_t`` is made first, for all rows and steps at once; then each
+    row walks its chain ``take_t = x_t < rem_a``.  ``ca`` and ``cb`` are
+    Python ints; returns ``(j_a, tries)``, ``tries`` each draw's Threefry
+    attempts."""
+    wide = max(ca + cb, default=0) >= 2**32
+    mod = 2**64 if wide else 2**32
+    total = [(a + b) % mod for a, b in zip(ca, cb)]
+    m = [min(t, k) for t in total]
+    rows = [r for r in range(len(ca)) for _ in range(m[r])]
+    steps = [t for r in range(len(ca)) for t in range(m[r])]
+    if not rows:
+        return [0] * len(ca), []
+    denom = [(total[r] - t) % mod for r, t in zip(rows, steps)]
+    assert min(denom) >= 1
+    idx = torch.tensor(rows)
+    f1, f2 = fold_in_words(row_keys[idx, 0], row_keys[idx, 1], torch.tensor(steps, dtype=torch.int32))
+    if wide:
+        d = torch.tensor([[x & MASK32, x >> 32] for x in denom], dtype=torch.int64)
+        words, tries = TA._randint_tries_u64e(f1, f2, d)
+        x = [int(lo) | int(hi) << 32 for lo, hi in words.tolist()]
+    else:
+        words, tries = TA._randint_tries(f1, f2, torch.tensor(denom, dtype=torch.int64))
+        x = words.tolist()
+    j_a, rem_a, i = [], list(ca), 0
+    for r in range(len(ca)):
+        taken = 0
+        for _ in range(m[r]):
+            take = x[i] < rem_a[r]
+            rem_a[r] -= take
+            taken += take
+            i += 1
+        j_a.append(taken)
+    return j_a, tries.tolist()
+
+
+def _wide_planes(x):
+    return np.stack([x & np.uint64(MASK32), x >> np.uint64(32)], -1).astype(np.uint32)
+
+
+@pytest.mark.parametrize("case", ["mixed", "large", "wrapped", "below_k", "a_empty", "rejecting", "wide wrapped",
+                                  "wide below_k"])
 @pytest.mark.parametrize("k", [1, 5, 64])
 def test_merge_scan_counts_the_samples_the_reference_takes_from_a(k, case):
     """The factored plain scan: its ``j_a`` is the number of A's samples in
-    the reference's merged rows (A's and B's words are disjoint)."""
+    the reference's merged rows (A's and B's words are disjoint), and so is
+    the step-parallel model's (:func:`_step_parallel_scan`), over int32
+    counts (the sum past 2^31, zeros, m < k), uint32 counts (wrapping past
+    2^32, and denominators just past 2^31, where lanes reject more than
+    once) and WIDE counts (wrapping past 2^64, and m < k)."""
     R = 40
     rng = np.random.default_rng(k)
     if case == "wrapped":
         ca = rng.integers(0, 2**32, R).astype(np.uint32)
         cb = rng.integers(0, 2**32, R).astype(np.uint32)
+    elif case == "rejecting":
+        ca = rng.integers(0, 2**31, R)
+        cb = (2**31 + k + 1 + rng.integers(0, k + 1, R) - ca).astype(np.uint32)
+        ca = ca.astype(np.uint32)
+    elif case == "wide wrapped":
+        ca = np.uint64(2**63) + rng.integers(0, 2**40, R).astype(np.uint64)
+        cb = np.uint64(2**63) + rng.integers(0, 2**40, R).astype(np.uint64)
+        ca[:3], cb[:3] = [2**63 + 2, 2**64 - 1, 0], [2**63 + 1, 1, 2**64 - 2]
+    elif case == "below_k":  # totals under k, zeros among them
+        ca, cb = (rng.integers(0, k // 2 + 1, R).astype(np.int32) for _ in range(2))
+    elif case == "wide below_k":
+        ca = rng.integers(0, k, R).astype(np.uint64) + np.uint64(2**32)
+        cb = (np.uint64(2**64 - 2**32) + rng.integers(0, k, R).astype(np.uint64))
     else:
         ca, cb = _counts(rng, R, k, case)
+    wide = ca.dtype == np.uint64
     sa = rng.integers(0, 2**30, (R, k)).astype(np.int32)
     sb = rng.integers(2**30, 2**31, (R, k)).astype(np.int32)
     key = jr.key(k + 11)
-    ws, wc = _J_MERGE_SAMPLES(jnp.asarray(sa), jnp.asarray(ca), jnp.asarray(sb), jnp.asarray(cb), key)
-    ws, size = np.asarray(ws), np.minimum(np.asarray(wc).astype(np.int64), k)
+    jca, jcb = (_wide_planes(c) if wide else c for c in (ca, cb))
+    ws, wc = _J_MERGE_SAMPLES(jnp.asarray(sa), jnp.asarray(jca), jnp.asarray(sb), jnp.asarray(jcb), key)
+    wc = np.asarray(wc).astype(np.uint64)
+    total = wc[:, 0] | wc[:, 1] << np.uint64(32) if wide else wc
+    ws, size = np.asarray(ws), np.minimum(total, k).astype(np.int64)
     from_a = (ws < 2**30) & (np.arange(k)[None, :] < size[:, None])
     row_keys = split_keys(key_from_seed(k + 11), R)
-    j_a, draws = TA.merge_scan(torch.from_numpy(ca), torch.from_numpy(cb), row_keys, k)
+    tca, tcb = (torch.from_numpy(c.view(np.int32)).view(torch.uint32) if wide else torch.from_numpy(c)
+                for c in (jca, jcb))
+    j_a, draws = TA.merge_scan(tca, tcb, row_keys, k)
     assert j_a.dtype == torch.int32
     np.testing.assert_array_equal(j_a.numpy(), from_a.sum(axis=1))
     assert draws >= int(size.sum())  # one word at least a step
+    model, tries = _step_parallel_scan([int(x) for x in ca], [int(x) for x in cb], row_keys, k)
+    np.testing.assert_array_equal(np.array(model), from_a.sum(axis=1))
+    assert sum(tries) == draws
+    if case == "rejecting" and k > 1:
+        assert max(tries) >= 3  # lanes that rejected twice or more
+    if case in ("below_k", "a_empty", "wide below_k"):
+        assert (size < k).any() and (size < k).sum() + (size == k).sum() == R
 
 
 @pytest.mark.parametrize("dtype", ["int32", "float32"])

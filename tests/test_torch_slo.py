@@ -16,6 +16,7 @@ against the JAX package's, on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -30,6 +31,7 @@ from reservoir_tpu_torch.obs import slo as tslo
 from reservoir_tpu_torch.obs.export import json_snapshot, prometheus_text
 from reservoir_tpu_torch.obs.slo import KINDS, SLOPlane, SLOSpec, default_slos
 from reservoir_tpu_torch.serve import HeartbeatWriter, ReservoirService, ShardUnit
+from reservoir_tpu_torch.serve import service as service_module
 from reservoir_tpu_torch.utils import faults
 from reservoir_tpu_torch.utils.faults import FaultPlane, FaultRule
 
@@ -225,18 +227,51 @@ def test_the_heartbeat_carries_the_worst_verdict(tmp_path):
         svc.shutdown()
 
 
-def test_a_shard_unit_judges_its_own_scoped_instruments(tmp_path):
-    with obs.active():
+class _SteppedClock:
+    """The ``time`` module of the service and of the fault plane, as a test
+    sees it: ``perf_counter`` reads a clock that only ``sleep`` moves, so an
+    ingest's recorded latency is its injected delay and nothing of the
+    host's scheduling (which stalls a process for 5 ms and more now and
+    then, with no work in its way); every other name is the real module's."""
+
+    def __init__(self):
+        self.now = 1000.0
+
+    def perf_counter(self):
+        return self.now
+
+    def sleep(self, seconds):
+        self.now += seconds
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def test_a_shard_unit_judges_its_own_scoped_instruments(tmp_path, monkeypatch):
+    """Unit 0's ingests take 20 ms (a delay fault), unit 1's none, on the
+    stepped clock: unit 0's latency objective (5 ms) pages and every
+    objective of unit 1 stays ok, which it does only while each unit's plane
+    reads its own scoped instruments (both planes take their baseline
+    before either unit ingests, so a plane that read the other unit's
+    observations would see them)."""
+    clock = _SteppedClock()
+    monkeypatch.setattr(service_module, "time", clock)
+    monkeypatch.setattr(faults, "time", clock)
+    with obs.active() as reg:
         units = [ShardUnit(_cfg(), i, str(tmp_path / f"shard{i}"), key=i, device="cpu",
                            slo_kwargs={"ingest_p99_s": 0.005}) for i in range(2)]
         units[0].service._faults = FaultPlane([FaultRule("serve.ingest", exc=None, delay=0.02)])
+        for unit in units:  # each plane's baseline, before either unit ingests
+            assert set(unit.slo_verdicts().values()) == {"ok"}
         for unit in units:
-            assert set(unit.slo_verdicts().values()) == {"ok"}  # the plane's baseline
             _drive(unit.service, n=6)
         verdicts = [unit.slo_verdicts() for unit in units]
+        # what a failure reports: each ingest histogram that exists, by name
+        names = [obs.scoped("serve.ingest_s", u.obs_scope) for u in units] + ["serve.ingest_s"]
+        latencies = {n: reg.peek(n).snapshot() for n in names if reg.peek(n) is not None}
         assert sorted(verdicts[0]) == sorted(s.name for s in default_slos())
-        assert verdicts[0]["ingest_latency_p99"] == "page"
-        assert set(verdicts[1].values()) == {"ok"}
+        assert verdicts[0]["ingest_latency_p99"] == "page", (verdicts[0], latencies)
+        assert set(verdicts[1].values()) == {"ok"}, (verdicts[1], latencies)
         assert units[0].status()["slo_worst"] == "page"
         for unit in units:
             unit.shutdown()
