@@ -16,8 +16,9 @@ operations and ``ReservoirService`` at bench.py's serve and traffic
 shapes, the hot standby and its failover at the ha shape, and the sharded
 cluster at the shards / merge shape, WIDE counters, the reference's
 ``map_fn`` / ``hash_fn`` hooks and fused stream in each mode, and the
-sharded engine (``mesh_axis``) over 8 ranks of the card — and holds
-each CUDA kernel against its plain torch version.  Phases, each of
+sharded engine (``mesh_axis``) over 8 ranks of the card, the parity
+selftest in its child process, a mesh over two processes and the open-loop
+load tool — and holds each CUDA kernel against its plain torch version.  Phases, each of
 which fails the run with a non-zero exit:
 
 1. device: require a CUDA card; print its name and power limit;
@@ -425,6 +426,32 @@ which fails the run with a non-zero exit:
    ``recover(mesh=)`` replaying its journaled flush through 8 launches,
    and the rest of the stream: the same samples.
 
+45. the parity selftest, ``device_selftest_subprocess(timeout_s=300)``
+   (``reservoir_tpu_torch/utils/selftest.py``, after its liveness probe):
+   its dict and seconds on a line of their own; every kernel check
+   (``algl``, ``algl_fill``, ``algl_wide``, ``algl_gated``, ``weighted``,
+   ``distinct``, ``distinct_hashed``, ``merge_ring``, ``merge_draws``: the
+   nine kernels against their plain versions, bit for bit, at R = 64, B =
+   256), ``kernel_parity``, ``gated_parity``, ``merge_parity`` and the
+   three KS gates true, nothing ``partial``, every kernel launched;
+46. two processes joined over gloo, four ranks of the card each
+   (``make_mesh(devices=["cuda"] * 4)`` in each: one 8-rank mesh) at
+   config 5 (8,192 rows a rank, as phase 42): 10 device and 2 host tiles,
+   4 ``algl_update`` launches a tile in each process, every row each
+   process reads back (``engine.state``, a collective) equal to the
+   unmeshed card engine fed the same tiles, ``sharded_result`` on every
+   rank equal to the rows, one ``merge_ring_gather`` launch a process;
+   elements/s fed from the device and the host beside phase 42's;
+47. ``reservoir_tpu_torch.tools.loadgen.run_load`` against the card
+   service for 3 s on the load tool's defaults (2,000 arrivals/s, 1,000
+   sessions over 800 rows, Zipf 1.1, chunks of 64, churn 0.01, a snapshot
+   every 13, the sample-quality auditor on): offered and served, no error,
+   the ``sample_quality`` objective ``ok``, ``loadgen.wait_s`` p50/p99 and
+   sessions/s beside phase 32's; then a short schedule (300 arrivals/s for
+   1 s, 100 sessions over 48 rows, churn 0.05) under an injected clock:
+   the counts, the service's counters and the engine's state equal to a
+   ``device="cpu"`` service's (in a child process, started at phase 45).
+
 Depth cut for the time limit: feed (b) follows feed (a) on the same
 bridge, so its rows are past the early stream, where a row's 8,192
 elements have more candidates than the gate tile and go through the
@@ -447,7 +474,7 @@ recycle is a row reset of ~30 ms on the card).
 A phase's line ends with the seconds since the script started.
 
 The line before the last is ``{"kernels": [...]}``, before it
-``{"sharded": {...}}`` (phases 42-44), ``{"hooks": {...}}`` (phases 39-41), ``{"wide": {...}}`` (phases 36-38), ``{"ha": {...}}`` (phases 33-35), ``{"serve": {...}}`` (phases 30-32), ``{"operator": {...}}`` (phases 27-29), ``{"gate": {...}}`` (phases
+``{"selftest": {...}}`` (phases 45-47), ``{"sharded": {...}}`` (phases 42-44), ``{"hooks": {...}}`` (phases 39-41), ``{"wide": {...}}`` (phases 36-38), ``{"ha": {...}}`` (phases 33-35), ``{"serve": {...}}`` (phases 30-32), ``{"operator": {...}}`` (phases 27-29), ``{"gate": {...}}`` (phases
 24-26) and ``{"bridge": {...}}`` (phases 20-23); the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or run outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -964,6 +991,7 @@ def main() -> None:
         gen, dev, here, {"fill_tile": fill_accepts, "steady_tile": steady_accepts, "deep_steady_tile": deep_accepts})
     hooks, hook_extra, prehashed_entry = hook_phases(gen, dev, here)
     sharded, sharded_extra = sharded_phases(gen, dev, here)
+    selftest, selftest_extra = selftest_phases(dev, here, sharded, serve)
 
     card = card_line()
     log(card)
@@ -975,6 +1003,7 @@ def main() -> None:
     log(json.dumps({"wide": wide}))
     log(json.dumps({"hooks": hooks}))
     log(json.dumps({"sharded": sharded}))
+    log(json.dumps({"selftest": selftest}))
     entries = [{
         "name": "algl_update",
         "route": "cuda",
@@ -1004,6 +1033,7 @@ def main() -> None:
     for entry in entries:
         entry.update(hook_extra.get(entry["name"], {}))
         entry.update(sharded_extra.get(entry["name"], {}))
+        entry.update(selftest_extra.get(entry["name"], {}))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
@@ -5844,6 +5874,336 @@ def mesh_bridge_phase(dev, work: str, extra: dict, reference) -> dict:
         f"elem/s fed from the host; a journaling meshed bridge dropped at flush {seq}, recover(mesh=) in "
         f"{recover_s:.2f} s ({replayed} launches replayed), the rest fed: samples == device=\"cpu\"")
     return rec
+
+
+# ------------------------------------------- the selftest, the mesh over processes, the load tools
+
+# phase 46: two processes, each 4 ranks of the card, joined over gloo
+MESH2_PROCESSES, MESH2_RANKS = 2, 4
+# phase 47: the open-loop run on the card (the load tool's defaults, 3 s),
+# and the short schedule held against device="cpu" under an injected clock
+LOAD_SPEC = dict(duration_s=3.0, rate=2000.0, sessions=1000, zipf_s=1.1, chunk=64, churn=0.01,
+                 snapshot_every=13, seed=47)
+LOAD_K, LOAD_TILE = 8, 64
+LOAD_CAPACITY = LOAD_SPEC["sessions"] * 4 // 5
+LOAD_CHECK_SPEC = dict(duration_s=1.0, rate=300.0, sessions=100, zipf_s=0.6, chunk=64, churn=0.05,
+                       snapshot_every=7, seed=48)
+LOAD_CHECK_CAPACITY = 48
+#: the phase's services' knobs: the builtin defaults (``DEFAULT_KNOBS``),
+#: passed explicitly so no knob cache is read
+LOAD_KNOBS = dict(coalesce_bytes=1 << 16, max_inflight_bytes=1 << 24, checkpoint_every=64,
+                  gate_push_chunk=1 << 20, sweep_interval_s=None)
+#: the selftest's name of a kernel where chip_smoke's entry differs
+SELFTEST_NAMES = {"distinct_update_hashed": "distinct_update_prehashed"}
+
+
+class _StepClock:
+    """Phase 47's injected clock: each read moves it 0.1 ms, each sleep by
+    what it asks, so the counts do not depend on the host's timing."""
+
+    def __init__(self) -> None:
+        self.t = 100.0
+
+    def __call__(self) -> float:
+        self.t += 1e-4
+        return self.t
+
+    def sleep(self, d: float) -> None:
+        self.t += d
+
+
+def load_check_run(device) -> tuple:
+    """Phase 47's check: the short schedule through ``run_load`` under the
+    injected clock on a service on ``device``; the result's counts, the
+    service's counters and its engine's state as numpy."""
+    from reservoir_tpu_torch import ReservoirService, SamplerConfig, convert, obs
+    from reservoir_tpu_torch.tools import loadgen
+
+    torch.set_num_threads(4)
+    svc = ReservoirService(SamplerConfig(max_sample_size=LOAD_K, num_reservoirs=LOAD_CHECK_CAPACITY,
+                                         tile_size=LOAD_TILE), key=0, pipelined=False, device=device, **LOAD_KNOBS)
+    obs.enable(obs.Registry())
+    try:
+        clock = _StepClock()
+        res = loadgen.run_load(svc, loadgen.LoadSpec(**LOAD_CHECK_SPEC), clock=clock, sleep=clock.sleep)
+        svc.sync()
+        state = convert.state_to_numpy(svc.bridge.engine.state)
+        counters = svc.metrics.snapshot()
+    finally:
+        obs.disable()
+        svc.shutdown()
+    return res.snapshot(), counters, state
+
+
+def state_digest(state) -> str:
+    """The sha256 of every field of a state (numpy bytes, in field order)."""
+    import hashlib
+
+    from reservoir_tpu_torch import convert
+
+    h = hashlib.sha256()
+    for name, value in convert.state_to_numpy(state).items():
+        h.update(name.encode())
+        if value is not None:
+            h.update(np.ascontiguousarray(value).view(np.uint8).tobytes())
+    return h.hexdigest()
+
+
+def mesh2_tiles(dev) -> list:
+    """Phase 46's tiles, config 5's shape, from a card generator seeded 46
+    (each process and the parent make the same)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(46)
+    return [torch.randint(-(2**31), 2**31 - 1, (R, B), dtype=torch.int32, device=dev, generator=gen)
+            for _ in range(MESH_DEV_TILES + MESH_HOST_TILES)]
+
+
+def mesh2_worker(pid: int, port: int) -> dict:
+    """Phase 46 in one of the two processes: join the gloo group, build the
+    8-rank mesh (4 ranks of the card a process), and feed config 5's
+    engine 10 device and 2 host tiles between barriers (after a warm-up
+    engine's two tiles); its launches, its times, the digest of the rows
+    it reads back (every row, through the collective), and
+    ``sharded_result`` timed, its samples checked against the state."""
+    import torch.distributed as dist
+
+    import reservoir_tpu_torch as rtt
+    from reservoir_tpu_torch.ops import algorithm_l as plain
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.ops import merge_cuda as mkern
+    from reservoir_tpu_torch.parallel import make_mesh, multihost, sharded_result
+
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{port}", num_processes=MESH2_PROCESSES, process_id=pid, backend="gloo",
+                         timeout=300)
+    mesh = make_mesh(devices=[dev] * MESH2_RANKS)
+    if mesh.size != MESH2_PROCESSES * MESH2_RANKS or mesh.local_ranks != tuple(
+            range(pid * MESH2_RANKS, (pid + 1) * MESH2_RANKS)):
+        raise AssertionError(f"process {pid}: {mesh!r}")
+    cfg = rtt.SamplerConfig(max_sample_size=K, num_reservoirs=R, tile_size=B, mesh_axis="res")
+    tiles = mesh2_tiles(dev)
+    host = [t.cpu().numpy() for t in tiles[MESH_DEV_TILES:]]
+    warm = rtt.ReservoirEngine(cfg, key=1, mesh=mesh)
+    warm.sample(tiles[0])
+    warm.sample(host[0])
+    del warm
+    torch.cuda.synchronize()
+    dist.barrier()
+    before = kern.launches
+    eng = rtt.ReservoirEngine(cfg, key=0, mesh=mesh)
+    if len(eng._shards) != MESH2_RANKS:
+        raise AssertionError(f"process {pid} holds {len(eng._shards)} shards")
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for t in tiles[:MESH_DEV_TILES]:
+        eng.sample(t)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for t in host:
+        eng.sample(t)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t_host = time.perf_counter() - t0
+    launches = kern.launches - before
+    t0 = time.perf_counter()
+    state = eng.state
+    torch.cuda.synchronize()
+    t_state = time.perf_counter() - t0
+    digest = state_digest(state)
+    call = sharded_result(mesh)
+    call(eng._shards)  # warm
+    torch.cuda.synchronize()
+    dist.barrier()
+    gathers = mkern.launches
+    t0 = time.perf_counter()
+    samples, sizes, totals = call(eng._shards)
+    torch.cuda.synchronize()
+    t_result = time.perf_counter() - t0
+    gathers = mkern.launches - gathers
+    want_s, want_z = plain.result(state)
+    ok = all(torch.equal(s.view(torch.int32), want_s.view(torch.int32)) and torch.equal(z, want_z)
+             for s, z in zip(samples, sizes))
+    total = int(totals[0].item())
+    dist.destroy_process_group()
+    return {"pid": pid, "launches": launches, "device_fed_s": t_dev, "host_fed_s": t_host, "state_s": t_state,
+            "sharded_result_s": t_result, "gather_launches": gathers, "result_ok": ok, "total": total,
+            "digest": digest, "process_s": time.perf_counter() - t_start}
+
+
+def selftest_phases(dev, here: str, sharded: dict, serve: dict) -> tuple:
+    """Phases 45-47: the parity selftest in its child process, the mesh
+    over two processes, and the open-loop load run.  Returns the
+    ``selftest`` line and the additions to the kernels' entries (by
+    name)."""
+    import concurrent.futures
+    import multiprocessing
+
+    line, extra = {}, {}
+    pool = concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        load_ref = pool.submit(load_check_run, "cpu")
+        line["selftest"] = selftest_phase(extra)
+        gc.collect()
+        torch.cuda.empty_cache()
+        line["mesh2"] = mesh2_phase(dev, sharded)
+        gc.collect()
+        torch.cuda.empty_cache()
+        line["load"] = load_phase(dev, serve, load_ref)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    return line, extra
+
+
+def selftest_phase(extra: dict) -> dict:
+    """Phase 45: ``device_selftest_subprocess(timeout_s=300)``: every
+    parity and KS key true, nothing partial; the dict on a line of its
+    own, and each kernel's launches in the selftest."""
+    from reservoir_tpu_torch.utils.selftest import KERNEL_CHECKS, KERNELS, device_selftest_subprocess
+
+    t0 = time.perf_counter()
+    out = device_selftest_subprocess(timeout_s=300)
+    seconds = time.perf_counter() - t0
+    log(json.dumps({"device_selftest": out, "seconds": seconds}))
+    keys = KERNEL_CHECKS + ("kernel_parity", "gated_parity", "merge_parity", "ks_ok", "ks_distinct_ok",
+                            "ks_weighted_ok")
+    bad = [k for k in keys if out.get(k) is not True]
+    if bad or "partial" in out or "error" in out:
+        fail(f"[45 selftest] not every key true: {bad}, partial {out.get('partial')!r}, error {out.get('error')!r}")
+    launches = out["launches"]
+    if sorted(launches) != sorted(KERNELS) or not all(launches[k] > 0 for k in KERNELS):
+        fail(f"[45 selftest] a kernel was not launched in the selftest: {launches}")
+    for name, n in launches.items():
+        extra.setdefault(SELFTEST_NAMES.get(name, name), {})["selftest_launches"] = n
+    log(f"[45 selftest] {card_line()} | device_selftest_subprocess(timeout_s=300): {len(KERNEL_CHECKS)} kernel "
+        f"checks, kernel_parity, gated_parity, merge_parity true; KS uniform {out['ks_uniform']:.6f}, distinct "
+        f"{out['ks_distinct']:.6f}, weighted {out['ks_weighted']:.6f} < 0.01; {sum(launches.values())} launches; "
+        f"{seconds:.2f} s in all (the child's own {out['seconds']:.2f} s, after the probe)")
+    return {"keys": {k: out[k] for k in keys}, "ks": {k: out[k] for k in ("ks_uniform", "ks_distinct",
+                                                                         "ks_weighted")},
+            "launches": launches, "seconds": seconds, "child_seconds": out["seconds"]}
+
+
+def mesh2_phase(dev, sharded: dict) -> dict:
+    """Phase 46: two processes joined over gloo, four ranks of the card
+    each, at config 5: 4 launches a tile in each process, every row each
+    reads back equal to the unmeshed card engine's (fed the same tiles
+    after the processes end), ``sharded_result`` right on every rank;
+    elem/s beside phase 42's one-process mesh and unmeshed engine."""
+    import concurrent.futures
+    import multiprocessing
+    import socket
+
+    import reservoir_tpu_torch as rtt
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    n = MESH_DEV_TILES + MESH_HOST_TILES
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(MESH2_PROCESSES,
+                                                mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = [pool.submit(mesh2_worker, pid, port) for pid in range(MESH2_PROCESSES)]
+        got = [f.result(timeout=600) for f in futures]
+    wall = time.perf_counter() - t0
+    for g in got:
+        if g["launches"] != MESH2_RANKS * n:
+            fail(f"[46 two-process mesh] process {g['pid']}: {g['launches']} algl_update launches for {n} tiles, "
+                 f"not {MESH2_RANKS} a tile")
+        if not g["result_ok"] or g["gather_launches"] != 1:
+            fail(f"[46 two-process mesh] process {g['pid']}: sharded_result's rows wrong or "
+                 f"{g['gather_launches']} merge_ring_gather launches, not 1")
+    tiles = mesh2_tiles(dev)
+    single = rtt.ReservoirEngine(rtt.SamplerConfig(max_sample_size=K, num_reservoirs=R, tile_size=B), key=0)
+    for t in tiles[:MESH_DEV_TILES]:
+        single.sample(t)
+    for t in tiles[MESH_DEV_TILES:]:
+        single.sample(t.cpu().numpy())
+    want = state_digest(single.state)
+    total = int(single.state.count.long().sum().item())
+    total = (total + 2**31) % 2**32 - 2**31
+    del tiles, single
+    for g in got:
+        if g["digest"] != want or g["total"] != total:
+            fail(f"[46 two-process mesh] process {g['pid']}'s rows != the unmeshed card engine's")
+    t_dev = max(g["device_fed_s"] for g in got)
+    t_host = max(g["host_fed_s"] for g in got)
+    rates = {"device_fed": MESH_DEV_TILES * R * B / t_dev, "host_fed": MESH_HOST_TILES * R * B / t_host}
+    one = sharded["engines"]["config 5"]["elem_per_s"]
+    rec = {"processes": MESH2_PROCESSES, "ranks_a_process": MESH2_RANKS, "backend": "gloo",
+           "launches_a_process": [g["launches"] for g in got], "elem_per_s": rates,
+           "one_process_mesh_elem_per_s": one["meshed"], "unmeshed_elem_per_s": one["unmeshed"],
+           "state_read_s": max(g["state_s"] for g in got),
+           "sharded_result_s": max(g["sharded_result_s"] for g in got), "wall_s": wall}
+    log(f"[46 two-process mesh] {card_line()} | config 5 over {MESH2_PROCESSES} processes x {MESH2_RANKS} ranks of "
+        f"the card (gloo): {n} tiles, {MESH2_RANKS * n} algl_update launches a process; every row each process "
+        f"reads back == the unmeshed card engine; elem/s fed from the device {rates['device_fed']:.6e} (phase 42: "
+        f"one process, 8 ranks {one['meshed']['device_fed']:.6e}, unmeshed {one['unmeshed']['device_fed']:.6e}), "
+        f"from the host {rates['host_fed']:.6e} (phase 42: {one['meshed']['host_fed']:.6e}, "
+        f"{one['unmeshed']['host_fed']:.6e}); the state read back {rec['state_read_s']:.4f} s, sharded_result "
+        f"{rec['sharded_result_s']:.4f} s (one merge_ring_gather a process, one gloo all_gather); {wall:.1f} s "
+        f"with the processes' start")
+    return rec
+
+
+def load_phase(dev, serve: dict, reference) -> dict:
+    """Phase 47: ``run_load`` against the card service for 3 s on the load
+    tool's defaults (2,000 arrivals/s, 1,000 sessions over 800 rows,
+    Zipf 1.1, chunks of 64, churn 0.01, a snapshot every 13): offered and
+    served, the corrected wait's p50/p99 and sessions/s beside phase 32;
+    then the short schedule under the injected clock: its counts, the
+    service's counters and the engine's state equal to ``device="cpu"``'s
+    (``reference``, a child's future)."""
+    from reservoir_tpu_torch import ReservoirService, SamplerConfig, obs
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.tools import loadgen
+
+    svc = ReservoirService(SamplerConfig(max_sample_size=LOAD_K, num_reservoirs=LOAD_CAPACITY, tile_size=LOAD_TILE),
+                           key=0, ttl_s=LOAD_SPEC["duration_s"], auditor=obs.SampleQualityAuditor(), **LOAD_KNOBS)
+    reg = obs.enable(obs.Registry())
+    try:
+        plane = obs.SLOPlane()
+        before = kern.launches
+        res = loadgen.run_load(svc, loadgen.LoadSpec(**LOAD_SPEC))
+        svc.sync()
+        torch.cuda.synchronize()
+        launches = kern.launches - before
+        verdicts = {k: v.verdict for k, v in plane.evaluate().items()}
+        ingest = reg.peek("serve.ingest_s")
+        ingest_p = ingest.percentiles() if ingest is not None and ingest.count else (0.0, 0.0, 0.0)
+    finally:
+        obs.disable()
+        svc.shutdown()
+    r = res.snapshot()
+    if r["completed"] + r["rejected"] + r["errors"] != r["offered"] or r["errors"] or not r["completed"]:
+        fail(f"[47 load] offered {r['offered']} != served {r['completed']} + rejected {r['rejected']} + errors "
+             f"{r['errors']}, or errors")
+    if verdicts.get("sample_quality") != "ok" or not launches:
+        fail(f"[47 load] the auditor's sample quality is {verdicts.get('sample_quality')!r}, launches {launches}")
+    sessions_s = (r["opens"] + r["reopens"]) / r["wall_s"]
+    got = load_check_run(dev)
+    want = reference.result(timeout=900)
+    if got[0] != want[0] or got[1] != want[1] or not same_host(got[2], want[2]):
+        fail("[47 load] under the injected clock the card service's counts or state != device=\"cpu\"")
+    phase32 = serve["timings"]
+    rec = {"spec": LOAD_SPEC, "capacity": LOAD_CAPACITY, "result": r, "sessions_per_s": sessions_s,
+           "ingest_p50_ms": 1e3 * ingest_p[0], "ingest_p99_ms": 1e3 * ingest_p[1], "slo": verdicts,
+           "algl_update_launches": launches, "phase32_sessions_per_s": phase32["sessions_per_s"],
+           "check": {"spec": LOAD_CHECK_SPEC, "capacity": LOAD_CHECK_CAPACITY, "result": got[0]}}
+    log(f"[47 load] {card_line()} | run_load on the card service ({LOAD_CAPACITY} rows, k {LOAD_K}): "
+        f"{LOAD_SPEC['rate']:.0f} arrivals/s for {LOAD_SPEC['duration_s']:.0f} s, offered {r['offered']}, served "
+        f"{r['completed']}, rejected {r['rejected']}, opens {r['opens']}, reopens {r['reopens']}, closes "
+        f"{r['closes']}; loadgen.wait_s p50 {1e3 * r['wait_p50_s']:.4f} ms p99 {1e3 * r['wait_p99_s']:.4f} ms, "
+        f"behind at most {1e3 * r['max_behind_s']:.4f} ms; {r['achieved_rate']:.6e} arrivals/s, {sessions_s:.6e} "
+        f"sessions/s (phase 32's lifecycle: {phase32['sessions_per_s']:.6e}); ingest p50 {1e3 * ingest_p[0]:.4f} "
+        f"ms p99 {1e3 * ingest_p[1]:.4f} ms; SLO {verdicts}; {launches} algl_update launches; the short "
+        f"schedule under the injected clock: counts, counters and state == device=\"cpu\"")
+    return rec
+
 
 if __name__ == "__main__":
     main()

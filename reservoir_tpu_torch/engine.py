@@ -69,6 +69,17 @@ global.  Each rank's block then goes through the mode's kernel, one launch
 a rank a tile.  A meshed engine is bit-identical to the unmeshed one with
 the same key, and its rows read back in order.  An unmeshed engine is the
 one-rank case of the same code.
+
+A mesh may span the processes of a ``torch.distributed`` group
+(:func:`~reservoir_tpu_torch.parallel.make_mesh` after
+``multihost.initialize``): every process builds the engine and passes the
+same global tiles, and each ships and updates only the rows of the ranks
+it owns.  Reading the rows (``state``, ``result``, ``result_arrays``,
+``peek_arrays``, ``export_rows``) gathers them onto the process's first
+rank and across the group through ``torch.distributed``, so every process
+makes the same call and gets every row.  A checkpoint of
+such an engine, and a bridge over it, raise ``NotImplementedError`` naming
+L4.
 """
 
 from __future__ import annotations
@@ -87,7 +98,7 @@ from .ops import algorithm_l_cuda as _kernel
 from .ops import distinct as _dist
 from .ops import weighted as _wtd
 from .ops.rng import key_from_seed
-from .parallel.sharded import Mesh, RowSharding, gather_state, make_mesh, rank_update, shard_state
+from .parallel.sharded import Mesh, RowSharding, gather_state, make_mesh, not_ported, rank_update, shard_state
 
 __all__ = ["ReservoirEngine"]
 
@@ -225,8 +236,8 @@ class ReservoirEngine:
         self._device = None if mesh is not None else resolve_device(device)
         # an unmeshed engine is the one-rank case
         ranks = mesh if mesh is not None else Mesh([self._device])
-        #: each rank's device and rows
-        self._blocks = RowSharding(ranks, ranks.axis_names[0]).blocks(config.num_reservoirs)
+        #: each rank's device and rows (the ranks this process owns)
+        self._blocks = RowSharding(ranks, ranks.axis_names[0]).local_blocks(config.num_reservoirs)
         self._ranks = [b.device for b in self._blocks]
         #: the cards the ranks are on (none on CPU ranks), in rank order
         self._cards = list(dict.fromkeys(d for d in self._ranks if d.type == "cuda"))
@@ -272,12 +283,19 @@ class ReservoirEngine:
         return True if self._reusable else self._open
 
     @property
+    def _multiprocess(self) -> bool:
+        """Whether the mesh spans processes (its rows are read through a
+        collective)."""
+        return self._mesh is not None and self._mesh.multiprocess
+
+    @property
     def _state(self) -> State:
         """The live state of an unmeshed engine; a meshed engine's rows
-        gathered in order onto its first rank's device."""
-        if len(self._shards) == 1:
+        gathered in order onto its first rank's device (over a mesh that
+        spans processes, a collective)."""
+        if len(self._shards) == 1 and not self._multiprocess:
             return self._shards[0]
-        return gather_state(self._shards, self._ranks[0])
+        return gather_state(self._shards, self._ranks[0], self._mesh)
 
     @property
     def state(self) -> State:
@@ -667,6 +685,9 @@ class ReservoirEngine:
         self._check_open()
         rows = self._validate_rows(rows)
         home = self._ranks[0]
+        if self._multiprocess:  # every row, through the collective
+            idx = torch.from_numpy(rows.astype(np.int64)).to(home)
+            return type(self._shards[0])(*_on(self._state, lambda t: _signed(t).index_select(0, idx).view(t.dtype)))
         if len(self._shards) == 1:
             idx = torch.from_numpy(rows.astype(np.int64)).to(home)
             return type(self._shards[0])(
@@ -729,6 +750,8 @@ class ReservoirEngine:
         restores it on any mesh its rows divide over)."""
         from .utils.checkpoint import save_engine
 
+        if self._multiprocess:
+            raise not_ported("a checkpoint")
         save_engine(path, self, metadata=metadata)
 
     @classmethod
@@ -747,6 +770,14 @@ class ReservoirEngine:
     # --------------------------------------------------------------- results
 
     def _host_result(self) -> Tuple[np.ndarray, np.ndarray]:
+        if self._multiprocess:  # every row, through the collective
+            wide = self._config.distinct and self._wide
+            leaves = [(*self._ops.result(st),) + ((st.value_hi,) if wide else ()) for st in self._shards]
+            got = [t.cpu().numpy() for t in gather_state(leaves, self._ranks[0], self._mesh)]
+            samples, sizes = got[0], got[1]
+            if self._config.distinct:
+                samples = _dist.assemble_values(samples, got[2] if wide else None, self._np_dtype)
+            return samples, sizes
         parts = [self._ops.result(st) for st in self._shards]
         samples = _host_rows([p[0] for p in parts])
         sizes = _host_rows([p[1] for p in parts])

@@ -2,15 +2,19 @@
 
 The port of the JAX package's ``parallel/multihost.py``.  The reference
 joins the JAX distributed runtime, after which its meshes span every
-process's chips; the port joins a ``torch.distributed`` process group.  A
-mesh that spans processes is not ported (ROADMAP.md, L4):
-:func:`~.sharded.make_mesh` raises in a group of more than one process.
+process's chips; the port joins a ``torch.distributed`` process group,
+after which :func:`~.sharded.make_mesh` (a collective) spans every
+process's ranks, each process passing its own devices.
 
 Typical use::
 
-    from reservoir_tpu_torch.parallel import multihost
+    from reservoir_tpu_torch.parallel import make_mesh, multihost
     multihost.initialize()     # False, with a RuntimeWarning, single-process
-    devices = multihost.spread_devices(4)
+    mesh = make_mesh(devices=multihost.spread_devices(4))  # every process's ranks
+    eng = ReservoirEngine(SamplerConfig(..., mesh_axis="res"), mesh=mesh)
+
+Two processes on one card join with ``backend="gloo"``: NCCL refuses two
+ranks on one card, and gloo moves card tensors too.
 
 The rules of :func:`initialize` are the reference's: already joined gives
 True; explicit arguments join (through ``tcp://``) and let errors surface;

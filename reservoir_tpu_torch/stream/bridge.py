@@ -574,7 +574,8 @@ class DeviceStreamBridge:
         default every visible card); each flush snapshots the host tile
         once and copies each rank's rows to its card.  The staging tiles
         are then numpy arrays, and ``gated=True`` is inert.  Not with
-        ``device``.
+        ``device``; a mesh that spans processes raises
+        ``NotImplementedError`` naming L4.
       pipelined: overlap the host demux with the flush — the demux fills
         one tile while the other's copy and dispatch run on a worker thread
         (default on).  ``False`` flushes synchronously from one tile.
@@ -651,6 +652,10 @@ class DeviceStreamBridge:
     ) -> None:
         if durability not in ("buffered", "fsync"):
             raise ValueError(f"durability must be 'buffered' or 'fsync', got {durability!r}")
+        if mesh is not None and mesh.multiprocess:
+            from ..parallel.sharded import not_ported
+
+            raise not_ported("the stream bridge")
         self._config = config
         self._faults = faults
         self._engine = _engine if _engine is not None else ReservoirEngine(

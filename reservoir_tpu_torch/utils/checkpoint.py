@@ -419,6 +419,10 @@ def load_engine(path: str, engine_cls: Optional[type] = None, *, device: Any = N
         from ..parallel.sharded import make_mesh
 
         mesh = make_mesh(axis=config.mesh_axis)
+    if mesh is not None and mesh.multiprocess:
+        from ..parallel.sharded import not_ported
+
+        raise not_ported("restoring a checkpoint onto the ranks")
     _preflight(path, config, arrays, manifest, mesh)
     state = _unpack_state(path, arrays, manifest)
     engine = (engine_cls or ReservoirEngine)(

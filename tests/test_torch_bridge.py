@@ -12,7 +12,6 @@ import os
 import subprocess
 import sys
 import threading
-from unittest import mock
 
 import numpy as np
 import pytest
@@ -335,19 +334,20 @@ def test_pipelined_thread_stress():
         _same(want, res)
 
 
-def _in_a_two_process_group(make):
-    """``make()`` as a member of a process group of two sees it: a mesh
-    that spans processes is what the port leaves out of L4."""
-    with mock.patch.object(torch.distributed, "is_initialized", return_value=True), \
-            mock.patch.object(torch.distributed, "get_world_size", return_value=2):
-        return make()
+def _two_process_mesh():
+    """A mesh over the ranks of two processes, this one process 0's: its
+    engine holds process 0's rows only.  A checkpoint of such an engine,
+    and a bridge over it, are what the port leaves out of L4."""
+    from reservoir_tpu_torch.parallel import Mesh
+
+    return Mesh(["cpu"] * 2, owners=[0, 1], process=0)
 
 
 @pytest.mark.parametrize(
     "make, label",
     [
-        (lambda cfg: _in_a_two_process_group(
-            lambda: DeviceStreamBridge(dataclasses.replace(cfg, mesh_axis="res"))), "L4"),
+        (lambda cfg: DeviceStreamBridge(dataclasses.replace(cfg, mesh_axis="res"), mesh=_two_process_mesh()),
+         "L4"),
     ],
     ids=["mesh"],
 )

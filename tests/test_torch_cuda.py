@@ -2040,3 +2040,178 @@ def test_meshed_engine_over_distinct_cards_equals_one_card(cuda_device, mode):
     want = sharded_result(one.mesh, ops=ops)(one._shards)
     for g, w in zip(got[0] + got[1], want[0] + want[1]):
         assert torch.equal(_bits(g).cpu(), _bits(w).cpu())
+
+
+# ---------------------------------------------- the selftest on the card
+
+
+_KS_KEYS = ("ks_ok", "ks_distinct_ok", "ks_weighted_ok")
+
+
+@pytest.mark.cuda
+def test_device_selftest_passes_on_the_card(cuda_device):
+    """Every kernel against its plain version at the engine's launch shape,
+    the composite checks and the KS gates: every key true, every kernel
+    launched."""
+    from reservoir_tpu_torch.utils.selftest import KERNEL_CHECKS, KERNELS, device_selftest
+
+    out = device_selftest()
+    for name in KERNEL_CHECKS + ("kernel_parity", "gated_parity", "merge_parity") + _KS_KEYS:
+        assert out[name] is True, (name, out.get(f"{name}_error"))
+    assert out["platform"] == "gpu" and out["device_name"] == torch.cuda.get_device_name(0)
+    assert all(out["launches"][name] > 0 for name in KERNELS), out["launches"]
+
+
+@pytest.mark.cuda
+def test_device_selftest_in_its_child_passes_on_the_card(cuda_device):
+    from reservoir_tpu_torch.utils.selftest import KERNEL_CHECKS, device_selftest_subprocess
+
+    out = device_selftest_subprocess(timeout_s=600.0)
+    assert "partial" not in out and "error" not in out, out
+    for name in KERNEL_CHECKS + ("kernel_parity", "gated_parity", "merge_parity") + _KS_KEYS:
+        assert out[name] is True, (name, out.get(f"{name}_error"))
+
+
+@pytest.mark.cuda
+def test_a_flipped_bit_on_card_tensors_fails_the_selftest(cuda_device, monkeypatch):
+    from reservoir_tpu_torch.utils import selftest
+
+    seen = []
+
+    def flipped(state, batch, valid=None, map_fn=None):
+        out = real(state, batch, valid, map_fn)
+        seen.append(out.samples.device.type)
+        out.samples.view(torch.int32).view(-1)[5] ^= 1 << 7
+        return out
+
+    real = TK.update_steady_cuda
+    monkeypatch.setattr(TK, "update_steady_cuda", flipped)
+    for name in ("check_gated", "check_merge"):
+        monkeypatch.setattr(selftest, name, lambda dev, on_card: True)
+    for name in ("check_ks", "check_ks_distinct", "check_ks_weighted"):
+        monkeypatch.setattr(selftest, name, lambda dev: (0.001, True))
+    out = selftest.device_selftest()
+    assert seen and set(seen) == {"cuda"}
+    assert out["algl"] is False and out["algl_wide"] is False and out["kernel_parity"] is False
+    assert out["weighted"] is True and out["merge_ring"] is True
+
+
+# ------------------------------------ the mesh over two processes, on the card
+
+_TWO_PROCESS_MESH = """
+import os, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from reservoir_tpu_torch import ReservoirEngine, SamplerConfig, convert
+from reservoir_tpu_torch.ops import algorithm_l_cuda as TK
+from reservoir_tpu_torch.ops import merge_cuda as TM
+from reservoir_tpu_torch.parallel import make_mesh, multihost, sharded_result
+pid, port, out_dir, backend = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+card = torch.device("cuda", pid if backend == "nccl" else 0)
+torch.cuda.set_device(card)
+assert multihost.initialize(f"127.0.0.1:{port}", num_processes=2, process_id=pid, backend=backend, timeout=120)
+mesh = make_mesh(devices=[card] * 2)
+assert mesh.shape == {"res": 4} and mesh.local_ranks == (2 * pid, 2 * pid + 1)
+save = {}
+for mode, kw in (("uniform", {}), ("wide", {"count_dtype": "wide"}), ("weighted", {"weighted": True}),
+                 ("distinct_int64", {"distinct": True, "element_dtype": "int64"})):
+    cfg = SamplerConfig(16, 256, 64, mesh_axis="res", **kw)
+    eng = ReservoirEngine(cfg, key=4, reusable=True, mesh=mesh)
+    rng = np.random.default_rng(51)
+    launches = dict(TK=TK.launches + TK.wide_launches, TM=TM.launches)
+    for i in range(3):
+        tile = rng.integers(0, 1 << 30, (256, 64)).astype(kw.get("element_dtype", "int32"))
+        w = rng.uniform(0.0, 2.0, (256, 64)).astype(np.float32) if kw.get("weighted") else None
+        if i == 1:  # a tile on the card: each process splits its own rows
+            tile = torch.from_numpy(tile).to(card)
+        eng.sample(tile, weights=w)
+    torch.cuda.synchronize()
+    if not kw.get("weighted") and not kw.get("distinct"):
+        assert TK.launches + TK.wide_launches - launches["TK"] == 3 * 2  # one launch a local rank a tile
+    samples, sizes = eng.peek_arrays()
+    save[mode + "/samples"], save[mode + "/sizes"] = samples, sizes
+    for name, v in convert.state_to_numpy(eng.state).items():
+        if v is not None:
+            save[f"{mode}/state/{name}"] = v
+    before = TM.launches
+    got = sharded_result(mesh, ops=eng._ops)(eng._shards)
+    torch.cuda.synchronize()
+    assert TM.launches - before == 1  # the local ranks' gather, one launch on the card
+    assert all(t.device == card for t in got[0])
+    save[mode + "/gathered"] = got[0][0].view(torch.int32).cpu().numpy()
+np.savez(os.path.join(out_dir, f"proc{pid}.npz"), **save)
+dist.destroy_process_group()
+print("OK", pid)
+"""
+
+
+def _two_processes(tmp_path, backend):
+    import socket
+    import subprocess
+    import sys
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = repo
+    procs = [subprocess.Popen([sys.executable, "-c", _TWO_PROCESS_MESH, str(i), str(port), str(tmp_path), backend],
+                              env=env, cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for i in range(2)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=300))
+    finally:
+        for proc in procs:
+            proc.kill()
+    for i, (proc, (out, err)) in enumerate(zip(procs, outs)):
+        assert proc.returncode == 0, f"process {i}: {err[-3000:]}"
+        assert f"OK {i}" in out
+    got = []
+    for i in range(2):
+        with np.load(tmp_path / f"proc{i}.npz") as f:
+            got.append({name: f[name] for name in f.files})
+    return got
+
+
+def _check_two_process_mesh(got, device):
+    for mode, kw in (("uniform", {}), ("wide", {"count_dtype": "wide"}), ("weighted", {"weighted": True}),
+                     ("distinct_int64", {"distinct": True, "element_dtype": "int64"})):
+        eng = ReservoirEngine(SamplerConfig(16, 256, 64, **kw), key=4, reusable=True, device=device)
+        rng = np.random.default_rng(51)
+        for _ in range(3):
+            tile = rng.integers(0, 1 << 30, (256, 64)).astype(kw.get("element_dtype", "int32"))
+            w = rng.uniform(0.0, 2.0, (256, 64)).astype(np.float32) if kw.get("weighted") else None
+            eng.sample(tile, weights=w)
+        samples, sizes = eng.peek_arrays()
+        state = {k: v for k, v in convert.state_to_numpy(eng.state).items() if v is not None}
+        gathered = eng._ops.result(eng.state)[0].view(torch.int32).cpu().numpy()
+        for pid, g in enumerate(got):
+            np.testing.assert_array_equal(g[f"{mode}/samples"], samples, err_msg=f"{mode}, process {pid}")
+            np.testing.assert_array_equal(g[f"{mode}/sizes"], sizes)
+            np.testing.assert_array_equal(g[f"{mode}/gathered"], gathered)
+            for name, v in state.items():
+                np.testing.assert_array_equal(g[f"{mode}/state/{name}"].view(np.uint8), v.view(np.uint8),
+                                              err_msg=f"{mode} {name}, process {pid}")
+
+
+@pytest.mark.cuda
+def test_two_gloo_processes_on_one_card_equal_the_unmeshed_card_engine(cuda_device, tmp_path):
+    """Two processes joined over gloo, two ranks of the one card each: the
+    rows each reads back (``peek_arrays``, ``state``, ``sharded_result``)
+    equal the unmeshed card engine's, in every mode; gloo moves the card
+    tensors across the processes."""
+    _check_two_process_mesh(_two_processes(tmp_path, "gloo"), cuda_device)
+
+
+@pytest.mark.cuda
+def test_two_nccl_processes_one_card_each_equal_one_card(cuda_device, tmp_path):
+    """The NCCL path: two processes, each on its own card (NCCL refuses two
+    ranks on one card)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("NCCL needs a card a process: two processes need two cards")
+    _check_two_process_mesh(_two_processes(tmp_path, "nccl"), cuda_device)

@@ -2,8 +2,8 @@
 ``torch.distributed``, with the JAX package's rules: a no-op without a
 cluster, explicit or detected joins that fail in seconds, an idempotent
 one-process join, and a real two-process gloo group over loopback that
-all-reduces and runs the reservoir update on each process's rows, where
-``make_mesh`` raises the L4 ``NotImplementedError``.
+all-reduces, runs the reservoir update on each process's rows, and builds
+one mesh over both processes' ranks with ``make_mesh``.
 
 A process group is process-global, so every case runs in child processes,
 each bounded by :data:`TIMEOUT` seconds."""
@@ -134,8 +134,10 @@ def test_a_one_process_gloo_join_is_idempotent():
 # Each worker joins the 2-process group, all-reduces across it, and runs
 # the reservoir update on its half of the rows; the halves, gathered over
 # the group, must equal one full update run locally (the same
-# deterministic init and tile everywhere).  A mesh would have to span both
-# processes, which the port leaves out: make_mesh raises naming L4.
+# deterministic init and tile everywhere).  make_mesh then spans both
+# processes' ranks in process order, each process owning its own, and a
+# meshed engine over it updates each process's rows and reads back every
+# row on both.
 _TWO = """
 import sys
 import torch
@@ -150,13 +152,9 @@ assert multihost.group_size() == 2
 x = torch.tensor([float(pid + 1)])
 dist.all_reduce(x)
 assert float(x) == 3.0, float(x)
-for make in (lambda: make_mesh(), lambda: make_mesh(devices=["cpu"] * 2)):
-    try:
-        make()
-    except NotImplementedError as e:
-        assert "L4" in str(e) and "ROADMAP.md" in str(e), e
-    else:
-        raise AssertionError("make_mesh in a group of two did not raise")
+mesh = make_mesh(devices=["cpu"] * 2)
+assert mesh.shape == {"res": 4} and mesh.owners == (0, 0, 1, 1) and mesh.process == pid, mesh
+assert mesh.local_ranks == (2 * pid, 2 * pid + 1), mesh.local_ranks
 R, k, B = 8, 4, 16
 full = al.init(key_from_seed(0), R, k)
 batch = (100 + torch.arange(R * B, dtype=torch.int32)).reshape(R, B)
@@ -168,6 +166,12 @@ for name in ("samples", "count", "nxt", "log_w"):
     parts = [torch.empty_like(local) for _ in range(2)]
     dist.all_gather(parts, local)
     assert torch.equal(torch.cat(parts), getattr(ref, name)), name
+from reservoir_tpu_torch import ReservoirEngine, SamplerConfig
+eng = ReservoirEngine(SamplerConfig(max_sample_size=k, num_reservoirs=R, tile_size=B, mesh_axis="res"), key=0,
+                      mesh=mesh)
+assert len(eng._shards) == 2
+eng.sample(batch)
+assert torch.equal(eng.state.samples, ref.samples) and torch.equal(eng.state.count, ref.count)
 dist.destroy_process_group()
 print("OK", pid)
 """
