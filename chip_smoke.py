@@ -17,8 +17,9 @@ shapes, the hot standby and its failover at the ha shape, and the sharded
 cluster at the shards / merge shape, WIDE counters, the reference's
 ``map_fn`` / ``hash_fn`` hooks and fused stream in each mode, and the
 sharded engine (``mesh_axis``) over 8 ranks of the card, the parity
-selftest in its child process, a mesh over two processes and the open-loop
-load tool — and holds each CUDA kernel against its plain torch version.  Phases, each of
+selftest in its child process, a mesh over two processes, the open-loop
+load tool and the tile kernels' launch geometry with its autotune cache —
+and holds each CUDA kernel against its plain torch version.  Phases, each of
 which fails the run with a non-zero exit:
 
 1. device: require a CUDA card; print its name and power limit;
@@ -35,7 +36,9 @@ which fails the run with a non-zero exit:
    and log1p over the ranges the chain visits, must equal the torch recipe
    bit for bit;
 5. the plain version on the CPU for rows 0..1023 must equal the kernel's
-   rows bit for bit;
+   rows bit for bit (queued, and run after phase 48 in child processes, as
+   the CPU references of phases 9, 13, 36 and 39 are, so that no timed
+   phase shares the host with them; their lines come after phase 48's);
 6. engine path: 8 device-resident tiles then 2 numpy tiles (pinned host
    copies), then ``result_arrays()``: every size is k, every sample lies in
    its row's stream with no repeats, the kernel was launched once per tile,
@@ -450,7 +453,24 @@ which fails the run with a non-zero exit:
    sessions/s beside phase 32's; then a short schedule (300 arrivals/s for
    1 s, 100 sessions over 48 rows, churn 0.05) under an injected clock:
    the counts, the service's counters and the engine's state equal to a
-   ``device="cpu"`` service's (in a child process, started at phase 45).
+   ``device="cpu"`` service's (in a child process, started at phase 45);
+48. the launch-geometry sweep (``reservoir_tpu_torch.tools.block_sweep``,
+   its variants in one child process with a hard timeout) into a
+   temporary autotune cache: ``algl_update`` at config 5 and at the serve
+   shape (R = 2,048, k = 32, B = 256) at 32, 64, 128 and 256 threads a
+   block, ``weighted_update`` at config 4 at 1, 2, 4 and 8 warps,
+   ``distinct_update`` at the distinct shape at 1, 2 and 4 warps (each on
+   its steady tile, every variant's state equal to the default geometry's
+   bit for bit, then the bare launch timed in four turns), and three gate
+   pairs (``gate_tile:gate_push_chunk`` 64:1Mi, 128:1Mi, 64:256Ki) on the
+   gated bridge at the gate's A/B shape, a pass a turn; each variant's
+   time with the card's name and power limit, and the cache holding a
+   variant only where it beat the default in every turn past the spread;
+   then engines at config 5 and at the serve shape that read a
+   non-default entry (the fastest non-default variant, from a second
+   temporary cache in ``RESERVOIR_ALGL_AUTOTUNE_CACHE``): their
+   ``_geometry_by_key``, ``algl_update_rows`` launches, and rows 0..1023
+   equal to a ``device="cpu"`` engine's.
 
 Depth cut for the time limit: feed (b) follows feed (a) on the same
 bridge, so its rows are past the early stream, where a row's 8,192
@@ -474,7 +494,7 @@ recycle is a row reset of ~30 ms on the card).
 A phase's line ends with the seconds since the script started.
 
 The line before the last is ``{"kernels": [...]}``, before it
-``{"selftest": {...}}`` (phases 45-47), ``{"sharded": {...}}`` (phases 42-44), ``{"hooks": {...}}`` (phases 39-41), ``{"wide": {...}}`` (phases 36-38), ``{"ha": {...}}`` (phases 33-35), ``{"serve": {...}}`` (phases 30-32), ``{"operator": {...}}`` (phases 27-29), ``{"gate": {...}}`` (phases
+``{"geometry": {...}}`` (phase 48), ``{"selftest": {...}}`` (phases 45-47), ``{"sharded": {...}}`` (phases 42-44), ``{"hooks": {...}}`` (phases 39-41), ``{"wide": {...}}`` (phases 36-38), ``{"ha": {...}}`` (phases 33-35), ``{"serve": {...}}`` (phases 30-32), ``{"operator": {...}}`` (phases 27-29), ``{"gate": {...}}`` (phases
 24-26) and ``{"bridge": {...}}`` (phases 20-23); the last line is
 ``{"ok": true, "device": {...}}``.  Without a card, or run outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -646,6 +666,71 @@ def max_abs_err(a, b) -> float:
 def clone(state, rows=None, device=None):
     sl = slice(None) if rows is None else slice(0, rows)
     return type(state)(*(None if t is None else t[sl].clone().to(device or t.device) for t in state))
+
+
+# The CPU references of phases 5, 9, 13, 36 and 39 (rows 0..ROWS_CPU - 1
+# through the plain versions) are queued as their phases run and run after
+# the last timed phase, in parallel child processes (B.11): no host-timed
+# window shares the host with them.  collect_cpu_references() holds each
+# against its card state and logs each phase's line then.
+CPU_REFERENCES: list = []
+
+
+def _cpu_child_init(threads: int) -> None:
+    torch.set_num_threads(threads)
+
+
+def check_on_cpu(label: str, want, fn, *args) -> None:
+    """Queue ``fn(*args)`` (a module-level function returning a state on
+    the CPU); ``collect_cpu_references`` runs it in a child process and
+    holds its result against ``want`` under ``label``."""
+    CPU_REFERENCES.append((label, want, fn, args))
+
+
+def cpu_replay(module: str, state, fed: list):
+    """In the child: ``state`` fed each ``(function name, args)`` of ``fed``
+    through the plain version in ``module``."""
+    import importlib
+
+    ops = importlib.import_module(module)
+    for name, args in fed:
+        state = getattr(ops, name)(state, *args)
+    return state
+
+
+def cpu_map_engine(kw: dict, map_fn, tiles: list, weights: list):
+    """In the child: a ``device="cpu"`` engine with ``map_fn`` fed
+    ``tiles`` (and ``weights``); its state."""
+    import reservoir_tpu_torch as rtt
+
+    eng = rtt.ReservoirEngine(rtt.SamplerConfig(**kw), key=0, map_fn=map_fn, device="cpu")
+    for tile, w in zip(tiles, weights):
+        eng.sample(tile, weights=w)
+    return eng.state
+
+
+def collect_cpu_references() -> None:
+    """Run every queued CPU reference in child processes, a core or more
+    each, and hold each against its card state; fails on the first that
+    differs."""
+    import concurrent.futures
+    import multiprocessing
+
+    cores = os.cpu_count() or 2
+    workers = max(1, min(len(CPU_REFERENCES), cores - 2, 6))
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"),
+                                                initializer=_cpu_child_init,
+                                                initargs=(max(1, cores // workers),)) as pool:
+        futures = [(label, want, pool.submit(fn, *args)) for label, want, fn, args in CPU_REFERENCES]
+        for label, want, future in futures:
+            if not same(future.result(), want):
+                fail(f"{label}: the plain version on the CPU != the card on rows 0..{ROWS_CPU - 1}")
+            log(f"{label}: rows 0..{ROWS_CPU - 1} bit-identical (the plain version on the CPU, in a child "
+                "process after the timed phases)")
+    log(f"[CPU references] {len(futures)} runs in {workers} child processes after phase 48: "
+        f"{time.perf_counter() - t0:.1f} s")
+    CPU_REFERENCES.clear()
 
 
 def event_ms(fn, reps: int = REPS, setup=None, batch: int = 1) -> float:
@@ -849,13 +934,10 @@ def main() -> None:
         log(f"[4 fmath] kernel {name} == torch recipe on {x.numel()} inputs")
     del grid, ranges
 
-    # 5. card vs CPU
+    # 5. card vs CPU (queued: run after the timed phases)
     for case, state_c, fed, want in cpu_checks:
-        for tile, valid, fill in fed:
-            state_c = (plain.update if fill else plain.update_steady)(state_c, tile, valid)
-        if not same(state_c, want):
-            fail(f"CPU plain version != kernel on rows 0..{ROWS_CPU - 1} ({case})")
-        log(f"[5 card vs CPU] {case}: rows 0..{ROWS_CPU - 1} bit-identical")
+        check_on_cpu(f"[5 card vs CPU] {case}", want, cpu_replay, "reservoir_tpu_torch.ops.algorithm_l", state_c,
+                     [("update" if fill else "update_steady", (tile, valid)) for tile, valid, fill in fed])
     del cpu_checks
 
     # 6. the engine path
@@ -992,6 +1074,8 @@ def main() -> None:
     hooks, hook_extra, prehashed_entry = hook_phases(gen, dev, here)
     sharded, sharded_extra = sharded_phases(gen, dev, here)
     selftest, selftest_extra = selftest_phases(dev, here, sharded, serve)
+    geometry, geometry_extra = geometry_phase(dev, here)
+    collect_cpu_references()
 
     card = card_line()
     log(card)
@@ -1004,6 +1088,7 @@ def main() -> None:
     log(json.dumps({"hooks": hooks}))
     log(json.dumps({"sharded": sharded}))
     log(json.dumps({"selftest": selftest}))
+    log(json.dumps({"geometry": geometry}))
     entries = [{
         "name": "algl_update",
         "route": "cuda",
@@ -1034,6 +1119,7 @@ def main() -> None:
         entry.update(hook_extra.get(entry["name"], {}))
         entry.update(sharded_extra.get(entry["name"], {}))
         entry.update(selftest_extra.get(entry["name"], {}))
+        entry.update(geometry_extra.get(entry["name"], {}))
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
@@ -1130,13 +1216,10 @@ def weighted_phases(gen, dev) -> dict:
         cpu_checks.append((f"{dtype}", start_cpu, fed, clone(state, ROWS_CPU, "cpu")))
         del state
 
-    # 9. card vs CPU
+    # 9. card vs CPU (queued: run after the timed phases)
     for case, state_c, fed, want in cpu_checks:
-        for elems, weights, valid in fed:
-            state_c = wplain.update(state_c, elems, weights, valid)
-        if not same(state_c, want):
-            fail(f"CPU plain weighted version != kernel on rows 0..{ROWS_CPU - 1} ({case})")
-        log(f"[9 weighted card vs CPU] {case}: rows 0..{ROWS_CPU - 1} bit-identical")
+        check_on_cpu(f"[9 weighted card vs CPU] {case}", want, cpu_replay, "reservoir_tpu_torch.ops.weighted",
+                     state_c, [("update", args) for args in fed])
     del cpu_checks
 
     # 10. the weighted engine path: element row * N + pos with weight pos % 3
@@ -1480,13 +1563,10 @@ def distinct_phases(gen, dev) -> dict:
             "(fill, evict) bit-identical")
         del state, ref
 
-    # 13. card vs CPU
+    # 13. card vs CPU (queued: run after the timed phases)
     for case, state_c, fed, want in cpu_checks:
-        for tile, valid in fed:
-            state_c = dplain.update(state_c, tile, valid)
-        if not same(state_c, want):
-            fail(f"CPU plain distinct version != kernel on rows 0..{ROWS_CPU - 1} ({case})")
-        log(f"[13 distinct card vs CPU] {case}: rows 0..{ROWS_CPU - 1} bit-identical")
+        check_on_cpu(f"[13 distinct card vs CPU] {case}", want, cpu_replay, "reservoir_tpu_torch.ops.distinct",
+                     state_c, [("update", args) for args in fed])
     del cpu_checks
 
     # 14. the distinct engine path, 4-byte and 8-byte keys
@@ -4626,13 +4706,11 @@ def wide_kernel_phase(gen, dev) -> tuple:
             f"(hi = 0, equal to the int32 kernel), then lifted to {', '.join(map(str, WIDE_SHIFTS))} with "
             "imminent accepts, three steady tiles each (the last ragged): bit-identical to the plain version")
         del s, s32
+    # the plain version on the CPU, queued: run after the timed phases
     for case, state_c, fed, want in cpu_checks:
-        for tile, valid, fill in fed:
-            state_c = (plain.update if fill else plain.update_steady)(state_c, tile, valid)
-        if not same(state_c, want):
-            fail(f"[36 wide kernel] CPU plain version != the kernel on rows 0..{ROWS_CPU - 1} ({case})")
-    log(f"[36 wide kernel] the plain version on the CPU: rows 0..{ROWS_CPU - 1} of {len(cpu_checks)} runs "
-        "(each k's fill tiles, and each lifted run) bit-identical")
+        check_on_cpu(f"[36 wide kernel] card vs CPU, {case}", want, cpu_replay,
+                     "reservoir_tpu_torch.ops.algorithm_l", state_c,
+                     [("update" if fill else "update_steady", (tile, valid)) for tile, valid, fill in fed])
     return worst, checked
 
 
@@ -5217,12 +5295,10 @@ def map_phase(gen, dev, extra: dict) -> dict:
         if got != only(name, HOOK_TILES):
             fail(f"[39 map] {label}: launches {got} for {HOOK_TILES} tiles, not {HOOK_TILES} of {name} alone")
         extra.setdefault(name, {})["mapped_launches"] = got[name]
-        cpu = rtt.ReservoirEngine(rtt.SamplerConfig(**{**kw, "num_reservoirs": ROWS_CPU}), key=0, map_fn=fn,
-                                  device="cpu")
-        for tile, w in zip(tiles, weights):
-            cpu.sample(tile[:ROWS_CPU].cpu(), weights=None if w is None else w[:ROWS_CPU].cpu())
-        if not same(cpu.state, clone(eng.state, ROWS_CPU, "cpu")):
-            fail(f"[39 map] {label}: the card engine != device=\"cpu\" (map on accept) on rows 0..{ROWS_CPU - 1}")
+        # device="cpu" (map on accept) on rows 0..1023, queued: run after the timed phases
+        check_on_cpu(f"[39 map] {label}, card engine vs device=\"cpu\"", clone(eng.state, ROWS_CPU, "cpu"),
+                     cpu_map_engine, {**kw, "num_reservoirs": ROWS_CPU}, fn,
+                     [t[:ROWS_CPU].cpu() for t in tiles], [None if w is None else w[:ROWS_CPU].cpu() for w in weights])
         sizes = eng.peek_arrays()[1]
         case = {"launches": got[name], "min_size": int(sizes.min())}
         if name.startswith("algl"):
@@ -5257,13 +5333,14 @@ def map_phase(gen, dev, extra: dict) -> dict:
                                                              "default_kernel_ms")}
         out[label] = case
         log(f"[39 map] {card_line()} | {label}: {HOOK_TILES} tiles, {got[name]} {name} launches, sizes >= "
-            f"{case['min_size']}; rows 0..{ROWS_CPU - 1} == device=\"cpu\" (map on accept)"
+            f"{case['min_size']}; rows 0..{ROWS_CPU - 1} held against device=\"cpu\" (map on accept) after "
+            "phase 48"
             + (f"; map pass {case['map_ms']:.4f} ms (bound {case['map_bound_ms']:.4f} ms, bytes) beside the "
                f"steady kernel on the mapped tile {case['kernel_ms']:.4f} ms" if "map_bound_ms" in case else "")
             + (f"; map pass {case['map_ms']:.4f} ms, own-words hash pass {case['hash_pass_ms']:.4f} ms, the "
                f"pre-hashed kernel on the mapped keys {case['kernel_ms']:.4f} ms (the default kernel "
                f"{case['default_kernel_ms']:.4f} ms)" if "hash_pass_ms" in case else ""))
-        del eng, cpu, tiles, weights
+        del eng, tiles, weights
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -6203,6 +6280,169 @@ def load_phase(dev, serve: dict, reference) -> dict:
         f"ms p99 {1e3 * ingest_p[1]:.4f} ms; SLO {verdicts}; {launches} algl_update launches; the short "
         f"schedule under the injected clock: counts, counters and state == device=\"cpu\"")
     return rec
+
+
+
+
+# phase 48: the sweep's jobs, (kernel, shape, variants); the gate's three
+# pairs are (gate_tile, gate_push_chunk)
+GEOMETRY_JOBS = (
+    ("algl", (R, K, B), None),
+    ("algl", (2048, 32, 256), None),
+    ("weighted", (WR, WK, WB), None),
+    ("distinct", (DR, DK, DB), None),
+    ("gate", (64, 16, 4096), ((64, 1 << 20), (128, 1 << 20), (64, 1 << 18))),
+)
+GEOMETRY_TIMEOUT_S = 240
+GEOMETRY_NAMES = {"algl": "algl_update", "weighted": "weighted_update", "distinct": "distinct_update"}
+
+
+def geometry_phase(dev, here: str) -> tuple:
+    """Phase 48: the launch-geometry sweep into a temporary autotune cache,
+    every variant's state held bit for bit against the default geometry's
+    (in the sweep's child), the cache holding a variant only where it beat
+    the default past its spread; then engines at config 5 and the serve
+    shape that read a non-default entry (the fastest non-default variant,
+    written into a second temporary cache, so that every run sends the
+    engine through an ``algl_update_rows`` instantiation), their rows
+    0..1023 against ``device="cpu"``.  Returns the ``geometry`` line and the
+    additions to the kernels' entries (by name)."""
+    from statistics import median
+
+    import reservoir_tpu_torch as rtt
+    from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
+    from reservoir_tpu_torch.ops import autotune, blocking
+    from reservoir_tpu_torch.tools import block_sweep
+
+    work = os.path.join(here, "build", "chip_smoke")  # gitignored
+    os.makedirs(work, exist_ok=True)
+    cache = os.path.join(work, "autotune.json")  # the sweep's
+    engine_cache = os.path.join(work, "autotune_engine.json")  # the engines'
+    out = os.path.join(work, "block_sweep.jsonl")
+    for path in (cache, engine_cache, out):
+        if os.path.exists(path):
+            os.unlink(path)
+    prev = os.environ.get("RESERVOIR_ALGL_AUTOTUNE_CACHE")
+    os.environ["RESERVOIR_ALGL_AUTOTUNE_CACHE"] = engine_cache
+    kind = torch.cuda.get_device_name(0)
+    try:
+        jobs = [{"kernel": kn, "shape": list(shape),
+                 "variants": [list(v) for v in (variants or block_sweep.default_variants(kn))]}
+                for kn, shape, variants in GEOMETRY_JOBS]
+        t0 = time.perf_counter()
+        try:
+            records = block_sweep.sweep(jobs, cache, timeout=GEOMETRY_TIMEOUT_S, out=out)
+        except (RuntimeError, subprocess.TimeoutExpired) as e:
+            fail(f"[48 geometry] the sweep failed: {e}")
+        sweep_s = time.perf_counter() - t0
+        card = card_line()
+        line, extra = {"card": card, "sweep_seconds": sweep_s, "turns": block_sweep.TURNS, "jobs": []}, {}
+        for job in jobs:
+            kn, (jr, jk, jb) = job["kernel"], job["shape"]
+            recs = [r for r in records if r["kernel"] == kn and (r["R"], r["k"], r["B"]) == (jr, jk, jb)]
+            if len(recs) != len(job["variants"]):
+                fail(f"[48 geometry] {kn} at R={jr}, k={jk}, B={jb}: {len(recs)} records for "
+                     f"{len(job['variants'])} variants")
+            bad = [r for r in recs if not r["same_bits"]]
+            if bad:
+                fail(f"[48 geometry] {kn} at R={jr}, k={jk}, B={jb}: a variant's state differs from the "
+                     f"default geometry's: {bad}")
+            recorded = [r for r in recs if r["cached"]]
+            if len(recorded) != (1 if any(r["beats_default"] for r in recs) else 0):
+                fail(f"[48 geometry] {kn} at R={jr}: {len(recorded)} entries recorded for "
+                     f"{sum(r['beats_default'] for r in recs)} variants past the default's spread")
+            got = autotune.lookup(kind, jr, jk, jb, "int32", path=cache, kernel=kn)
+            if kn == "gate":
+                for r in recs:
+                    log(f"[48 geometry] {card} | gate at R={jr}, k={jk}, B={jb}, gate_tile {r['gate_tile']}, "
+                        f"gate_push_chunk {r['gate_push_chunk']}{' (default)' if r['default'] else ''}: "
+                        f"{r['elem_per_sec']:.6e} elem/s host-fed at best (passes "
+                        f"{', '.join(f'{x:.4f}' for x in r['s'])} s, in turns), bits equal the default's"
+                        + ("; beats the default past its spread" if r["beats_default"] else ""))
+                fastest = min(recs, key=lambda r: median(r["s"]))
+                won = [[r["gate_tile"], r["gate_push_chunk"]] for r in recorded]
+                held = None if got is None else [got.gate_tile, got.gate_push_chunk]
+                entry = {"shape": [jr, jk, jb], "variants": recs,
+                         "fastest": [fastest["gate_tile"], fastest["gate_push_chunk"]],
+                         "recorded": won[0] if won else None}
+            else:
+                default = blocking.DEFAULT_BLOCK[kn]
+                for r in recs:
+                    log(f"[48 geometry] {card} | {GEOMETRY_NAMES[kn]} at R={jr}, k={jk}, B={jb}, "
+                        f"{r['block_r']} rows a block{' (default)' if r['default'] else ''}: bare launch "
+                        f"{', '.join(f'{x:.4f}' for x in r['ms'])} ms (in turns), {r['elem_per_sec']:.6e} "
+                        "elem/s at best, bits equal the default's"
+                        + ("; beats the default past its spread" if r["beats_default"] else ""))
+                fastest = min(recs, key=lambda r: median(r["ms"]))
+                won = [r["block_r"] for r in recorded]
+                held = None if got is None else got.block_r
+                entry = {"shape": [jr, jk, jb], "variants": recs, "default": default,
+                         "fastest": fastest["block_r"], "recorded": won[0] if won else None,
+                         "fastest_other": min((r for r in recs if not r["default"]),
+                                              key=lambda r: median(r["ms"]))["block_r"]}
+                rows = extra.setdefault(GEOMETRY_NAMES[kn], {}).setdefault("rows_a_block", {})
+                rows[f"R={jr},k={jk},B={jb}"] = {
+                    "default": default, "fastest": entry["fastest"], "recorded": entry["recorded"],
+                    "ms": {str(r["block_r"]): median(r["ms"]) for r in recs}}
+            if held != entry["recorded"]:
+                fail(f"[48 geometry] the cache holds {got} for {kn} at R={jr}, not the recorded "
+                     f"{entry['recorded']}")
+            log(f"[48 geometry] {kn} at R={jr}, k={jk}, B={jb}: fastest (median turn) {entry['fastest']}, "
+                f"recorded {entry['recorded'] if entry['recorded'] is not None else 'nothing (the default holds)'}")
+            line["jobs"].append(entry)
+
+        # engines that read a non-default entry (the fastest non-default
+        # variant) at config 5 and the serve shape, each against
+        # device="cpu" on rows 0..1023
+        gen = torch.Generator(device=dev)
+        line["engines"] = []
+        for job, (er, ek, eb) in ((line["jobs"][0], (R, K, B)), (line["jobs"][1], (2048, 32, 256))):
+            forced = job["fastest_other"]
+            autotune.record(kind, er, ek, eb, "int32", autotune.Geometry(forced, 0, 0), path=engine_cache,
+                            source="chip_smoke phase 48", kernel="algl")
+            want_rows = blocking.resolve_block_r("algl", forced, er)
+            if want_rows is None:
+                fail(f"[48 geometry] the entry {forced} at R={er} resolves to the default launch")
+            gen.manual_seed(480 + er)
+            tiles = [random_tile(gen, eb, torch.int32, dev)[:er] for _ in range(3)]
+            cfg = rtt.SamplerConfig(max_sample_size=ek, num_reservoirs=er, tile_size=eb)
+            kern.launches = 0
+            engine = rtt.ReservoirEngine(cfg, key=48, reusable=True)
+            for tile in tiles:
+                engine.sample(tile)
+            torch.cuda.synchronize()
+            launches = kern.launches
+            key = ("algl", eb, "int32")
+            if engine._rows_by_key.get(key, "missing") != want_rows or launches != len(tiles):
+                fail(f"[48 geometry] the engine at R={er} took {engine._rows_by_key} rows a block and {launches} "
+                     f"launches, not the entry's {want_rows} for {len(tiles)} tiles")
+            rows = min(er, ROWS_CPU)
+            cpu = rtt.ReservoirEngine(rtt.SamplerConfig(max_sample_size=ek, num_reservoirs=rows, tile_size=eb),
+                                      key=48, reusable=True, device="cpu")
+            for tile in tiles:
+                cpu.sample(tile[:rows].cpu())
+            got, want = engine.peek_arrays(), cpu.peek_arrays()
+            if not all(np.array_equal(g[:rows], w) for g, w in zip(got, want)):
+                fail(f"[48 geometry] the engine at R={er} at {want_rows} rows a block != device='cpu' on rows "
+                     f"0..{rows - 1}")
+            geometry_by_key = {"|".join(map(str, k)): (None if g is None else g._asdict())
+                               for k, g in engine._geometry_by_key.items()}
+            log(f"[48 geometry] engine at R={er}, k={ek}, B={eb} reading the entry {forced} (the fastest "
+                f"non-default variant): _geometry_by_key {json.dumps(geometry_by_key)}, {want_rows} rows a "
+                f"block, {launches} algl_update_rows launches for {len(tiles)} tiles, rows 0..{rows - 1} equal "
+                "to device='cpu'")
+            line["engines"].append({"shape": [er, ek, eb], "geometry_by_key": geometry_by_key,
+                                    "launches": launches, "rows_a_block": want_rows})
+            del engine, cpu, tiles
+    finally:
+        if prev is None:
+            os.environ.pop("RESERVOIR_ALGL_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["RESERVOIR_ALGL_AUTOTUNE_CACHE"] = prev
+        for path in (cache, engine_cache, out):
+            if os.path.exists(path):
+                os.unlink(path)
+    return line, extra
 
 
 if __name__ == "__main__":

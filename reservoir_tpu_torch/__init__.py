@@ -51,32 +51,51 @@ of several shards of one stream into one exact sample:
   and migrates them through ``export_rows`` / ``adopt_rows``.
 
 The package imports torch and numpy, never jax and nothing of
-``reservoir_tpu``.  Its entry points run on the card (``device=None`` means
-``"cuda"``); ``device="cpu"`` runs the plain version.  The host samplers
+``reservoir_tpu``.  Importing the package itself imports neither torch nor
+numpy: its engine, bridge and host API load when first asked for, as the
+JAX package's do, so its stdlib-only lint
+(:mod:`reservoir_tpu_torch.analysis`) runs in a bare interpreter.  Its
+entry points run on the card (``device=None`` means ``"cuda"``);
+``device="cpu"`` runs the plain version.  The host samplers
 (:func:`sampler`, :func:`distinct`, ``Sample(k)``) are host samplers, the
 semantic baseline, on the CPU by design.
 """
 
-from .config import MAX_SIZE, SamplerConfig
-from .engine import ReservoirEngine
+from .config import DEFAULT_INITIAL_SIZE, MAX_SIZE, SamplerConfig
 from .errors import (
     AbruptStreamTermination,
     CheckpointCorrupt,
     CheckpointMismatch,
+    FencedError,
+    FlushTimeout,
+    RetryPolicy,
     SamplerClosedError,
+    ServiceSaturated,
+    SessionIngestError,
+    StaleSessionError,
+    StreamCancelled,
+    TransientDeviceError,
+    UnknownSessionError,
 )
-from .stream import DeviceSampler, DeviceStreamBridge, Sample
 
 __version__ = "0.1.0"
 
 
 def __getattr__(name):
-    # the host API is loaded when first asked for, as the JAX package does
+    # loaded when first asked for, as the JAX package does: importing the
+    # package pulls in neither torch nor numpy
     if name in ("sampler", "distinct", "Sampler"):
         from . import api
 
         return getattr(api, name)
-    # so is the serving plane
+    if name == "ReservoirEngine":
+        from .engine import ReservoirEngine
+
+        return ReservoirEngine
+    if name in ("Sample", "DeviceStreamBridge", "DeviceSampler"):
+        from . import stream
+
+        return getattr(stream, name)
     if name in (
         "ReservoirService",
         "SessionTable",
@@ -93,6 +112,7 @@ def __getattr__(name):
 
 
 __all__ = [
+    "DEFAULT_INITIAL_SIZE",
     "MAX_SIZE",
     "AbruptStreamTermination",
     "CheckpointCorrupt",
@@ -100,17 +120,26 @@ __all__ = [
     "DeviceSampler",
     "DeviceStreamBridge",
     "FailoverController",
+    "FencedError",
+    "FlushTimeout",
     "HeartbeatWriter",
     "JournalFollower",
     "ReservoirEngine",
     "ReservoirService",
+    "RetryPolicy",
     "Sample",
     "Sampler",
     "SamplerClosedError",
     "SamplerConfig",
+    "ServiceSaturated",
     "Session",
+    "SessionIngestError",
     "SessionTable",
+    "StaleSessionError",
     "StandbyReplica",
+    "StreamCancelled",
+    "TransientDeviceError",
+    "UnknownSessionError",
     "distinct",
     "sampler",
 ]

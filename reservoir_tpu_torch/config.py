@@ -15,6 +15,7 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 __all__ = [
+    "DEFAULT_INITIAL_SIZE",
     "MAX_SIZE",
     "SamplerConfig",
     "validate_distinct_params",
@@ -27,6 +28,11 @@ __all__ = [
 
 #: Maximum sample size (``Int.MaxValue - 2``, the reference's ``MaxSize``).
 MAX_SIZE: int = 2**31 - 3
+
+#: Initial capacity of a growable reservoir that is not pre-allocated (the
+#: reference's ``Sampler.scala:72``); the engine's reservoirs are always
+#: ``k`` wide.
+DEFAULT_INITIAL_SIZE: int = 16
 
 
 def validate_max_sample_size(max_sample_size: Any) -> int:

@@ -80,6 +80,16 @@
 // difference.  Bound: as the int32 kernel's, with 8-byte count and nxt
 // (R*44 bytes of state); a zero high word walks the int32 chain bit for bit.
 //
+// Launch geometry.  Rows a block (threads, one a row) is a launch choice
+// from {32, 64, 128, 256}, each a template instantiation with its own
+// __launch_bounds__ (a thread's ring takes 128 bytes of static shared
+// memory: 32 KiB at 256 threads, under the 48 KiB static limit).  The
+// default, kThreads = 128, is what algl_update, algl_update_wide and
+// algl_update_gated launch; the *_rows entry points take another from the
+// autotune cache (ops/autotune.py).  A row's result does
+// not depend on the block it runs in: the fill copy goes by whole warps,
+// and the gated kernel only reorders the rows of a block among its warps.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // (see reservoir_tpu_torch/_build.py).  Plain C interface for ctypes.
 
@@ -189,8 +199,8 @@ __device__ __forceinline__ void fill_rows(uint32_t* __restrict__ samples,
 template <bool kWide>
 using Counter = typename std::conditional<kWide, uint64_t, int32_t>::type;
 
-template <bool kWide>
-__global__ void __launch_bounds__(kThreads)
+template <bool kWide, int kT>
+__global__ void __launch_bounds__(kT)
 update_kernel(uint32_t* __restrict__ samples, Counter<kWide>* __restrict__ count,
               Counter<kWide>* __restrict__ nxt, float* __restrict__ log_w,
               const uint32_t* __restrict__ key, const uint32_t* __restrict__ batch,
@@ -200,11 +210,11 @@ update_kernel(uint32_t* __restrict__ samples, Counter<kWide>* __restrict__ count
   // the thread's recorded accepts: the gathered element (copied in by
   // cp.async while the chain goes on) and the slot, entry d of thread t at
   // [d][t], so a warp's lanes touch 32 banks whatever their d
-  __shared__ uint32_t lelem[kList][kThreads];
-  __shared__ int32_t lslot[kList][kThreads];
+  __shared__ uint32_t lelem[kList][kT];
+  __shared__ int32_t lslot[kList][kT];
   const int t = threadIdx.x;
   const int lane = t & 31;
-  const int r = blockIdx.x * kThreads + t;
+  const int r = blockIdx.x * kT + t;
   const bool live = r < R;  // rows past R ride along, whole warps only
   C c = 0, n = 1;
   int32_t v = 0;
@@ -331,16 +341,17 @@ update_kernel(uint32_t* __restrict__ samples, Counter<kWide>* __restrict__ count
 //   accepts a row) stayed within its noise (PERF.md, Findings).  Staging
 //   the rows' samples in shared memory does not fit: 512 bytes a row at
 //   k = 128 for ~16 resident warps an SM is more than an SM holds.
-__global__ void __launch_bounds__(kThreads)
+template <int kT>
+__global__ void __launch_bounds__(kT)
 gated_kernel(uint32_t* __restrict__ samples, int32_t* __restrict__ count,
              int32_t* __restrict__ nxt, float* __restrict__ log_w,
              const uint32_t* __restrict__ key, const uint32_t* __restrict__ tile,
              const int32_t* __restrict__ nvalid, const int32_t* __restrict__ steps, int R,
              int k, int Bg, uint64_t kmod) {
-  __shared__ int32_t accepts[kThreads];
-  __shared__ int32_t order[kThreads];
+  __shared__ int32_t accepts[kT];
+  __shared__ int32_t order[kT];
   const int t = threadIdx.x;
-  const int r0 = blockIdx.x * kThreads;
+  const int r0 = blockIdx.x * kT;
   // clip(k - count, 0, advance), k - count wrapping in int32 as XLA's does
   auto fill_of = [k](int32_t c, int32_t adv) {
     int32_t f = static_cast<int32_t>(static_cast<uint32_t>(k) - static_cast<uint32_t>(c));
@@ -356,7 +367,7 @@ gated_kernel(uint32_t* __restrict__ samples, int32_t* __restrict__ count,
     accepts[t] = mine;
     __syncthreads();
     int rank = 0;
-    for (int j = 0; j < kThreads; ++j) {
+    for (int j = 0; j < kT; ++j) {
       const int32_t other = accepts[j];
       rank += other > mine || (other == mine && j < t);
     }
@@ -405,34 +416,74 @@ __global__ void fmath_kernel(const float* __restrict__ x, float* __restrict__ y,
 
 namespace algl {
 
-// One tile update of either counter width, in place.
+// Calls f with the instantiation's block size as a compile-time constant:
+// f(std::integral_constant<int, T>{}) for threads T in {32, 64, 128, 256};
+// any other count is cudaErrorInvalidValue.
+template <typename F>
+int with_threads(int threads, F&& f) {
+  switch (threads) {
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// One tile update of either counter width, in place, threads rows a block.
 template <bool kWide>
 int launch_update(uint32_t* samples, Counter<kWide>* count, Counter<kWide>* nxt, float* log_w,
                   const uint32_t* key, const uint32_t* batch, const int32_t* valid, int R, int k,
-                  int B, int fill, cudaStream_t stream) {
+                  int B, int fill, int threads, cudaStream_t stream) {
   if (R <= 0 || B <= 0) return static_cast<int>(cudaSuccess);  // an empty tile changes nothing
   if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (R + kThreads - 1) / kThreads;
   auto aligned = [](const void* p, uintptr_t n) { return (reinterpret_cast<uintptr_t>(p) & (n - 1)) == 0; };
   if (kWide && !(aligned(count, 8) && aligned(nxt, 8))) return static_cast<int>(cudaErrorMisalignedAddress);
   const int vec = B % 4 == 0 && k % 4 == 0 && aligned(samples, 16) && aligned(batch, 16);
   const uint64_t kmod = fastmod_multiplier(static_cast<uint32_t>(k));
-  update_kernel<kWide><<<blocks, kThreads, 0, stream>>>(samples, count, nxt, log_w, key, batch,
-                                                         valid, R, k, B, fill, vec, kmod);
-  return static_cast<int>(cudaGetLastError());
+  return with_threads(threads, [&](auto t) {
+    constexpr int kT = decltype(t)::value;
+    update_kernel<kWide, kT><<<(R + kT - 1) / kT, kT, 0, stream>>>(
+        samples, count, nxt, log_w, key, batch, valid, R, k, B, fill, vec, kmod);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// One gated update, in place, threads rows a block.
+int launch_gated(uint32_t* samples, int32_t* count, int32_t* nxt, float* log_w,
+                 const uint32_t* key, const uint32_t* tile, const int32_t* nvalid,
+                 const int32_t* advance, int R, int k, int Bg, int threads, cudaStream_t stream) {
+  if (R <= 0) return static_cast<int>(cudaSuccess);
+  if (k < 1 || Bg < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const uint64_t kmod = fastmod_multiplier(static_cast<uint32_t>(k));
+  return with_threads(threads, [&](auto t) {
+    constexpr int kT = decltype(t)::value;
+    gated_kernel<kT><<<(R + kT - 1) / kT, kT, 0, stream>>>(samples, count, nxt, log_w, key, tile,
+                                                           nvalid, advance, R, k, Bg, kmod);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace algl
 
 extern "C" {
 
-// One tile update, in place.  valid may be null (every row takes B).
-// Returns cudaGetLastError() after the launch.
+// One tile update, in place, at the default geometry (kThreads rows a
+// block).  valid may be null (every row takes B).  Returns
+// cudaGetLastError() after the launch.
 int algl_update(uint32_t* samples, int32_t* count, int32_t* nxt, float* log_w,
                 const uint32_t* key, const uint32_t* batch, const int32_t* valid, int R,
                 int k, int B, int fill, cudaStream_t stream) {
   return algl::launch_update<false>(samples, count, nxt, log_w, key, batch, valid, R, k, B, fill,
-                                    stream);
+                                    algl::kThreads, stream);
+}
+
+// algl_update at threads rows a block (32, 64, 128 or 256).
+int algl_update_rows(uint32_t* samples, int32_t* count, int32_t* nxt, float* log_w,
+                     const uint32_t* key, const uint32_t* batch, const int32_t* valid, int R,
+                     int k, int B, int fill, int threads, cudaStream_t stream) {
+  return algl::launch_update<false>(samples, count, nxt, log_w, key, batch, valid, R, k, B, fill,
+                                    threads, stream);
 }
 
 // algl_update for WIDE counters: count and nxt are [R] uint64 (the [R, 2]
@@ -441,7 +492,15 @@ int algl_update_wide(uint32_t* samples, uint64_t* count, uint64_t* nxt, float* l
                      const uint32_t* key, const uint32_t* batch, const int32_t* valid, int R,
                      int k, int B, int fill, cudaStream_t stream) {
   return algl::launch_update<true>(samples, count, nxt, log_w, key, batch, valid, R, k, B, fill,
-                                   stream);
+                                   algl::kThreads, stream);
+}
+
+// algl_update_wide at threads rows a block.
+int algl_update_wide_rows(uint32_t* samples, uint64_t* count, uint64_t* nxt, float* log_w,
+                          const uint32_t* key, const uint32_t* batch, const int32_t* valid, int R,
+                          int k, int B, int fill, int threads, cudaStream_t stream) {
+  return algl::launch_update<true>(samples, count, nxt, log_w, key, batch, valid, R, k, B, fill,
+                                   threads, stream);
 }
 
 // One gated update, in place: tile is [R, Bg], nvalid and advance [R]
@@ -450,13 +509,17 @@ int algl_update_wide(uint32_t* samples, uint64_t* count, uint64_t* nxt, float* l
 int algl_update_gated(uint32_t* samples, int32_t* count, int32_t* nxt, float* log_w,
                       const uint32_t* key, const uint32_t* tile, const int32_t* nvalid,
                       const int32_t* advance, int R, int k, int Bg, cudaStream_t stream) {
-  if (R <= 0) return static_cast<int>(cudaSuccess);
-  if (k < 1 || Bg < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (R + algl::kThreads - 1) / algl::kThreads;
-  algl::gated_kernel<<<blocks, algl::kThreads, 0, stream>>>(
-      samples, count, nxt, log_w, key, tile, nvalid, advance, R, k, Bg,
-      algl::fastmod_multiplier(static_cast<uint32_t>(k)));
-  return static_cast<int>(cudaGetLastError());
+  return algl::launch_gated(samples, count, nxt, log_w, key, tile, nvalid, advance, R, k, Bg,
+                            algl::kThreads, stream);
+}
+
+// algl_update_gated at threads rows a block.
+int algl_update_gated_rows(uint32_t* samples, int32_t* count, int32_t* nxt, float* log_w,
+                           const uint32_t* key, const uint32_t* tile, const int32_t* nvalid,
+                           const int32_t* advance, int R, int k, int Bg, int threads,
+                           cudaStream_t stream) {
+  return algl::launch_gated(samples, count, nxt, log_w, key, tile, nvalid, advance, R, k, Bg,
+                            threads, stream);
 }
 
 // The kernel's log (which = 0), exp (1) or log1p (2) over n floats, for
@@ -471,17 +534,28 @@ int algl_fmath(const float* x, float* y, int n, int which, cudaStream_t stream) 
 // The build's registers, spills, shared memory and resident warps an SM of
 // the update kernel (kinfo::query's five numbers in out).
 int algl_kernel_info(int* out) {
-  return kinfo::query(algl::update_kernel<false>, algl::kThreads, 0, out);
+  return kinfo::query(algl::update_kernel<false, algl::kThreads>, algl::kThreads, 0, out);
 }
 
 // kinfo::query's five numbers of the WIDE update kernel.
 int algl_wide_kernel_info(int* out) {
-  return kinfo::query(algl::update_kernel<true>, algl::kThreads, 0, out);
+  return kinfo::query(algl::update_kernel<true, algl::kThreads>, algl::kThreads, 0, out);
 }
 
 // kinfo::query's five numbers of the gated kernel.
 int algl_gated_kernel_info(int* out) {
-  return kinfo::query(algl::gated_kernel, algl::kThreads, 0, out);
+  return kinfo::query(algl::gated_kernel<algl::kThreads>, algl::kThreads, 0, out);
+}
+
+// kinfo::query's five numbers of the instantiation at threads rows a block:
+// which = 0 the update kernel, 1 its WIDE instantiation, 2 the gated one.
+int algl_rows_kernel_info(int which, int threads, int* out) {
+  return algl::with_threads(threads, [&](auto t) {
+    constexpr int kT = decltype(t)::value;
+    if (which == 0) return kinfo::query(algl::update_kernel<false, kT>, kT, 0, out);
+    if (which == 1) return kinfo::query(algl::update_kernel<true, kT>, kT, 0, out);
+    return kinfo::query(algl::gated_kernel<kT>, kT, 0, out);
+  });
 }
 
 const char* algl_error_string(int code) {

@@ -75,6 +75,15 @@
 //   rounds' __syncwarp orders those global reads and writes as it orders
 //   the shared ones, and nothing is copied in or written back.
 //
+// Launch geometry.  Rows a block (warps, one a row) is a launch choice from
+// 1 to kMaxWarps; the kernel reads it from blockDim, so one instantiation
+// runs them all.  shape_for is the one place that decides a launch's
+// placement: as many warps as asked for (kMaxWarps for distinct_update and
+// distinct_update_hashed, another for distinct_update_rows, from the
+// autotune cache: ops/autotune.py) whose row blocks fit on chip, or all
+// of them in global memory where one row's block does not fit.  A warp's
+// row does not depend on the block it runs in.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // (see reservoir_tpu_torch/_build.py).  Plain C interface for ctypes.
 
@@ -515,25 +524,26 @@ __host__ inline size_t warp_bytes(bool wide, int k) {
   return (static_cast<size_t>(k) * (wide ? 16 : 12) + 15) / 16 * 16;
 }
 
-__host__ inline int warps_for(bool wide, int k) {
+__host__ inline int warps_for(bool wide, int k, int cap = kMaxWarps) {
   const size_t room = static_cast<size_t>(kMaxSmem) - kStaticSmem;
   const size_t per_warp = warp_bytes(wide, k);
   if (per_warp > room) return 0;
   const int warps = static_cast<int>(room / per_warp);
-  return warps < kMaxWarps ? warps : kMaxWarps;
+  return warps < cap ? warps : cap;
 }
 
-// The launch shape at k: warps a block, dynamic shared memory a block, and
-// whether the row's block is kept on chip.
+// The launch shape at k for at most cap warps a block: warps a block,
+// dynamic shared memory a block, and whether the row's block is kept on
+// chip.
 struct Shape {
   int warps;
   size_t smem;
   bool on_chip;
 };
 
-__host__ inline Shape shape_for(bool wide, int k) {
-  const int warps = warps_for(wide, k);
-  if (warps == 0) return {kMaxWarps, 0, false};
+__host__ inline Shape shape_for(bool wide, int k, int cap = kMaxWarps) {
+  const int warps = warps_for(wide, k, cap);
+  if (warps == 0) return {cap, 0, false};
   return {warps, warps * warp_bytes(wide, k), true};
 }
 
@@ -561,11 +571,11 @@ int launch(const Shape& sh, uint32_t* values, uint32_t* value_hi, uint32_t* hash
 }
 
 template <bool WIDE, bool PRE>
-int launch_at(uint32_t* values, uint32_t* value_hi, uint32_t* hash_hi, uint32_t* hash_lo,
-              int32_t* size, int32_t* count, const uint32_t* salts, const uint32_t* tile_lo,
-              const uint32_t* tile_hi, int stride, const uint32_t* pre_hi, const uint32_t* pre_lo,
-              const int32_t* valid, int R, int k, int B, cudaStream_t stream) {
-  const Shape sh = shape_for(WIDE, k);
+int launch_at(const Shape& sh, uint32_t* values, uint32_t* value_hi, uint32_t* hash_hi,
+              uint32_t* hash_lo, int32_t* size, int32_t* count, const uint32_t* salts,
+              const uint32_t* tile_lo, const uint32_t* tile_hi, int stride,
+              const uint32_t* pre_hi, const uint32_t* pre_lo, const int32_t* valid, int R, int k,
+              int B, cudaStream_t stream) {
   return sh.on_chip
              ? launch<WIDE, true, PRE>(sh, values, value_hi, hash_hi, hash_lo, size, count, salts,
                                        tile_lo, tile_hi, stride, pre_hi, pre_lo, valid, R, k, B,
@@ -576,8 +586,7 @@ int launch_at(uint32_t* values, uint32_t* value_hi, uint32_t* hash_hi, uint32_t*
 }
 
 template <bool PRE>
-int info(bool wide, int k, int* out) {
-  const Shape sh = shape_for(wide, k);
+int info(const Shape& sh, bool wide, int* out) {
   const int threads = sh.warps * 32;
   if (wide)
     return sh.on_chip ? kinfo::query(update_kernel<true, true, PRE>, threads, sh.smem, out)
@@ -586,39 +595,63 @@ int info(bool wide, int k, int* out) {
                     : kinfo::query(update_kernel<false, false, PRE>, threads, 0, out);
 }
 
+// The merge at launch shape sh, default or pre-hashed by pre_hi/pre_lo.
+int launch_shape(const Shape& sh, uint32_t* values, uint32_t* value_hi, uint32_t* hash_hi,
+                 uint32_t* hash_lo, int32_t* size, int32_t* count, const uint32_t* salts,
+                 const uint32_t* tile_lo, const uint32_t* tile_hi, int stride,
+                 const uint32_t* pre_hi, const uint32_t* pre_lo, const int32_t* valid, int R,
+                 int k, int B, cudaStream_t stream) {
+  if (R <= 0) return static_cast<int>(cudaSuccess);
+  if ((pre_hi == nullptr) != (pre_lo == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = value_hi != nullptr;
+  if (pre_hi != nullptr)
+    return wide ? launch_at<true, true>(sh, values, value_hi, hash_hi, hash_lo, size, count, salts,
+                                        tile_lo, tile_hi, stride, pre_hi, pre_lo, valid, R, k, B,
+                                        stream)
+                : launch_at<false, true>(sh, values, value_hi, hash_hi, hash_lo, size, count,
+                                         salts, tile_lo, tile_hi, stride, pre_hi, pre_lo, valid, R,
+                                         k, B, stream);
+  return wide ? launch_at<true, false>(sh, values, value_hi, hash_hi, hash_lo, size, count, salts,
+                                       tile_lo, tile_hi, stride, nullptr, nullptr, valid, R, k, B,
+                                       stream)
+              : launch_at<false, false>(sh, values, value_hi, hash_hi, hash_lo, size, count, salts,
+                                        tile_lo, tile_hi, stride, nullptr, nullptr, valid, R, k, B,
+                                        stream);
+}
+
 }  // namespace dst
 
 extern "C" {
 
-// One distinct tile merge, in place.  value_hi and tile_hi are null for
-// narrow keys.  Lane p of row r is word (r * B + p) * stride of tile_lo (and
-// tile_hi); stride 2 is an int64 tile read in place (tile_hi = tile_lo + 1).
-// pre_hi and pre_lo, both null or both not, are the [R, B] pre-scramble
-// hash planes of the pre-hashed instantiation (lane p of row r is word
-// r * B + p); null hashes the keys' own words.  valid may be null (every
-// row takes B).  Returns cudaGetLastError() after the launch.
+// One distinct tile merge, in place, at the default geometry (warps_for(k)
+// rows a block).  value_hi and tile_hi are null for narrow keys.  Lane p
+// of row r is word (r * B + p) * stride of tile_lo (and tile_hi); stride 2
+// is an int64 tile read in place (tile_hi = tile_lo + 1).  pre_hi and
+// pre_lo, both null or both not, are the [R, B] pre-scramble hash planes
+// of the pre-hashed instantiation (lane p of row r is word r * B + p);
+// null hashes the keys' own words.  valid may be null (every row takes B).
+// Returns cudaGetLastError() after the launch.
 int distinct_update_hashed(uint32_t* values, uint32_t* value_hi, uint32_t* hash_hi,
                            uint32_t* hash_lo, int32_t* size, int32_t* count,
                            const uint32_t* salts, const uint32_t* tile_lo,
                            const uint32_t* tile_hi, int stride, const uint32_t* pre_hi,
                            const uint32_t* pre_lo, const int32_t* valid, int R, int k, int B,
                            cudaStream_t stream) {
-  if (R <= 0) return static_cast<int>(cudaSuccess);
-  if ((pre_hi == nullptr) != (pre_lo == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  const bool wide = value_hi != nullptr;
-  if (pre_hi != nullptr)
-    return wide ? dst::launch_at<true, true>(values, value_hi, hash_hi, hash_lo, size, count,
-                                            salts, tile_lo, tile_hi, stride, pre_hi, pre_lo,
-                                            valid, R, k, B, stream)
-                : dst::launch_at<false, true>(values, value_hi, hash_hi, hash_lo, size, count,
-                                             salts, tile_lo, tile_hi, stride, pre_hi, pre_lo,
-                                             valid, R, k, B, stream);
-  return wide ? dst::launch_at<true, false>(values, value_hi, hash_hi, hash_lo, size, count,
-                                           salts, tile_lo, tile_hi, stride, nullptr, nullptr,
-                                           valid, R, k, B, stream)
-              : dst::launch_at<false, false>(values, value_hi, hash_hi, hash_lo, size, count,
-                                            salts, tile_lo, tile_hi, stride, nullptr, nullptr,
-                                            valid, R, k, B, stream);
+  return dst::launch_shape(dst::shape_for(value_hi != nullptr, k), values, value_hi, hash_hi,
+                           hash_lo, size, count, salts, tile_lo, tile_hi, stride, pre_hi, pre_lo,
+                           valid, R, k, B, stream);
+}
+
+// distinct_update_hashed at up to warps rows a block (1 to 4; shape_for).
+int distinct_update_rows(uint32_t* values, uint32_t* value_hi, uint32_t* hash_hi,
+                         uint32_t* hash_lo, int32_t* size, int32_t* count, const uint32_t* salts,
+                         const uint32_t* tile_lo, const uint32_t* tile_hi, int stride,
+                         const uint32_t* pre_hi, const uint32_t* pre_lo, const int32_t* valid,
+                         int R, int k, int B, int warps, cudaStream_t stream) {
+  if (warps < 1 || warps > dst::kMaxWarps) return static_cast<int>(cudaErrorInvalidValue);
+  return dst::launch_shape(dst::shape_for(value_hi != nullptr, k, warps), values, value_hi,
+                           hash_hi, hash_lo, size, count, salts, tile_lo, tile_hi, stride, pre_hi,
+                           pre_lo, valid, R, k, B, stream);
 }
 
 // distinct_update_hashed with the keys' own words hashed (the entry point
@@ -635,11 +668,21 @@ int distinct_update(uint32_t* values, uint32_t* value_hi, uint32_t* hash_hi, uin
 // The build's registers, spills, shared memory and resident warps an SM of
 // the kernel a launch at k runs (kinfo::query's five numbers in out); its
 // dynamic shared memory is 0 where the row's block stays in global memory.
-int distinct_kernel_info(int wide, int k, int* out) { return dst::info<false>(wide != 0, k, out); }
+int distinct_kernel_info(int wide, int k, int* out) {
+  return dst::info<false>(dst::shape_for(wide != 0, k), wide != 0, out);
+}
 
 // distinct_kernel_info of the pre-hashed instantiation.
 int distinct_prehashed_kernel_info(int wide, int k, int* out) {
-  return dst::info<true>(wide != 0, k, out);
+  return dst::info<true>(dst::shape_for(wide != 0, k), wide != 0, out);
+}
+
+// distinct_kernel_info (prehashed = 0) or distinct_prehashed_kernel_info
+// (1) of a launch at warps rows a block.
+int distinct_rows_kernel_info(int wide, int prehashed, int k, int warps, int* out) {
+  if (warps < 1 || warps > dst::kMaxWarps) return static_cast<int>(cudaErrorInvalidValue);
+  const dst::Shape sh = dst::shape_for(wide != 0, k, warps);
+  return prehashed ? dst::info<true>(sh, wide != 0, out) : dst::info<false>(sh, wide != 0, out);
 }
 
 const char* distinct_error_string(int code) {

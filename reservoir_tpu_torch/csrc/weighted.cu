@@ -69,11 +69,22 @@
 // loaded (a subnormal weight is a zero weight) and every add, product and
 // quotient that can underflow is flushed, as in the plain version.
 //
+// Launch geometry.  Rows a block (warps, one a row) is a launch choice from
+// {1, 2, 4, 8}, each a template instantiation whose __launch_bounds__ keeps
+// 1,024 threads an SM resident (32 / kW blocks), so every instantiation
+// gets the default's register budget.  The default, kWarps = 4, is what
+// weighted_update launches; weighted_update_rows takes another from the
+// autotune cache (ops/autotune.py).  smem_bytes is the one place that
+// decides a launch's placement: its rows' keys on chip where they and the
+// draws of kW warps fit, else in global memory.  A warp's row does not
+// depend on the block it runs in, nor on where its keys are kept.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // (see reservoir_tpu_torch/_build.py).  Plain C interface for ctypes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "fmath.cuh"
 #include "kinfo.cuh"
@@ -88,13 +99,13 @@ using algl::uniform_from_word;
 using algl::xla_exp;
 using algl::xla_log;
 
-constexpr int kWarps = 4;
+constexpr int kWarps = 4;  // the default rows a block
 constexpr int kBlock = 128;  // prefix.CUMSUM_BLOCK
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kMaxSmem = 232448;  // shared memory a block can use on sm_90
-// the lane-parallel draws' static buffer (draws, below), which counts against
-// kMaxSmem with the dynamic keys and positions
-constexpr size_t kDrawBytes = sizeof(float) * kWarps * 2 * kBlock;
+// the lane-parallel draws' static buffer of kW warps (draws, below), which
+// counts against kMaxSmem with the dynamic keys and positions
+__host__ __device__ constexpr size_t draw_bytes(int kW) { return sizeof(float) * kW * 2 * kBlock; }
 // acceptances in a block after which the rest of its draws (and the next
 // block's) are made lane-parallel
 constexpr int kDense = 8;
@@ -207,8 +218,8 @@ __device__ __forceinline__ void accept_draws(uint32_t k1, uint32_t k2, uint32_t 
   lu2 = xla_log(uniform_from_word(bits_word(f1, f2, 2u)));
 }
 
-template <bool ON_CHIP>
-__global__ void __launch_bounds__(kWarps * 32, 8)
+template <bool ON_CHIP, int kW>
+__global__ void __launch_bounds__(kW * 32, 32 / kW)
 update_kernel(uint32_t* __restrict__ samples, float* __restrict__ lkeys,
               int32_t* __restrict__ count, float* __restrict__ xw_out,
               const uint32_t* __restrict__ key, const uint32_t* __restrict__ elems,
@@ -217,7 +228,7 @@ update_kernel(uint32_t* __restrict__ samples, float* __restrict__ lkeys,
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
   const int wi = threadIdx.x >> 5;
-  const int r = blockIdx.x * kWarps + wi;
+  const int r = blockIdx.x * kW + wi;
   if (r >= R) return;  // whole warps only: R rows, one warp each
   const int32_t c = count[r];
   const int v = valid != nullptr ? valid[r] : B;
@@ -232,8 +243,8 @@ update_kernel(uint32_t* __restrict__ samples, float* __restrict__ lkeys,
   float* lk = ON_CHIP ? reinterpret_cast<float*>(smem + static_cast<size_t>(wi) * 8 * k) : glk;
   int32_t* spos = reinterpret_cast<int32_t*>(lk + k);  // on chip only
   // the lane-parallel draws u1 and log(u2) of the block's positions
-  __shared__ float draws[kWarps][2][kBlock];
-  static_assert(sizeof(draws) == kDrawBytes, "smem_bytes counts the draws");
+  __shared__ float draws[kW][2][kBlock];
+  static_assert(sizeof(draws) == draw_bytes(kW), "smem_bytes counts the draws");
   float* du1 = draws[wi][0];
   float* dlu2 = draws[wi][1];
 
@@ -426,49 +437,90 @@ update_kernel(uint32_t* __restrict__ samples, float* __restrict__ lkeys,
   }
 }
 
-// Dynamic shared memory a block takes on chip (keys and positions of 4
-// rows), or 0 when they and the static draws do not fit together and the
-// keys stay in global memory.
-__host__ inline size_t smem_bytes(int k) {
-  const size_t bytes = static_cast<size_t>(kWarps) * 8 * k;
-  return bytes + kDrawBytes <= static_cast<size_t>(kMaxSmem) ? bytes : 0;
+// Dynamic shared memory a block of warps rows takes on chip (keys and
+// positions of its rows), or 0 when they and the static draws do not fit
+// together and the keys stay in global memory.
+__host__ inline size_t smem_bytes(int k, int warps = kWarps) {
+  const size_t bytes = static_cast<size_t>(warps) * 8 * k;
+  return bytes + draw_bytes(warps) <= static_cast<size_t>(kMaxSmem) ? bytes : 0;
+}
+
+// Calls f with the instantiation's warps a block as a compile-time
+// constant: f(std::integral_constant<int, W>{}) for W in {1, 2, 4, 8}; any
+// other count is cudaErrorInvalidValue.
+template <typename F>
+int with_warps(int warps, F&& f) {
+  switch (warps) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int launch(uint32_t* samples, float* lkeys, int32_t* count, float* xw, const uint32_t* key,
+           const uint32_t* elems, const float* weights, const int32_t* valid, int R, int k, int B,
+           int warps, cudaStream_t stream) {
+  if (R <= 0) return static_cast<int>(cudaSuccess);
+  return with_warps(warps, [&](auto w) {
+    constexpr int kW = decltype(w)::value;
+    const int blocks = (R + kW - 1) / kW;
+    const size_t smem = smem_bytes(k, kW);
+    if (smem == 0) {
+      update_kernel<false, kW><<<blocks, kW * 32, 0, stream>>>(samples, lkeys, count, xw, key,
+                                                                elems, weights, valid, R, k, B);
+      return static_cast<int>(cudaGetLastError());
+    }
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          update_kernel<true, kW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    update_kernel<true, kW><<<blocks, kW * 32, smem, stream>>>(samples, lkeys, count, xw, key,
+                                                               elems, weights, valid, R, k, B);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+int info(int k, int warps, int* out) {
+  return with_warps(warps, [&](auto w) {
+    constexpr int kW = decltype(w)::value;
+    const size_t smem = smem_bytes(k, kW);
+    return smem == 0 ? kinfo::query(update_kernel<false, kW>, kW * 32, 0, out)
+                     : kinfo::query(update_kernel<true, kW>, kW * 32, smem, out);
+  });
 }
 
 }  // namespace wtd
 
 extern "C" {
 
-// One weighted tile update, in place.  valid may be null (every row takes B).
-// Returns cudaGetLastError() after the launch.
+// One weighted tile update, in place, at the default geometry (kWarps rows
+// a block).  valid may be null (every row takes B).  Returns
+// cudaGetLastError() after the launch.
 int weighted_update(uint32_t* samples, float* lkeys, int32_t* count, float* xw,
                     const uint32_t* key, const uint32_t* elems, const float* weights,
                     const int32_t* valid, int R, int k, int B, cudaStream_t stream) {
-  if (R <= 0) return static_cast<int>(cudaSuccess);
-  const int blocks = (R + wtd::kWarps - 1) / wtd::kWarps;
-  const size_t smem = wtd::smem_bytes(k);
-  if (smem == 0) {
-    wtd::update_kernel<false><<<blocks, wtd::kWarps * 32, 0, stream>>>(
-        samples, lkeys, count, xw, key, elems, weights, valid, R, k, B);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        wtd::update_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  wtd::update_kernel<true><<<blocks, wtd::kWarps * 32, smem, stream>>>(
-      samples, lkeys, count, xw, key, elems, weights, valid, R, k, B);
-  return static_cast<int>(cudaGetLastError());
+  return wtd::launch(samples, lkeys, count, xw, key, elems, weights, valid, R, k, B, wtd::kWarps,
+                     stream);
+}
+
+// weighted_update at warps rows a block (1, 2, 4 or 8).
+int weighted_update_rows(uint32_t* samples, float* lkeys, int32_t* count, float* xw,
+                         const uint32_t* key, const uint32_t* elems, const float* weights,
+                         const int32_t* valid, int R, int k, int B, int warps,
+                         cudaStream_t stream) {
+  return wtd::launch(samples, lkeys, count, xw, key, elems, weights, valid, R, k, B, warps, stream);
 }
 
 // The build's registers, spills, shared memory and resident warps an SM of
 // the kernel at k (kinfo::query's five numbers in out).
-int weighted_kernel_info(int k, int* out) {
-  const size_t smem = wtd::smem_bytes(k);
-  return smem == 0 ? kinfo::query(wtd::update_kernel<false>, wtd::kWarps * 32, 0, out)
-                   : kinfo::query(wtd::update_kernel<true>, wtd::kWarps * 32, smem, out);
-}
+int weighted_kernel_info(int k, int* out) { return wtd::info(k, wtd::kWarps, out); }
+
+// weighted_kernel_info of the instantiation at warps rows a block.
+int weighted_rows_kernel_info(int k, int warps, int* out) { return wtd::info(k, warps, out); }
 
 const char* weighted_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -70,6 +70,13 @@ a rank a tile.  A meshed engine is bit-identical to the unmeshed one with
 the same key, and its rows read back in order.  An unmeshed engine is the
 one-rank case of the same code.
 
+Launch geometry: each tile shape's rows a block is looked up once in the
+autotune cache (:mod:`~reservoir_tpu_torch.ops.autotune`, keyed on the
+mode's kernel, the card's name, R, k, the tile width and dtype), checked by
+:mod:`~reservoir_tpu_torch.ops.blocking`, kept in ``_geometry_by_key`` and
+passed to every launch of that shape.  With no entry a launch takes the
+kernel's default geometry; every geometry gives the default's bits.
+
 A mesh may span the processes of a ``torch.distributed`` group
 (:func:`~reservoir_tpu_torch.parallel.make_mesh` after
 ``multihost.initialize``): every process builds the engine and passes the
@@ -95,10 +102,14 @@ from .convert import resolve_device
 from .errors import SamplerClosedError
 from .ops import algorithm_l as _algl
 from .ops import algorithm_l_cuda as _kernel
+from .ops import autotune as _autotune
 from .ops import distinct as _dist
 from .ops import weighted as _wtd
+from .ops.autotune import Geometry
+from .ops.blocking import resolve_block_r
 from .ops.rng import key_from_seed
 from .parallel.sharded import Mesh, RowSharding, gather_state, make_mesh, not_ported, rank_update, shard_state
+from .utils import faults as _faults
 
 __all__ = ["ReservoirEngine"]
 
@@ -144,6 +155,11 @@ class ReservoirEngine:
         cast to the sample dtype.
       hash_fn: distinct mode only: an elementwise hash of the mapped keys
         returning ``(hi, lo)`` integer words.
+      faults: a :class:`~reservoir_tpu_torch.utils.faults.FaultPlane` for
+        this engine's ``engine.update`` site, which fires before each tile
+        update (:meth:`sample`, :meth:`sample_gated`, each tile of
+        :meth:`sample_stream`, once for the full tiles of a fused stream);
+        ``None`` defers to the globally installed plane.
     """
 
     def __init__(
@@ -156,6 +172,7 @@ class ReservoirEngine:
         mesh: Optional[Mesh] = None,
         map_fn: Any = None,
         hash_fn: Any = None,
+        faults: Optional[Any] = None,
         _initial_state: Optional[State] = None,
     ) -> None:
         validate_max_sample_size(config.max_sample_size)
@@ -220,6 +237,7 @@ class ReservoirEngine:
                 f"{config.element_dtype!r}"
             )
         self._config = config
+        self._faults = faults
         self._map_fn = map_fn
         self._hash_fn = hash_fn
         #: the hooks see whole tiles in the element dtype
@@ -256,6 +274,11 @@ class ReservoirEngine:
         # (pinned buffer, [copy event a card]) pairs not yet known to be
         # complete
         self._staging: deque = deque()
+        # (kernel, tile width, tile dtype) -> the autotuned Geometry (None:
+        # the kernel's default), and the rows a block each launch of that
+        # shape takes (None: the default launch); resolved once a shape
+        self._geometry_by_key: dict = {}
+        self._rows_by_key: dict = {}
         #: row resets and adoptions applied so far.  The skip gate keys its
         #: replica's staleness on it.
         self.reset_epochs = 0
@@ -428,6 +451,8 @@ class ReservoirEngine:
         ``r`` take only ``tile[r, :valid[r]]``.  A weighted engine requires
         ``weights``, a nonnegative ``[R, B]`` tile (a zero weight is counted
         and never sampled); an unweighted one rejects them."""
+        self._check_open()
+        _faults.fire("engine.update", self._faults)
         if isinstance(tile, tuple):
             raise ValueError("tile must be one [num_reservoirs, B] array, not a tuple")
         self._sample(tile, valid, weights, check_weights=True)
@@ -465,7 +490,7 @@ class ReservoirEngine:
         batch = self._tile_to_device(tile)
         steady = self._ops is _algl and self._min_count >= self._config.max_sample_size
         fn = rank_update(self._ops, steady)
-        hooks = {"map_fn": self._map_fn}
+        hooks = {"map_fn": self._map_fn, "block_r": self._block_r(self._kernel_name(), width)}
         if self._config.distinct:
             hooks["hash_fn"] = self._hash_fn
         # one launch a rank: each rank's block on its own device
@@ -504,9 +529,12 @@ class ReservoirEngine:
         8-byte distinct keys is split into word planes once, not per tile.
 
         ``fused=True`` (the reference's fused stream, one scan over the
-        full tiles) is taken for the reference's signature and runs the
-        same per-tile launches, which give the fused scan's state bit for
-        bit."""
+        full tiles when there are at least two) is taken for the
+        reference's signature and runs the same per-tile launches, which
+        give the fused scan's state bit for bit; as there, the
+        ``engine.update`` fault site fires once for those full tiles and
+        once for each tile after them, and without ``fused`` once a
+        tile."""
         self._check_open()
         if isinstance(stream, torch.Tensor) and stream.device.type == "cpu":
             stream = stream.numpy()
@@ -534,7 +562,13 @@ class ReservoirEngine:
         elif weights is not None:
             raise ValueError("weights are only meaningful with weighted=True")
         B = tile_width or self._config.tile_size
+        # the full tiles the reference's fused scan takes in one update
+        fused_end = (N // B) * B if fused and N >= 2 * B else 0
+        if fused_end:
+            _faults.fire("engine.update", self._faults)
         for start in range(0, N, B):
+            if start >= fused_end:
+                _faults.fire("engine.update", self._faults)
             cols = slice(start, start + B)
             chunk = stream[:, cols] if planes is None else tuple(p[:, cols] for p in planes)
             wchunk = weights[:, cols] if weights is not None else None
@@ -568,6 +602,7 @@ class ReservoirEngine:
         ``map_fn`` where it has one.
         """
         self._check_open()
+        _faults.fire("engine.update", self._faults)
         if self._ops is not _algl:
             raise ValueError(
                 "sample_gated requires duplicates mode (the skip gate "
@@ -609,8 +644,40 @@ class ReservoirEngine:
         (packed,) = self._ship(packed_host, split=False)
         nv_dev, adv_dev = packed[:R], packed[R:2 * R]
         batch = packed[2 * R:].view(self._elem_dtype).view(R, bg)
-        self._shards[0] = _kernel.update_gated_cuda(self._shards[0], batch, nv_dev, adv_dev, self._map_fn)
+        self._shards[0] = _kernel.update_gated_cuda(self._shards[0], batch, nv_dev, adv_dev, self._map_fn,
+                                                    block_r=self._block_r("algl_gated", bg))
         self._min_count += min_advance
+
+    # ---------------------------------------------------------- launch geometry
+
+    def _kernel_name(self) -> str:
+        """The autotune cache's kernel dimension for this engine's mode."""
+        if self._ops is _algl:
+            return "algl"
+        return "weighted" if self._ops is _wtd else "distinct"
+
+    def _kernel_geometry(self, kernel: str, width: int, tile_dtype: Any) -> Optional[Geometry]:
+        """The tuned geometry of ``kernel`` at this tile shape from the
+        autotune cache (:mod:`~reservoir_tpu_torch.ops.autotune`), keyed on
+        the first rank's device, or ``None``: the kernel then launches its
+        default geometry, as it does on every untuned card and shape."""
+        return _autotune.lookup(_autotune.device_kind(self._ranks[0]), self._config.num_reservoirs,
+                                self._config.max_sample_size, width, tile_dtype, kernel=kernel)
+
+    def _block_r(self, kernel: str, width: int) -> Optional[int]:
+        """Rows a block for every launch of ``kernel`` (the gated kernel as
+        ``"algl_gated"``, which reads the ``algl`` entries) on ``[R,
+        width]`` tiles: looked up once a shape, checked by
+        :func:`~reservoir_tpu_torch.ops.blocking.resolve_block_r` against a
+        rank's rows, and ``None`` for the default launch."""
+        key = (kernel, width, self._np_elem.name)
+        if key not in self._rows_by_key:
+            geometry = self._kernel_geometry("algl" if kernel == "algl_gated" else kernel, width,
+                                             self._np_elem)
+            self._geometry_by_key[key] = geometry
+            self._rows_by_key[key] = resolve_block_r(kernel, geometry.block_r if geometry else None,
+                                                     self._blocks[0].stop - self._blocks[0].start)
+        return self._rows_by_key[key]
 
     # ------------------------------------------------------------ row leasing
 

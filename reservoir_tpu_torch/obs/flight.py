@@ -90,6 +90,7 @@ class FlightRecorder:
         self._seq = itertools.count(1)
         self._last_trigger: Dict[str, float] = {}
         self._dump_lock = threading.Lock()
+        # reservoir-lint: disable=guarded-by -- a re-entrancy flag: trigger() reads it on the thread that holds the dump lock (a bundle's assembly re-entering), where taking the lock would deadlock; another thread that reads it stale goes on to dump() and waits on the lock
         self._dumping = False
         self.dumps = 0
         self.suppressed = 0
@@ -182,7 +183,7 @@ class FlightRecorder:
             bundle["spans"] = [s.to_dict() for s in tr.spans()]
             bundle["attribution"] = _trace.attribution(
                 tr.spans(),
-                root=str(self.config.get("root_span", "bridge.dispatch")),
+                root=str(self.config.get("root_span", "serve.ingest")),
             )
         reg = _registry.get()
         if reg is not None:

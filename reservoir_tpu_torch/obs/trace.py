@@ -345,7 +345,7 @@ def _quantile(sorted_vals: List[float], q: float) -> float:
 def attribution(
     spans: Optional[List[Span]] = None,
     *,
-    root: str = "bridge.dispatch",
+    root: str = "serve.ingest",
     worst: int = 3,
 ) -> dict:
     """Per-stage latency attribution over retained spans.

@@ -8,8 +8,9 @@ import ctypes
 import threading
 
 from .algorithm_l import SAMPLE_DTYPES
+from .blocking import BLOCK_CHOICES
 
-__all__ = ["BUILD_INFO_FIELDS", "COUNT_LOCK", "build_info", "check_tensors"]
+__all__ = ["BUILD_INFO_FIELDS", "COUNT_LOCK", "build_info", "check_block_r", "check_tensors"]
 
 #: held while a wrapper adds a launch to its count: the interop server
 #: launches from a thread a connection, and ``count += 1`` on a module
@@ -59,3 +60,11 @@ def check_tensors(batch_name: str, tensors: dict, expect: dict) -> None:
             raise ValueError(
                 f"{name} must be {dtype} {shape}, got {t.dtype} {tuple(t.shape)}"
             )
+
+
+def check_block_r(kernel: str, block_r) -> None:
+    """``block_r`` (rows a block) is ``None`` (the default launch) or one the
+    kernel was built for (:data:`~.blocking.BLOCK_CHOICES`), else
+    ``ValueError``."""
+    if block_r is not None and block_r not in BLOCK_CHOICES[kernel]:
+        raise ValueError(f"block_r must be None or one of {BLOCK_CHOICES[kernel]} for {kernel}, got {block_r!r}")

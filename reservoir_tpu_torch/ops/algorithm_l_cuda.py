@@ -27,6 +27,14 @@ kernel because the plain version's scan is k lockstep steps of small
 launches, each with a host sync.  :func:`~.algorithm_l.merge_samples_keyed`
 draws through it.
 
+Each update takes ``block_r``, rows a block (threads: one a row), from
+:data:`~.blocking.BLOCK_CHOICES` (32, 64, 128, 256; the engine resolves
+a cache entry through :mod:`.blocking`): ``None`` launches the default, 128, through
+the entry points ``algl_update``, ``algl_update_wide`` and
+``algl_update_gated``; another value through their ``*_rows`` twins, the
+template instantiation built for it.  Every geometry gives the default's
+bits.
+
 WIDE counters (``[R, 2]`` uint32 ``count`` and ``nxt``) take the WIDE
 instantiations of both kernels: ``algl_update_wide`` for a tile update and
 ``algl_merge_draws_wide`` for a merge's draws (the reference runs both on
@@ -67,7 +75,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ._cuda_common import COUNT_LOCK, build_info, check_tensors
+from ._cuda_common import COUNT_LOCK, build_info, check_block_r, check_tensors
 from .hooks import map_values
 from .algorithm_l import (MergeDraws, ReservoirState, _check_counts, _signed_rows, merge_draws, update,
                           update_gated, update_steady)
@@ -119,12 +127,17 @@ def _library(path: Optional[str] = None):
         lib = load("algorithm_l") if path is None else ctypes.CDLL(path)
         lib.algl_update.argtypes = [_VP] * 7 + [_INT] * 4 + [_VP]
         lib.algl_update.restype = _INT
-        if hasattr(lib, "algl_update_wide"):  # an older build (kernel_ab.py) has none
-            lib.algl_update_wide.argtypes = [_VP] * 7 + [_INT] * 4 + [_VP]
-            lib.algl_update_wide.restype = _INT
-        if hasattr(lib, "algl_update_gated"):  # an older build (kernel_ab.py) has none
-            lib.algl_update_gated.argtypes = [_VP] * 8 + [_INT] * 3 + [_VP]
-            lib.algl_update_gated.restype = _INT
+        # an older build (kernel_ab.py) may lack any of these
+        for name, argtypes in (
+            ("algl_update_wide", [_VP] * 7 + [_INT] * 4 + [_VP]),
+            ("algl_update_gated", [_VP] * 8 + [_INT] * 3 + [_VP]),
+            ("algl_update_rows", [_VP] * 7 + [_INT] * 5 + [_VP]),
+            ("algl_update_wide_rows", [_VP] * 7 + [_INT] * 5 + [_VP]),
+            ("algl_update_gated_rows", [_VP] * 8 + [_INT] * 4 + [_VP]),
+        ):
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes = argtypes
+                getattr(lib, name).restype = _INT
         lib.algl_fmath.argtypes = [_VP, _VP, _INT, _INT, _VP]
         lib.algl_fmath.restype = _INT
         lib.algl_error_string.argtypes = [_INT]
@@ -157,16 +170,22 @@ def _raise_on(code: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
 
 
-def kernel_info(wide: bool = False) -> dict:
+def kernel_info(wide: bool = False, block_r: Optional[int] = None) -> dict:
     """:func:`~._cuda_common.build_info` of ``algl_update``'s kernel, or
-    with ``wide`` of ``algl_update_wide``'s (needs a card)."""
+    with ``wide`` of ``algl_update_wide``'s, at ``block_r`` threads a block
+    (``None``: the default's) (needs a card)."""
     lib = _library()
+    if block_r is not None:
+        return build_info(lib.algl_rows_kernel_info, int(wide), block_r)
     return build_info(lib.algl_wide_kernel_info if wide else lib.algl_kernel_info)
 
 
-def gated_kernel_info() -> dict:
+def gated_kernel_info(block_r: Optional[int] = None) -> dict:
     """:func:`~._cuda_common.build_info` of ``algl_update_gated``'s kernel
-    (needs a card)."""
+    at ``block_r`` threads a block (``None``: the default's) (needs a
+    card)."""
+    if block_r is not None:
+        return build_info(_library().algl_rows_kernel_info, 2, block_r)
     return build_info(_library().algl_gated_kernel_info)
 
 
@@ -206,8 +225,9 @@ def _validate(state: ReservoirState, batch: torch.Tensor, valid) -> None:
 
 
 def _launch(state: ReservoirState, batch: torch.Tensor, valid, fill: bool,
-            map_fn: Optional[Callable] = None) -> ReservoirState:
+            map_fn: Optional[Callable] = None, block_r: Optional[int] = None) -> ReservoirState:
     global launches, wide_launches
+    check_block_r("algl", block_r)
     if map_fn is not None:
         if state.samples.device.type == "cpu":
             return (update if fill else update_steady)(state, batch, valid, map_fn)
@@ -226,11 +246,14 @@ def _launch(state: ReservoirState, batch: torch.Tensor, valid, fill: bool,
     # the kernel reads the key as uint32 words: the low half of each int64
     key32 = state.key.to(torch.int32)
     name = "algl_update_wide" if wide else "algl_update"
+    geometry = () if block_r is None else (block_r,)
+    if geometry:
+        name += "_rows"
     code = getattr(lib, name)(
         state.samples.data_ptr(), state.count.data_ptr(), state.nxt.data_ptr(),
         state.log_w.data_ptr(), key32.data_ptr(), batch.data_ptr(),
         valid.data_ptr() if valid is not None else None,
-        R, k, B, int(fill), _stream(state.samples.device),
+        R, k, B, int(fill), *geometry, _stream(state.samples.device),
     )
     _raise_on(code, f"{name} launch")
     with COUNT_LOCK:
@@ -246,10 +269,12 @@ def update_cuda(
     batch: torch.Tensor,
     valid: Optional[torch.Tensor] = None,
     map_fn: Optional[Callable] = None,
+    block_r: Optional[int] = None,
 ) -> ReservoirState:
     """Fill-capable tile update (the port of ``update_pallas``; WIDE
-    counters launch ``algl_update_wide``)."""
-    return _launch(state, batch, valid, True, map_fn)
+    counters launch ``algl_update_wide``) at ``block_r`` threads a block
+    (``None``: the default)."""
+    return _launch(state, batch, valid, True, map_fn, block_r)
 
 
 def update_steady_cuda(
@@ -257,10 +282,11 @@ def update_steady_cuda(
     batch: torch.Tensor,
     valid: Optional[torch.Tensor] = None,
     map_fn: Optional[Callable] = None,
+    block_r: Optional[int] = None,
 ) -> ReservoirState:
     """Steady tile update without the fill copy (the port of
-    ``update_steady_pallas``)."""
-    return _launch(state, batch, valid, False, map_fn)
+    ``update_steady_pallas``) at ``block_r`` threads a block."""
+    return _launch(state, batch, valid, False, map_fn, block_r)
 
 
 def update_gated_cuda(
@@ -269,6 +295,7 @@ def update_gated_cuda(
     nvalid: torch.Tensor,
     advance: torch.Tensor,
     map_fn: Optional[Callable] = None,
+    block_r: Optional[int] = None,
 ) -> ReservoirState:
     """Apply one pre-gated ``[R, Bg]`` candidate tile: row ``r`` advances
     by ``advance[r]`` elements, of which ``batch[r, :nvalid[r]]`` were
@@ -280,8 +307,9 @@ def update_gated_cuda(
     the host; the kernel trusts them).  WIDE counters raise
     ``ValueError``, as the reference's ``update_gated`` does.  A
     ``map_fn`` maps the candidate tile as :func:`update_cuda` maps a
-    tile."""
+    tile; ``block_r`` is threads a block (``None``: the default)."""
     global gated_launches
+    check_block_r("algl_gated", block_r)
     if state.wide:
         raise ValueError("update_gated requires narrow (non-WIDE) counters")
     if map_fn is not None:
@@ -306,12 +334,13 @@ def update_gated_cuda(
         raise ValueError(f"unsupported device {state.samples.device}")
     R, k = state.samples.shape
     key32 = state.key.to(torch.int32)
-    code = _library().algl_update_gated(
+    name, geometry = ("algl_update_gated", ()) if block_r is None else ("algl_update_gated_rows", (block_r,))
+    code = getattr(_library(), name)(
         state.samples.data_ptr(), state.count.data_ptr(), state.nxt.data_ptr(),
         state.log_w.data_ptr(), key32.data_ptr(), batch.data_ptr(), nvalid.data_ptr(),
-        advance.data_ptr(), R, k, batch.shape[1], _stream(state.samples.device),
+        advance.data_ptr(), R, k, batch.shape[1], *geometry, _stream(state.samples.device),
     )
-    _raise_on(code, "algl_update_gated launch")
+    _raise_on(code, f"{name} launch")
     gated_launches += 1
     return state
 

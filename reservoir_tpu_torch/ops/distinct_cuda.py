@@ -53,7 +53,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from ._cuda_common import COUNT_LOCK, build_info, check_tensors
+from ._cuda_common import COUNT_LOCK, build_info, check_block_r, check_tensors
 from .distinct import (NARROW_DTYPES, WIDE_DTYPES, Batch, DistinctState, hook_hashes, map_keys, update,
                        update_prehashed)
 from .hashing import to_i32
@@ -86,19 +86,25 @@ def _library(path: Optional[str] = None):
         if hasattr(lib, "distinct_update_hashed"):  # an older build (kernel_ab.py) has none
             lib.distinct_update_hashed.argtypes = [_VP] * 9 + [_INT] + [_VP] * 3 + [_INT] * 3 + [_VP]
             lib.distinct_update_hashed.restype = _INT
+        if hasattr(lib, "distinct_update_rows"):  # an older build (kernel_ab.py) has none
+            lib.distinct_update_rows.argtypes = [_VP] * 9 + [_INT] + [_VP] * 3 + [_INT] * 4 + [_VP]
+            lib.distinct_update_rows.restype = _INT
         lib.distinct_error_string.argtypes = [_INT]
         lib.distinct_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def kernel_info(k: int, wide: bool, prehashed: bool = False) -> dict:
+def kernel_info(k: int, wide: bool, prehashed: bool = False, block_r: Optional[int] = None) -> dict:
     """:func:`~._cuda_common.build_info` of the kernel a launch at
-    ``k`` runs, for narrow or wide keys, default or pre-hashed (needs a
-    card): ``dynamic_smem`` is 0 where a row's block passes shared memory
+    ``k`` runs, for narrow or wide keys, default or pre-hashed, at
+    ``block_r`` warps a block (``None``: the default's) (needs a card):
+    ``dynamic_smem`` is 0 where a row's block passes shared memory
     (k > 19,370 narrow, k > 14,528 wide) and the instantiation that keeps
     it in the state's own arrays runs."""
     lib = _library()
+    if block_r is not None:
+        return build_info(lib.distinct_rows_kernel_info, int(wide), int(prehashed), k, block_r)
     query = lib.distinct_prehashed_kernel_info if prehashed else lib.distinct_kernel_info
     return build_info(query, int(wide), k)
 
@@ -167,17 +173,19 @@ def update_cuda(
     valid: Optional[torch.Tensor] = None,
     map_fn: Optional[Callable] = None,
     hash_fn: Optional[Callable] = None,
+    block_r: Optional[int] = None,
 ) -> DistinctState:
     """Distinct tile merge (the port of ``update_pallas``): reservoir ``r``
     takes ``batch[r, :valid[r]]``, mapped by ``map_fn`` and hashed by
-    ``hash_fn`` where given."""
+    ``hash_fn`` where given, at ``block_r`` warps a block."""
     if map_fn is None and hash_fn is None:
-        return update_prehashed_cuda(state, batch, None, valid)
+        return update_prehashed_cuda(state, batch, None, valid, block_r)
+    check_block_r("distinct", block_r)
     if state.values.device.type == "cpu":
         return update(state, batch, valid, map_fn, hash_fn)
     mapped = map_keys(state, batch, map_fn)
     hashes = tuple(to_i32(w).contiguous() for w in hook_hashes(state, mapped, hash_fn))
-    return update_prehashed_cuda(state, mapped, hashes, valid)
+    return update_prehashed_cuda(state, mapped, hashes, valid, block_r)
 
 
 def update_prehashed_cuda(
@@ -185,13 +193,20 @@ def update_prehashed_cuda(
     batch: Batch,
     hashes: Optional[Tuple[torch.Tensor, torch.Tensor]],
     valid: Optional[torch.Tensor] = None,
+    block_r: Optional[int] = None,
 ) -> DistinctState:
     """The tile merge of keys ``batch`` whose pre-scramble hash words are
     ``hashes`` (an ``(hi, lo)`` pair of int32 ``[R, B]`` planes), launched
     as the pre-hashed instantiation; ``None`` hashes the keys' own words,
-    launched as the default one.  On CPU tensors it runs
+    launched as the default one.  ``block_r`` is warps a block (one a
+    row, at most): ``None`` asks for 4 through ``distinct_update`` /
+    ``distinct_update_hashed``, another value (1, 2 or 4) through
+    ``distinct_update_rows``, counted as the instantiation it runs; the
+    launcher takes as many of them as keep their rows on chip
+    (``shape_for``).  On CPU tensors it runs
     :func:`.distinct.update_prehashed`."""
     global launches, prehashed_launches
+    check_block_r("distinct", block_r)
     lo, hi, stride, B = _validate(state, batch, valid, hashes)
     dev = state.values.device
     if dev.type == "cpu":
@@ -208,11 +223,15 @@ def update_prehashed_cuda(
     ]
     tail = [valid.data_ptr() if valid is not None else None, R, k, B,
             torch.cuda.current_stream(dev).cuda_stream]
-    if hashes is None:
+    pre = [None, None] if hashes is None else [hashes[0].data_ptr(), hashes[1].data_ptr()]
+    if block_r is not None:
+        name = "distinct_update_rows"
+        code = lib.distinct_update_rows(*args, *pre, *tail[:-1], block_r, tail[-1])
+    elif hashes is None:
         name, code = "distinct_update", lib.distinct_update(*args, *tail)
     else:
         name = "distinct_update_hashed"
-        code = lib.distinct_update_hashed(*args, hashes[0].data_ptr(), hashes[1].data_ptr(), *tail)
+        code = lib.distinct_update_hashed(*args, *pre, *tail)
     if code != 0:
         msg = lib.distinct_error_string(code).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")

@@ -33,7 +33,11 @@ import torch
 
 from .threefry import MASK32
 
+#: the low 32 bits of an int (the reference's name for ``MASK32``)
+U32_MASK = MASK32
+
 __all__ = [
+    "U32_MASK",
     "as_scalar_hash",
     "default_hash64",
     "draw_salts",

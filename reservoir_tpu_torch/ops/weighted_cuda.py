@@ -36,7 +36,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ._cuda_common import build_info, check_tensors
+from ._cuda_common import build_info, check_block_r, check_tensors
 from .hooks import map_values
 from .weighted import WeightedState, update
 
@@ -62,15 +62,21 @@ def _library(path: Optional[str] = None):
         lib = load("weighted") if path is None else ctypes.CDLL(path)
         lib.weighted_update.argtypes = [_VP] * 8 + [_INT] * 3 + [_VP]
         lib.weighted_update.restype = _INT
+        if hasattr(lib, "weighted_update_rows"):  # an older build (kernel_ab.py) has none
+            lib.weighted_update_rows.argtypes = [_VP] * 8 + [_INT] * 4 + [_VP]
+            lib.weighted_update_rows.restype = _INT
         lib.weighted_error_string.argtypes = [_INT]
         lib.weighted_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
-def kernel_info(k: int) -> dict:
+def kernel_info(k: int, block_r: Optional[int] = None) -> dict:
     """:func:`~._cuda_common.build_info` of the kernel a launch at
-    ``k`` runs (needs a card)."""
+    ``k`` runs, at ``block_r`` warps a block (``None``: the default's)
+    (needs a card)."""
+    if block_r is not None:
+        return build_info(_library().weighted_rows_kernel_info, k, block_r)
     return build_info(_library().weighted_kernel_info, k)
 
 
@@ -99,11 +105,15 @@ def update_cuda(
     weights: torch.Tensor,
     valid: Optional[torch.Tensor] = None,
     map_fn: Optional[Callable] = None,
+    block_r: Optional[int] = None,
 ) -> WeightedState:
     """Fill-capable weighted tile update (the port of ``update_pallas``):
     reservoir ``r`` takes ``elems[r, :valid[r]]`` with their weights,
-    mapped by ``map_fn`` where given."""
+    mapped by ``map_fn`` where given, at ``block_r`` warps a block (one a
+    row; ``None``: the default, 4, through ``weighted_update``, another
+    value through ``weighted_update_rows``)."""
     global launches
+    check_block_r("weighted", block_r)
     if map_fn is not None:
         if state.samples.device.type == "cpu":
             return update(state, elems, weights, valid, map_fn)
@@ -118,14 +128,15 @@ def update_cuda(
     lib = _library()
     # the kernel reads the key as uint32 words: the low half of each int64
     key32 = state.key.to(torch.int32)
-    code = lib.weighted_update(
+    name, geometry = ("weighted_update", ()) if block_r is None else ("weighted_update_rows", (block_r,))
+    code = getattr(lib, name)(
         state.samples.data_ptr(), state.lkeys.data_ptr(), state.count.data_ptr(),
         state.xw.data_ptr(), key32.data_ptr(), elems.data_ptr(), weights.data_ptr(),
         valid.data_ptr() if valid is not None else None,
-        R, k, elems.shape[1], torch.cuda.current_stream(dev).cuda_stream,
+        R, k, elems.shape[1], *geometry, torch.cuda.current_stream(dev).cuda_stream,
     )
     if code != 0:
         msg = lib.weighted_error_string(code).decode()
-        raise RuntimeError(f"weighted_update launch failed: CUDA error {code} ({msg})")
+        raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
     launches += 1
     return state

@@ -285,7 +285,7 @@ def gather_state(shards: Sequence, device: Any, mesh: Optional[Mesh] = None):
 
 def rank_update(ops=_algl, steady: bool = False):
     """The mode's kernel wrapper a rank's block goes through:
-    ``fn(state, batch, *extra, map_fn=..., [hash_fn=...])`` with ``extra``
+    ``fn(state, batch, *extra, map_fn=..., [hash_fn=...], block_r=...)`` with ``extra``
     the weights tile (weighted) and ``valid``.  On a CUDA block it launches
     the kernel; on a CPU block it runs the plain version."""
     if ops is _algl:

@@ -33,8 +33,6 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Any, Callable, Deque, NamedTuple, Optional, Tuple
 
-import torch
-
 from ..obs import registry as _obs
 from ..obs import trace as _trace
 from ..ops import autotune as _store
@@ -118,18 +116,8 @@ DEFAULT_BOUNDS = KnobBounds()
 # --------------------------------------------------------------- fingerprint
 
 
-def device_kind_of(device: Optional[Any] = None) -> str:
-    """The device name the cache keys on: ``torch.cuda.get_device_name`` of
-    a CUDA device (``None`` means the card, as everywhere in the port),
-    ``"cpu"`` for a CPU device or when no card is reachable.  It never
-    raises: construction must not fail on a lookup."""
-    try:
-        dev = torch.device("cuda" if device is None else device)
-        if dev.type != "cuda":
-            return "cpu"
-        return str(torch.cuda.get_device_name(dev))
-    except Exception:
-        return "cpu"
+#: the device name the cache keys on (:func:`.ops.autotune.device_kind`)
+device_kind_of = _store.device_kind
 
 
 def rate_band(rate: Optional[float]) -> str:

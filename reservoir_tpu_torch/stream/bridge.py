@@ -77,6 +77,7 @@ from ..native import NativeStaging
 from ..obs import flight as _flight
 from ..obs import registry as _obs
 from ..obs import trace as _ctrace
+from ..ops import autotune as _autotune
 from ..utils import faults as _faults
 from ..utils.checkpoint import load_engine, pack_rows, read_epoch, save_engine, unpack_rows
 from ..utils.log import warn_once
@@ -592,8 +593,8 @@ class DeviceStreamBridge:
         ``"fsync"`` (each frame fsynced; counted in
         ``metrics.journal_syncs``).
       faults: a :class:`~reservoir_tpu_torch.utils.faults.FaultPlane` for
-        the ``bridge.*`` sites of this bridge; ``None`` defers to the
-        globally installed plane.
+        the ``bridge.*`` sites of this bridge and the ``engine.update`` site
+        of its engine; ``None`` defers to the globally installed plane.
       gated: the ingest-side skip gate (default off).  A host replica of
         every row's Algorithm-L chain (:mod:`~reservoir_tpu_torch.stream.gate`)
         names the elements of each chunk that can still win; only those
@@ -608,10 +609,11 @@ class DeviceStreamBridge:
         ships at most this many candidates a gated dispatch; candidates
         coalesce across flushes until a row's buffer fills or a barrier
         (:meth:`flush`, :meth:`complete`) forces the dispatch.  ``0``
-        means 64: the JAX package resolves 0 from its autotune cache,
-        falling back to 64; the port has no autotune cache.
+        takes the autotune cache's ``gate`` entry for this shape and card
+        (:mod:`~reservoir_tpu_torch.ops.autotune`), else 64, as the
+        reference does.
       gate_push_chunk: the slice width of the pre-staging push path
-        (default 1 Mi elements; ``0`` means 1 Mi, as above): a
+        (default 1 Mi elements; ``0`` reads the cache as above, else 1 Mi): a
         row-contiguous :meth:`push` chunk is gated in slices of this many
         elements, one replica evaluation a slice, its candidates gathered
         straight from the producer's array; a slice whose candidates
@@ -660,7 +662,7 @@ class DeviceStreamBridge:
         self._faults = faults
         self._engine = _engine if _engine is not None else ReservoirEngine(
             config, key=key, reusable=reusable, device=device, mesh=mesh, map_fn=map_fn,
-            hash_fn=hash_fn,
+            hash_fn=hash_fn, faults=faults,
         )
         self._reusable = reusable
         S, B = config.num_reservoirs, config.tile_size
@@ -707,10 +709,15 @@ class DeviceStreamBridge:
         # the demux scatters straight into the active flush tile: a flush
         # reads the fill counts and swaps the demux onto the other tile
         self._staging.attach(self._tiles[0], self._wtiles[0] if self._wtiles is not None else None)
-        # the skip gate: built only when asked for and eligible.  0 takes
-        # the reference's untuned defaults (the port has no autotune cache)
-        gate_tile = 64 if gate_tile == 0 else gate_tile
-        gate_push_chunk = 1 << 20 if gate_push_chunk == 0 else gate_push_chunk
+        # the skip gate: built only when asked for and eligible.  0 reads
+        # the autotune cache's gate entry for this shape, with the untuned
+        # defaults as fallback, as the reference does
+        if gate_tile == 0 or gate_push_chunk == 0:
+            geo = self._gate_geometry(B, dtype)
+            if gate_tile == 0:
+                gate_tile = geo.gate_tile if geo is not None and geo.gate_tile else 64
+            if gate_push_chunk == 0:
+                gate_push_chunk = geo.gate_push_chunk if geo is not None and geo.gate_push_chunk else 1 << 20
         self._gate: Optional[SkipGate] = None
         self._gate_reason: Optional[str] = None
         if gated:
@@ -758,6 +765,14 @@ class DeviceStreamBridge:
             self._ckpt_every = max(1, int(checkpoint_every))
             self._durability = durability
             self._epoch = 0
+
+    def _gate_geometry(self, width: int, dtype) -> Optional[Any]:
+        """The tuned gate geometry for this shape from the autotune cache
+        (``kernel="gate"``, which ``tools/block_sweep.py --kernel gate``
+        records), keyed on the engine's device, or ``None``: the bridge then
+        keeps the untuned defaults."""
+        return _autotune.lookup(_autotune.device_kind(self._engine._ranks[0]), self._config.num_reservoirs,
+                                self._config.max_sample_size, width, dtype, kernel="gate")
 
     # ------------------------------------------------------------ properties
 
@@ -1537,6 +1552,7 @@ class DeviceStreamBridge:
                 "lineage; recover from the promoted primary's checkpoint "
                 "(its post-promotion handoff checkpoint) instead"
             )
+        engine._faults = faults
         bridge = cls(
             engine.config,
             reusable=bool(info["reusable"]),

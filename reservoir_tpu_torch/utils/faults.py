@@ -12,9 +12,11 @@ Activation is explicit and doubly scoped:
   the ``RESERVOIR_FAULTS`` env spec (parsed once at import;
   :func:`install_from_env` re-reads it), reaching every site including
   ``checkpoint.write`` and ``native.staging``;
-- **per bridge** by passing a plane to
-  :class:`~reservoir_tpu_torch.stream.bridge.DeviceStreamBridge`
-  (``faults=``), reaching the ``bridge.*`` sites of that instance only.
+- **per bridge or engine** by passing a plane to
+  :class:`~reservoir_tpu_torch.stream.bridge.DeviceStreamBridge` /
+  :class:`~reservoir_tpu_torch.engine.ReservoirEngine` (``faults=``),
+  reaching the ``bridge.*`` and ``engine.update`` sites of that instance
+  only.
 
 When nothing is installed, every site is a no-op: :func:`fire` is one
 module-global load and an ``is None`` test — no allocation, no locking, no
@@ -23,7 +25,7 @@ counter traffic.
 Env spec grammar (semicolon-separated rules; keys after the site are
 comma-separated ``key=value`` pairs)::
 
-    RESERVOIR_FAULTS="seed=7;bridge.dispatch:exc=TransientDeviceError,times=2"
+    RESERVOIR_FAULTS="seed=7;bridge.dispatch:exc=TransientDeviceError,times=2;engine.update:exc=RuntimeError,after=10,every=5"
 
 ``exc`` names an exception from :mod:`reservoir_tpu_torch.errors`, a
 builtin, or ``none`` for a delay-only rule (a simulated hang for the
@@ -56,7 +58,10 @@ __all__ = [
 
 #: The injection sites the port fires: ``bridge.demux`` on the stream
 #: bridge's push paths (producer thread), ``bridge.dispatch`` before each
-#: device flush (worker thread when pipelined), ``native.staging`` on the
+#: device flush (worker thread when pipelined), ``engine.update`` before
+#: each engine tile update (the reference's ``engine.pallas``, its trigger
+#: to demote a Pallas kernel to XLA, has no counterpart: the port never
+#: falls back from its kernels), ``native.staging`` on the
 #: staging buffer's push and take paths, ``checkpoint.write`` inside the
 #: atomic checkpoint writer, and ``serve.ingest`` on the service's
 #: per-session ingest.  The HA plane adds ``replica.ship`` (the journal
@@ -71,6 +76,7 @@ __all__ = [
 SITES: Tuple[str, ...] = (
     "bridge.dispatch",
     "bridge.demux",
+    "engine.update",
     "checkpoint.write",
     "native.staging",
     "serve.ingest",

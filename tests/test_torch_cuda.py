@@ -2215,3 +2215,91 @@ def test_two_nccl_processes_one_card_each_equal_one_card(cuda_device, tmp_path):
     if torch.cuda.device_count() < 2:
         pytest.skip("NCCL needs a card a process: two processes need two cards")
     _check_two_process_mesh(_two_processes(tmp_path, "nccl"), cuda_device)
+
+
+def _same_state(a, b) -> bool:
+    return all((x is None and y is None) or torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+               for x, y in zip(a, b))
+
+
+def _copy(state):
+    return type(state)(*(None if t is None else t.clone() for t in state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 100, 2048])
+@pytest.mark.parametrize("case", ["fill", "steady", "wide", "gated", "weighted", "weighted past 4 warps",
+                                  "distinct", "distinct int64", "prehashed", "distinct one warp on chip",
+                                  "distinct beyond shared memory"])
+def test_every_launch_geometry_gives_the_default_bits(cuda_device, case, R):
+    """Every rows-a-block each tile kernel was built for, at R = 1, at an R
+    that is no multiple of any block, and at the serving plane's R = 2,048,
+    with an odd k, and with a k where the launcher keeps fewer rows on chip
+    than asked for or none (weighted: 8 warps' keys leave the chip where
+    4 warps' stay; distinct: one warp's block fits, or none): the state
+    equals the default launch's bit for bit, and each launch is counted."""
+    from reservoir_tpu_torch.ops import blocking
+
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(R)
+    B, k = 256, 13
+
+    def ints(rows, width, dtype=torch.int32):
+        t = torch.randint(-(2**31), 2**31 - 1, (rows, width), dtype=torch.int32, device=dev, generator=gen)
+        return t if dtype == torch.int32 else (t.to(torch.int64) * 0x9E3779B97F4A7C15 + 7)
+
+    if case in ("fill", "steady", "wide", "gated"):
+        wide = case == "wide"
+        state = T.init(key_from_seed(3), R, k, device=dev, count_dtype="wide" if wide else "int32")
+        if case != "fill":
+            state = TK.update_cuda(state, ints(R, B))
+        kernel = "algl_gated" if case == "gated" else "algl"
+        if case == "gated":
+            tile = ints(R, 16)
+            nvalid = torch.randint(0, 17, (R,), dtype=torch.int32, device=dev, generator=gen)
+            advance = nvalid + torch.randint(0, 500, (R,), dtype=torch.int32, device=dev, generator=gen)
+
+            def run(st, b):
+                return TK.update_gated_cuda(st, tile, nvalid, advance, block_r=b)
+        else:
+            tile = ints(R, B)
+            fn = TK.update_cuda if case in ("fill", "wide") else TK.update_steady_cuda
+
+            def run(st, b):
+                return fn(st, tile, block_r=b)
+        counter = "gated_launches" if case == "gated" else ("wide_launches" if wide else "launches")
+        module = TK
+    elif case.startswith("weighted"):
+        if case == "weighted past 4 warps":
+            k = 5001
+        state = TW.init(key_from_seed(3), R, k, device=dev)
+        state = TWK.update_cuda(state, ints(R, B), torch.rand((R, B), device=dev, generator=gen))
+        tile, weights = ints(R, B), torch.rand((R, B), device=dev, generator=gen)
+        kernel, module, counter = "weighted", TWK, "launches"
+
+        def run(st, b):
+            return TWK.update_cuda(st, tile, weights, block_r=b)
+    else:
+        dtype = torch.int64 if case == "distinct int64" else torch.int32
+        if case == "distinct one warp on chip":
+            k = 10001
+        elif case == "distinct beyond shared memory":
+            k = 19371
+        state = TD.init(key_from_seed(3), R, k, sample_dtype=dtype, device=dev)
+        state = TDK.update_cuda(state, ints(R, B, dtype) % 5000)
+        tile = ints(R, B, dtype) % 5000
+        hooks = {"hash_fn": lambda v: (v >> 3, v * 31)} if case == "prehashed" else {}
+        kernel, module = "distinct", TDK
+        counter = "prehashed_launches" if hooks else "launches"
+
+        def run(st, b):
+            return TDK.update_cuda(st, tile, block_r=b, **hooks)
+    torch.cuda.synchronize()
+    want = run(_copy(state), None)
+    choices = blocking.BLOCK_CHOICES[kernel]
+    before = getattr(module, counter)
+    for b in choices:
+        got = run(_copy(state), b)
+        torch.cuda.synchronize()
+        assert _same_state(got, want), (case, R, k, b)
+    assert getattr(module, counter) - before == len(choices)
