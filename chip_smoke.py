@@ -77,15 +77,20 @@ which fails the run with a non-zero exit:
    width 64 from empty (the planted key in every row), a tile across the
    fill's end, three Zipf tiles (bench.py's recipe), a tile of one value,
    a tile of values already held, a tile of negative keys and a ragged tile
-   — values, value_hi, hash_hi, hash_lo, size and count must be
-   bit-identical, and no planted row may hold the planted key; then, at
+   (keep-max, on full rows) — values, value_hi, hash_hi, hash_lo, size and
+   count must be bit-identical, and no planted row may hold the planted
+   key (the Pallas rule); a ragged tile of width 64 from empty (valid
+   6..64, int32 and int64) through keep-max, bit-identical, every planted
+   row (none full) holding the planted key (the XLA rule); then, at
    R=8, k=19371 (int32) and k=14529 (int64), the first k whose row block
    passes shared memory, two tiles that fill the rows and evict;
 13. the plain distinct version on the CPU for rows 0..1023 must equal the
    kernel's rows bit for bit;
 14. distinct engine path, int32 and int64 keys: 8 device-resident Zipf
-   tiles then 2 numpy tiles, then ``result_arrays()``: the kernel was
-   launched once per tile, every row equals an exact host oracle (the k
+   tiles, 2 numpy tiles and a tail of 640 keys a row (``valid`` given),
+   then ``result_arrays()``: the default kernel was launched once per full
+   tile and keep-max once for the tail, every row equals an exact host
+   oracle (the k
    smallest scrambled hashes among the row's distinct keys, in numpy with
    the port's own hashing), every size is min(k, #distinct), and the share
    of sampled keys seen at least 10 times in their row is within 0.01 of
@@ -94,9 +99,11 @@ which fails the run with a non-zero exit:
 15. distinct timings as in 7: the kernel on a Zipf tile from empty, on a
    steady Zipf tile (after 8) and on a steady tile of fresh random keys
    (int32), and on a steady Zipf tile and a Zipf tile from empty with int64
-   keys, each beside the plain version, the bound and the build;
-   ``torch.sort`` of the ``[R, k + B]`` packed hashes as context (not the
-   same function);
+   keys, each beside the plain version, the bound and the build; keep-max
+   on the steady Zipf tile with every lane given as ``valid`` and with a
+   ragged count, each beside the default on the full tile, the plain
+   version, the bound and the build; ``torch.sort`` of the ``[R, k + B]``
+   packed hashes as context (not the same function);
 16. the all-gather kernel vs its plain version, bit for bit on every rank's
    copy: ``ring_all_gather`` for d in {2, 3, 4, 8} ranks on the card, b in
    {1, 5, 64, 4096}, W in {1, 8, 129} and int32, uint32 and float32 words
@@ -216,8 +223,9 @@ which fails the run with a non-zero exit:
    array, bit for bit; ``run_async`` over an async generator of the same
    stream: the same launches and sample; ``Sample.device(256,
    distinct=True, element_dtype="int64", key=0)`` over 1,048,576 Zipf keys
-   (``min(u^-10, 1e7)``, numpy seed 27): 1,024 ``distinct_update``
-   launches, the sample equal to phase 14's exact oracle under the
+   (``min(u^-10, 1e7)``, numpy seed 27): 1,024 ``distinct_update_keepmax``
+   launches (a sampler's flushes pass ``valid``), the sample equal to
+   phase 14's exact oracle under the
    engine's salts; a graceful ``cancel()`` after 500,000 elements delivers
    the sample of a ``DeviceSampler`` fed those, ``cancel(cause)`` fails
    the future with the cause, a dropped operator with
@@ -229,7 +237,7 @@ which fails the run with a non-zero exit:
    stream of 524,288 int64 values below 2^31 in 8 ``B`` frames of
    65,536, then ``C``: 4,096 ``algl_update`` launches, each reply equal to
    a card ``DeviceSampler`` fed that stream; one mode-1 connection (k =
-   256, phase 27's Zipf keys): 1,024 ``distinct_update`` launches, the
+   256, phase 27's Zipf keys): 1,024 ``distinct_update_keepmax`` launches, the
    reply equal to the exact oracle; an ``F`` connection answered ``A``,
    the server serving after an abrupt disconnect, a frame over
    ``MAX_FRAME_ELEMS`` refused;
@@ -245,7 +253,8 @@ which fails the run with a non-zero exit:
    ``valid``, and the wire for 1 and 8 connections with the host and the
    device factory, each with the client's Nagle algorithm on and off
    (``TCP_NODELAY``), 5 runs of one connection and 2 of eight (median,
-   least, most); with CUDA events, ``algl_update`` and ``distinct_update`` on
+   least, most); with CUDA events, ``algl_update`` and
+   ``distinct_update_keepmax`` (``valid`` given, as a flush passes it) on
    this path's steady ``[1, 1024]`` tiles (after 8 tiles) beside their
    bounds (both shorter than their wrappers' host time, so ``event_ms``
    reads host time there);
@@ -267,7 +276,8 @@ which fails the run with a non-zero exit:
 31. ``ReservoirService`` on the card, each launch count set to 0 before
    each part: (a) bench.py's serve shape (2,048 sessions, k = 32, four
    rounds of 256 int32 elements a session, ``coalesce_bytes`` 1 MiB) in
-   the plain, weighted and distinct modes, one update launch a flush;
+   the plain, weighted and distinct modes, one update launch a flush
+   (``distinct_update_keepmax`` in distinct mode: a flush passes ``valid``);
    (d) the plain feed through ``gated=True``: every snapshot equals the
    ungated service's, one ``algl_update_gated`` a gated dispatch;
    (b) bench.py's traffic shape: 8,704 sessions opened in a seeded order
@@ -375,9 +385,9 @@ which fails the run with a non-zero exit:
    ``device="cpu"`` (the plain versions, map on accept); the map pass over
    a ``[65536, 2048]`` tile timed beside the steady kernel on the mapped
    tile, with its bytes bound; a mapped distinct tile launches the
-   pre-hashed instantiation on the mapped keys' own words (the reference
-   runs any hook on XLA): its map pass, that hash pass and the kernel
-   timed beside the default kernel on the same mapped keys; then ``DeviceStreamBridge``s with a
+   keep-max instantiation on the mapped keys (the reference runs a map on
+   XLA): its map pass and the kernel timed beside the default kernel on
+   the same mapped keys; then ``DeviceStreamBridge``s with a
    map (R=4096, B=1024, 4 lockstep rounds of 2,048 a row through
    ``push_interleaved``): gated with an int32 map, gated and ungated with
    an int32 to float32 map, each launching its flushes
@@ -393,12 +403,17 @@ which fails the run with a non-zero exit:
    and no other, rows 0..1023 equal to an exact host oracle of the k
    smallest (scrambled user hash, key) pairs; timings as in 15 of a steady Zipf
    tile and a tile from empty beside the default-hash kernel on the same
-   keys, with the hash pass, the plain version, the bound and the build;
+   keys, with the hash pass (and the user's ``hash_fn`` apart from the
+   planes it is made into), the plain version, the bound and the build; a
+   mapped distinct tile (``map_fn`` alone) through ``update_cuda``: one
+   ``distinct_update_keepmax`` launch and no other, equal to the plain
+   version, the call, its map pass and the launch timed;
 41. the fused stream: ``sample_stream(fused=True)`` of a host stream of n
    full tiles and a tail of 17 at config 5 (n=4, int32 and WIDE
    counters), the weighted and the distinct (int64 keys) configurations
    and the distinct one with ``map_fn`` and ``hash_fn`` (n=8): n + 1
-   launches of the mode's kernel, the state equal to the per-tile path's
+   launches of the mode's kernel (the distinct tail, ragged, through
+   keep-max), the state equal to the per-tile path's
    bit for bit (the port feeds a fused stream tile by tile); elements/s
    fed from the host, on the second (warm) run.
 
@@ -433,8 +448,9 @@ which fails the run with a non-zero exit:
    (``reservoir_tpu_torch/utils/selftest.py``, after its liveness probe):
    its dict and seconds on a line of their own; every kernel check
    (``algl``, ``algl_fill``, ``algl_wide``, ``algl_gated``, ``weighted``,
-   ``distinct``, ``distinct_hashed``, ``merge_ring``, ``merge_draws``: the
-   nine kernels against their plain versions, bit for bit, at R = 64, B =
+   ``distinct``, ``distinct_hashed``, ``distinct_keepmax``, ``merge_ring``,
+   ``merge_draws``: the ten kernels against their plain versions, bit for
+   bit, at R = 64, B =
    256), ``kernel_parity``, ``gated_parity``, ``merge_parity`` and the
    three KS gates true, nothing ``partial``, every kernel launched;
 46. two processes joined over gloo, four ranks of the card each
@@ -593,6 +609,8 @@ D_OPS_PER_SEARCH_STEP = 8
 # written (16), the salts read (16); a row that inserts reads and writes its
 # block (12 bytes an entry narrow, 16 wide)
 D_STATE_BYTES_PER_ROW = 40
+# phase 14: the engine's tail tile, D_TAIL keys a row (valid given)
+D_TAIL = 640
 
 
 def fail(msg: str) -> None:
@@ -1050,22 +1068,22 @@ def main() -> None:
         f"{warm_host_eps:.6e} elem/s")
 
     weighted = weighted_phases(gen, dev)
-    distinct = distinct_phases(gen, dev)
+    distinct, keepmax_entry = distinct_phases(gen, dev)
     merge, merge_entry = merge_phases(gen, dev)
     bridge = bridge_phases(gen, dev, here, {"device_fed": dev_eps, "host_fed": host_eps,
                                             "host_fed_warm": warm_host_eps})
     gate, gated_entry = gate_phases(gen, dev, here)
-    operator, algl_extra, distinct_extra = operator_phases(dev)
-    distinct.update(distinct_extra)
+    operator, algl_extra, keepmax_extra = operator_phases(dev)
+    keepmax_entry.update(keepmax_extra)
     serve, serve_launches = serve_phases(gen, dev, here)
     algl_extra["serve_launches"] = serve_launches["algl_update"]
     weighted["serve_launches"] = serve_launches["weighted_update"]
-    distinct["serve_launches"] = serve_launches["distinct_update"]
+    keepmax_entry["serve_launches"] = serve_launches["distinct_update_keepmax"]
     gated_entry["serve_launches"] = serve_launches["algl_update_gated"]
     ha, ha_launches = ha_phases(here)
     algl_extra["ha_launches"] = ha_launches["algl_update"]
     weighted["ha_launches"] = ha_launches["weighted_update"]
-    distinct["ha_launches"] = ha_launches["distinct_update"]
+    keepmax_entry["ha_launches"] = ha_launches["distinct_update_keepmax"]
     gated_entry["ha_launches"] = ha_launches["algl_update_gated"]
     merge["ha_launches"] = ha_launches["merge_ring_gather"]
     merge_entry["ha_launches"] = ha_launches["algl_merge_draws"]
@@ -1114,7 +1132,8 @@ def main() -> None:
         "bridge_ragged_flush": bridge["ragged_flush"],
         "gated_bridge_fallback_launches": gate["fallback_launches"],
         **algl_extra,
-    }, weighted, distinct, merge, gated_entry, merge_entry, wide_entry, wide_merge_entry, prehashed_entry]
+    }, weighted, distinct, merge, gated_entry, merge_entry, wide_entry, wide_merge_entry, prehashed_entry,
+        keepmax_entry]
     for entry in entries:
         entry.update(hook_extra.get(entry["name"], {}))
         entry.update(sharded_extra.get(entry["name"], {}))
@@ -1344,10 +1363,12 @@ def distinct_bound_ms(lanes: int, wide: bool, inserts: int, rows_inserting: int,
     """The distinct kernel's bound for a tile of ``lanes`` keys over
     ``rows`` rows (DR unless given), with ``inserts`` entries new to the
     state over ``rows_inserting`` rows (the least inserts any order of
-    candidates needs); ``prehashed`` reads two hash words a lane more."""
+    candidates needs); ``prehashed`` reads the two hash words of every lane
+    and the value words of only the keys it inserts."""
     planes = 4 if wide else 3
-    nbytes = ((8 if wide else 4) + (8 if prehashed else 0)) * lanes + rows * D_STATE_BYTES_PER_ROW \
-        + rows_inserting * 2 * k * 4 * planes
+    key_bytes = 8 if wide else 4
+    tile_bytes = 8 * lanes + key_bytes * inserts if prehashed else key_bytes * lanes
+    nbytes = tile_bytes + rows * D_STATE_BYTES_PER_ROW + rows_inserting * 2 * k * 4 * planes
     t_bytes = nbytes / PEAK_BYTES
     per_insert = D_OPS_PER_SEARCH_STEP * (k.bit_length() - 1) + planes * k // 2
     t_ops = (D_OPS_PER_LANE * lanes + per_insert * inserts) / PEAK_INT32
@@ -1466,8 +1487,9 @@ def distinct_timing_cases(gen, dev) -> list:
     return cases
 
 
-def distinct_phases(gen, dev) -> dict:
-    """Phases 12-15, the distinct path; returns its ``kernels`` entry."""
+def distinct_phases(gen, dev) -> tuple:
+    """Phases 12-15, the distinct path; returns its ``kernels`` entries:
+    ``distinct_update``'s and ``distinct_update_keepmax``'s."""
     import reservoir_tpu_torch as rtt
     from reservoir_tpu_torch.convert import distinct_state_from_numpy, distinct_state_to_numpy
     from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
@@ -1479,22 +1501,27 @@ def distinct_phases(gen, dev) -> dict:
 
     # 12. distinct kernel vs plain version, full width
     plant_rows = torch.arange(0, DR, 97)
-    worst_err = 0.0
+    worst_err = keepmax_err = 0.0
     cpu_checks = []
     plan = [("partial", 64, False), ("fill end", DB, False), ("zipf", DB, False), ("zipf", DB, False),
             ("zipf", DB, False), ("one value", DB, False), ("held", DB, False), ("negative", DB, False),
             ("ragged", DB, True)]
-    for dtype in (torch.int32, torch.uint32, torch.int64):
-        gen.manual_seed(41)
+    def planted(dtype):
+        """An empty state whose salts send the planted key to (MAX, MAX) in
+        every 97th row, and the key (its 32-bit word, narrow)."""
         wide = dtype == torch.int64
         plant = (0x01234567, 0x89ABCDEF) if wide else (0, 123456789)
-        plant_key = (plant[0] << 32) | plant[1]
         host = distinct_state_to_numpy(dplain.init(key_from_seed(4), DR, DK, sample_dtype=dtype))
         salts = host["salts"].copy()
         for r in plant_rows.tolist():
             salts[r, 2:] = salt_for_target(plant, (0xFFFFFFFF, 0xFFFFFFFF), tuple(int(x) for x in salts[r, :2]))
         host["salts"] = salts
-        state = distinct_state_from_numpy(**host, device=dev)
+        return distinct_state_from_numpy(**host, device=dev), (plant[0] << 32) | plant[1] if wide else plant[1]
+
+    for dtype in (torch.int32, torch.uint32, torch.int64):
+        gen.manual_seed(41)
+        wide = dtype == torch.int64
+        state, plant_key = planted(dtype)
         start_cpu = clone(state, ROWS_CPU, "cpu")
         fed = []
         for t, (kind, width, ragged) in enumerate(plan):
@@ -1512,8 +1539,7 @@ def distinct_phases(gen, dev) -> dict:
             else:
                 tile = zipf_keys(gen, DR, width, dtype, dev)
             if kind in ("partial", "ragged"):
-                key = plant_key if wide else plant[1]
-                tile.view(torch.int64 if wide else torch.int32)[:, 5] = key
+                tile.view(torch.int64 if wide else torch.int32)[:, 5] = plant_key
             valid = None
             if ragged:
                 valid = torch.randint(0, width + 1, (DR,), dtype=torch.int32, device=dev, generator=gen)
@@ -1531,10 +1557,9 @@ def distinct_phases(gen, dev) -> dict:
             fed.append((tile[:ROWS_CPU].cpu(), None if valid is None else valid[:ROWS_CPU].cpu()))
             del ref
         held = held_keys(state)
-        planted = (held[plant_rows] == (plant_key if wide else plant[1])).any().item()
-        if planted:
+        if (held[plant_rows] == plant_key).any().item():
             fail(f"a row whose salts send the planted key to (MAX, MAX) holds it ({dtype})")
-        elsewhere = int((held == (plant_key if wide else plant[1])).any(1).sum().item())
+        elsewhere = int((held == plant_key).any(1).sum().item())
         if int(state.size.min().item()) != DK:
             fail(f"a distinct reservoir holds fewer than k keys after {len(plan)} tiles ({dtype})")
         log(f"[12 distinct kernel vs plain] {dtype}: {len(plan)} tiles (partial, fill end, 3 Zipf, one "
@@ -1542,6 +1567,25 @@ def distinct_phases(gen, dev) -> dict:
             f"and by {elsewhere} of the others")
         cpu_checks.append((f"{dtype}", start_cpu, fed, clone(state, ROWS_CPU, "cpu")))
         del state
+    # a ragged tile from empty carries the planted key into rows that are
+    # not full: keep-max keeps it there, as the reference's XLA rule does
+    for dtype in (torch.int32, torch.int64):
+        state, plant_key = planted(dtype)
+        tile = wide_or_narrow(torch.randint(-(2**62), 2**62, (DR, 64), generator=gen, device=dev), dtype)
+        tile.view(torch.int64 if dtype == torch.int64 else torch.int32)[:, 5] = plant_key
+        valid = torch.randint(6, 65, (DR,), dtype=torch.int32, device=dev, generator=gen)
+        ref = dplain.update(clone(state), tile, valid)
+        state = dkern.update_cuda(state, tile, valid)
+        torch.cuda.synchronize()
+        keepmax_err = max(keepmax_err, max_abs_err(state, ref))
+        if not same(state, ref):
+            fail(f"distinct keep-max kernel != plain version on a ragged planted tile ({dtype})")
+        held = held_keys(state)
+        if not (held[plant_rows] == plant_key).any(1).all().item():
+            fail(f"a row that is not full lost the planted key of hash (MAX, MAX) on a ragged tile ({dtype})")
+        log(f"[12 distinct kernel vs plain] {dtype}: a ragged tile of 64 from empty (valid 6..64) through "
+            f"keep-max, bit-identical; every planted row, none full, holds the planted key (the XLA rule)")
+        del state, ref
     # beyond shared memory: the first k whose row block passes a block's
     # shared memory runs the instantiation that keeps it in global memory
     for dtype, k_big in ((torch.int32, 19371), (torch.int64, 14529)):
@@ -1569,17 +1613,20 @@ def distinct_phases(gen, dev) -> dict:
                      state_c, [("update", args) for args in fed])
     del cpu_checks
 
-    # 14. the distinct engine path, 4-byte and 8-byte keys
+    # 14. the distinct engine path, 4-byte and 8-byte keys: 10 full tiles
+    # (the default kernel) and a tail of D_TAIL keys a row (valid given:
+    # keep-max)
     rates = {}
-    main_launches = 0
+    main_launches = keepmax_launches = 0
     for name, dtype in (("int32", torch.int32), ("int64", torch.int64)):
         gen.manual_seed(43)
         dev_tiles = [zipf_keys(gen, DR, DB, dtype, dev) for _ in range(8)]
         host_tiles = [zipf_keys(gen, DR, DB, dtype, dev).cpu().numpy() for _ in range(2)]
+        tail = zipf_keys(gen, DR, DB, dtype, dev)
         torch.cuda.synchronize()
         kern.launches = 0
         wkern.launches = 0
-        dkern.launches = 0
+        dkern.launches = dkern.keepmax_launches = dkern.prehashed_launches = 0
         engine = rtt.ReservoirEngine(rtt.SamplerConfig(max_sample_size=DK, num_reservoirs=DR, tile_size=DB,
                                                        distinct=True, element_dtype=name), key=0)
         torch.cuda.synchronize()
@@ -1593,14 +1640,19 @@ def distinct_phases(gen, dev) -> dict:
             engine.sample(tile)
         torch.cuda.synchronize()
         t_host = time.perf_counter() - t0
+        engine.sample(tail, valid=np.full(DR, D_TAIL, np.int32))
         salts = distinct_state_to_numpy(engine.state)["salts"]
         samples, sizes = engine.result_arrays()
         launches = dkern.launches
-        if launches != 10 or kern.launches or wkern.launches:
-            fail(f"the distinct engine ({name}) launched distinct_update {launches} times, algl_update "
-                 f"{kern.launches} and weighted_update {wkern.launches} times for 10 tiles")
+        if (launches != 10 or dkern.keepmax_launches != 1 or dkern.prehashed_launches or kern.launches
+                or wkern.launches):
+            fail(f"the distinct engine ({name}) launched distinct_update {launches} times, "
+                 f"distinct_update_keepmax {dkern.keepmax_launches}, the pre-hashed kernel "
+                 f"{dkern.prehashed_launches}, algl_update {kern.launches} and weighted_update "
+                 f"{wkern.launches} times for 10 tiles and a tail")
         main_launches += launches
-        tiles = [t.cpu().numpy() for t in dev_tiles] + host_tiles
+        keepmax_launches += dkern.keepmax_launches
+        tiles = [t.cpu().numpy() for t in dev_tiles] + host_tiles + [tail[:, :D_TAIL].cpu().numpy()]
         ok, msg, share_sampled, share_all = distinct_oracle(tiles, salts, samples, sizes)
         if not ok:
             fail(f"distinct engine ({name}): {msg}")
@@ -1608,12 +1660,13 @@ def distinct_phases(gen, dev) -> dict:
             fail(f"distinct engine ({name}): the share of sampled keys seen >= 10 times, "
                  f"{share_sampled:.6f}, is not within 0.01 of their share of distinct keys, {share_all:.6f}")
         rates[name] = {"device_fed": 8 * DR * DB / t_dev, "host_fed": 2 * DR * DB / t_host}
-        log(f"[14 distinct engine] {name}: 10 tiles, launches {launches}, every row equals the exact "
+        log(f"[14 distinct engine] {name}: 10 tiles and a tail of {D_TAIL}, launches {launches} and "
+            f"{dkern.keepmax_launches} keep-max, every row equals the exact "
             f"oracle, sizes {int(sizes.min())}..{int(sizes.max())}; keys seen >= 10 times: "
             f"{share_sampled:.6f} of the sample, {share_all:.6f} of the distinct keys; "
             f"{rates[name]['device_fed']:.6e} elem/s fed from the device, "
             f"{rates[name]['host_fed']:.6e} elem/s fed from the host")
-        del dev_tiles, host_tiles, tiles, engine
+        del dev_tiles, host_tiles, tiles, engine, tail
 
     # 15. timings at the distinct path's shapes
     def timed(state, tile, wide=False) -> dict:
@@ -1632,6 +1685,31 @@ def distinct_phases(gen, dev) -> dict:
     cases = distinct_timing_cases(gen, dev)
     timings = {label: timed(state, tile, wide) for label, state, tile, wide in cases}
     fill, steady, fresh, steady_wide, fill_wide = (timings[label] for label, *_ in cases)
+    # keep-max on the steady Zipf tile: every lane given as valid (the
+    # default's work, under the other rule) and a ragged valid count
+    _, steady_state, steady_tile, _ = cases[1]
+    keepmax = {}
+    for label, valid in (("steady Zipf tile, valid B", torch.full((DR,), DB, dtype=torch.int32, device=dev)),
+                         ("steady Zipf tile, ragged valid",
+                          torch.randint(DB // 2, DB + 1, (DR,), dtype=torch.int32, device=dev, generator=gen))):
+        ms = event_ms(lambda s, v=valid: dkern.update_cuda(s, steady_tile, v), setup=lambda: clone(steady_state),
+                      batch=10)
+        plain_times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            ref = dplain.update(steady_state, steady_tile, valid)
+            torch.cuda.synchronize()
+            plain_times.append(1e3 * (time.perf_counter() - t0))
+        got = dkern.update_cuda(clone(steady_state), steady_tile, valid)
+        keepmax_err = max(keepmax_err, max_abs_err(got, ref))
+        if not same(got, ref):
+            fail(f"distinct keep-max kernel != plain version on the {label}")
+        inserts, rows_in = net_inserts(steady_state, ref)
+        bound, by = distinct_bound_ms(int(valid.sum().item()), False, inserts, rows_in)
+        keepmax[label] = {"ms": ms, "plain_ms": statistics.median(plain_times), "bound_ms": bound,
+                          "bound_by": by, "net_inserts": inserts, "rows_inserting": rows_in,
+                          "lanes": int(valid.sum().item())}
+        del ref, got
     # context only: a sort of the [R, k + B] packed hashes, not the same function
     packed = torch.randint(-(2**62), 2**62, (DR, DK + DB), device=dev, generator=gen)
     sort_ms = event_ms(lambda _: torch.sort(packed, dim=1), batch=10)
@@ -1642,11 +1720,38 @@ def distinct_phases(gen, dev) -> dict:
         log(f"[15 distinct timings] {card} | {label}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.1f} ms, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), net inserts {t['net_inserts']} over "
             f"{t['rows_inserting']} rows; build {build_text(builds['int64' if 'int64' in label else 'int32'])}")
+    keepmax_build = {"int32": dkern.kernel_info(DK, False, rule=dkern.KEEPMAX),
+                     "int64": dkern.kernel_info(DK, True, rule=dkern.KEEPMAX)}
+    for label, t in keepmax.items():
+        log(f"[15 distinct timings] {card} | keep-max, {label}: kernel {t['ms']:.4f} ms (the default on the "
+            f"full tile {steady['ms']:.4f} ms), plain {t['plain_ms']:.1f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}), {t['lanes']} lanes, net inserts {t['net_inserts']}; build "
+            f"{build_text(keepmax_build['int32'])}")
     log(f"[15 distinct timings] {card} | context, not the same function: torch.sort of [{DR}, {DK + DB}] "
         f"int64 {sort_ms:.4f} ms")
     log(f"[15 distinct timings] {card} | engine: int32 {rates['int32']['device_fed']:.6e} / "
         f"{rates['int32']['host_fed']:.6e} elem/s, int64 {rates['int64']['device_fed']:.6e} / "
         f"{rates['int64']['host_fed']:.6e} elem/s (fed from the device / the host)")
+    given = keepmax["steady Zipf tile, valid B"]
+    keepmax_entry = {
+        "name": "distinct_update_keepmax",
+        "route": "cuda",
+        "source": "reservoir_tpu_torch/csrc/distinct.cu",
+        "replaces": "reservoir_tpu/ops/distinct_pallas.py:129",
+        "replaces_note": "the keep-max instantiation of distinct_update; the reference runs a ragged or "
+                         "mapped tile on XLA (reservoir_tpu/engine.py:386-387, reservoir_tpu/ops/distinct.py:214)",
+        "launches": keepmax_launches,
+        "max_abs_err": keepmax_err,
+        "ms": given["ms"],
+        "plain_ms": given["plain_ms"],
+        "bound_ms": given["bound_ms"],
+        "bound_by": given["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a deduplicating bottom-k merge",
+        "default_ms_same_tile": steady["ms"],
+        "ragged_tile": keepmax["steady Zipf tile, ragged valid"],
+        "build": keepmax_build,
+    }
     return {
         "name": "distinct_update",
         "route": "cuda",
@@ -1668,7 +1773,7 @@ def distinct_phases(gen, dev) -> dict:
         "fill_tile_int64": fill_wide,
         "build": builds,
         "engine_elem_per_s": rates,
-    }
+    }, keepmax_entry
 
 
 def word_blocks(gen, d: int, b: int, w: int, dtype, dev) -> list:
@@ -2146,7 +2251,7 @@ def merge_phases(gen, dev) -> tuple:
 
     for mod in (kern, wkern, dkern, mkern):
         mod.launches = 0
-    kern.merge_launches = 0
+    kern.merge_launches = dkern.keepmax_launches = dkern.prehashed_launches = 0
     # uniform: four shards of unequal streams; an element is its position in
     # the union stream of its row
     lengths = [1000, 2 * B, 3 * B, 4 * B]
@@ -2233,7 +2338,8 @@ def merge_phases(gen, dev) -> tuple:
     merged = pmerge.distinct_stream_merger(*d_stacked)
     torch.cuda.synchronize()
     t_merge_distinct = time.perf_counter() - t0
-    if dkern.launches != 20 or mkern.launches != uniform_launches + 1 or kern.merge_launches != 2:
+    if (dkern.launches != 20 or dkern.keepmax_launches or dkern.prehashed_launches
+            or mkern.launches != uniform_launches + 1 or kern.merge_launches != 2):
         fail(f"the distinct merge path launched distinct_update {dkern.launches} times for 20 tiles and "
              f"merge_ring_gather {mkern.launches - uniform_launches} times for one merge")
     hold_path_gather(d_stacked, "the distinct merger's shards")
@@ -2550,15 +2656,16 @@ def bridge_phases(gen, dev, here: str, engine_eps: dict) -> dict:
         f"{full_ms:.4f} ms, bound {ragged_bound:.4f} ms ({ragged_by}), accepts {ragged_accepts}")
 
     # the weighted and distinct bridges: the card engine fed the journaled
-    # flushes reaches the bridge's state
-    def journaled(name, cfg_x, streams, elems, weights, counter):
+    # flushes reaches the bridge's state; count() reads the launches of the
+    # kernel a flush takes (keep-max in distinct mode: a flush passes valid)
+    def journaled(name, cfg_x, streams, elems, weights, count):
         ckdir = os.path.join(work, name)
         bridge = rtt.DeviceStreamBridge(cfg_x, key=0, checkpoint_dir=ckdir, checkpoint_every=1 << 30)
-        before = counter.launches
+        before = count()
         bridge.push_interleaved(streams, elems, weights=weights)
         bridge.flush()
         bridge.drain_barrier()
-        flushes, launches = bridge.metrics.flushes, counter.launches - before
+        flushes, launches = bridge.metrics.flushes, count() - before
         state = clone(bridge.engine._state)
         del bridge
         gc.collect()
@@ -2584,7 +2691,7 @@ def bridge_phases(gen, dev, here: str, engine_eps: dict) -> dict:
                             dtype=torch.int32).cpu().numpy()
     w_weights = weight_tile(gen, 1, n_w, "zeros", dev)[0].cpu().numpy()
     wcfg = rtt.SamplerConfig(max_sample_size=WK, num_reservoirs=WR, tile_size=WB, weighted=True)
-    w_flushes = journaled("weighted", wcfg, w_streams, w_elems, w_weights, wkern)
+    w_flushes = journaled("weighted", wcfg, w_streams, w_elems, w_weights, lambda: wkern.launches)
     del w_streams, w_elems, w_weights
     d_flushes = {}
     for dtype in (torch.int32, torch.int64):
@@ -2594,7 +2701,8 @@ def bridge_phases(gen, dev, here: str, engine_eps: dict) -> dict:
         name = str(dtype).replace("torch.", "")
         dcfg = rtt.SamplerConfig(max_sample_size=DK, num_reservoirs=DR, tile_size=DB, distinct=True,
                                  element_dtype=name)
-        d_flushes[name] = journaled(f"distinct {name}", dcfg, d_streams, d_keys, None, dkern)
+        d_flushes[name] = journaled(f"distinct {name}", dcfg, d_streams, d_keys, None,
+                                    lambda: dkern.keepmax_launches)
     scfg = rtt.SamplerConfig(max_sample_size=K, num_reservoirs=1, tile_size=B)
     one = torch.randint(-(2**31), 2**31 - 1, (5 * B + 77,), generator=gen, device=dev,
                         dtype=torch.int32).cpu().numpy()
@@ -2970,7 +3078,7 @@ def gate_phases(gen, dev, here: str) -> tuple:
     torch.cuda.synchronize()
     for mod in (kern, wkern, dkern, mkern):
         mod.launches = 0
-    kern.gated_launches = 0
+    kern.gated_launches = dkern.keepmax_launches = dkern.prehashed_launches = 0
     bridge = rtt.DeviceStreamBridge(cfg, key=0, gated=True)
     if not (bridge.gate_active and bridge._gate.native and bridge._gate.cap == cap):
         fail("the gated bridge's gate is not active with the native replica")
@@ -3012,7 +3120,7 @@ def gate_phases(gen, dev, here: str) -> tuple:
              f"for {m.flushes} flushes, {m.gated_dispatches} of them gated")
     main_gated = kern.gated_launches
     main_fallback = kern.launches
-    if wkern.launches or dkern.launches or mkern.launches:
+    if wkern.launches or dkern.launches or dkern.keepmax_launches or dkern.prehashed_launches or mkern.launches:
         fail("the gated bridge launched a weighted, distinct or merge kernel")
     for j in range(ROUNDS_B * CHUNK_B // B):
         engine.sample(b_tile(j))
@@ -3302,7 +3410,7 @@ def wire_concurrent(addr, mode: int, k: int, streams: list, nodelay: bool = Fals
 def operator_phases(dev) -> tuple:
     """Phases 27-29, the pass-through operator and the interop server on
     the card; returns the ``operator`` line and the phases' additions to
-    the ``algl_update`` and ``distinct_update`` entries."""
+    the ``algl_update`` and ``distinct_update_keepmax`` entries."""
     import asyncio
     import socket
     import struct
@@ -3328,11 +3436,11 @@ def operator_phases(dev) -> tuple:
     # 27. the operator on the card: the main path of this phase
     torch.cuda.synchronize()
     kern.launches = 0
-    dkern.launches = 0
+    dkern.launches = dkern.keepmax_launches = dkern.prehashed_launches = 0
     t0 = time.perf_counter()
     card = flow.run(range(OP_N)).drain()
     op_s = time.perf_counter() - t0
-    u_launches, u_other = kern.launches, dkern.launches
+    u_launches, u_other = kern.launches, dkern.launches + dkern.keepmax_launches + dkern.prehashed_launches
     if u_launches != OP_N // OP_B + 1 or u_other:
         fail(f"Sample.device over {OP_N} elements launched algl_update {u_launches} times and "
              f"distinct_update {u_other} times, not {OP_N // OP_B + 1} and 0")
@@ -3370,18 +3478,19 @@ def operator_phases(dev) -> tuple:
     keys = op_zipf(27, OP_DN)
     dflow = Sample.device(OP_DK, distinct=True, element_dtype="int64", key=0, tile_size=OP_B)
     kern.launches = 0
-    dkern.launches = 0
+    dkern.launches = dkern.keepmax_launches = dkern.prehashed_launches = 0
     dres = dflow.run(iter(keys)).drain()
-    d_launches, d_other = dkern.launches, kern.launches
+    # a sampler's flushes pass valid, so they take keep-max (the reference's XLA rule)
+    d_launches, d_other = dkern.keepmax_launches, kern.launches + dkern.launches + dkern.prehashed_launches
     if d_launches != OP_DN // OP_B or d_other:
-        fail(f"the distinct flow launched distinct_update {d_launches} times and algl_update "
-             f"{d_other} times, not {OP_DN // OP_B} and 0")
+        fail(f"the distinct flow launched distinct_update_keepmax {d_launches} times and other update "
+             f"kernels {d_other} times, not {OP_DN // OP_B} and 0")
     salts = distinct_state_to_numpy(DeviceSampler(dcfg, key=0).engine.state)["salts"]
     ok, msg = distinct_reply_ok(keys, salts, np.asarray(dres))
     if not ok:
         fail(f"the distinct flow's sample != the exact oracle: {msg}")
     log(f"[27 operator] distinct: Sample.device({OP_DK}, distinct=True, int64) over {OP_DN} Zipf "
-        f"keys: {d_launches} distinct_update launches, {dres.size} keys, equal to the exact oracle")
+        f"keys: {d_launches} distinct_update_keepmax launches, {dres.size} keys, equal to the exact oracle")
 
     # the completion protocol on the card
     kern.launches = 0
@@ -3441,10 +3550,11 @@ def operator_phases(dev) -> tuple:
     with SampleServer(sampler_factory=factory) as srv:
         torch.cuda.synchronize()
         kern.launches = 0
-        dkern.launches = 0
+        dkern.launches = dkern.keepmax_launches = dkern.prehashed_launches = 0
         replies, wire_s = wire_concurrent(srv.address, 0, OP_K, frames)
         w_launches = kern.launches
-        if w_launches != WIRE_CONNS * (WIRE_N // OP_B) or dkern.launches:
+        if (w_launches != WIRE_CONNS * (WIRE_N // OP_B)
+                or dkern.launches + dkern.keepmax_launches + dkern.prehashed_launches):
             fail(f"{WIRE_CONNS} connections launched algl_update {w_launches} times, not "
                  f"{WIRE_CONNS * (WIRE_N // OP_B)}")
         for i, (v, got) in enumerate(zip(streams, replies)):
@@ -3452,11 +3562,10 @@ def operator_phases(dev) -> tuple:
             ref.sample_all(v)
             if not same_result(got, ref.result().astype(np.int64)):
                 fail(f"connection {i}'s reply != a card DeviceSampler fed its stream")
-        dkern.launches = 0
         (dreply,), _ = wire_concurrent(srv.address, 1, OP_DK, [wire_frames(keys)])
-        wd_launches = dkern.launches
+        wd_launches = dkern.keepmax_launches
         ok, msg = distinct_reply_ok(keys, salts, dreply)
-        if not ok or wd_launches != OP_DN // OP_B:
+        if not ok or wd_launches != OP_DN // OP_B or dkern.launches or dkern.prehashed_launches:
             fail(f"the mode-1 connection: {wd_launches} launches; reply: {msg or 'equal'}")
         # failure paths
         with socket.create_connection(srv.address, timeout=60) as sock:
@@ -3484,7 +3593,7 @@ def operator_phases(dev) -> tuple:
     log(f"[28 server] {WIRE_CONNS} concurrent mode-0 connections of {WIRE_N} values in "
         f"{WIRE_N // WIRE_FRAME} frames: {w_launches} algl_update launches, every reply == a card "
         f"DeviceSampler fed its stream; mode 1 (k {OP_DK}, Zipf int64): {wd_launches} "
-        f"distinct_update launches, reply == the exact oracle; F answered A, served after an "
+        f"distinct_update_keepmax launches, reply == the exact oracle; F answered A, served after an "
         f"abrupt disconnect, a frame over MAX_FRAME_ELEMS refused")
     line["server"] = {"connections": WIRE_CONNS, "launches": w_launches,
                       "distinct_launches": wd_launches}
@@ -3591,10 +3700,11 @@ def operator_phases(dev) -> tuple:
     u_bound, u_by = bound_ms(u_acc, 0, rows=1, width=OP_B, k=OP_K)
     dtiles = [dplain.split_values(keys[t * OP_B : (t + 1) * OP_B][None, :], device=dev) for t in range(9)]
     dstate = dplain.init(key_from_seed(0), 1, OP_DK, sample_dtype=torch.int64, device=dev)
+    full = torch.full((1,), OP_B, dtype=torch.int32, device=dev)  # a DeviceSampler flush passes valid
     for t in dtiles[:8]:
-        dstate = dkern.update_cuda(dstate, t)
-    d_ms = event_ms(lambda st: dkern.update_cuda(st, dtiles[8]), setup=lambda: clone(dstate), batch=10)
-    d_ins, d_rows = net_inserts(dstate, dplain.update(clone(dstate), dtiles[8]))
+        dstate = dkern.update_cuda(dstate, t, full)
+    d_ms = event_ms(lambda st: dkern.update_cuda(st, dtiles[8], full), setup=lambda: clone(dstate), batch=10)
+    d_ins, d_rows = net_inserts(dstate, dplain.update(clone(dstate), dtiles[8], full))
     d_bound, d_by = distinct_bound_ms(OP_B, True, d_ins, d_rows, rows=1, k=OP_DK)
     card = card_line()
     for name, rate in host.items():
@@ -3612,21 +3722,21 @@ def operator_phases(dev) -> tuple:
             f"{', client TCP_NODELAY' if nodelay else ''}: median {rate['median']:.6e} elem/s over "
             f"{len(rate['runs'])} runs ({rate['min']:.6e} to {rate['max']:.6e})")
     log(f"[29 operator timings] {card} | algl_update on a steady [1, {OP_B}] tile (count {8 * OP_B}): "
-        f"{u_ms:.4f} ms, bound {u_bound:.3e} ms ({u_by}), accepts {u_acc}; distinct_update on a steady "
-        f"[1, {OP_B}] int64 Zipf tile (after 8): {d_ms:.4f} ms, bound {d_bound:.3e} ms ({d_by}), net "
+        f"{u_ms:.4f} ms, bound {u_bound:.3e} ms ({u_by}), accepts {u_acc}; distinct_update_keepmax on a "
+        f"steady [1, {OP_B}] int64 Zipf tile (after 8): {d_ms:.4f} ms, bound {d_bound:.3e} ms ({d_by}), net "
         f"inserts {d_ins}; both shorter than their wrappers' host time, so event_ms reads host time")
     line["elem_per_s"] = {"host": host, "device": device, "wire": wire}
     line["tile_1x1024"] = {
         "algl_update": {"ms": u_ms, "bound_ms": u_bound, "bound_by": u_by, "accepts": u_acc},
-        "distinct_update": {"ms": d_ms, "bound_ms": d_bound, "bound_by": d_by, "net_inserts": d_ins},
+        "distinct_update_keepmax": {"ms": d_ms, "bound_ms": d_bound, "bound_by": d_by, "net_inserts": d_ins},
         "note": "event_ms reads host time for a call shorter than its wrapper's",
     }
     line["card"] = card
     algl_extra = {"operator_launches": u_launches, "server_launches": w_launches,
                   "operator_tile_1x1024": line["tile_1x1024"]["algl_update"]}
-    distinct_extra = {"operator_launches": d_launches, "server_launches": wd_launches,
-                      "operator_tile_1x1024": line["tile_1x1024"]["distinct_update"]}
-    return line, algl_extra, distinct_extra
+    keepmax_extra = {"operator_launches": d_launches, "server_launches": wd_launches,
+                     "operator_tile_1x1024": line["tile_1x1024"]["distinct_update_keepmax"]}
+    return line, algl_extra, keepmax_extra
 
 
 # the serving phases: bench.py's serve shape (2,048 sessions, k = 32, four
@@ -3641,7 +3751,9 @@ TR_SESSIONS = TR_R + TR_R // 16
 # phase 31 (c): sessions closed and reopened between rounds 1 and 2
 SV_CHURN = 64
 SERVE_MODES = ("plain", "weighted", "distinct")
-KERNEL_OF = {"plain": "algl_update", "weighted": "weighted_update", "distinct": "distinct_update"}
+#: the kernel a bridge's flushes launch in each mode (they pass valid, so
+#: a distinct flush takes keep-max)
+KERNEL_OF = {"plain": "algl_update", "weighted": "weighted_update", "distinct": "distinct_update_keepmax"}
 
 
 def serve_config(mode: str):
@@ -3900,7 +4012,8 @@ def serve_phases(gen, dev, here: str) -> tuple:
     from reservoir_tpu_torch.ops import weighted_cuda as wkern
 
     line = {"rows": {}, "service": {}}
-    counters = {"plain": kern, "weighted": wkern, "distinct": dkern}
+    counts = {"plain": lambda: kern.launches, "weighted": lambda: wkern.launches,
+              "distinct": lambda: dkern.keepmax_launches}
     # the plain versions of phase 31 run in a child process on the CPU
     # while the card works
     pool = concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
@@ -3919,11 +4032,13 @@ def serve_phases(gen, dev, here: str) -> tuple:
         serve_launches = {}
         for mode in SERVE_MODES:
             torch.cuda.synchronize()
-            kern.launches = wkern.launches = dkern.launches = kern.gated_launches = 0
+            kern.launches = wkern.launches = kern.gated_launches = 0
+            dkern.launches = dkern.keepmax_launches = dkern.prehashed_launches = 0
             svc, snaps = serve_flow(mode, None)
             torch.cuda.synchronize()
-            n = counters[mode].launches
-            others = sum(c.launches for m, c in counters.items() if m != mode) + kern.gated_launches
+            n = counts[mode]()
+            others = (sum(c() for m, c in counts.items() if m != mode) + kern.gated_launches + dkern.launches
+                      + dkern.prehashed_launches)
             flushes = svc.bridge.metrics.flushes
             if n != flushes or others:
                 fail(f"[31 service] (a) {mode}: {n} update launches for {flushes} flushes ({others} others)")
@@ -4044,7 +4159,7 @@ def serve_phases(gen, dev, here: str) -> tuple:
     launches = {
         "algl_update": serve_launches["plain"] + traffic_launches + replay_launches + gated_launches[1],
         "weighted_update": serve_launches["weighted"],
-        "distinct_update": serve_launches["distinct"],
+        "distinct_update_keepmax": serve_launches["distinct"],
         "algl_update_gated": gated_launches[0],
     }
     return line, launches
@@ -4162,7 +4277,8 @@ HA_MODES = ("plain", "weighted", "distinct", "gated")
 HA_CKPT_EVERY = 1 << 30
 CL_SHARDS, CL_R, CL_SESSIONS = 4, 512, 1024
 CL_GROUPS, CL_GROUP, CL_MIGRATIONS, CL_VICTIM = 8, 8, 24, 3
-UPDATE_KERNELS = ("algl_update", "algl_update_gated", "weighted_update", "distinct_update")
+UPDATE_KERNELS = ("algl_update", "algl_update_gated", "weighted_update", "distinct_update",
+                  "distinct_update_keepmax", "distinct_update_prehashed")
 
 
 def update_launches() -> dict:
@@ -4172,7 +4288,8 @@ def update_launches() -> dict:
     from reservoir_tpu_torch.ops import weighted_cuda as wkern
 
     return {"algl_update": kern.launches, "algl_update_gated": kern.gated_launches,
-            "weighted_update": wkern.launches, "distinct_update": dkern.launches}
+            "weighted_update": wkern.launches, "distinct_update": dkern.launches,
+            "distinct_update_keepmax": dkern.keepmax_launches, "distinct_update_prehashed": dkern.prehashed_launches}
 
 
 def launch_delta(before: dict, after: dict) -> dict:
@@ -4454,7 +4571,7 @@ def ha_phases(here: str) -> tuple:
     try:
         torch.cuda.synchronize()
         kern.launches = kern.gated_launches = kern.merge_launches = 0
-        wkern.launches = dkern.launches = mkern.launches = 0
+        wkern.launches = dkern.launches = dkern.keepmax_launches = dkern.prehashed_launches = mkern.launches = 0
         # 33. hot standby and failover on the card
         card = {}
         for mode in HA_MODES:
@@ -5161,7 +5278,8 @@ def hook_launches() -> dict:
 
     return {"algl_update": kern.launches, "algl_update_wide": kern.wide_launches,
             "algl_update_gated": kern.gated_launches, "weighted_update": wkern.launches,
-            "distinct_update": dkern.launches, "distinct_update_prehashed": dkern.prehashed_launches}
+            "distinct_update": dkern.launches, "distinct_update_keepmax": dkern.keepmax_launches,
+            "distinct_update_prehashed": dkern.prehashed_launches}
 
 
 def zero_launches() -> None:
@@ -5170,7 +5288,7 @@ def zero_launches() -> None:
     from reservoir_tpu_torch.ops import weighted_cuda as wkern
 
     kern.launches = kern.wide_launches = kern.gated_launches = 0
-    wkern.launches = dkern.launches = dkern.prehashed_launches = 0
+    wkern.launches = dkern.launches = dkern.keepmax_launches = dkern.prehashed_launches = 0
 
 
 def only(name: str, n: int) -> dict:
@@ -5232,6 +5350,31 @@ def user_hash_oracle(tiles, salts, hash_fn, samples, sizes, k: int) -> tuple:
     return True, ""
 
 
+def prehashed_timing_cases(gen, dev) -> list:
+    """Phase 40's timed tiles in its order, each ``(label, state of the
+    pre-hashed kernel, state of the default one, tile, hash planes)``: a
+    steady Zipf tile after 8 Zipf tiles and a Zipf tile from empty, int32
+    keys under :func:`hash_narrow` (``kernel_ab.py`` times the same)."""
+    from reservoir_tpu_torch.ops import distinct as dplain
+    from reservoir_tpu_torch.ops import distinct_cuda as dkern
+    from reservoir_tpu_torch.ops.hooks import hash_planes
+    from reservoir_tpu_torch.ops.rng import key_from_seed
+
+    gen.manual_seed(43)
+    s0 = dplain.init(key_from_seed(0), DR, DK, device=dev)
+    pre_state, def_state = clone(s0), clone(s0)
+    for _ in range(8):
+        tile = zipf_keys(gen, DR, DB, torch.int32, dev)
+        pre_state = dkern.update_prehashed_cuda(pre_state, tile, hash_planes(hash_narrow, tile))
+        def_state = dkern.update_prehashed_cuda(def_state, tile, None)
+    cases = []
+    for label, pre_s, def_s in (("steady Zipf tile after 8", pre_state, def_state),
+                                ("Zipf tile from empty", s0, s0)):
+        tile = zipf_keys(gen, DR, DB, torch.int32, dev)
+        cases.append((label, pre_s, def_s, tile, hash_planes(hash_narrow, tile)))
+    return cases
+
+
 def hook_phases(gen, dev, here: str) -> tuple:
     """Phases 39-41: the map and hash hooks and the fused stream on the
     card.  Returns the ``hooks`` line, the additions to earlier kernels'
@@ -5260,7 +5403,6 @@ def map_phase(gen, dev, extra: dict) -> dict:
     from reservoir_tpu_torch.ops import algorithm_l_cuda as kern
     from reservoir_tpu_torch.ops import distinct as dplain
     from reservoir_tpu_torch.ops import distinct_cuda as dkern
-    from reservoir_tpu_torch.ops.hashing import to_i32
     from reservoir_tpu_torch.ops.hooks import map_values
 
     out = {}
@@ -5271,8 +5413,8 @@ def map_phase(gen, dev, extra: dict) -> dict:
                                                              count_dtype="wide"), map_affine),
         ("weighted", "weighted_update", dict(max_sample_size=WK, num_reservoirs=WR, tile_size=WB,
                                              weighted=True), map_affine),
-        ("distinct, Zipf keys", "distinct_update_prehashed", dict(max_sample_size=DK, num_reservoirs=DR,
-                                                                  tile_size=DB, distinct=True), map_halve),
+        ("distinct, Zipf keys", "distinct_update_keepmax", dict(max_sample_size=DK, num_reservoirs=DR,
+                                                                tile_size=DB, distinct=True), map_halve),
     ]
     for label, name, kw, fn in cases:
         rows = kw["num_reservoirs"]
@@ -5313,33 +5455,28 @@ def map_phase(gen, dev, extra: dict) -> dict:
                          "map_bound_ms": 1e3 * nbytes / PEAK_BYTES, "map_bytes": nbytes})
             extra[name]["map_pass"] = {k: case[k] for k in ("map_ms", "kernel_ms", "map_bound_ms")}
         elif kw.get("distinct"):
-            # a mapped distinct tile: the map pass, the pass that takes the
-            # mapped keys' own words as hash planes, and the pre-hashed
-            # kernel beside the default one on the same mapped keys
+            # a mapped distinct tile: the map pass, then one keep-max launch
+            # on the mapped keys (no hash planes), beside the default kernel
+            # on the same mapped keys
             tile, state = tiles[-1], eng.state
             mapped = dplain.map_keys(state, tile, fn)
-            hashes = tuple(to_i32(w).contiguous() for w in dplain.hook_hashes(state, mapped, None))
             case.update({
                 "map_ms": event_ms(lambda _: dplain.map_keys(state, tile, fn), batch=10),
-                "hash_pass_ms": event_ms(lambda _: tuple(to_i32(w).contiguous()
-                                                         for w in dplain.hook_hashes(state, mapped, None)),
-                                         batch=10),
-                "kernel_ms": event_ms(lambda st: dkern.update_prehashed_cuda(st, mapped, hashes),
+                "kernel_ms": event_ms(lambda st: dkern.launch(st, mapped, None, None, None, dkern.KEEPMAX),
                                       setup=lambda: clone(state), batch=10),
                 "default_kernel_ms": event_ms(lambda st: dkern.update_prehashed_cuda(st, mapped, None),
                                               setup=lambda: clone(state), batch=10),
             })
-            extra[name]["map_pass"] = {k: case[k] for k in ("map_ms", "hash_pass_ms", "kernel_ms",
-                                                             "default_kernel_ms")}
+            extra[name]["map_pass"] = {k: case[k] for k in ("map_ms", "kernel_ms", "default_kernel_ms")}
         out[label] = case
         log(f"[39 map] {card_line()} | {label}: {HOOK_TILES} tiles, {got[name]} {name} launches, sizes >= "
             f"{case['min_size']}; rows 0..{ROWS_CPU - 1} held against device=\"cpu\" (map on accept) after "
             "phase 48"
             + (f"; map pass {case['map_ms']:.4f} ms (bound {case['map_bound_ms']:.4f} ms, bytes) beside the "
                f"steady kernel on the mapped tile {case['kernel_ms']:.4f} ms" if "map_bound_ms" in case else "")
-            + (f"; map pass {case['map_ms']:.4f} ms, own-words hash pass {case['hash_pass_ms']:.4f} ms, the "
-               f"pre-hashed kernel on the mapped keys {case['kernel_ms']:.4f} ms (the default kernel "
-               f"{case['default_kernel_ms']:.4f} ms)" if "hash_pass_ms" in case else ""))
+            + (f"; map pass {case['map_ms']:.4f} ms, then one keep-max launch on the mapped keys "
+               f"{case['kernel_ms']:.4f} ms (the default kernel {case['default_kernel_ms']:.4f} ms)"
+               if "default_kernel_ms" in case else ""))
         del eng, tiles, weights
         gc.collect()
         torch.cuda.empty_cache()
@@ -5407,12 +5544,11 @@ def hash_phase(gen, dev) -> tuple:
     from reservoir_tpu_torch.convert import distinct_state_to_numpy
     from reservoir_tpu_torch.ops import distinct as dplain
     from reservoir_tpu_torch.ops import distinct_cuda as dkern
-    from reservoir_tpu_torch.ops.hashing import to_i32
-    from reservoir_tpu_torch.ops.hooks import hash_words
+    from reservoir_tpu_torch.ops.hooks import hash_planes
     from reservoir_tpu_torch.ops.rng import key_from_seed
 
     def planes(tile, fn):
-        return tuple(to_i32(w).contiguous() for w in hash_words(fn, tile))
+        return hash_planes(fn, tile)
 
     worst, checked = 0.0, 0
     for dtype, fn in ((torch.int32, hash_narrow), (torch.int64, hash_wide)):
@@ -5440,7 +5576,7 @@ def hash_phase(gen, dev) -> tuple:
         del s, ref
     for dtype, fn, k_big in ((torch.int32, hash_narrow, 19371), (torch.int64, hash_wide, 14529)):
         wide = dtype == torch.int64
-        if dkern.kernel_info(k_big, wide, prehashed=True)["dynamic_smem"] != 0:
+        if dkern.kernel_info(k_big, wide, rule=dkern.HASHED)["dynamic_smem"] != 0:
             fail(f"[40 hash] the pre-hashed kernel at k {k_big} ({dtype}) reports a block in shared memory")
         s = dplain.init(key_from_seed(41), 8, k_big, sample_dtype=dtype, device=dev)
         for t in range(2):
@@ -5499,22 +5635,18 @@ def hash_phase(gen, dev) -> tuple:
 
     # timings: a steady Zipf tile and a tile from empty, the pre-hashed
     # kernel beside the default-hash kernel on the same keys
-    gen.manual_seed(43)
-    s0 = dplain.init(key_from_seed(0), DR, DK, device=dev)
-    pre_state, def_state = clone(s0), clone(s0)
-    for _ in range(8):
-        tile = zipf_keys(gen, DR, DB, torch.int32, dev)
-        pre_state = dkern.update_prehashed_cuda(pre_state, tile, planes(tile, hash_narrow))
-        def_state = dkern.update_prehashed_cuda(def_state, tile, None)
     timings = {}
-    for label, pre_s, def_s in (("steady Zipf tile after 8", pre_state, def_state),
-                                ("Zipf tile from empty", s0, s0)):
-        tile = zipf_keys(gen, DR, DB, torch.int32, dev)
-        hashes = planes(tile, hash_narrow)
+    steady_default = None
+    for label, pre_s, def_s, tile, hashes in prehashed_timing_cases(gen, dev):
+        if steady_default is None:
+            steady_default = (def_s, tile)
         ms = event_ms(lambda st: dkern.update_prehashed_cuda(st, tile, hashes), setup=lambda: clone(pre_s),
                       batch=10)
         default_ms = event_ms(lambda st: dkern.update_prehashed_cuda(st, tile, None), setup=lambda: clone(def_s),
                               batch=10)
+        # the hash pass apart: the user's hash_fn alone, then with its
+        # words made the kernel's int32 planes (a view for 32-bit words)
+        user_hash_ms = event_ms(lambda _: hash_narrow(tile), batch=10)
         hash_ms = event_ms(lambda _: planes(tile, hash_narrow), batch=10)
         plain_times = []
         for _ in range(3):
@@ -5525,16 +5657,47 @@ def hash_phase(gen, dev) -> tuple:
         inserts, rows_in = net_inserts_by_key(pre_s, ref)
         bound, by = distinct_bound_ms(DR * DB, False, inserts, rows_in, prehashed=True)
         timings[label] = {"ms": ms, "default_hash_ms": default_ms, "hash_pass_ms": hash_ms,
+                          "user_hash_ms": user_hash_ms,
                           "plain_ms": statistics.median(plain_times), "bound_ms": bound, "bound_by": by,
                           "net_inserts": inserts, "rows_inserting": rows_in}
         del ref
+    # a mapped distinct tile (map_fn alone) is one keep-max launch after
+    # the map pass, with no hash planes; exact launch counts
+    mstate, mtile = steady_default
+    zero_launches()
+    got = dkern.update_cuda(clone(mstate), mtile, map_fn=map_halve)
+    torch.cuda.synchronize()
+    counted = hook_launches()
+    if counted != only("distinct_update_keepmax", 1):
+        fail(f"[40 hash] a mapped distinct tile launched {counted}, not one distinct_update_keepmax")
+    ref = dplain.update(clone(mstate), mtile, map_fn=map_halve)
+    if not same(got, ref):
+        fail("[40 hash] a mapped distinct tile through keep-max != the plain version")
+    mapped = dplain.map_keys(mstate, mtile, map_halve)
+    mapped_tile = {
+        "launches": counted["distinct_update_keepmax"],
+        "one_call_ms": event_ms(lambda st: dkern.update_cuda(st, mtile, map_fn=map_halve),
+                                setup=lambda: clone(mstate), batch=10),
+        "map_ms": event_ms(lambda _: dplain.map_keys(mstate, mtile, map_halve), batch=10),
+        "keepmax_ms": event_ms(lambda st: dkern.launch(st, mapped, None, None, None, dkern.KEEPMAX),
+                               setup=lambda: clone(mstate), batch=10),
+        "default_ms": event_ms(lambda st: dkern.update_prehashed_cuda(st, mapped, None),
+                               setup=lambda: clone(mstate), batch=10),
+    }
+    del got, ref, mapped
     card = card_line()
-    build = dkern.kernel_info(DK, False, prehashed=True)
+    log(f"[40 hash] {card} | a mapped distinct tile (map_fn alone, steady Zipf after 8): "
+        f"{mapped_tile['launches']} distinct_update_keepmax launch and no other, == the plain version; one "
+        f"call {mapped_tile['one_call_ms']:.4f} ms = the map pass {mapped_tile['map_ms']:.4f} ms and the "
+        f"keep-max launch {mapped_tile['keepmax_ms']:.4f} ms (the default kernel on the mapped keys "
+        f"{mapped_tile['default_ms']:.4f} ms)")
+    build = dkern.kernel_info(DK, False, rule=dkern.HASHED)
     for label, t in timings.items():
         log(f"[40 hash timings] {card} | {label}: pre-hashed kernel {t['ms']:.4f} ms (default-hash kernel "
             f"{t['default_hash_ms']:.4f} ms on the same keys), plain {t['plain_ms']:.1f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), net inserts {t['net_inserts']} over "
-            f"{t['rows_inserting']} rows; the hash pass {t['hash_pass_ms']:.4f} ms; build {build_text(build)}")
+            f"{t['rows_inserting']} rows; the hash pass {t['hash_pass_ms']:.4f} ms (the user's hash_fn alone "
+            f"{t['user_hash_ms']:.4f} ms); build {build_text(build)}")
     steady = timings["steady Zipf tile after 8"]
     entry = {
         "name": "distinct_update_prehashed",
@@ -5555,9 +5718,10 @@ def hash_phase(gen, dev) -> tuple:
         "fill_tile": timings["Zipf tile from empty"],
         "tiles_checked": checked,
         "engine_elem_per_s": rates,
-        "build": {"int32": build, "int64": dkern.kernel_info(DK, True, prehashed=True)},
+        "build": {"int32": build, "int64": dkern.kernel_info(DK, True, rule=dkern.HASHED)},
     }
-    return {"tiles_checked": checked, "engine_launches": main_launches, "timings": timings}, entry
+    return {"tiles_checked": checked, "engine_launches": main_launches, "timings": timings,
+            "mapped_tile": mapped_tile}, entry
 
 
 def fused_phase(gen, dev, extra: dict) -> dict:
@@ -5603,7 +5767,10 @@ def fused_phase(gen, dev, extra: dict) -> dict:
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             launches[turn] = hook_launches()
-        if launches["fused"] != only(name, n + 1) or launches["per_tile"] != only(name, n + 1):
+        want = only(name, n + 1)
+        if mode == "distinct":  # the ragged tail passes valid: keep-max
+            want = {**only(name, n), "distinct_update_keepmax": 1}
+        if launches["fused"] != want or launches["per_tile"] != want:
             fail(f"[41 fused] {mode}: launches fused {launches['fused']}, per tile {launches['per_tile']} for "
                  f"{n} full tiles and a ragged tail")
         if not same(fused._state, tiled._state):

@@ -28,7 +28,13 @@ on its tiles, times old and new in turns (old, new, new, old) with
   (count 4 B) and the deep one (count 24 B), where an older build has it;
 - ``distinct_update`` (R = 4,096, k = 256, B = 1,024) on phase 15's tiles
   (``chip_smoke.distinct_timing_cases``): Zipf tiles from empty and after 8
-  Zipf tiles, int32 and int64, and fresh random keys after 8 (int32);
+  Zipf tiles, int32 and int64, and fresh random keys after 8 (int32), each
+  also given with ``valid`` = B (keep-max, or the default in a build
+  without it); the new build's keep-max and pre-hashed kernels at each rows
+  a block on their steady tiles; and
+  ``distinct_update_hashed`` on phase 40's (``chip_smoke.prehashed_timing_cases``:
+  a steady Zipf tile and one from empty under a user hash), where the old
+  build has it;
 - ``weighted_update`` (R = 16,384, k = 64, B = 1,024) on phase 11's tiles
   (``chip_smoke.weighted_timing_cases``): the fill tile from empty, the
   steady tile from count 7 B, and that tile with every weight 0;
@@ -75,7 +81,7 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ("algorithm_l", "distinct", "weighted", "algl_merge", "merge_ring")
 #: the kernels of each source whose SASS is counted
-SASS_KERNELS = {"algorithm_l": ("update_kernel", "gated_kernel"), "distinct": ("update_kernel",),
+SASS_KERNELS = {"algorithm_l": ("update_kernel", "gated_kernel"), "distinct": ("update_kernel", "hashed_kernel"),
                 "weighted": ("update_kernel",), "algl_merge": ("draws_kernel",),
                 "merge_ring": ("gather_kernel",)}
 
@@ -210,7 +216,11 @@ def main() -> None:
                                    "algl_merge_wide": ukern.merge_kernel_info(wide=True)},
             "merge_ring": lambda: {"merge_ring": mkern.kernel_info()},
             "distinct": lambda: {"distinct": dkern.kernel_info(cs.DK, False),
-                                 "distinct_wide": dkern.kernel_info(cs.DK, True)},
+                                 "distinct_wide": dkern.kernel_info(cs.DK, True),
+                                 "distinct_prehashed": dkern.kernel_info(cs.DK, False, rule=dkern.HASHED),
+                                 "distinct_prehashed_wide": dkern.kernel_info(cs.DK, True, rule=dkern.HASHED),
+                                 "distinct_keepmax": dkern.kernel_info(cs.DK, False, rule=dkern.KEEPMAX),
+                                 "distinct_keepmax_wide": dkern.kernel_info(cs.DK, True, rule=dkern.KEEPMAX)},
             "weighted": lambda: {"weighted": wkern.kernel_info(cs.WK)}}
     results = {"card": card, "old": args.old, "unchecked": args.unchecked, "tiles": [],
                "ptxas": {which: {n: lines for n, (_, lines) in b.items()} for which, b in built.items()},
@@ -330,13 +340,57 @@ def main() -> None:
                   f"{n[0]:.4f} / {n[1]:.4f} ms (old, new, new, old), bound {bound:.4f} ms (bytes)", flush=True)
         del leaves, comms
 
-    # distinct_update on phase 15's tiles
+    def given_valid(s, t, v):
+        """A tile given with ``valid`` (as every flush passes it): keep-max
+        where the build has it, else the default, which such a tile ran
+        before keep-max."""
+        keep = hasattr(dkern._library(), "distinct_update_keepmax")
+        return dkern.launch(s, t, None, v, None, dkern.KEEPMAX if keep else dkern.DEFAULT)
+
+    # distinct_update on phase 15's tiles, each also given with valid = B
     for label, state, tile, wide in cs.distinct_timing_cases(gen, dev) if "distinct" in names else ():
         ref = dplain.update(state, tile)
         inserts, rows_in = cs.net_inserts(state, ref)
         bound = cs.distinct_bound_ms(tile.numel(), wide, inserts, rows_in)
         ab("distinct", label, state, lambda s, t=tile: dkern.update_cuda(s, t), bound,
            {"net_inserts": inserts, "rows_inserting": rows_in})
+        full = torch.full((tile.shape[0],), tile.shape[1], dtype=torch.int32, device=dev)
+        ab("distinct", f"{label}, valid = B", state, lambda s, t=tile, v=full: given_valid(s, t, v), bound,
+           {"net_inserts": inserts, "rows_inserting": rows_in})
+
+    # the pre-hashed kernel on phase 40's tiles, where both builds have it
+    prehashed = "distinct" in names and all(
+        hasattr(ctypes.CDLL(built[w]["distinct"][0]), "distinct_update_hashed") for w in built)
+    for label, state, _, tile, hashes in cs.prehashed_timing_cases(gen, dev) if prehashed else ():
+        ref = dplain.update_prehashed(state, tile, hashes)
+        inserts, rows_in = cs.net_inserts_by_key(state, ref)
+        ab("distinct", f"pre-hashed {label}", state,
+           lambda s, t=tile, h=hashes: dkern.update_prehashed_cuda(s, t, h),
+           cs.distinct_bound_ms(tile.numel(), False, inserts, rows_in, prehashed=True),
+           {"net_inserts": inserts, "rows_inserting": rows_in})
+
+    # the new build's keep-max (valid = B) and pre-hashed kernels at each
+    # rows a block on the steady tiles, in turns (block_sweep.py records the
+    # default's geometry only, which the engine applies to all three)
+    if "distinct" in names:
+        from reservoir_tpu_torch.ops.blocking import BLOCK_CHOICES
+
+        _, steady, tile, _ = cs.distinct_timing_cases(gen, dev)[1]
+        full = torch.full((tile.shape[0],), tile.shape[1], dtype=torch.int32, device=dev)
+        _, pre_s, _, pre_tile, hashes = cs.prehashed_timing_cases(gen, dev)[0]
+        cases = {"keep-max": (steady, tile, None, full, dkern.KEEPMAX),
+                 "pre-hashed": (pre_s, pre_tile, hashes, None, dkern.HASHED)}
+        results["rows_a_block"] = {}
+        for rule_name, (st, t, h, v, rule) in cases.items():
+            times = {b: [] for b in BLOCK_CHOICES["distinct"]}
+            for turn in range(4):
+                for b in (list(times) if turn % 2 == 0 else list(times)[::-1]):
+                    times[b].append(cs.event_ms(lambda s, b=b: dkern.launch(s, t, h, v, b, rule),
+                                                setup=lambda: cs.clone(st), batch=10))
+            results["rows_a_block"][rule_name] = times
+            print(f"[ab] {card} | distinct {rule_name} steady tile, rows a block: " + "; ".join(
+                f"{b}: {', '.join(f'{x:.4f}' for x in ms)} ms" for b, ms in times.items()) + " (in turns)",
+                flush=True)
 
     # weighted_update on phase 11's tiles
     for label, state, elems, weights in cs.weighted_timing_cases(dev) if "weighted" in names else ():

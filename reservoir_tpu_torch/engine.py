@@ -49,9 +49,11 @@ take its results in the sample dtype, which may then differ from the
 element dtype; ``hash_fn`` (distinct mode) gives the pre-scramble hash
 words.  A hooked engine ships its tiles in the element dtype, whole (8-byte
 keys are not split into planes); on the card the kernel wrappers map the
-tile, hash it and launch the kernels on the results (the distinct kernel's
-pre-hashed instantiation under either hook), and with ``device="cpu"``
-the plain versions apply the hooks as the reference does.
+tile, hash it and launch the kernels on the results (the distinct kernel
+routed as the reference routes a tile: its pre-hashed instantiation under
+a ``hash_fn``, keep-max under a ``map_fn`` alone or with ``valid``), and
+with ``device="cpu"`` the plain versions apply the hooks as the reference
+does.
 
 :meth:`ReservoirEngine.sample_stream` takes the reference's ``fused=True``
 and feeds the stream tile by tile all the same: one launch a tile, as the

@@ -14,21 +14,22 @@ hash_lo, value_hi, value_lo)`` ascending; the rest are padding, hash
 entries and the tile's lanes are sorted on ``(pad, hash, value)``, equal
 runs collapse to one entry, and the first k survivors are kept.
 
-One rule on top of the sort, that of the JAX package's Pallas kernel, which
-compares each lane strictly against the row's last entry: **a lane whose
-scrambled hash is exactly (MAX, MAX) is never taken** (the XLA sort-merge
-would keep it while the row is not full; the chance is 2^-64 a value).
+Which lanes a tile may take follows the reference's engine, which routes
+a tile either to its Pallas kernel or to its XLA sort-merge, and the two
+part on one lane: **a lane whose scrambled hash is exactly (MAX, MAX)**
+(the chance is 2^-64 a value).  A full tile with no hook follows the
+Pallas kernel, which compares each lane strictly against the row's last
+entry: such a lane is never taken.  A ragged tile (``valid`` given) and a
+hooked one follow XLA, where the reference's engine sends them
+(``reservoir_tpu/engine.py:_pallas_fallback_reason``): such a lane is
+kept while its row is not full (``keep_max``).
 
 The hooks (:mod:`.hooks`): ``map_fn`` maps every element, and the stored
 keys are the mapped values; ``hash_fn(mapped)`` gives the ``(hi, lo)``
-words that are scrambled in place of the value's.  With either hook the
-reference always runs its XLA sort-merge (its Pallas kernel declines
-hooks), so a hooked tile goes through :func:`update_prehashed`, with the
-mapped keys' own words as the hash when there is no ``hash_fn``, and
-follows XLA's rule: a lane whose scrambled hash is (MAX, MAX) is kept
-while its row is not full.  A user
-hash may give two values one hash; the sort on ``(hash, value)`` keeps
-both, ordered by value.
+words that are scrambled in place of the value's (:func:`update_prehashed`
+with hash planes).  A user hash may give two values one hash; the sort on
+``(hash, value)`` keeps both, ordered by value.  Without ``hash_fn`` the
+mapped keys' own words are hashed, under the XLA rule.
 
 Keys are 4-byte (narrow: ``values`` holds the sample dtype, the high word
 is the sign extension of its bits) or 8-byte integers (wide: ``values`` is
@@ -65,7 +66,6 @@ __all__ = [
     "update_steady",
     "map_keys",
     "join_planes",
-    "hook_hashes",
     "merge",
     "result",
     "split_values_host",
@@ -238,23 +238,14 @@ def update(
 
     ``map_fn`` maps every element (:func:`map_keys`); ``batch`` is then of
     the element dtype.  ``hash_fn(mapped)`` gives the pre-scramble hash
-    words (:func:`.hooks.hash_words`); a hooked tile is merged by
-    :func:`update_prehashed` (:func:`hook_hashes`)."""
+    words (:func:`.hooks.hash_words`; 8-byte keys are handed to it as
+    int64).  A tile with ``valid`` or a hook follows
+    the XLA rule for a scrambled hash of (MAX, MAX), a full tile without
+    either the Pallas rule (:func:`update_prehashed`)."""
     mapped = map_keys(state, batch, map_fn)
-    if map_fn is None and hash_fn is None:
-        return update_prehashed(state, mapped, None, valid)
-    return update_prehashed(state, mapped, hook_hashes(state, mapped, hash_fn), valid)
-
-
-def hook_hashes(state: DistinctState, mapped: Batch, hash_fn: Optional[Callable]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The pre-scramble hash words of a hooked engine's mapped keys, as
-    uint32 values in int64: ``hash_fn``'s, or without one the default
-    hash, the keys' own words.  The reference runs any hook on its XLA
-    sort-merge, so a hooked tile always takes the pre-hashed merge and
-    its rule for a scrambled hash of (MAX, MAX)."""
     if hash_fn is None:
-        return _value_planes(state, mapped)
-    return hash_words(hash_fn, join_planes(mapped))
+        return update_prehashed(state, mapped, None, valid, keep_max=map_fn is not None)
+    return update_prehashed(state, mapped, hash_words(hash_fn, join_planes(mapped)), valid)
 
 
 def update_prehashed(
@@ -262,14 +253,17 @@ def update_prehashed(
     batch: Batch,
     hashes: Optional[Tuple[torch.Tensor, torch.Tensor]],
     valid: Optional[torch.Tensor] = None,
+    keep_max: bool = False,
 ) -> DistinctState:
     """:func:`update` of keys ``batch`` whose pre-scramble hash words are
     ``hashes``, an ``(hi, lo)`` pair of ``[R, B]`` tensors of 32-bit words
     (int32 bits, or uint32 values in int64): the plain version of the
-    kernel's pre-hashed instantiation.  ``None`` hashes the keys' own
-    words, under the Pallas kernel's rule (a scrambled hash of (MAX, MAX)
-    is never taken); given hashes follow the XLA sort-merge's, which keeps
-    such a lane while the row is not full."""
+    kernel's three instantiations.  ``None`` hashes the keys' own words.
+    The rule for a lane whose scrambled hash is (MAX, MAX): given hashes,
+    ``valid`` or ``keep_max`` follow the XLA sort-merge's, which keeps such
+    a lane while the row is not full (the keep-max and pre-hashed
+    kernels); a full tile of the keys' own words without ``keep_max``
+    follows the Pallas kernel's, which never takes it (the default one)."""
     R, k = state.values.shape
     bhi, blo = _value_planes(state, batch)
     if bhi.ndim != 2 or bhi.shape[0] != R:
@@ -290,7 +284,7 @@ def update_prehashed(
     hhi, hlo = scramble64(pre_hi, pre_lo, s[:, 0:1], s[:, 1:2], s[:, 2:3], s[:, 3:4])
     lane = torch.arange(B, device=dev)
     tile_pad = lane[None, :] >= v[:, None]
-    if hashes is None:
+    if hashes is None and valid is None and not keep_max:
         # the Pallas rule: a lane whose hash is (MAX, MAX) is padding
         tile_pad = tile_pad | ((hhi == MASK32) & (hlo == MASK32))
     carried_pad = torch.arange(k, device=dev)[None, :] >= state.size[:, None]

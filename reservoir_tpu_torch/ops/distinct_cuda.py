@@ -15,35 +15,41 @@ serial steps a row takes per round bound a tile from empty; its note says
 how the design answers both.  Unlike the Pallas kernel it takes ``valid``,
 so ragged tiles run through it too.
 
-Its pre-hashed instantiation (the template flag ``PRE``, entry point
-``distinct_update_hashed``) runs the reference's hooks: it reads
-a separate pair of ``[R, B]`` pre-scramble hash planes and scrambles those
-instead of the keys' words, orders entries by ``(hash, value)`` (a user
-hash may give two keys one hash) and follows the reference's XLA rule for a
-scrambled hash of (MAX, MAX).  :func:`update_prehashed_cuda` launches it;
-its plain version is :func:`.distinct.update_prehashed`.
+Three instantiations, one rule and one launch count each, chosen once a
+tile by :func:`rule_for` as the reference's engine routes a tile between
+its Pallas kernel and its XLA sort-merge, and launched by :func:`launch`:
 
+- a full tile with no hook and no ``valid``: :data:`DEFAULT`,
+  ``distinct_update`` (:data:`launches`), the Pallas rule (a scrambled
+  hash of (MAX, MAX) is never taken);
+- ``valid`` given, or ``map_fn`` without ``hash_fn``: :data:`KEEPMAX`,
+  ``distinct_update_keepmax`` (:data:`keepmax_launches`), the same kernel
+  under the XLA rule (such a lane is kept while its row is not full);
+- ``hash_fn``: :data:`HASHED`, the pre-hashed kernel,
+  ``distinct_update_hashed`` (:data:`prehashed_launches`), which reads a pair of ``[R, B]``
+  pre-scramble hash planes (:func:`.hooks.hash_planes`) and scrambles
+  those instead of the keys' words, orders entries by ``(hash, value)``
+  (a user hash may give two keys one hash) and follows the XLA rule.
+
+Their plain version is :func:`.distinct.update_prehashed`.
 :func:`update_cuda` takes the state and a tile on one device.  A narrow
 tile is ``[R, B]`` of the state's dtype; a wide one an int64/uint64
 ``[R, B]`` tensor (the kernel reads the two words of each key in place) or
 an ``(hi, lo)`` pair of 32-bit ``[R, B]`` planes:
 
-- on CUDA tensors it launches the kernel, which mutates the state's tensors
+- on CUDA tensors it launches a kernel, which mutates the state's tensors
   in place and returns the same state (``count`` advanced); a launch error
   raises;
 - on CPU tensors it runs the plain version (:func:`.distinct.update`), which
   returns a new state.
 
 With hooks (:mod:`.hooks`), on the card it maps the tile with ``map_fn``
-(cast to the state's dtype), takes the mapped keys' hash words from
-``hash_fn`` (their own words without one, :func:`.distinct.hook_hashes`)
-and launches the pre-hashed instantiation on them, as the reference runs
-any hook on XLA; on the CPU the plain version applies the hooks itself.
+(cast to the state's dtype) before the launch; on the CPU the plain version
+applies the hooks itself.
 
-:data:`launches` counts launches of the default instantiation and
-:data:`prehashed_launches` those of the pre-hashed one, and nothing else;
-they are added to under :data:`~._cuda_common.COUNT_LOCK`, since the
-interop server launches from several threads.
+The three counts are added to under :data:`~._cuda_common.COUNT_LOCK`,
+since the interop server launches from several threads, and count nothing
+else.
 """
 
 from __future__ import annotations
@@ -54,17 +60,24 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from ._cuda_common import COUNT_LOCK, build_info, check_block_r, check_tensors
-from .distinct import (NARROW_DTYPES, WIDE_DTYPES, Batch, DistinctState, hook_hashes, map_keys, update,
-                       update_prehashed)
-from .hashing import to_i32
+from .distinct import NARROW_DTYPES, WIDE_DTYPES, Batch, DistinctState, join_planes, map_keys, update, update_prehashed
+from .hooks import hash_planes
 
-__all__ = ["launches", "prehashed_launches", "update_cuda", "update_prehashed_cuda", "update",
-           "kernel_info"]
+__all__ = ["DEFAULT", "HASHED", "KEEPMAX", "launches", "keepmax_launches", "prehashed_launches", "rule_for",
+           "launch", "update_cuda", "update_prehashed_cuda", "update", "kernel_info"]
 
 #: launches of the default instantiation so far (set it to 0 to count a run)
 launches = 0
+#: launches of the keep-max instantiation so far (set it to 0 to count a run)
+keepmax_launches = 0
 #: launches of the pre-hashed instantiation so far (set it to 0 to count a run)
 prehashed_launches = 0
+
+#: the kernel's rules (``dst::Rule`` of ``csrc/distinct.cu``): the Pallas
+#: rule, pre-hashed and keep-max
+DEFAULT, HASHED, KEEPMAX = 0, 1, 2
+#: each rule's C entry point at the default geometry
+_ENTRY = ("distinct_update", "distinct_update_hashed", "distinct_update_keepmax")
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -75,7 +88,9 @@ def _library(path: Optional[str] = None):
     """The kernel's library, declared for ``ctypes``: the checkout's build
     of ``csrc/distinct.cu``, or with ``path`` another build with the same C
     entry points, which :func:`update_cuda` then launches until the next
-    call with a path (``kernel_ab.py`` times two builds so)."""
+    call with a path (``kernel_ab.py`` times two builds so).  An older build
+    without keep-max leaves ``distinct_update_rows`` undeclared (it takes no
+    rule there), so a launch at ``block_r`` on it raises."""
     global _lib
     if _lib is None or path is not None:
         from .._build import load
@@ -83,11 +98,13 @@ def _library(path: Optional[str] = None):
         lib = load("distinct") if path is None else ctypes.CDLL(path)
         lib.distinct_update.argtypes = [_VP] * 9 + [_INT] + [_VP] + [_INT] * 3 + [_VP]
         lib.distinct_update.restype = _INT
-        if hasattr(lib, "distinct_update_hashed"):  # an older build (kernel_ab.py) has none
+        if hasattr(lib, "distinct_update_hashed"):
             lib.distinct_update_hashed.argtypes = [_VP] * 9 + [_INT] + [_VP] * 3 + [_INT] * 3 + [_VP]
             lib.distinct_update_hashed.restype = _INT
-        if hasattr(lib, "distinct_update_rows"):  # an older build (kernel_ab.py) has none
-            lib.distinct_update_rows.argtypes = [_VP] * 9 + [_INT] + [_VP] * 3 + [_INT] * 4 + [_VP]
+        if hasattr(lib, "distinct_update_keepmax"):
+            lib.distinct_update_keepmax.argtypes = lib.distinct_update.argtypes
+            lib.distinct_update_keepmax.restype = _INT
+            lib.distinct_update_rows.argtypes = [_VP] * 9 + [_INT] + [_VP] * 3 + [_INT] * 5 + [_VP]
             lib.distinct_update_rows.restype = _INT
         lib.distinct_error_string.argtypes = [_INT]
         lib.distinct_error_string.restype = ctypes.c_char_p
@@ -95,18 +112,22 @@ def _library(path: Optional[str] = None):
     return _lib
 
 
-def kernel_info(k: int, wide: bool, prehashed: bool = False, block_r: Optional[int] = None) -> dict:
-    """:func:`~._cuda_common.build_info` of the kernel a launch at
-    ``k`` runs, for narrow or wide keys, default or pre-hashed, at
-    ``block_r`` warps a block (``None``: the default's) (needs a card):
-    ``dynamic_smem`` is 0 where a row's block passes shared memory
-    (k > 19,370 narrow, k > 14,528 wide) and the instantiation that keeps
-    it in the state's own arrays runs."""
-    lib = _library()
-    if block_r is not None:
-        return build_info(lib.distinct_rows_kernel_info, int(wide), int(prehashed), k, block_r)
-    query = lib.distinct_prehashed_kernel_info if prehashed else lib.distinct_kernel_info
-    return build_info(query, int(wide), k)
+def kernel_info(k: int, wide: bool, rule: int = DEFAULT, block_r: Optional[int] = None) -> dict:
+    """:func:`~._cuda_common.build_info` of the kernel a launch of ``rule``
+    at ``k`` runs, for narrow or wide keys, at ``block_r`` warps a block
+    (``None``: the default's) (needs a card): ``dynamic_smem`` is 0 where a
+    row's block passes shared memory (k > 19,370 narrow, k > 14,528 wide)
+    and the instantiation that keeps it in the state's own arrays runs."""
+    return build_info(_library().distinct_rows_kernel_info, int(wide), rule, k, 4 if block_r is None else block_r)
+
+
+def rule_for(valid, mapped: bool = False, hashed: bool = False) -> int:
+    """The rule of a tile, as the reference's engine routes it between its
+    Pallas kernel and its XLA sort-merge (``reservoir_tpu/engine.py:386-387``,
+    ``ops/distinct.py:232``): :data:`HASHED` under a ``hash_fn``,
+    :data:`KEEPMAX` where ``valid`` is given or the keys are mapped, else
+    :data:`DEFAULT`."""
+    return HASHED if hashed else KEEPMAX if mapped or valid is not None else DEFAULT
 
 
 def _tile_words(state: DistinctState, batch: Batch):
@@ -177,15 +198,17 @@ def update_cuda(
 ) -> DistinctState:
     """Distinct tile merge (the port of ``update_pallas``): reservoir ``r``
     takes ``batch[r, :valid[r]]``, mapped by ``map_fn`` and hashed by
-    ``hash_fn`` where given, at ``block_r`` warps a block."""
+    ``hash_fn`` where given, at ``block_r`` warps a block, under the rule
+    :func:`rule_for` gives."""
+    rule = rule_for(valid, mapped=map_fn is not None, hashed=hash_fn is not None)
     if map_fn is None and hash_fn is None:
-        return update_prehashed_cuda(state, batch, None, valid, block_r)
+        return launch(state, batch, None, valid, block_r, rule)
     check_block_r("distinct", block_r)
     if state.values.device.type == "cpu":
         return update(state, batch, valid, map_fn, hash_fn)
     mapped = map_keys(state, batch, map_fn)
-    hashes = tuple(to_i32(w).contiguous() for w in hook_hashes(state, mapped, hash_fn))
-    return update_prehashed_cuda(state, mapped, hashes, valid, block_r)
+    hashes = hash_planes(hash_fn, join_planes(mapped)) if rule == HASHED else None
+    return launch(state, mapped, hashes, valid, block_r, rule)
 
 
 def update_prehashed_cuda(
@@ -196,21 +219,36 @@ def update_prehashed_cuda(
     block_r: Optional[int] = None,
 ) -> DistinctState:
     """The tile merge of keys ``batch`` whose pre-scramble hash words are
-    ``hashes`` (an ``(hi, lo)`` pair of int32 ``[R, B]`` planes), launched
-    as the pre-hashed instantiation; ``None`` hashes the keys' own words,
-    launched as the default one.  ``block_r`` is warps a block (one a
-    row, at most): ``None`` asks for 4 through ``distinct_update`` /
-    ``distinct_update_hashed``, another value (1, 2 or 4) through
-    ``distinct_update_rows``, counted as the instantiation it runs; the
+    ``hashes`` (an ``(hi, lo)`` pair of int32 ``[R, B]`` planes), or with
+    ``None`` the keys' own words, under the rule :func:`rule_for` gives
+    (:func:`launch`)."""
+    return launch(state, batch, hashes, valid, block_r, rule_for(valid, hashed=hashes is not None))
+
+
+def launch(
+    state: DistinctState,
+    batch: Batch,
+    hashes: Optional[Tuple[torch.Tensor, torch.Tensor]],
+    valid: Optional[torch.Tensor],
+    block_r: Optional[int],
+    rule: int,
+) -> DistinctState:
+    """One launch of ``rule`` (:data:`HASHED` takes ``hashes``, the others
+    ``None``), counted as its instantiation.  ``block_r`` is warps a block
+    (one a row, at most): ``None`` asks for 4 through the rule's own entry
+    point, another value (1, 2 or 4) through ``distinct_update_rows``; the
     launcher takes as many of them as keep their rows on chip
     (``shape_for``).  On CPU tensors it runs
-    :func:`.distinct.update_prehashed`."""
-    global launches, prehashed_launches
+    :func:`.distinct.update_prehashed` (keep-max where ``rule`` is
+    :data:`KEEPMAX`)."""
+    global launches, keepmax_launches, prehashed_launches
     check_block_r("distinct", block_r)
+    if (rule == HASHED) != (hashes is not None) or rule not in (DEFAULT, HASHED, KEEPMAX):
+        raise ValueError(f"rule {rule} with hashes {'given' if hashes is not None else 'None'}")
     lo, hi, stride, B = _validate(state, batch, valid, hashes)
     dev = state.values.device
     if dev.type == "cpu":
-        return update_prehashed(state, batch, hashes, valid)
+        return update_prehashed(state, batch, hashes, valid, keep_max=rule == KEEPMAX)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     R, k = state.values.shape
@@ -221,23 +259,23 @@ def update_prehashed_cuda(
         state.hash_hi.data_ptr(), state.hash_lo.data_ptr(), state.size.data_ptr(),
         state.count.data_ptr(), state.salts.data_ptr(), lo.data_ptr(), hi_ptr, stride,
     ]
-    tail = [valid.data_ptr() if valid is not None else None, R, k, B,
-            torch.cuda.current_stream(dev).cuda_stream]
-    pre = [None, None] if hashes is None else [hashes[0].data_ptr(), hashes[1].data_ptr()]
-    if block_r is not None:
-        name = "distinct_update_rows"
-        code = lib.distinct_update_rows(*args, *pre, *tail[:-1], block_r, tail[-1])
-    elif hashes is None:
-        name, code = "distinct_update", lib.distinct_update(*args, *tail)
+    pre = [] if hashes is None else [hashes[0].data_ptr(), hashes[1].data_ptr()]
+    tail = [valid.data_ptr() if valid is not None else None, R, k, B]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if block_r is None:
+        name = _ENTRY[rule]
+        code = getattr(lib, name)(*args, *pre, *tail, stream)
     else:
-        name = "distinct_update_hashed"
-        code = lib.distinct_update_hashed(*args, *pre, *tail)
+        name = "distinct_update_rows"
+        code = lib.distinct_update_rows(*args, *(pre or [None, None]), *tail, block_r, rule, stream)
     if code != 0:
         msg = lib.distinct_error_string(code).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
     with COUNT_LOCK:
-        if hashes is None:
-            launches += 1
-        else:
+        if rule == HASHED:
             prehashed_launches += 1
+        elif rule == KEEPMAX:
+            keepmax_launches += 1
+        else:
+            launches += 1
     return state

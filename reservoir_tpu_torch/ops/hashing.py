@@ -119,7 +119,7 @@ def salt_for_target(
     (each a ``(hi, lo)`` pair of ints): the first three rounds run forward
     from the value, the last three backward from the target, and ``r1`` is
     the xor of the two midpoints.  It builds states where a value's hash is
-    exactly ``(MAX, MAX)``, the hash the update never takes."""
+    exactly ``(MAX, MAX)``, the hash a full tile's update never takes."""
     hi, lo = np.uint32(value[0] ^ r0[0]), np.uint32(value[1] ^ r0[1])
     with np.errstate(over="ignore"):
         for c in _ROUND_CONSTS[:3]:

@@ -33,10 +33,10 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from .hashing import words
+from .hashing import to_i32, words
 from .threefry import MASK32
 
-__all__ = ["map_values", "stored_words", "hash_words"]
+__all__ = ["map_values", "stored_words", "hash_words", "hash_planes"]
 
 
 def map_values(map_fn: Callable, elements: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -81,10 +81,32 @@ def _low_words(x, like: torch.Tensor) -> torch.Tensor:
     return torch.broadcast_to(w, like.shape)
 
 
-def hash_words(hash_fn: Callable, mapped: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``hash_fn(mapped)`` as its ``(hi, lo)`` words: uint32 values in
-    int64, of ``mapped``'s shape."""
+def _pair(hash_fn: Callable, mapped: torch.Tensor) -> tuple:
     out = hash_fn(mapped)
     if not isinstance(out, (tuple, list)) or len(out) != 2:
         raise ValueError("hash_fn must return a (hi, lo) pair of integer words")
-    return _low_words(out[0], mapped), _low_words(out[1], mapped)
+    return out
+
+
+def hash_words(hash_fn: Callable, mapped: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``hash_fn(mapped)`` as its ``(hi, lo)`` words: uint32 values in
+    int64, of ``mapped``'s shape."""
+    hi, lo = _pair(hash_fn, mapped)
+    return _low_words(hi, mapped), _low_words(lo, mapped)
+
+
+def _i32_plane(x, like: torch.Tensor) -> torch.Tensor:
+    """One ``hash_fn`` word as the int32 ``[R, B]`` plane a kernel reads: a
+    32-bit tensor of ``like``'s shape as an int32 view (copied only if it
+    is not contiguous), anything else through :func:`_low_words`."""
+    if isinstance(x, torch.Tensor) and x.dtype in (torch.int32, torch.uint32) and x.shape == like.shape:
+        return x.view(torch.int32).contiguous()
+    return to_i32(_low_words(x, like)).contiguous()
+
+
+def hash_planes(hash_fn: Callable, mapped: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``hash_fn(mapped)`` as the pre-hashed kernel's ``(hi, lo)`` int32
+    planes of ``mapped``'s shape: :func:`hash_words`' low 32 bits, as
+    int32 bits."""
+    hi, lo = _pair(hash_fn, mapped)
+    return _i32_plane(hi, mapped), _i32_plane(lo, mapped)

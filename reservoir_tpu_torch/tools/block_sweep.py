@@ -208,7 +208,7 @@ def _kernel_case(kernel: str, R: int, k: int, B: int, dev):
     def bare(st, rows):
         return (st.values.data_ptr(), None, st.hash_hi.data_ptr(), st.hash_lo.data_ptr(),
                 st.size.data_ptr(), st.count.data_ptr(), st.salts.data_ptr(), keys.data_ptr(), None, 1,
-                None, None, None, R, k, B, rows, stream)
+                None, None, None, R, k, B, rows, dkern.DEFAULT, stream)
 
     return state, (lambda st, b: dkern.update_cuda(st, keys, block_r=b)), bare, lib.distinct_update_rows
 

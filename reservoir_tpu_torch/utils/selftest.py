@@ -3,7 +3,7 @@ version, bit for bit, as one cheap callable.
 
 The port's counterpart of the JAX package's ``utils/selftest.py``, whose
 four checks hold each Pallas kernel against XLA on the live backend.  Here
-the nine kernels of ``csrc/`` are held against the plain torch versions in
+the ten kernels of ``csrc/`` are held against the plain torch versions in
 their own modules, on the same inputs (one key each):
 
 - ``algl``: ``algl_update``, a steady tile (the reference's ``algl``);
@@ -17,11 +17,13 @@ their own modules, on the same inputs (one key each):
 - ``distinct``: ``distinct_update`` over duplicated keys, 3 chained steps,
   int32 and int64 keys (``distinct``);
 - ``distinct_hashed``: ``distinct_update_hashed`` under a ``hash_fn``;
+- ``distinct_keepmax``: ``distinct_update_keepmax`` on ragged tiles (the
+  ``distinct`` check's, int32 and int64 keys, with ``valid``);
 - ``merge_ring``: ``merge_ring_gather`` at 1, 4 and 8 ranks of the card,
   against ``gather_parts_plain``;
 - ``merge_draws``: ``algl_merge_draws`` and ``algl_merge_draws_wide``.
 
-``kernel_parity`` is the AND of the nine.  The composite checks follow
+``kernel_parity`` is the AND of the ten.  The composite checks follow
 under the reference's keys: ``gated_parity`` (a gated bridge against an
 ungated one), ``merge_parity`` (the merge over the ranks against the host
 tree, in all three modes, over 5 parts) and the three KS gates at the
@@ -64,10 +66,11 @@ __all__ = [
 
 #: the keys of the kernel checks, whose AND is ``kernel_parity``
 KERNEL_CHECKS = ("algl", "algl_fill", "algl_wide", "algl_gated", "weighted", "distinct",
-                 "distinct_hashed", "merge_ring", "merge_draws")
+                 "distinct_hashed", "distinct_keepmax", "merge_ring", "merge_draws")
 #: the hand-written kernels, by the name ``chip_smoke.py`` lists them under
 KERNELS = ("algl_update", "algl_update_wide", "algl_update_gated", "weighted_update", "distinct_update",
-           "distinct_update_hashed", "merge_ring_gather", "algl_merge_draws", "algl_merge_draws_wide")
+           "distinct_update_hashed", "distinct_update_keepmax", "merge_ring_gather", "algl_merge_draws",
+           "algl_merge_draws_wide")
 #: the ranks of the ``merge_ring`` check
 GATHER_RANKS = (1, 4, 8)
 
@@ -178,6 +181,7 @@ def launch_counts() -> Dict[str, int]:
     return {"algl_update": kern.launches, "algl_update_wide": kern.wide_launches,
             "algl_update_gated": kern.gated_launches, "weighted_update": wkern.launches,
             "distinct_update": dkern.launches, "distinct_update_hashed": dkern.prehashed_launches,
+            "distinct_update_keepmax": dkern.keepmax_launches,
             "merge_ring_gather": mkern.launches, "algl_merge_draws": kern.merge_launches,
             "algl_merge_draws_wide": kern.wide_merge_launches}
 
@@ -403,6 +407,26 @@ def check_distinct_hashed(dev, on_card: bool) -> Pairs:
     return out
 
 
+def check_distinct_keepmax(dev, on_card: bool) -> Pairs:
+    """``distinct_update_keepmax`` against ``update`` with ``valid``: the
+    ``distinct`` check's tiles, each row taking ``7 r mod (B + 1)`` keys,
+    int32 and then int64 keys."""
+    from ..ops import distinct as plain
+    from ..ops import distinct_cuda as dkern
+
+    out = []
+    for wide in (False, True):
+        ref, tiles = distinct_inputs(dev, on_card, wide)
+        R, B = tiles[0].shape
+        valid = ((torch.arange(R, device=dev) * 7) % (B + 1)).to(torch.int32)
+        got = _clone(ref)
+        for batch in tiles:
+            ref = plain.update(ref, batch, valid)
+            got = dkern.update_cuda(got, batch, valid)
+            out.append((ref, _clone(got)))
+    return out
+
+
 def check_merge_ring(dev, on_card: bool) -> Pairs:
     """``merge_ring_gather`` against ``gather_parts_plain`` at 1, 4 and 8
     ranks of the device: a rank's samples ``[R / 8, k]``, sizes and counts
@@ -462,6 +486,7 @@ _KERNEL_CHECKS: Dict[str, Callable[[Any, bool], Pairs]] = {
     "weighted": check_weighted,
     "distinct": check_distinct,
     "distinct_hashed": check_distinct_hashed,
+    "distinct_keepmax": check_distinct_keepmax,
     "merge_ring": check_merge_ring,
     "merge_draws": check_merge_draws,
 }
@@ -595,7 +620,7 @@ def device_selftest(emit_partial: Optional[Callable[[dict], Any]] = None,
     ["ks_weighted"], "launches", "seconds", ["<name>_error"]}``.  It never
     raises: a crash in a check is ``False`` under that check's key with the
     message under ``<name>_error``.  ``kernel_parity`` is the AND of the
-    nine kernel checks.  ``launches`` counts each kernel's launches over
+    ten kernel checks.  ``launches`` counts each kernel's launches over
     the run.  Without a card (and without ``device="cpu"``) nothing runs:
     ``kernel_parity`` is ``False`` and ``error`` says there is no CUDA
     device.

@@ -285,6 +285,15 @@ def _dclone(state):
     return TD.DistinctState(*(None if t is None else t.clone() for t in state))
 
 
+def _dlaunches():
+    """The distinct wrapper's launches: (default, keep-max, pre-hashed)."""
+    return TDK.launches, TDK.keepmax_launches, TDK.prehashed_launches
+
+
+def _dlaunched(before):
+    return tuple(a - b for a, b in zip(_dlaunches(), before))
+
+
 def _card_keys(gen, R, B, device, dtype, kind):
     if kind == "zipf":  # the benchmark's keys: heavy duplication
         u = torch.rand((R, B), generator=gen, device=device) * (1 - 1e-6) + 1e-6
@@ -303,7 +312,7 @@ def test_distinct_kernel_equals_plain_version_on_the_card(cuda_device, k, dtype)
     R, B = 1024, 256
     gen = torch.Generator(device=cuda_device).manual_seed(k)
     s = TD.init(key_from_seed(5), R, k, sample_dtype=dtype, device=cuda_device)
-    before = TDK.launches
+    before = _dlaunches()
     plan = [(7, False, "random"), (B, False, "zipf"), (B, True, "zipf"), (B, False, "random")]
     for i, (width, ragged, kind) in enumerate(plan):
         tile = _card_keys(gen, R, width, cuda_device, dtype, kind)
@@ -323,7 +332,7 @@ def test_distinct_kernel_equals_plain_version_on_the_card(cuda_device, k, dtype)
         for f in _DFIELDS:
             a, b = getattr(s, f), getattr(ref, f)
             assert (a is None and b is None) or torch.equal(a.view(torch.int32), b.view(torch.int32)), (f, i)
-    assert TDK.launches - before == len(plan)
+    assert _dlaunched(before) == (3, 1, 0)  # the ragged tile takes keep-max
 
 
 @pytest.mark.cuda
@@ -409,7 +418,7 @@ def test_distinct_kernel_paths_equal_plain_version(cuda_device, layout, case):
             t.view(torch.int64 if wide else torch.int32)[:, 3::50] = planted
         return t
 
-    before = TDK.launches
+    before = _dlaunches()
     for i in range(4):
         tile = tile_of(i)
         valid = (torch.randint(0, tile.shape[1] + 1, (R,), dtype=torch.int32, device=cuda_device,
@@ -419,7 +428,7 @@ def test_distinct_kernel_paths_equal_plain_version(cuda_device, layout, case):
         for f in _DFIELDS:
             a, b = getattr(s, f), getattr(ref, f)
             assert (a is None and b is None) or torch.equal(a.view(torch.int32), b.view(torch.int32)), (f, i)
-    assert TDK.launches - before == 4
+    assert _dlaunched(before) == (3, 1, 0)  # the ragged tile takes keep-max
     if case == "max max":
         assert not (held_keys(s) == planted).any()
     if case == "held block":
@@ -488,7 +497,7 @@ def test_distinct_kernel_beyond_shared_memory_equals_plain_version(cuda_device, 
     assert (info["dynamic_smem"] > 0) == on_chip
     gen = torch.Generator(device=cuda_device).manual_seed(k)
     s = TD.init(key_from_seed(7), R, k, sample_dtype=dtype, device=cuda_device)
-    before = TDK.launches
+    before = _dlaunches()
     for i, kind in enumerate(("random", "random", "zipf", "random")):
         tile = _card_keys(gen, R, B, cuda_device, dtype, kind)
         valid = (torch.randint(0, B + 1, (R,), dtype=torch.int32, device=cuda_device, generator=gen)
@@ -498,7 +507,7 @@ def test_distinct_kernel_beyond_shared_memory_equals_plain_version(cuda_device, 
         for f in _DFIELDS:
             a, b = getattr(s, f), getattr(ref, f)
             assert (a is None and b is None) or torch.equal(a.view(torch.int32), b.view(torch.int32)), (f, i)
-    assert TDK.launches - before == 4
+    assert _dlaunched(before) == (3, 1, 0)
     assert int(s.size.min()) == k
 
 
@@ -510,7 +519,7 @@ def test_card_distinct_engine_equals_cpu_engine(cuda_device, dtype):
     cfg = SamplerConfig(k, R, B, element_dtype=dtype, distinct=True)
     card = ReservoirEngine(cfg, key=1, device=cuda_device)
     host = ReservoirEngine(cfg, key=1, device="cpu")
-    before = TDK.launches
+    before = _dlaunches()
     for i in range(4):
         tile = np.minimum(rng.uniform(1e-6, 1.0, (R, B)) ** -6.0, 1e7).astype(np.int64).astype(dtype)
         valid = rng.integers(0, B + 1, R).astype(np.int32) if i == 3 else None
@@ -518,7 +527,7 @@ def test_card_distinct_engine_equals_cpu_engine(cuda_device, dtype):
         host.sample(tile, valid)
     host.sample_stream(tile[:, :77])
     card.sample_stream(tile[:, :77])
-    assert TDK.launches - before == 5
+    assert _dlaunched(before) == (3, 2, 0)  # the ragged tile and the stream's padded tile: keep-max
     for a, b in zip(card.result_arrays(), host.result_arrays()):
         np.testing.assert_array_equal(a, b)
 
@@ -1270,7 +1279,7 @@ def _operator_stream(flow, n):
 
 
 def _flow_launches():
-    return np.array([TK.launches, TDK.launches])
+    return np.array([TK.launches, TDK.launches, TDK.keepmax_launches])
 
 
 @pytest.mark.cuda
@@ -1313,7 +1322,8 @@ def test_sample_device_on_the_card_equals_the_cpu(cuda_device, flow, mode):
     np.testing.assert_array_equal(out[0], out[1])
     assert out[0].dtype == out[1].dtype
     tiles = -(-stop // 1024)
-    assert launched == [[0, tiles] if flow.startswith("distinct") else [tiles, 0], [0, 0]]
+    # a sampler's flushes pass valid: keep-max for distinct
+    assert launched == [[0, 0, tiles] if flow.startswith("distinct") else [tiles, 0, 0], [0, 0, 0]]
 
 
 @pytest.mark.cuda
@@ -1466,13 +1476,13 @@ def test_standby_on_the_card_equals_one_on_the_cpu(cuda_device, mode, tmp_path):
                     svc.open_session(key)
                 svc.ingest(key, chunks[i], None if w is None else w[i])
             svc.sync()
-        before = sum(k.launches for k in kernels) + TK.gated_launches
+        before = sum(k.launches for k in kernels) + TK.gated_launches + TDK.keepmax_launches
         standby = pairs[cuda_device][1]
         seq0 = standby.applied_seq
         standby.poll()
         torch.cuda.synchronize()
         applied = standby.applied_seq - seq0
-        assert sum(k.launches for k in kernels) + TK.gated_launches - before == applied > 0
+        assert sum(k.launches for k in kernels) + TK.gated_launches + TDK.keepmax_launches - before == applied > 0
         pairs["cpu"][1].poll()
         states = [h.bridge.engine.peek_arrays() for p in pairs.values() for h in (p[0], p[1].service)]
         for s in states[1:]:
@@ -1729,7 +1739,7 @@ def test_prehashed_distinct_kernel_equals_plain_version(cuda_device, dtype, R, k
     order falls to the value words) and one that mixes them; a tile from
     empty, a Zipf tile, a ragged tile and fresh keys."""
     wide = dtype == torch.int64
-    on_chip = TDK.kernel_info(k, wide, prehashed=True)["dynamic_smem"] > 0
+    on_chip = TDK.kernel_info(k, wide, rule=TDK.HASHED)["dynamic_smem"] > 0
     assert on_chip == (TDK.kernel_info(k, wide)["dynamic_smem"] > 0)
     gen = torch.Generator(device=cuda_device).manual_seed(k + B)
     s = TD.init(key_from_seed(3), R, k, sample_dtype=dtype, device=cuda_device)
@@ -1768,6 +1778,151 @@ def test_a_user_hash_of_max_max_is_kept_on_the_card(cuda_device):
     assert (s.values == plant).any(dim=1).all()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged", "none valid", "all valid", "planted", "k past shared memory"])
+@pytest.mark.parametrize("layout", ["int32", "uint32", "int64", "planes"])
+def test_keepmax_kernel_equals_plain_version_at_edge_shapes(cuda_device, layout, case):
+    """The keep-max instantiation (``valid`` given) against the plain
+    version, bit for bit: ragged counts, 0 and B valid in every row, a
+    planted key whose salted hash is (MAX, MAX) in rows that are not full
+    (kept, as XLA keeps it), on chip and at the first k past shared memory,
+    narrow, uint32 and int64 keys, the wide tile also as (hi, lo) planes."""
+    dtype = {"int32": torch.int32, "uint32": torch.uint32}.get(layout, torch.int64)
+    wide = dtype == torch.int64
+    R, k, B = 256, 256, 512
+    if case == "k past shared memory":
+        R, k, B = 3, 14529 if wide else 19371, 12288
+        assert TDK.kernel_info(k, wide, rule=TDK.KEEPMAX)["dynamic_smem"] == 0
+    else:
+        assert TDK.kernel_info(k, wide, rule=TDK.KEEPMAX)["dynamic_smem"] > 0
+    gen = torch.Generator(device=cuda_device).manual_seed(len(case) + len(layout))
+    planted = 0x0123456789ABCDEF if wide else 123456789
+    s = (_planted_state(R, k, dtype, cuda_device, planted) if case == "planted"
+         else TD.init(key_from_seed(6), R, k, sample_dtype=dtype, device=cuda_device))
+    before = _dlaunches()
+    for i, kind in enumerate(("random", "zipf", "random")):
+        tile = _card_keys(gen, R, B, cuda_device, dtype, kind)
+        if case == "planted":
+            tile.view(torch.int64 if wide else torch.int32)[:, 3] = planted
+        if case == "none valid":
+            valid = torch.zeros(R, dtype=torch.int32, device=cuda_device)
+        elif case == "all valid":
+            valid = torch.full((R,), B, dtype=torch.int32, device=cuda_device)
+        else:
+            valid = torch.randint(0, B + 1, (R,), dtype=torch.int32, device=cuda_device, generator=gen)
+            if case == "planted":  # rows that stay below k, and the planted lane inside
+                valid = torch.randint(4, k // 2, (R,), dtype=torch.int32, device=cuda_device, generator=gen)
+        ref = TD.update(_dclone(s), tile, valid)
+        s = TDK.update_cuda(s, _as_batch(tile, layout), valid)
+        for f in _DFIELDS:
+            a, b = getattr(s, f), getattr(ref, f)
+            assert (a is None and b is None) or torch.equal(a.view(torch.int32), b.view(torch.int32)), (f, i)
+        if case == "planted" and i == 0:
+            assert (_held(s) == planted).any(dim=1).all()
+    assert _dlaunched(before) == (0, 3, 0)
+
+
+def _held(state):
+    lo = state.values.view(torch.int32)
+    return lo if not state.wide else (state.value_hi.long() << 32) | (lo.long() & 0xFFFFFFFF)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["ragged", "mapped"])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_a_planted_max_max_key_is_kept_on_a_ragged_and_a_mapped_tile(cuda_device, dtype, how):
+    """Rows whose salts send a key to the hash (MAX, MAX), none full: a
+    ragged tile and a mapped tile (``map_fn`` alone) keep the key, as the
+    reference's XLA sort-merge keeps it, through one keep-max launch and
+    bit for bit as the plain version; the same full tile unmapped and
+    without ``valid`` drops it (the Pallas rule of the default kernel)."""
+    wide = dtype == torch.int64
+    R, k, B = 64, 512, 256
+    planted = 0x0123456789ABCDEF if wide else 123456789
+    s = _planted_state(R, k, dtype, cuda_device, planted)
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    tile = _card_keys(gen, R, B, cuda_device, dtype, "random")
+    mask = (1 << 57) - 1 if wide else (1 << 30) - 1  # keeps the planted key
+    map_fn = (lambda x: x & mask) if how == "mapped" else None
+    tile.view(torch.int64 if wide else torch.int32)[:, 7] = planted
+    valid = (torch.randint(8, B + 1, (R,), dtype=torch.int32, device=cuda_device, generator=gen)
+             if how == "ragged" else None)
+    if how == "mapped":  # the planted key itself survives the map
+        assert int(map_fn(torch.tensor(planted)).item()) == planted
+    before = _dlaunches()
+    ref = TD.update(_dclone(s), tile, valid, map_fn=map_fn)
+    got = TDK.update_cuda(_dclone(s), tile, valid, map_fn=map_fn)
+    assert _dlaunched(before) == (0, 1, 0)
+    for f in _DFIELDS:
+        a, b = getattr(got, f), getattr(ref, f)
+        assert (a is None and b is None) or torch.equal(a.view(torch.int32), b.view(torch.int32)), f
+    assert (_held(got) == planted).any(dim=1).all()
+    default = TDK.update_cuda(_dclone(s), tile.clone() if map_fn is None else map_fn(tile))
+    assert _dlaunched(before) == (1, 1, 0)
+    assert not (_held(default) == planted).any()
+
+
+def _colliding(tile, how):
+    """Pre-scramble hash planes that tie many keys: every key one hash
+    (``one``), 3 hashes (``three``), or the planted hash of
+    :func:`_planted_state` for every key (``max``)."""
+    x = tile.view(torch.int64) if tile.dtype.itemsize == 8 else tile.view(torch.int32).to(torch.int64)
+    if how == "one":
+        hi, lo = torch.full_like(x, 7), torch.full_like(x, 12345)
+    elif how == "three":
+        hi, lo = torch.zeros_like(x), (x & 0x7FFFFFFF) % 3
+    else:
+        hi, lo = torch.zeros_like(x), torch.full_like(x, 123456789)
+    to32 = lambda w: torch.where(w >= 2**31, w - 2**32, w).to(torch.int32).contiguous()  # noqa: E731
+    return to32(hi), to32(lo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["one", "three", "max"])
+@pytest.mark.parametrize("dtype, R, k, B", [(torch.int32, 256, 64, 512), (torch.int64, 256, 64, 512),
+                                            (torch.int32, 64, 256, 130), (torch.int32, 3, 19371, 4096)])
+def test_prehashed_kernel_under_heavy_collisions_equals_plain_version(cuda_device, dtype, R, k, B, how):
+    """The redesigned pre-hashed kernel against ``update_prehashed`` where
+    the 64-bit hash orders nothing: many keys of one hash (the block's
+    entries, the round's candidates and the threshold all tie, so every
+    order and every repeat falls to the value words), three hashes, and a
+    user hash that the salts send to (MAX, MAX) for every key (kept while
+    a row is not full, then ordered by value at the threshold); fresh keys,
+    repeats of held keys and a ragged tile."""
+    wide = dtype == torch.int64
+    s = (_planted_state(R, k, dtype, cuda_device, 123456789) if how == "max"
+         else TD.init(key_from_seed(12), R, k, sample_dtype=dtype, device=cuda_device))
+    gen = torch.Generator(device=cuda_device).manual_seed(k + B + len(how))
+    before = _dlaunches()
+    for i in range(4):
+        if i == 2:  # repeats of held keys beside fresh ones
+            tile = _held(s)[:, :B // 2].repeat(1, 2)[:, :B].contiguous()
+            tile = torch.cat([tile, _card_keys(gen, R, B - tile.shape[1], cuda_device, dtype, "random")], 1)
+            tile = tile.to(dtype) if wide else tile.view(dtype).contiguous()
+        else:
+            tile = _card_keys(gen, R, B, cuda_device, dtype, "zipf" if i == 1 else "random")
+        hashes = _colliding(tile, how)
+        valid = (torch.randint(0, B + 1, (R,), dtype=torch.int32, device=cuda_device, generator=gen)
+                 if i == 3 else None)
+        ref = TD.update_prehashed(_dclone(s), tile, hashes, valid)
+        s = TDK.update_prehashed_cuda(s, tile, hashes, valid)
+        for f in _DFIELDS:
+            a, b = getattr(s, f), getattr(ref, f)
+            assert (a is None and b is None) or torch.equal(a.view(torch.int32), b.view(torch.int32)), (f, i)
+    assert _dlaunched(before) == (0, 0, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [False, True])
+def test_prehashed_kernel_builds_without_spills(cuda_device, wide):
+    """The redesigned pre-hashed kernel at the distinct shape (k = 256,
+    four warps a block, one row a warp) spills nothing, narrow and wide,
+    and keeps eight blocks an SM."""
+    info = TDK.kernel_info(256, wide, rule=TDK.HASHED)
+    assert info["local_bytes"] == 0, info
+    assert info["warps_per_sm"] == 32, info
+
+
 _HOOK_MODES = {
     "uniform": (dict(sample_dtype="float32"), lambda x: (x >> 8).to(torch.float32) * 0.5, None),
     "wide": (dict(count_dtype="wide"), lambda x: x * 3 + 7, None),
@@ -1790,7 +1945,7 @@ def test_hooked_card_engine_equals_the_cpu_engine(cuda_device, mode):
     card = ReservoirEngine(cfg, key=1, map_fn=map_fn, hash_fn=hash_fn, device=cuda_device)
     host = ReservoirEngine(cfg, key=1, map_fn=map_fn, hash_fn=hash_fn, device="cpu")
     rng = np.random.default_rng(17)
-    counts = lambda: (TK.launches + TK.wide_launches, TWK.launches, TDK.launches, TDK.prehashed_launches)  # noqa: E731
+    counts = lambda: (TK.launches + TK.wide_launches, TWK.launches, *_dlaunches())  # noqa: E731
     before = counts()
     for i in range(4):
         tile = rng.integers(0, 1 << 20, (R, B)).astype(kw.get("element_dtype", "int32"))
@@ -1799,8 +1954,11 @@ def test_hooked_card_engine_equals_the_cpu_engine(cuda_device, mode):
         card.sample(torch.from_numpy(tile).to(cuda_device) if i % 2 else tile, valid, weights=w)
         host.sample(tile, valid, weights=w)
     got = [a - b for a, b in zip(counts(), before)]
-    # a hooked distinct tile always takes the pre-hashed instantiation
-    assert sum(got) == 4 and got[3] == (4 if kw.get("distinct") else 0)
+    # a distinct tile under a hash_fn takes the pre-hashed instantiation, a
+    # mapped one without keep-max
+    assert sum(got) == 4 and got[2] == 0
+    assert got[4] == (4 if hash_fn is not None and kw.get("distinct") else 0)
+    assert got[3] == (4 if hash_fn is None and kw.get("distinct") else 0)
     for a, b in zip(card.result_arrays(), host.result_arrays()):
         np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
 
@@ -1852,7 +2010,7 @@ def test_fused_stream_equals_the_per_tile_path_on_the_card(cuda_device, mode):
     stream = rng.integers(0, 1 << 18, (R, n * B + 17)).astype(kw.get("element_dtype", "int32"))
     w = rng.uniform(0.0, 2.0, stream.shape).astype(np.float32) if kw.get("weighted") else None
     engines = [ReservoirEngine(cfg, key=2, reusable=True, device=cuda_device, **hooks) for _ in range(2)]
-    counts = lambda: TK.launches + TK.wide_launches + TWK.launches + TDK.launches + TDK.prehashed_launches  # noqa: E731
+    counts = lambda: TK.launches + TK.wide_launches + TWK.launches + sum(_dlaunches())  # noqa: E731
     before = counts()
     engines[0].sample_stream(stream, weights=w, fused=True)
     torch.cuda.synchronize()
@@ -1877,7 +2035,8 @@ _MESH_MODES = {
 
 def _launch_counts():
     return {"algl": TK.launches, "wide": TK.wide_launches, "weighted": TWK.launches,
-            "distinct": TDK.launches, "prehashed": TDK.prehashed_launches, "gather": TM.launches}
+            "distinct": TDK.launches, "keepmax": TDK.keepmax_launches, "prehashed": TDK.prehashed_launches,
+            "gather": TM.launches}
 
 
 def _host_state(state):
@@ -1926,9 +2085,11 @@ def test_meshed_card_engine_equals_the_unmeshed_card_engine_and_a_cpu_mesh(cuda_
                        device_tiles=(1, 3))
     torch.cuda.synchronize()
     got = {name: n - before[name] for name, n in _launch_counts().items()}
-    name = ("prehashed" if map_fn is not None else "distinct") if kw.get("distinct") else \
-        "wide" if kw.get("count_dtype") else "weighted" if kw.get("weighted") else "algl"
-    assert got == {**{n: 0 for n in got}, name: 4 * 4}
+    if kw.get("distinct"):  # a ragged or mapped distinct tile takes keep-max
+        want = {"keepmax": 4 * 4} if map_fn is not None else {"distinct": 3 * 4, "keepmax": 4}
+    else:
+        want = {"wide" if kw.get("count_dtype") else "weighted" if kw.get("weighted") else "algl": 4 * 4}
+    assert got == {**{n: 0 for n in got}, **want}
     single = _mesh_run(plain_cfg, dict(device=cuda_device), map_fn, tiles, device_tiles=(1, 3))
     cpu_mesh = _mesh_run(meshed_cfg, dict(mesh=make_mesh(devices=["cpu"] * 4)), map_fn, tiles)
     _same_host_states(meshed.state, single.state)
@@ -2229,7 +2390,7 @@ def _copy(state):
 @pytest.mark.cuda
 @pytest.mark.parametrize("R", [1, 100, 2048])
 @pytest.mark.parametrize("case", ["fill", "steady", "wide", "gated", "weighted", "weighted past 4 warps",
-                                  "distinct", "distinct int64", "prehashed", "distinct one warp on chip",
+                                  "distinct", "distinct int64", "prehashed", "keepmax", "distinct one warp on chip",
                                   "distinct beyond shared memory"])
 def test_every_launch_geometry_gives_the_default_bits(cuda_device, case, R):
     """Every rows-a-block each tile kernel was built for, at R = 1, at an R
@@ -2289,11 +2450,13 @@ def test_every_launch_geometry_gives_the_default_bits(cuda_device, case, R):
         state = TDK.update_cuda(state, ints(R, B, dtype) % 5000)
         tile = ints(R, B, dtype) % 5000
         hooks = {"hash_fn": lambda v: (v >> 3, v * 31)} if case == "prehashed" else {}
+        valid = (torch.randint(0, B + 1, (R,), dtype=torch.int32, device=dev, generator=gen)
+                 if case == "keepmax" else None)
         kernel, module = "distinct", TDK
-        counter = "prehashed_launches" if hooks else "launches"
+        counter = "prehashed_launches" if hooks else "keepmax_launches" if case == "keepmax" else "launches"
 
         def run(st, b):
-            return TDK.update_cuda(st, tile, block_r=b, **hooks)
+            return TDK.update_cuda(st, tile, valid, block_r=b, **hooks)
     torch.cuda.synchronize()
     want = run(_copy(state), None)
     choices = blocking.BLOCK_CHOICES[kernel]

@@ -5,7 +5,10 @@ CPU tensors) against ``reservoir_tpu.ops.distinct`` (XLA, jitted) and
 ``distinct_pallas.update_pallas`` in interpret mode.  The tolerance is zero
 on every field: values, value_hi, hash_hi, hash_lo, size and count.  The one
 place the two JAX paths part, a lane whose hash is exactly (MAX, MAX), is
-pinned: the port follows the Pallas kernel there."""
+pinned on both sides, as the reference's engine routes a tile: a full tile
+follows the Pallas kernel (the lane is never taken), a ragged one (``valid``
+given) the XLA sort-merge (the lane is kept while its row is not full), in
+the plain version, the wrapper and the engine."""
 
 from __future__ import annotations
 
@@ -16,8 +19,11 @@ import numpy as np
 import pytest
 import torch
 
+from reservoir_tpu.config import SamplerConfig as JConfig
+from reservoir_tpu.engine import ReservoirEngine as JEngine
 from reservoir_tpu.ops import distinct as JD
 from reservoir_tpu.ops import distinct_pallas as JDP
+from reservoir_tpu_torch import ReservoirEngine, SamplerConfig
 from reservoir_tpu_torch.convert import distinct_state_from_numpy, distinct_state_to_numpy
 from reservoir_tpu_torch.ops import distinct as TD
 from reservoir_tpu_torch.ops import distinct_cuda as TDK
@@ -172,6 +178,91 @@ def test_a_hash_of_max_max_is_never_taken(wide):
     for f in ("values", "hash_hi", "hash_lo", "size"):
         rows = [1, 3, 4, 6, 7]
         np.testing.assert_array_equal(np.asarray(getattr(xla, f))[rows], ported[f][rows])
+
+
+def _ragged_valid(R, B, kind):
+    """Valid counts that keep the planted lane 3: B - 1 in every row
+    (``short``), or B, given (``given``); row 1 stops before the lane."""
+    valid = np.full(R, B - 1 if kind == "short" else B, np.int32)
+    valid[1] = 2
+    return valid
+
+
+@pytest.mark.parametrize("kind", ["short", "given"])
+@pytest.mark.parametrize("wide", [False, True])
+def test_a_ragged_tile_keeps_a_hash_of_max_max_as_xla(wide, kind):
+    """C.9: the reference's engine sends every tile with ``valid`` to its
+    XLA sort-merge, which keeps a lane whose scrambled hash is (MAX, MAX)
+    while the row is not full.  The plain version and the wrapper do the
+    same on a ragged tile (and on a full count given as ``valid``), every
+    field equal to ``jax.jit(JD.update)`` with ``valid``."""
+    js, tile = _planted(wide)
+    R, B = tile.shape
+    valid = _ragged_valid(R, B, kind)
+    xla = _J_UPDATE(js, _jax_batch(tile), jnp.asarray(valid))
+    held = np.asarray(xla.values) == 77
+    assert held[[0, 2, 5]].any(axis=1).all() and not held[1].any()
+    ts = _to_torch(js)
+    plain = TD.update(ts, torch.from_numpy(tile), torch.from_numpy(valid))
+    wrapped = TDK.update_cuda(ts, torch.from_numpy(tile), torch.from_numpy(valid))
+    assert_same(xla, plain)
+    assert_same(xla, wrapped)
+
+
+@pytest.mark.parametrize("given, want", [
+    ({}, TDK.DEFAULT),
+    ({"valid": True}, TDK.KEEPMAX),
+    ({"mapped": True}, TDK.KEEPMAX),
+    ({"hashed": True}, TDK.HASHED),
+    ({"valid": True, "mapped": True, "hashed": True}, TDK.HASHED),
+])
+def test_a_tile_takes_the_rule_the_reference_engine_routes_it_to(given, want):
+    """``rule_for``: the Pallas rule only for a full tile with no hook; the
+    XLA rule (keep-max) with ``valid`` or a map alone; pre-hashed under a
+    ``hash_fn``."""
+    valid = torch.ones(8, dtype=torch.int32) if given.get("valid") else None
+    assert TDK.rule_for(valid, mapped=given.get("mapped", False), hashed=given.get("hashed", False)) == want
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_launch_of_a_rule_equals_the_reference_rule_on_the_cpu(wide):
+    """``launch`` on CPU tensors: keep-max on a full planted tile keeps the
+    (MAX, MAX) key as XLA does, the default drops it as Pallas does, and
+    the pre-hashed rule without hash planes (or hash planes without it)
+    raises."""
+    js, tile = _planted(wide)
+    ts, t = _to_torch(js), torch.from_numpy(tile)
+    R, B = tile.shape
+    assert_same(_J_UPDATE(js, _jax_batch(tile), jnp.full((R,), B, jnp.int32)),
+                TDK.launch(ts, t, None, None, None, TDK.KEEPMAX))
+    assert_same(JDP.update_pallas(js, _jax_batch(tile), block_r=8, interpret=True),
+                TDK.launch(ts, t, None, None, None, TDK.DEFAULT))
+    with pytest.raises(ValueError, match="rule"):
+        TDK.launch(ts, t, None, None, None, TDK.HASHED)
+    planes = (torch.zeros((R, B), dtype=torch.int32),) * 2
+    with pytest.raises(ValueError, match="rule"):
+        TDK.launch(ts, t, planes, None, None, TDK.KEEPMAX)
+
+
+@pytest.mark.parametrize("kind", ["short", "given"])
+@pytest.mark.parametrize("wide", [False, True])
+def test_the_engines_ragged_tile_keeps_a_hash_of_max_max_as_the_jax_engine(wide, kind):
+    """The engines from one planted state: ``sample(tile, valid=...)`` in
+    the port's engine equals the JAX engine's (XLA for a ragged tile on any
+    backend), every field; then a second ragged tile of fresh keys."""
+    js, tile = _planted(wide)
+    R, B = tile.shape
+    kw = dict(max_sample_size=js.values.shape[1], num_reservoirs=R, tile_size=B, distinct=True,
+              element_dtype="int64" if wide else "int32")
+    jeng = JEngine(JConfig(**kw), _initial_state=js)
+    teng = ReservoirEngine(SamplerConfig(**kw), _initial_state=_to_torch(js), device="cpu")
+    valid = _ragged_valid(R, B, kind)
+    rng = np.random.default_rng(11)
+    for t in (tile, rng.integers(1 << 21, 1 << 30, (R, B)).astype(tile.dtype)):
+        jeng.sample(t, valid)
+        teng.sample(t, valid)
+        assert_same(jeng.state, teng.state)
+    assert (distinct_state_to_numpy(teng.state)["values"][[0, 2, 5]] == 77).any(axis=1).all()
 
 
 def test_the_wrapper_takes_the_plain_version_on_the_cpu():

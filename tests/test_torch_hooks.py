@@ -15,8 +15,9 @@ and a torch hook as int64.
 - the map never moves the skip chain, and mapping a whole tile first (the
   card's path) equals mapping on accept for an elementwise map;
 - the reference's construction errors;
-- a scrambled hash of (MAX, MAX) under a ``hash_fn`` or a ``map_fn``: kept
-  while the row is not full, as the reference's XLA sort-merge keeps it;
+- a scrambled hash of (MAX, MAX) under a ``hash_fn`` or a ``map_fn``, and
+  on a ragged tile (C.9): kept while the row is not full, as the
+  reference's XLA sort-merge keeps it, in the engine and the bridge;
 - the gated bridge, the bridge and its ``recover``, a standby, and
   checkpoints in both directions.
 """
@@ -515,8 +516,9 @@ def test_a_mapped_key_hashed_to_max_max_is_kept_as_the_reference_keeps_it():
     """With a ``map_fn`` and the default hash the reference runs its XLA
     sort-merge, which keeps a mapped key whose scrambled hash is (MAX,
     MAX) while the row is not full; the port takes its pre-hashed merge
-    with the mapped keys' own words and keeps it too.  Without the map the
-    same key is dropped (the Pallas rule of the default merge)."""
+    (its keep-max rule on the mapped keys' own words) and keeps it too.
+    Without the map the same key is dropped (the Pallas rule of the default
+    merge)."""
     R, k, B = 8, 64, 32
     jm, tm = MAPS["low10"]
     js = JD.init(jr.key(9), R, k)
@@ -537,3 +539,100 @@ def test_a_mapped_key_hashed_to_max_max_is_kept_as_the_reference_keeps_it():
     unmapped = tile & 0x3FF
     plain = distinct_state_to_numpy(TD.update(ts, torch.from_numpy(unmapped)))
     assert not (plain["values"][[0, 2, 5]] == 77).any()
+
+
+# ------------------------------- (MAX, MAX) on a ragged or mapped tile (C.9)
+
+
+def _planted_state(R, k, target, wide):
+    """A JAX distinct state whose rows 0, 2 and 5 send the pre-scramble
+    words ``target`` to (MAX, MAX), and its twin in the port."""
+    js = JD.init(jr.key(9), R, k, sample_dtype=jnp.int64 if wide else jnp.int32)
+    salts = np.asarray(js.salts).copy()
+    for r in (0, 2, 5):
+        salts[r, 2:] = TH.salt_for_target(target, (0xFFFFFFFF, 0xFFFFFFFF), (int(salts[r, 0]), int(salts[r, 1])))
+    js = js._replace(salts=jnp.asarray(salts))
+    ts = distinct_state_from_numpy(*(None if getattr(js, f) is None else np.asarray(getattr(js, f))
+                                     for f in ("values", "hash_hi", "hash_lo", "size", "count", "salts",
+                                               "value_hi")), device="cpu")
+    return js, ts
+
+
+def _holds(state, rows, key):
+    """Whether each of ``rows`` holds the 8-byte (or 4-byte) ``key``."""
+    host = distinct_state_to_numpy(state)
+    lo = host["values"].view(np.uint32).astype(np.uint64)
+    hi = np.zeros_like(lo) if host["value_hi"] is None else host["value_hi"].astype(np.uint64)
+    return (((hi << np.uint64(32)) | lo) == np.uint64(key))[rows].any(axis=1)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_a_ragged_bridge_flush_keeps_a_hash_of_max_max_as_the_jax_bridge(wide):
+    """C.9 through the bridge: its flushes always pass ``valid``, so the
+    reference's engine runs them on XLA, which keeps the planted key in
+    rows that are not full.  Rows of different lengths (a ragged flush);
+    the port's bridge equals the JAX bridge, every field of the state."""
+    R, k, width = 8, 64, 32
+    js, ts = _planted_state(R, k, (0, 77), wide)
+    kw = dict(max_sample_size=k, num_reservoirs=R, tile_size=width, distinct=True,
+              element_dtype="int64" if wide else "int32")
+    jb = JBridge(JConfig(**kw), _engine=JEngine(JConfig(**kw), _initial_state=js))
+    tb = DeviceStreamBridge(SamplerConfig(**kw), device="cpu",
+                            _engine=ReservoirEngine(SamplerConfig(**kw), _initial_state=ts, device="cpu"))
+    rng = np.random.default_rng(3)
+    for r in range(R):
+        chunk = rng.integers(1000, 1 << 20, 5 + 3 * r).astype(np.int64 if wide else np.int32)
+        chunk[2] = 77
+        jb.push(r, chunk)
+        tb.push(r, chunk)
+    for b in (jb, tb):
+        b.flush()
+        b.drain_barrier()
+    _same_state(jb.engine, tb.engine)
+    assert _holds(tb.engine.state, [0, 2, 5], 77).all()
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_a_map_only_engine_keeps_a_hash_of_max_max_as_the_jax_engine(wide):
+    """C.9's sibling: under ``map_fn`` alone the reference hashes the
+    mapped keys' own words on XLA, and the port's engine (keep-max) equals
+    the JAX engine on full tiles whose mapped key hashes to (MAX, MAX) in
+    rows that are not full, every field."""
+    R, k, width = 8, 64, 32
+    name = "xor64" if wide else "low10"
+    target = (0x1234, 77) if wide else (0, 77)  # the mapped key's words
+    js, ts = _planted_state(R, k, target, wide)
+    kw = dict(max_sample_size=k, num_reservoirs=R, tile_size=width, distinct=True,
+              element_dtype="int64" if wide else "int32")
+    jm, tm = MAPS[name]
+    jeng = JEngine(JConfig(**kw), map_fn=jm, _initial_state=js)
+    teng = ReservoirEngine(SamplerConfig(**kw), map_fn=tm, _initial_state=ts, device="cpu")
+    rng = np.random.default_rng(5)
+    for _ in range(2):
+        tile = rng.integers(1000, 1 << 20, (R, width)).astype(np.int64 if wide else np.int32)
+        tile[:, 3] = 77 if wide else 77 + 1024  # maps to the planted key
+        jeng.sample(tile)
+        teng.sample(tile)
+        _same_state(jeng, teng)
+    assert _holds(teng.state, [0, 2, 5], (target[0] << 32) | target[1]).all()
+
+
+def test_hash_planes_views_a_32_bit_hash_and_converts_the_rest():
+    """The card path's hash planes: a 32-bit ``hash_fn`` result of the
+    tile's shape is the kernel's int32 plane as a view (no int64 round
+    trip), any other result the low 32 bits of :func:`hooks.hash_words`,
+    as int32 bits; a float word raises as ``hash_words`` does."""
+    tile = torch.from_numpy(np.random.default_rng(12).integers(-(1 << 31), 1 << 31, (4, 16)).astype(np.int32))
+    words32 = (tile >> 16, tile * 31)
+    hi, lo = hooks.hash_planes(lambda v: words32, tile)
+    assert hi.dtype == lo.dtype == torch.int32
+    assert hi.data_ptr() == words32[0].data_ptr() and lo.data_ptr() == words32[1].data_ptr()
+    for fn in (lambda v: (v >> 16, v * 31), lambda v: (v.to(torch.int64) << 7, 5),
+               lambda v: (v.view(torch.uint32), v.to(torch.int16))):
+        got = hooks.hash_planes(fn, tile)
+        want = hooks.hash_words(fn, tile)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32 and g.shape == tile.shape and g.is_contiguous()
+            assert torch.equal(g, TH.to_i32(w))
+    with pytest.raises(ValueError, match="integer words"):
+        hooks.hash_planes(lambda v: (v * 0.5, v), tile)
