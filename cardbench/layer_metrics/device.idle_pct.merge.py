@@ -1,0 +1,6 @@
+"""The share of the traced window in which no kernel or copy ran on the
+card, in a merge cell."""
+
+
+def value(run):
+    return run.timeline.idle_pct() if run.timeline else None
